@@ -1,0 +1,427 @@
+"""Exact blocked dot-product top-k retrieval (port of gorse_tpu/ops/topk.py).
+
+Semantics are the reference's: the top ``k`` items of every query by
+(score descending, item index ascending), scores accumulated in f32, slots
+with no item filled with ``NEG_INF`` and index 0.
+
+Two routes, as in the reference:
+
+- ``dot_topk``: the serving route. The item table is bf16 (the reference's
+  serving embeddings are bf16 too) and the queries are cast to bf16 before
+  the dot. Four hand-written CUDA kernels (``csrc/topk.cu``) do the work
+  on the card: ``block_max`` (per-query maximum of each 256-item block),
+  ``block_seeds`` (each query's seed and how many blocks beat it),
+  ``block_topk`` (blocks that beat a query's seed append their best
+  entries to its candidates) and ``merge_topk`` (the final k). Each wrapper
+  takes its kernel's plain PyTorch version when its tensors lie on the CPU,
+  launches the kernel for CUDA tensors, and counts its launches in
+  ``<wrapper>.launches``.
+- ``dot_topk_xla``: the f32 route, a full f32 score matrix and a stable
+  sort (the reference's non-Pallas path). ``dot_topk_xla.uses`` counts it.
+
+The table layout is the port's own: row-major ``[n_pad, d_pad]`` bf16, zero
+padded to multiples of 256 items and 64 dimensions. Zero dimensions add
+exactly nothing to an f32 sum, so padding never changes a score.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import NamedTuple
+
+import torch
+
+from .. import resolve_device
+from . import _build
+
+NEG_INF = -1e30
+BLOCK_N = 256  # items per block (csrc/topk.cu BLOCK_N)
+QUERY_TILE = 32  # queries per kernel tile (csrc/topk.cu QT)
+DIM_CHUNK = 64  # dimensions per staged pass (csrc/topk.cu DC)
+MERGE_MAX_K = 2048  # widest k merge_topk sorts in shared memory
+N_SPLIT = 64  # item-block stripes per query tile in block_topk
+MAX_BLOCKS = 65535  # grid.y limit of block_max: 16.7M items
+_CHUNK_B = 256  # queries per kernel chunk
+_INT64_MIN = -(2**63)
+
+
+def _round_up(x: int, m: int) -> int:
+    return -(-x // m) * m
+
+
+class PreparedItems(NamedTuple):
+    """Item table laid out for :func:`dot_topk`: row-major ``[n_pad, d_pad]``
+    bf16, zero padded. Build once, serve many."""
+
+    table: torch.Tensor
+    n_items: int
+    dim: int
+
+
+def prepare_items(items, device=None) -> PreparedItems:
+    """``[N, d]`` factors -> the padded bf16 table on ``device``."""
+    dev = resolve_device(device)
+    items = torch.as_tensor(items).to(dev, torch.float32)
+    n, d = items.shape
+    table = torch.zeros(
+        (_round_up(max(n, 1), BLOCK_N), _round_up(max(d, 1), DIM_CHUNK)),
+        dtype=torch.bfloat16, device=dev,
+    )
+    table[:n, :d] = items.to(torch.bfloat16)
+    return PreparedItems(table, n, d)
+
+
+# ------------------------------------------------------------------- keys
+# (score desc, index asc) as one int64: high word the score mapped to an
+# order-preserving signed int, low word 0xFFFFFFFF - index (csrc/topk.cu).
+
+
+def _keys(scores: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    bits = scores.contiguous().view(torch.int32)
+    ordv = torch.where(bits >= 0, bits, bits ^ 0x7FFFFFFF).to(torch.int64)
+    return ordv * (1 << 32) + (0xFFFFFFFF - idx.to(torch.int64))
+
+
+def _decode(keys: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    ordv = torch.div(keys, 1 << 32, rounding_mode="floor")
+    idx = (0xFFFFFFFF - (keys - ordv * (1 << 32))).to(torch.int32)
+    bits = torch.where(ordv >= 0, ordv, ordv ^ 0x7FFFFFFF).to(torch.int32)
+    return bits.view(torch.float32), idx
+
+
+# ---------------------------------------------------------- plain versions
+
+
+def _scores_plain(qp: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
+    """``[b_pad, n_pad]`` f32 scores summed in the kernels' order: one f32
+    multiply-add per dimension, ascending. bf16 products are exact in f32,
+    so this matches the kernels' FMA chain bit for bit."""
+    qf = qp.float()
+    tf = table.float().t().contiguous()  # [d_pad, n_pad]
+    acc = torch.zeros((qp.shape[0], table.shape[0]), dtype=torch.float32, device=qp.device)
+    for j in range(qp.shape[1]):
+        acc.addcmul_(qf[:, j : j + 1], tf[j])
+    return acc
+
+
+def block_max_plain(qp, table, n_items: int) -> torch.Tensor:
+    s = _scores_plain(qp, table)
+    s[:, n_items:] = NEG_INF
+    return s.view(qp.shape[0], -1, BLOCK_N).amax(dim=2)
+
+
+class Gate(NamedTuple):
+    """What :func:`block_topk` gates on, from :func:`block_seeds`."""
+
+    bmax: torch.Tensor  # [b_pad, n_blocks] f32 block maxima
+    seeds: torch.Tensor  # [b] f32
+    fired: torch.Tensor  # [b] int32: blocks whose maximum beats the seed
+
+
+def block_seeds_plain(bmax: torch.Tensor, b: int, k: int) -> Gate:
+    """k-th largest block maximum per query, nudged down as at
+    gorse_tpu/ops/topk.py:501 (NEG_INF when k > n_blocks), and the number
+    of blocks that beat it."""
+    rows = bmax[:b]
+    if k > bmax.shape[1]:
+        seeds = torch.full((b,), NEG_INF, dtype=torch.float32, device=bmax.device)
+    else:
+        v = rows.sort(dim=1, descending=True).values[:, k - 1]
+        seeds = v - (v.abs() * 1.2e-7 + 1e-30)
+    fired = (rows > seeds[:, None]).sum(dim=1).to(torch.int32)
+    return Gate(bmax, seeds.contiguous(), fired)
+
+
+def _candidate_cap(gate: Gate | None, nb: int, k: int) -> int:
+    """Keys per query in block_topk's buffer: min(k, 256) for each block
+    that fires for the query that fires most. Every block fires ungated."""
+    blocks = nb if gate is None else max(int(gate.fired.max()), 1)
+    return blocks * min(k, BLOCK_N)
+
+
+def block_topk_plain(qp, table, gate: Gate | None, b: int, n_items: int, k: int):
+    """Candidates as the kernel writes them, sorted descending per query
+    (the kernel's order within a query is arbitrary), and their counts."""
+    b_pad, n_pad = qp.shape[0], table.shape[0]
+    nb = n_pad // BLOCK_N
+    dev = qp.device
+    scores = _scores_plain(qp, table).view(b_pad, nb, BLOCK_N)
+    idx = torch.arange(n_pad, device=dev).view(nb, BLOCK_N)
+    valid = idx < n_items
+    seeds = torch.full((b_pad,), NEG_INF, dtype=torch.float32, device=dev)
+    fire = (torch.arange(b_pad, device=dev) < b)[:, None].expand(b_pad, nb)
+    if gate is not None:
+        seeds[:b] = gate.seeds
+        fire = fire & (gate.bmax > seeds[:, None])
+    keys = torch.where(valid, _keys(scores, idx), _INT64_MIN)
+    above = valid & (scores > seeds[:, None, None]) & fire[:, :, None]
+    n_above = above.sum(dim=2, keepdim=True)
+    order = keys.argsort(dim=2, descending=True)
+    rank = torch.empty_like(order).scatter_(
+        2, order, torch.arange(BLOCK_N, device=dev).expand_as(order)
+    )
+    sel = above & ((n_above <= k) | (rank < k))
+    count = sel.sum(dim=(1, 2)).to(torch.int32)
+    flat = torch.where(sel, keys, _INT64_MIN).view(b_pad, -1)
+    cand = flat.sort(dim=1, descending=True).values[:, : _candidate_cap(gate, nb, k)]
+    return cand.contiguous(), count
+
+
+def merge_topk_plain(cand, count, b: int, k: int):
+    cap = cand.shape[1]
+    dev = cand.device
+    live = torch.arange(cap, device=dev)[None, :] < count[:b, None]
+    keys = torch.where(live, cand[:b], _INT64_MIN)
+    if cap < k:
+        keys = torch.cat([keys, torch.full((b, k - cap), _INT64_MIN, device=dev)], dim=1)
+    top = keys.sort(dim=1, descending=True).values[:, :k]
+    s, i = _decode(top)
+    empty = torch.arange(k, device=dev)[None, :] >= count[:b, None]
+    return (
+        torch.where(empty, NEG_INF, s).contiguous(),
+        torch.where(empty, 0, i).contiguous(),
+    )
+
+
+def dot_topk_plain(queries, prep: PreparedItems, k_top: int):
+    """The whole serving route in plain PyTorch: every score, then a stable
+    sort. Agrees with :func:`dot_topk` index for index."""
+    dev = prep.table.device
+    b = queries.shape[0]
+    qp = _pad_queries(queries, prep, _round_up(max(b, 1), QUERY_TILE))
+    s = _scores_plain(qp, prep.table)[:b, : prep.n_items]
+    top = torch.sort(s, dim=1, descending=True, stable=True)
+    k = min(k_top, prep.n_items)
+    out_s = torch.full((b, k_top), NEG_INF, dtype=torch.float32, device=dev)
+    out_i = torch.zeros((b, k_top), dtype=torch.int32, device=dev)
+    out_s[:, :k] = top.values[:, :k]
+    out_i[:, :k] = top.indices[:, :k].to(torch.int32)
+    return out_s, out_i
+
+
+# ---------------------------------------------------------------- kernels
+
+
+def _lib() -> ctypes.CDLL:
+    lib = _build.load("topk")
+    if not getattr(lib, "_gt_typed", False):
+        p, i = ctypes.c_void_p, ctypes.c_int
+        lib.gt_block_max.argtypes = [p, p, p, i, i, i, i, p]
+        lib.gt_block_seeds.argtypes = [p, p, p, i, i, i, p]
+        lib.gt_block_topk.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, i, i, p]
+        lib.gt_merge_topk.argtypes = [p, p, p, p, i, i, i, i, p]
+        for fn in (lib.gt_block_max, lib.gt_block_seeds, lib.gt_block_topk, lib.gt_merge_topk):
+            fn.restype = ctypes.c_int
+        lib._gt_typed = True
+    return lib
+
+
+def _stream(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def _raise_on(rc: int, kernel: str) -> None:
+    if rc != 0:
+        raise RuntimeError(f"{kernel} launch failed: CUDA error {rc}")
+
+
+def _check_operands(qp: torch.Tensor, table: torch.Tensor) -> None:
+    if qp.device.type != "cuda" or table.device != qp.device:
+        raise ValueError(f"operands on {qp.device} and {table.device}, need one CUDA device")
+    if qp.dtype != torch.bfloat16 or table.dtype != torch.bfloat16:
+        raise TypeError("queries and table must be bf16")
+    if not (qp.is_contiguous() and table.is_contiguous()):
+        raise ValueError("queries and table must be contiguous")
+    b_pad, d_pad = qp.shape
+    n_pad, d_tab = table.shape
+    if d_tab != d_pad or d_pad % DIM_CHUNK or b_pad % QUERY_TILE or n_pad % BLOCK_N:
+        raise ValueError(f"bad padded shapes q {tuple(qp.shape)}, table {tuple(table.shape)}")
+    if n_pad // BLOCK_N > MAX_BLOCKS:
+        raise ValueError(f"{n_pad} items exceed {MAX_BLOCKS} blocks of {BLOCK_N}")
+
+
+def block_max(qp: torch.Tensor, table: torch.Tensor, n_items: int) -> torch.Tensor:
+    """Per-query maximum score of each 256-item block, ``[b_pad, n_blocks]``
+    f32 (pass 1; replaces gorse_tpu/ops/topk.py _block_max_kernel)."""
+    if qp.device.type == "cpu":
+        return block_max_plain(qp, table, n_items)
+    _check_operands(qp, table)
+    b_pad, d_pad = qp.shape
+    nb = table.shape[0] // BLOCK_N
+    bmax = torch.empty((b_pad, nb), dtype=torch.float32, device=qp.device)
+    rc = _lib().gt_block_max(
+        qp.data_ptr(), table.data_ptr(), bmax.data_ptr(), b_pad, d_pad, n_items, nb, _stream(qp)
+    )
+    _raise_on(rc, "block_max")
+    block_max.launches += 1
+    return bmax
+
+
+def block_seeds(bmax: torch.Tensor, b: int, k: int) -> Gate:
+    """Each of the first ``b`` queries' seed and fired-block count from its
+    block maxima (the seed step of gorse_tpu/ops/topk.py
+    _topk_seeded_kernel)."""
+    if bmax.device.type == "cpu":
+        return block_seeds_plain(bmax, b, k)
+    if bmax.dtype != torch.float32 or not bmax.is_contiguous() or bmax.shape[0] < b:
+        raise ValueError("bmax must be a contiguous f32 [b_pad, n_blocks] with a row per query")
+    nb = bmax.shape[1]
+    seeds = torch.empty((b,), dtype=torch.float32, device=bmax.device)
+    fired = torch.empty((b,), dtype=torch.int32, device=bmax.device)
+    rc = _lib().gt_block_seeds(
+        bmax.data_ptr(), seeds.data_ptr(), fired.data_ptr(), b, nb, k, _stream(bmax)
+    )
+    _raise_on(rc, "block_seeds")
+    block_seeds.launches += 1
+    return Gate(bmax, seeds, fired)
+
+
+def block_topk(qp, table, gate: Gate | None, b: int, n_items: int, k: int):
+    """Candidates ``[b_pad, cap]`` int64 keys (the first ``count[q]`` of row
+    q are live, in no order) and ``count`` ``[b_pad]``. ``gate`` gates
+    blocks (K5) and sizes ``cap`` from its fired counts (one read back to
+    the host); ``None`` lets every block fire (K6)."""
+    if qp.device.type == "cpu":
+        return block_topk_plain(qp, table, gate, b, n_items, k)
+    _check_operands(qp, table)
+    b_pad, d_pad = qp.shape
+    nb = table.shape[0] // BLOCK_N
+    if gate is not None and (
+        gate.bmax.shape != (b_pad, nb) or gate.seeds.shape != (b,)
+        or gate.bmax.device != qp.device or gate.seeds.device != qp.device
+    ):
+        raise ValueError("the gate must hold [b_pad, n_blocks] maxima and [b] seeds "
+                         "on the queries' device")
+    cap = _candidate_cap(gate, nb, k)
+    cand = torch.empty((b_pad, cap), dtype=torch.int64, device=qp.device)
+    count = torch.zeros((b_pad,), dtype=torch.int32, device=qp.device)
+    rc = _lib().gt_block_topk(
+        qp.data_ptr(), table.data_ptr(),
+        None if gate is None else gate.bmax.data_ptr(),
+        None if gate is None else gate.seeds.data_ptr(),
+        cand.data_ptr(), count.data_ptr(), b, b_pad, d_pad, n_items, nb, k, cap,
+        min(nb, N_SPLIT), _stream(qp),
+    )
+    _raise_on(rc, "block_topk")
+    block_topk.launches += 1
+    return cand, count
+
+
+def merge_topk(cand: torch.Tensor, count: torch.Tensor, b: int, k: int):
+    """Final ``(scores [b, k] f32, indices [b, k] int32)`` from the
+    candidates, NEG_INF / 0 where a query has fewer than k."""
+    if cand.device.type == "cpu":
+        return merge_topk_plain(cand, count, b, k)
+    if k > MERGE_MAX_K:
+        raise ValueError(f"merge_topk sorts at most {MERGE_MAX_K} per query, asked for {k}")
+    if cand.dtype != torch.int64 or count.dtype != torch.int32 or count.device != cand.device:
+        raise TypeError("cand must be int64 and count int32 on one device")
+    if not (cand.is_contiguous() and count.is_contiguous()) or count.shape[0] < b:
+        raise ValueError("cand and count must be contiguous, with a count per query")
+    out_s = torch.empty((b, k), dtype=torch.float32, device=cand.device)
+    out_i = torch.empty((b, k), dtype=torch.int32, device=cand.device)
+    rc = _lib().gt_merge_topk(
+        cand.data_ptr(), count.data_ptr(), out_s.data_ptr(), out_i.data_ptr(),
+        b, k, 1 << (k - 1).bit_length(), cand.shape[1], _stream(cand),
+    )
+    _raise_on(rc, "merge_topk")
+    merge_topk.launches += 1
+    return out_s, out_i
+
+
+block_max.launches = 0
+block_seeds.launches = 0
+block_topk.launches = 0
+merge_topk.launches = 0
+
+
+# ------------------------------------------------------------ entry points
+
+
+def _pad_queries(queries, prep: PreparedItems, b_pad: int) -> torch.Tensor:
+    dev = prep.table.device
+    qp = torch.zeros((b_pad, prep.table.shape[1]), dtype=torch.bfloat16, device=dev)
+    q = torch.as_tensor(queries).to(dev, torch.float32)
+    qp[: q.shape[0], : prep.dim] = q[:, : prep.dim].to(torch.bfloat16)
+    return qp
+
+
+def _dot_topk_prepared(queries, prep: PreparedItems, k_top: int, seeded: bool):
+    b = queries.shape[0]
+    if k_top <= 0:
+        dev = prep.table.device
+        return (torch.zeros((b, 0), dtype=torch.float32, device=dev),
+                torch.zeros((b, 0), dtype=torch.int32, device=dev))
+    qp = _pad_queries(queries, prep, _round_up(max(b, 1), QUERY_TILE))
+    nb = prep.table.shape[0] // BLOCK_N
+    # the seed is NEG_INF when k > n_blocks, so pass 1 would buy nothing:
+    # take the ungated fold, as the reference drops to its single-pass
+    # kernel when seeding does not fit
+    gate = None
+    if seeded and k_top <= nb:
+        gate = block_seeds(block_max(qp, prep.table, prep.n_items), b, k_top)
+    cand, count = block_topk(qp, prep.table, gate, b, prep.n_items, k_top)
+    return merge_topk(cand, count, b, k_top)
+
+
+def dot_topk(queries, items, k_top: int = 10, seeded: bool = True, device=None):
+    """Top-k by dot product through the CUDA kernels (their plain versions
+    on the CPU): ``(scores [B, k_top] f32, indices [B, k_top] int32)``.
+
+    ``items`` is a :class:`PreparedItems` (serving paths: build once) or a
+    raw ``[N, d]`` array, prepared on the fly. ``seeded=False`` skips the
+    block-maxima pass (the reference's single-pass kernel). Batches run in
+    chunks of 256 queries."""
+    dev = resolve_device(device)
+    if not isinstance(items, PreparedItems):
+        items = prepare_items(items, device=dev)
+    elif items.table.device != dev:
+        raise ValueError(f"items are prepared on {items.table.device}, not {dev}")
+    queries = torch.as_tensor(queries).to(dev, torch.float32)
+    if queries.shape[0] <= _CHUNK_B:
+        return _dot_topk_prepared(queries, items, k_top, seeded)
+    parts = [
+        _dot_topk_prepared(queries[lo : lo + _CHUNK_B], items, k_top, seeded)
+        for lo in range(0, queries.shape[0], _CHUNK_B)
+    ]
+    return torch.cat([s for s, _ in parts]), torch.cat([i for _, i in parts])
+
+
+def dot_topk_xla(queries, items, k_top: int, device=None):
+    """The f32 route: full f32 scores (``torch.matmul``; TF32 must be off,
+    which is PyTorch's default) and a stable sort, lower index first on
+    ties like ``jax.lax.top_k``."""
+    dev = resolve_device(device)
+    dot_topk_xla.uses += 1
+    q = torch.as_tensor(queries).to(dev, torch.float32)
+    it = torch.as_tensor(items).to(dev, torch.float32)
+    top = torch.sort(q @ it.T, dim=1, descending=True, stable=True)
+    return top.values[:, :k_top].contiguous(), top.indices[:, :k_top].to(torch.int32)
+
+
+dot_topk_xla.uses = 0
+
+
+def topk_excluding(queries, items, k_top: int, exclude=None, use_kernel: bool = True,
+                   device=None):
+    """Top-k with per-query exclusion sets (``exclude`` ``[B, E]`` int ids,
+    padded with -1): fetch k_top + E, mask the excluded, re-sort stably
+    (gorse_tpu/ops/topk.py:943-975). ``use_kernel=False`` takes the f32
+    route, which scores from f32 factors only, never a bf16 table."""
+    dev = resolve_device(device)
+    if not use_kernel and isinstance(items, PreparedItems):
+        raise TypeError("the f32 route takes [N, d] f32 factors, not a bf16 PreparedItems")
+    n = items.n_items if isinstance(items, PreparedItems) else items.shape[0]
+    e = 0 if exclude is None else exclude.shape[1]
+    fetch = min(k_top + e, n)
+    if use_kernel:
+        s, i = dot_topk(queries, items, fetch, device=dev)
+    else:
+        s, i = dot_topk_xla(queries, items, fetch, device=dev)
+    if e == 0:
+        return s[:, :k_top], i[:, :k_top]
+    ex = torch.as_tensor(exclude).to(dev, torch.int32)
+    banned = (i[:, :, None] == ex[:, None, :]).any(dim=-1)
+    s = torch.where(banned, NEG_INF, s)
+    order = torch.argsort(-s, dim=1, stable=True)[:, :k_top]
+    return torch.gather(s, 1, order), torch.gather(i, 1, order)

@@ -1,0 +1,229 @@
+"""The serving slice as a whole: one index saved by gorse_tpu, the same
+memory-store contents, then gorse_tpu's Worker.recommend and RestServer
+against the port's.
+
+On the CPU the reference takes its f32 route (gorse_tpu/logics/cf.py:120)
+and the port its kernel route (bf16, plain versions). The factors are small
+integers, exact in bf16, so both routes give the same scores and ids, ties
+included: cache entries must be equal (ids exact, scores to tolerance 0),
+digests equal, and /api/recommend answers equal.
+"""
+
+import numpy as np
+import pytest
+
+from gorse_tpu.data.dict import FreqDict as RefFreqDict
+from gorse_tpu.logics.cf import MatrixFactorizationIndex as RefIndex
+from gorse_tpu.serve.rest import RestServer as RefRestServer
+from gorse_tpu.serve.worker import Worker as RefWorker
+from gorse_tpu.storage import cache as ref_ck
+from gorse_tpu.storage.blob import BlobStore as RefBlobStore
+from gorse_tpu.storage.cache import MemoryCacheStore as RefCache
+from gorse_tpu.storage.data import MemoryDataStore as RefData
+from gorse_tpu.storage import types as ref_types
+from gorse_tpu.utils.config import Config as RefConfig
+from gorse_tpu_torch.ops import topk as port_topk
+from gorse_tpu_torch.serve.rest import RestServer
+from gorse_tpu_torch.serve.worker import Worker
+from gorse_tpu_torch.storage import cache as ck
+from gorse_tpu_torch.storage import types
+from gorse_tpu_torch.storage.blob import BlobStore
+from gorse_tpu_torch.storage.cache import MemoryCacheStore
+from gorse_tpu_torch.storage.data import MemoryDataStore
+from gorse_tpu_torch.utils.config import Config
+
+N_USERS, N_ITEMS, DIM = 60, 400, 8
+MODEL_ID = "1000"
+
+
+def _configure(cfg):
+    cfg.recommend.cache_size = 30
+    cfg.recommend.ranker.recommenders = ["collaborative"]
+    cfg.recommend.collaborative.type = "mf"
+    return cfg
+
+
+def _fill(data, t):
+    """The same users, items and feedback, through either package's types."""
+    rng = np.random.default_rng(0)
+    data.insert_items(
+        t.Item(f"i{i}", categories=[f"c{i % 3}"], timestamp=1000.0 + i) for i in range(N_ITEMS)
+    )
+    data.insert_users(t.User(f"u{u}") for u in range(N_USERS + 2))  # two unknown to the index
+    feedback = []
+    for u in range(N_USERS):
+        for j in rng.choice(N_ITEMS, size=int(rng.integers(0, 40)), replace=False):
+            kind = "like" if j % 2 else "read"
+            feedback.append(t.Feedback(kind, f"u{u}", f"i{j}", 1.0, 500.0 + j))
+    data.insert_feedback(feedback)
+
+
+@pytest.fixture
+def stacks(tmp_path):
+    rng = np.random.default_rng(1)
+    uf = rng.integers(-3, 4, size=(N_USERS, DIM)).astype(np.float32)
+    itf = rng.integers(-3, 4, size=(N_ITEMS, DIM)).astype(np.float32)
+    users, items = RefFreqDict(), RefFreqDict()
+    for u in range(N_USERS):
+        users.add(f"u{u}")
+    for i in range(N_ITEMS):
+        items.add(f"i{i}")
+    item_pred = np.ones(N_ITEMS, bool)
+    item_pred[::17] = False
+    RefIndex(uf, itf, users, items, [[f"c{i % 3}"] for i in range(N_ITEMS)], 5.0,
+             item_predictable=item_pred).save(RefBlobStore(tmp_path / "blobs").create(MODEL_ID))
+
+    ref_data, ref_cache = RefData(), RefCache()
+    _fill(ref_data, ref_types)
+    ref_cfg = _configure(RefConfig())
+    ref_worker = RefWorker(ref_cfg, ref_data, ref_cache, RefBlobStore(tmp_path / "blobs"))
+
+    data, cache = MemoryDataStore(), MemoryCacheStore()
+    _fill(data, types)
+    cfg = _configure(Config())
+    worker = Worker(cfg, data, cache, BlobStore(tmp_path / "blobs"), device="cpu")
+
+    for w in (ref_worker, worker):
+        w.pull_models(MODEL_ID, "")
+    users = [f"u{u}" for u in range(N_USERS + 2)]
+    uses = port_topk.dot_topk_xla.uses
+    assert ref_worker.recommend(users) == worker.recommend(users) == len(users)
+    assert port_topk.dot_topk_xla.uses == uses  # the port stayed on the kernel route
+    return (
+        (ref_cfg, ref_data, ref_cache, ref_worker),
+        (cfg, data, cache, worker),
+        users,
+    )
+
+
+def _entries(cache, collection, user):
+    return [(s.id, s.score, s.categories) for s in cache.search_scores(collection, user)]
+
+
+@pytest.mark.parametrize("collection", ["collaborative", "recommend"])
+def test_worker_cache_matches_reference(stacks, collection):
+    (_, _, ref_cache, _), (_, _, cache, _), users = stacks
+    name = {"collaborative": ck.COLLABORATIVE, "recommend": ck.RECOMMEND}[collection]
+    assert name == {"collaborative": ref_ck.COLLABORATIVE, "recommend": ref_ck.RECOMMEND}[collection]
+    filled = 0
+    for u in users:
+        want = _entries(ref_cache, name, u)
+        assert _entries(cache, name, u) == want
+        filled += bool(want)
+    assert filled >= N_USERS - 2  # most users got a list
+
+
+def test_worker_digests_match_reference(stacks):
+    (ref_cfg, _, ref_cache, _), (cfg, _, cache, _), users = stacks
+    assert cfg.recommend.hash() == ref_cfg.recommend.hash()
+    for u in users:
+        for k in (ck.RECOMMEND_DIGEST, ck.COLLABORATIVE_DIGEST):
+            assert cache.get(ck.key(k, u)) == ref_cache.get(ref_ck.key(k, u))
+    # a second pass refreshes, in both packages, only the users whose list
+    # came out empty (the two users the index does not know)
+    (_, _, _, ref_worker), (_, _, _, worker), _ = stacks
+    stale = sum(not cache.search_scores(ck.RECOMMEND, u) for u in users)
+    assert stale == 2
+    assert worker.recommend(users) == ref_worker.recommend(users) == stale
+
+
+@pytest.mark.parametrize("path, query", [
+    ("/api/recommend/u3", {}),
+    ("/api/recommend/u11", {"n": "25", "offset": "3"}),
+    ("/api/recommend/u7/c1", {}),
+    ("/api/recommend/u61", {}),  # no CF list: the fallback chain
+    ("/api/recommend/nobody", {}),
+    ("/api/health/ready", {}),
+])
+def test_rest_recommend_matches_reference(stacks, path, query):
+    (ref_cfg, ref_data, ref_cache, _), (cfg, data, cache, _), _ = stacks
+    want = RefRestServer(ref_cfg, ref_data, ref_cache).dispatch("GET", path, dict(query), None, {})
+    got = RestServer(cfg, data, cache).dispatch("GET", path, dict(query), None, {})
+    assert got == want
+    assert got[0] == 200
+
+
+def test_rest_recommend_over_http(stacks):
+    """The threaded front-end answers with the cache's order."""
+    import json
+    import urllib.request
+
+    _, (cfg, data, cache, _), _ = stacks
+    server = RestServer(cfg, data, cache)
+    httpd = server.serve("127.0.0.1", 0)
+    try:
+        port = httpd.server_address[1]
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}/api/recommend/u3?n=5", timeout=10) as r:
+            body = json.loads(r.read())
+    finally:
+        server.shutdown()
+    assert body == [s.id for s in cache.search_scores(ck.COLLABORATIVE, "u3")][:5]
+
+
+def _fields(obj):
+    """Dataclass fields as plain values, recursively."""
+    import dataclasses
+
+    return {f.name: getattr(obj, f.name) for f in dataclasses.fields(obj)}
+
+
+@pytest.mark.parametrize("variant", ["default", "collaborative", "sources"])
+def test_config_defaults_and_digest_match_reference(variant):
+    """Every field the port keeps has the reference's default, and
+    RecommendConfig.hash() (the digest the worker writes to the cache) is
+    equal for the same settings."""
+    import dataclasses
+
+    from gorse_tpu.utils import config as ref_config
+    from gorse_tpu_torch.utils import config as port_config
+
+    def check(port_obj, ref_obj):
+        if dataclasses.is_dataclass(port_obj):
+            for name, value in _fields(port_obj).items():
+                check(value, getattr(ref_obj, name))
+        elif isinstance(port_obj, list):
+            assert len(port_obj) == len(ref_obj)
+            for p, r in zip(port_obj, ref_obj):
+                check(p, r)
+        else:
+            assert port_obj == ref_obj
+
+    cfgs = []
+    for mod in (port_config, ref_config):
+        cfg = mod.Config()
+        if variant == "collaborative":
+            _configure(cfg)
+        elif variant == "sources":
+            rc = cfg.recommend
+            rc.non_personalized = [mod.NonPersonalizedConfigEntry("popular")]
+            rc.item_to_item = [mod.ItemToItemConfigEntry("similar", type="users")]
+            rc.user_to_user = [mod.UserToUserConfigEntry("neighbors", type="items")]
+            rc.data_source.negative_feedback_types = ["dislike"]
+            rc.ranker.recommenders = [
+                "collaborative", "non-personalized/popular", "item-to-item/similar",
+                "user-to-user/neighbors",
+            ]
+        cfgs.append(cfg)
+    port_cfg, ref_cfg = cfgs
+    check(port_cfg.server, ref_cfg.server)
+    check(port_cfg.recommend, ref_cfg.recommend)
+    assert port_cfg.recommend.hash() == ref_cfg.recommend.hash()
+
+
+@pytest.mark.parametrize("part", ["fm_ranker", "llm_ranker", "ctr_model", "external_source"])
+def test_unported_parts_raise(part, tmp_path):
+    """What the slice does not port yet raises NotImplementedError naming its
+    ROADMAP item, instead of serving something else."""
+    from gorse_tpu_torch.logics.recommend import Recommender
+
+    cfg = _configure(Config())
+    data, cache = MemoryDataStore(), MemoryCacheStore()
+    worker = Worker(cfg, data, cache, BlobStore(tmp_path), device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        if part == "ctr_model":
+            worker.pull_models("", "2000")
+        elif part == "external_source":
+            Recommender(cfg.recommend, cache, data, online=True, user_id="u0").parse("external/x")
+        else:
+            cfg.recommend.ranker.type = part.split("_")[0]
+            worker._rank({"u0": []})
