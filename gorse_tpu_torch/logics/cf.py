@@ -96,6 +96,24 @@ class MatrixFactorizationIndex:
             device=device,
         )
 
+    @classmethod
+    def from_model(
+        cls, model, item_categories=None, timestamp: float = 0.0
+    ) -> "MatrixFactorizationIndex":
+        """Build from a fitted MF model (models/) on the model's device,
+        keeping its dictionaries and predictability masks."""
+        return cls(
+            model.user_factors.cpu().numpy(),
+            model.item_factors.cpu().numpy(),
+            model.user_index,
+            model.item_index,
+            item_categories,
+            timestamp,
+            user_predictable=model.user_predictable,
+            item_predictable=model.item_predictable,
+            device=model.device,
+        )
+
     def serving_items(self) -> tuple[list[str], np.ndarray]:
         """(item ids, factors) for predictable items only."""
         ids = [self.item_index.to_name(int(i)) for i in self._serving_rows]

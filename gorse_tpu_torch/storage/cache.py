@@ -39,6 +39,22 @@ LAST_FIT_RANKING_MODEL_TIME = "last_fit_ranking_model_time"
 LAST_UPDATE_LATEST_ITEMS_TIME = "last_update_latest_items_time"
 LAST_UPDATE_POPULAR_ITEMS_TIME = "last_update_popular_items_time"
 
+# global-meta KV keys and time-series names the master writes
+GLOBAL_META = "global_meta"
+NUM_USERS = "num_users"
+NUM_ITEMS = "num_items"
+NUM_FEEDBACK = "num_feedback"
+NUM_POS_FEEDBACKS = "num_pos_feedbacks"
+NUM_NEG_FEEDBACKS = "num_neg_feedbacks"
+NUM_USER_LABELS = "num_user_labels"
+NUM_ITEM_LABELS = "num_item_labels"
+NUM_TOTAL_POS_FEEDBACKS = "num_total_pos_feedbacks"
+NUM_VALID_POS_FEEDBACKS = "num_valid_pos_feedbacks"
+NUM_VALID_NEG_FEEDBACKS = "num_valid_neg_feedbacks"
+CF_NDCG = "cf_ndcg"
+CF_PRECISION = "cf_precision"
+CF_RECALL = "cf_recall"
+
 
 def key(*parts: str) -> str:
     """Compose a cache key."""

@@ -1,15 +1,17 @@
-"""The configuration the serving slice reads (the ``server`` and
-``recommend`` sections of gorse_tpu/utils/config.py).
+"""The configuration the port reads (the ``server`` and ``recommend``
+sections of gorse_tpu/utils/config.py).
 
 Defaults and ``RecommendConfig.hash()`` are the reference's: the worker
 writes that digest into the cache, so both packages must agree on it.
-TOML loading, validation and the other sections are not ported yet.
+``Config.to_json`` is the master's meta payload. TOML loading, validation
+and the other sections are not ported yet.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import hashlib
+import json
 
 from .expression import FeedbackTypeExpression, parse_expressions
 
@@ -216,3 +218,6 @@ class RecommendConfig:
 class Config:
     server: ServerConfig = dataclasses.field(default_factory=ServerConfig)
     recommend: RecommendConfig = dataclasses.field(default_factory=RecommendConfig)
+
+    def to_json(self) -> str:
+        return json.dumps(dataclasses.asdict(self), default=str)

@@ -25,6 +25,10 @@ def _port_modules() -> list[str]:
 def test_port_imports_no_jax_and_no_reference():
     modules = _port_modules()
     assert "gorse_tpu_torch.ops.topk" in modules and "gorse_tpu_torch.serve.rest" in modules
+    for name in ("data.dataset", "data.loaders", "models.base", "models.bpr", "models.params",
+                 "models.registry", "ops.bpr_kernel", "ops.metrics", "ops.sampling",
+                 "serve.master", "storage.meta"):
+        assert f"gorse_tpu_torch.{name}" in modules
     code = (
         "import importlib, json, sys\n"
         f"for m in {modules!r}: importlib.import_module(m)\n"
@@ -43,6 +47,7 @@ def _entry_points():
     import numpy as np
 
     from gorse_tpu_torch.logics.cf import MatrixFactorizationIndex
+    from gorse_tpu_torch.models import BPR, Params, create_mf_model
     from gorse_tpu_torch.ops import topk
 
     q = np.ones((2, 4), np.float32)
@@ -58,11 +63,14 @@ def _entry_points():
             {"names": [str(i) for i in range(8)], "freqs": [1] * 8},
             device=device,
         ),
+        "bpr": lambda device: BPR(Params(n_factors=4), device=device),
+        "create_mf_model": lambda device: create_mf_model("bpr", device=device),
     }
 
 
 @pytest.mark.parametrize("name", ["resolve_device", "prepare_items", "dot_topk",
-                                  "dot_topk_xla", "topk_excluding", "index"])
+                                  "dot_topk_xla", "topk_excluding", "index", "bpr",
+                                  "create_mf_model"])
 def test_entry_points_default_to_cuda(name, monkeypatch):
     """``device=None`` means the card: without CUDA it raises; an explicit
     ``device="cpu"`` runs the plain versions."""
