@@ -8,8 +8,8 @@ Run from the root of a checkout on a machine with a CUDA card, ``nvcc``
 any failure ends the run with a non-zero exit code:
 
 1. Environment: the card's name and power limit, the torch version, and the
-   build of ``gorse_tpu_torch/csrc/topk.cu`` and ``bpr.cu`` (one nvcc each,
-   started together) with its seconds.
+   build of ``gorse_tpu_torch/csrc/topk.cu`` (its bf16 and SQ entries) and
+   ``bpr.cu`` (one nvcc each, started together) with its seconds.
 2. Kernels: every kernel of the serving path (``block_max``, ``block_seeds``,
    ``block_topk`` gated and ungated, ``merge_topk``) held against its plain
    PyTorch version
@@ -50,7 +50,23 @@ any failure ends the run with a non-zero exit code:
    ``train_collaborative_filtering`` (fit_epoch cut to 10) on the card;
    the index saved to a blob store; ``Worker.sync_and_recommend`` of the
    master's meta fills every user's cache; a sample of lists equals the
-   plain top-k and ``GET /api/recommend`` equals the cache.
+   plain top-k and ``GET /api/recommend`` equals the cache. The master also
+   syncs its serving items into an sq ``MemoryVectorStore``; 16 item
+   queries of that collection at k = 10 (gated) and at the cache size, 100
+   (more than its 15 blocks: ungated, K6), go through the SQ kernels and
+   equal the plain version.
+7. Vector store: the SQ kernels (``block_max_sq``, ``block_topk_sq`` gated
+   and ungated, with ``block_seeds`` and ``merge_topk``) held against their
+   plain versions on the card, tolerance 0, on small tie-heavy tables
+   (duplicate and constant rows, catalogs not a multiple of 256, k >
+   n_blocks, k = n) and at bench.py's ``topk_qps_1000k_sq8`` shape (1M x 64
+   rows from ``--seed``, a 256-query chunk, k = 10, dot and euclidean);
+   their median times (``block_topk_sq`` gated and ungated), bounds, plain
+   and library times, and the whole SQ top-k per chunk. Then ``MemoryVectorStore.add`` of the 1M rows and 1,024
+   queries through ``query`` (four chunks, each launching the four kernels
+   once; lists equal to ``sq_topk_plain``; first-query and warm seconds),
+   and pq (8 bits), rq (4 bits), euclidean and cosine sq collections of
+   100,000 rows, each through the kernels and equal to the plain version.
 
 The last three lines of standard output are the kernels' JSON record, the
 card's ``name, power.limit`` as nvidia-smi gives them, and
@@ -121,6 +137,15 @@ QUALITY_SPEC, QUALITY_NDCG = "synthetic://400,300,8,0.08,1", 0.35
 MASTER_SHAPE = (6040, 3706, 16, 0.045, 0)
 MASTER_EPOCHS = 10
 MASTER_SAMPLE_USERS = 16
+# phase 7: the quantized vector store. bench.py topk_qps_1000k_sq8 (1M x 64
+# normal rows, per-row affine uint8 codes, B = 256, k = 10)
+SQ_ROWS, SQ_SMALL_ROWS, SQ_QUERIES, SQ_K = 1_000_000, 100_000, 1024, 10
+SQ_WARM_REPS = 5
+SQ_KERNELS = ("block_max_sq", "block_topk_sq")
+SQ_REPLACES = {
+    "block_max_sq": "gorse_tpu/ops/topk.py:361",
+    "block_topk_sq": "gorse_tpu/ops/topk.py:442",
+}
 
 
 def check(ok: bool, what: str) -> None:
@@ -542,10 +567,11 @@ def phase_path(user_factors, item_factors, histories, dev, seed: int) -> dict:
 
 
 def zero_counts() -> list:
-    """Every kernel wrapper of both slices, its launch count set to 0."""
+    """Every kernel wrapper, its launch count set to 0."""
     from gorse_tpu_torch.ops import bpr_kernel, topk
 
-    wrappers = [getattr(topk, n) for n in KERNELS] + [getattr(bpr_kernel, n) for n in BPR_KERNELS]
+    wrappers = [getattr(topk, n) for n in KERNELS + SQ_KERNELS]
+    wrappers += [getattr(bpr_kernel, n) for n in BPR_KERNELS]
     for w in wrappers:
         w.launches = 0
     return wrappers
@@ -900,6 +926,7 @@ def phase_master(dev) -> dict:
     from gorse_tpu_torch.storage.data import MemoryDataStore
     from gorse_tpu_torch.storage.meta import MetaStore
     from gorse_tpu_torch.storage.types import Feedback, Item, User
+    from gorse_tpu_torch.storage.vectors import MemoryVectorStore
     from gorse_tpu_torch.utils.config import Config
 
     n_users, n_items, rank, density, seed = MASTER_SHAPE
@@ -916,10 +943,12 @@ def phase_master(dev) -> dict:
     cfg.recommend.collaborative.type = "mf"
     cfg.recommend.collaborative.fit_epoch = MASTER_EPOCHS
     cfg.recommend.ranker.recommenders = ["collaborative"]
+    cfg.database.vector_quantization_type = "sq"
+    vectors = MemoryVectorStore(device=dev)
     result = {}
     with tempfile.TemporaryDirectory(prefix="gorse_smoke_") as tmp:
         blobs = BlobStore(Path(tmp) / "blobs")
-        master = Master(cfg, data, cache, blobs, MetaStore(), device=dev)
+        master = Master(cfg, data, cache, blobs, MetaStore(), device=dev, vector_store=vectors)
         # ---- the training path, with every launch count set to 0 just before
         zero_counts()
         torch.cuda.synchronize()
@@ -943,6 +972,32 @@ def phase_master(dev) -> dict:
         meta = master.get_meta()
         check(meta["cf_model_id"] != "" and blobs.exists(meta["cf_model_id"]),
               "master: the index is in the blob store under the meta's model id")
+
+        # ---- the vector store the fit synced: its own path's counts
+        name = Master.CF_COLLECTION
+        serving_ids, serving = master.cf_index.serving_items()
+        check(vectors.describe_collection(name)["quantization"] == "sq"
+              and list(vectors._collections[name].rows) == serving_ids
+              and len(serving_ids) >= 1024,
+              f"master: the sq collection holds the {len(serving_ids)} serving items")
+        probe = serving[:: max(len(serving) // MASTER_SAMPLE_USERS, 1)][:MASTER_SAMPLE_USERS]
+        # k = 10 takes the gated route; the cache size (100) exceeds the
+        # collection's 15 blocks, so it takes the ungated one (K6)
+        gated = {"block_max_sq": 1, "block_seeds": 1, "block_topk_sq": 1, "merge_topk": 1}
+        ungated = {"block_topk_sq": 1, "merge_topk": 1}
+        vec_launches = {}
+        for k, want in ((SQ_K, gated), (cfg.recommend.cache_size, ungated)):
+            lists, _, counts = query_counted(vectors, name, probe, k)
+            check(counts == want, f"master's collection at k = {k}: launches {counts}")
+            got = [[(x.id, x.score) for x in row] for row in lists]
+            check(got == store_lists(vectors, name, probe, k,
+                                     vectors._collections[name].encoded["prepared"], "dot"),
+                  f"master's collection at k = {k}: lists equal sq_topk_plain on the card")
+            vec_launches[k] = counts
+        result.update(vector_rows=len(serving_ids), vector_launches=vec_launches)
+        log(f"  master's sq collection: {len(serving_ids)} rows; {MASTER_SAMPLE_USERS} item "
+            f"queries at k = {SQ_K} (gated) and {cfg.recommend.cache_size} (ungated) through "
+            "the kernels equal the plain version")
 
         # ---- the worker serves the fresh index (its own path's counts)
         worker = Worker(cfg, data, cache, blobs, device=dev)
@@ -1005,6 +1060,309 @@ def phase_master(dev) -> dict:
     return result
 
 
+# ---------------------------------------------------------------- phase 7
+
+
+def sq_table(rows: np.ndarray):
+    """Per-row affine uint8 codes of ``rows`` (the store's quantization) and
+    norms2 of the dequantized rows."""
+    from gorse_tpu_torch.storage.vectors import _quantize_sq_rows
+
+    codes, scale, lo = _quantize_sq_rows(rows)
+    scale = scale.astype(np.float32)
+    approx = lo[:, None] + scale[:, None] * codes.astype(np.float32)
+    return codes, scale, lo, (approx * approx).sum(1).astype(np.float32)
+
+
+def sq_small_cases(dev):
+    """Tie-heavy quantized tables: integer rows (many equal codes and
+    scores), duplicate rows, constant rows (scale 1.0), catalogs that are
+    not a multiple of 256, k > n_blocks, and k = n."""
+    import torch
+
+    from gorse_tpu_torch.ops import topk
+
+    rng = np.random.default_rng(17)
+    cases = []
+    for name, n, d, b, k in (("ties", 3000, 16, 40, 20), ("k_over_blocks", 1000, 16, 8, 7),
+                             ("k_all", 300, 8, 4, 300)):
+        rows = rng.integers(-2, 3, size=(n, d)).astype(np.float32)
+        rows[10:30] = rows[3]  # duplicate rows
+        rows[40:50] = 1.5  # constant rows
+        codes, scale, lo, norms2 = sq_table(rows)
+        q = torch.as_tensor(rng.integers(-2, 3, size=(b, d)).astype(np.float32), device=dev)
+        prep = topk.prepare_sq_items(codes, scale, lo, norms2, device=dev)
+        for metric in ("dot", "euclidean"):
+            cases.append((f"{name} {metric}", q, prep, k, metric))
+    return cases
+
+
+def sq_rescored(queries, prep, metric: str, idx):
+    """The SQ formula in f64 at the chosen items, and the magnitude of the
+    terms it sums (an independent check of the plain version's scores)."""
+    import torch
+
+    q = queries[:, : prep.dim].double()
+    qb = q.to(torch.bfloat16).double()
+    rows = idx.long()
+    codes = prep.table[:, : prep.dim].double()[rows]  # [b, k, d]
+    scale, minv, n2 = (prep.affine[j].double()[rows] for j in range(3))
+    qsum = q.sum(1, keepdim=True)
+    dots = (codes * qb[:, None, :]).sum(2) * scale + qsum * minv
+    mag = (codes * qb.abs()[:, None, :]).sum(2) * scale.abs() + (qsum * minv).abs()
+    if metric == "euclidean":
+        q2 = (q * q).sum(1, keepdim=True)
+        return 2.0 * dots - n2 - q2, 2.0 * mag + n2.abs() + q2
+    return dots, mag
+
+
+def hold_sq_kernels(name: str, queries, prep, k: int, metric: str) -> dict:
+    """block_max_sq, block_seeds on its maxima, block_topk_sq gated and
+    ungated and merge_topk against their plain versions on the card:
+    equal outputs (tolerance 0). Returns the largest |difference| seen."""
+    import torch
+
+    from gorse_tpu_torch.ops import topk
+
+    b = queries.shape[0]
+    qp, aff = topk._sq_operands(queries, prep, topk._round_up(b, topk.QUERY_TILE), metric)
+    n = prep.n_items
+    bm = topk.block_max_sq(qp, prep.table, aff, n)
+    bm_p = topk.block_max_plain(qp, prep.table, n, aff)
+    check(torch.equal(bm, bm_p), f"{name}: block_max_sq equals its plain version")
+    gate = topk.block_seeds(bm_p, b, k)
+    gate_p = topk.block_seeds_plain(bm_p, b, k)
+    check(torch.equal(gate.seeds, gate_p.seeds) and torch.equal(gate.fired, gate_p.fired),
+          f"{name}: block_seeds on the SQ maxima equals its plain version")
+    err = {"block_max_sq": float((bm - bm_p).abs().max()), "block_topk_sq": 0.0}
+    for gated in (True, False):
+        cand, count = topk.block_topk_sq(qp, prep.table, aff, gate if gated else None, b, n, k)
+        cand_p, count_p = topk.block_topk_plain(qp, prep.table, gate_p if gated else None, b, n,
+                                                k, aff)
+        check(torch.equal(count, count_p), f"{name} gated={gated}: block_topk_sq counts")
+        live, live_p = _sorted_live(cand, count), _sorted_live(cand_p, count_p)
+        width = live_p.shape[1]
+        check(torch.equal(live[:, :width], live_p), f"{name} gated={gated}: block_topk_sq keys")
+        filled = live_p[:b] != topk._INT64_MIN
+        if bool(filled.any()):
+            diff = (topk._decode(live[:b, :width])[0] - topk._decode(live_p[:b])[0]).abs()
+            err["block_topk_sq"] = max(err["block_topk_sq"], float(diff[filled].max()))
+        s, i = topk.merge_topk(cand, count, b, k)
+        s_p, i_p = topk.merge_topk_plain(cand_p, count_p, b, k)
+        check(torch.equal(i, i_p) and torch.equal(s, s_p), f"{name} gated={gated}: merge_topk")
+    s, i = topk.sq_topk(queries, prep, k_top=k, metric=metric, device=prep.table.device)
+    s_p, i_p = topk.sq_topk_plain(queries, prep, k, metric)
+    check(torch.equal(i, i_p) and torch.equal(s, s_p), f"{name}: sq_topk route")
+    real = s_p > topk.NEG_INF / 2
+    want, mag = sq_rescored(queries, prep, metric, i_p)
+    check(bool(((want - s_p.double()).abs() <= 1e-5 * mag + 1e-6)[real].all()),
+          f"{name}: plain scores equal the f64 formula to 1e-5 of their terms")
+    log(f"  {name} k={k}: equal; candidates per query up to {int(count[:b].max())}")
+    return err
+
+
+def time_sq_kernels(queries, prep, k: int, metric: str) -> dict:
+    """Median times, bounds, plain and library times of the SQ kernels at
+    one shape, and of the whole SQ top-k per chunk (the four kernels, and
+    one ``sq_topk`` call with its host work)."""
+    import torch
+
+    from gorse_tpu_torch.ops import topk
+
+    b = queries.shape[0]
+    qp, aff = topk._sq_operands(queries, prep, topk._round_up(b, topk.QUERY_TILE), metric)
+    b_pad = qp.shape[0]
+    table, n, d = prep.table, prep.n_items, prep.dim
+    nb = table.shape[0] // topk.BLOCK_N
+    aff_bytes = 12 if metric == "euclidean" else 8  # scale, minv (and norms2) per item
+    in_bytes = qp.numel() * 2 + aff.qstats.numel() * 4
+    flops = 2.0 * b * n * d
+    out = {}
+    bm = topk.block_max_sq(qp, table, aff, n)
+    bms, by = bound(n * d + n * aff_bytes + in_bytes + b_pad * nb * 4, flops)
+    out["block_max_sq"] = dict(
+        ms=median_ms(lambda: topk.block_max_sq(qp, table, aff, n), 20),
+        plain_ms=median_ms(lambda: topk.block_max_plain(qp, table, n, aff), 3),
+        bound_ms=bms, bound_by=by, library_ms=None,
+    )
+    gate = topk.block_seeds(bm, b, k)
+    seeds_ms = median_ms(lambda: topk.block_seeds(bm, b, k), 20)
+    # the library's top-k, two ways: a bf16 matmul over the table
+    # dequantized to bf16 once (the euclidean epilogue after it), then
+    # torch.topk; and the same function as the kernels compute it, a bf16
+    # matmul over the codes (exact in bf16), the affine epilogue, torch.topk
+    qstats = aff.qstats[:, :b]
+    scale, minv, n2 = aff.affine[0, :n], aff.affine[1, :n], aff.affine[2, :n]
+    codes_bf16 = table[:n].to(torch.bfloat16)
+    vhat = (minv[:, None] + scale[:, None] * table[:n].float()).to(torch.bfloat16)
+
+    def euclid(dots):
+        return 2.0 * dots.float() - n2 - qstats[1][:, None] if metric == "euclidean" else dots
+
+    lib = median_ms(lambda: torch.topk(euclid(torch.matmul(qp[:b], vhat.T)), k, dim=1), 10)
+    lib_exact = median_ms(lambda: torch.topk(euclid(
+        torch.matmul(qp[:b], codes_bf16.T).float() * scale + qstats[0][:, None] * minv), k,
+        dim=1), 10)
+    del codes_bf16, vhat
+    cand, count = topk.block_topk_sq(qp, table, aff, gate, b, n, k)
+    fire = bm[:b] > gate.seeds[:, None]
+    pairs, blocks = int(fire.sum()), int(fire.any(0).sum())
+    bms, by = bound(blocks * topk.BLOCK_N * (d + aff_bytes) + in_bytes + b_pad * nb * 4 + b * 4
+                    + int(count.sum()) * 8 + b_pad * 4, 2.0 * pairs * topk.BLOCK_N * d)
+    ms = median_ms(lambda: topk.block_topk_sq(qp, table, aff, gate, b, n, k), 10)
+    out["block_topk_sq"] = dict(
+        ms=ms, plain_ms=median_ms(lambda: topk.block_topk_plain(qp, table, gate, b, n, k, aff), 3),
+        bound_ms=bms, bound_by=by, library_ms=lib, fired_pairs=pairs,
+        candidates=int(count.sum()),
+    )
+    merge_ms = median_ms(lambda: topk.merge_topk(cand, count, b, k), 20)
+    # K6's SQ body: every block fires, then the merge of all candidates
+    cand_u, count_u = topk.block_topk_sq(qp, table, aff, None, b, n, k)
+    bms, by = bound(n * (d + aff_bytes) + in_bytes + int(count_u.sum()) * 8 + b_pad * 4, flops)
+    out["block_topk_sq_ungated"] = dict(
+        ms=median_ms(lambda: topk.block_topk_sq(qp, table, aff, None, b, n, k), 10),
+        plain_ms=median_ms(lambda: topk.block_topk_plain(qp, table, None, b, n, k, aff), 3),
+        bound_ms=bms, bound_by=by, library_ms=lib, candidates=int(count_u.sum()),
+    )
+    bms, by = bound(int(count_u[:b].sum()) * 8 + b * 4 + b * k * 8, 0.0)
+    out["merge_topk_ungated"] = dict(
+        ms=median_ms(lambda: topk.merge_topk(cand_u, count_u, b, k), 20),
+        plain_ms=median_ms(lambda: topk.merge_topk_plain(cand_u, count_u, b, k), 3),
+        bound_ms=bms, bound_by=by,
+    )
+    del cand_u, count_u
+    fn_ms, fn_by = bound(n * d + n * aff_bytes + in_bytes + b * k * 8, flops)
+    out["sq_topk_chunk"] = dict(
+        ms=out["block_max_sq"]["ms"] + seeds_ms + ms + merge_ms,
+        call_ms=median_ms(lambda: topk.sq_topk(queries, prep, k_top=k, metric=metric,
+                                               device=prep.table.device), 10),
+        plain_ms=median_ms(lambda: topk.sq_topk_plain(queries, prep, k, metric), 3),
+        bound_ms=fn_ms, bound_by=fn_by, library_ms=lib, library_exact_ms=lib_exact,
+        seeds_ms=seeds_ms, merge_ms=merge_ms,
+    )
+    return out
+
+
+def store_lists(store, name: str, queries, k: int, prep, metric: str):
+    """The store's query against sq_topk_plain on its prepared table (the
+    store's own cosine normalization applied to the queries first)."""
+    from gorse_tpu_torch.ops import topk
+
+    q = np.asarray(queries, np.float32)
+    if metric == "cosine":
+        qn = np.linalg.norm(q, axis=1, keepdims=True)
+        q = q / np.where(qn > 0, qn, 1.0)
+    s_p, i_p = topk.sq_topk_plain(q, prep, k, "euclidean" if metric == "euclidean" else "dot")
+    ids = store._collections[name].encoded["ids"]
+    return [[(ids[j], float(v)) for v, j in zip(sr, ir)]
+            for sr, ir in zip(s_p.cpu().tolist(), i_p.cpu().tolist())]
+
+
+def query_counted(store, name: str, queries, k: int):
+    """One ``query`` with every launch count set to 0 just before and read
+    just after."""
+    import torch
+
+    wrappers = zero_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    lists = store.query(name, queries, k)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = {w.__name__: w.launches for w in wrappers if w.launches}
+    return lists, seconds, launches
+
+
+def phase_vector_store(dev, seed: int) -> tuple[dict, dict, dict]:
+    """Returns (errors, timings at 1M dot, store results)."""
+    import torch
+
+    from gorse_tpu_torch.ops import topk
+    from gorse_tpu_torch.storage.vectors import MemoryVectorStore
+
+    errors: dict[str, float] = {}
+
+    def merge_err(e):
+        for key_, v in e.items():
+            errors[key_] = max(errors.get(key_, 0.0), v)
+
+    for name, q, prep, k, metric in sq_small_cases(dev):
+        merge_err(hold_sq_kernels(name, q, prep, k, metric))
+
+    rng = np.random.default_rng(seed + 7)
+    rows = rng.standard_normal((SQ_ROWS, DIM), dtype=np.float32)
+    t0 = time.perf_counter()
+    codes, scale, lo, norms2 = sq_table(rows)
+    log(f"  {SQ_ROWS} x {DIM} rows quantized in {time.perf_counter() - t0:.1f} s")
+    prep = topk.prepare_sq_items(codes, scale, lo, norms2, device=dev)
+    del codes
+    chunk = torch.as_tensor(rng.standard_normal((256, DIM), dtype=np.float32), device=dev)
+    timings = {}
+    for metric in ("dot", "euclidean"):
+        merge_err(hold_sq_kernels(f"sq{SQ_ROWS} {metric}", chunk, prep, SQ_K, metric))
+        timings[metric] = time_sq_kernels(chunk, prep, SQ_K, metric)
+        for name, row in timings[metric].items():
+            log(f"  time {metric} {name}: " + json.dumps(row))
+    del prep
+    torch.cuda.empty_cache()
+
+    # ---- (b) the store path: MemoryVectorStore.add -> query on the card
+    result = {}
+    store = MemoryVectorStore(device=dev)
+    store.create_collection("sq1m", DIM, quantization="sq")
+    ids = [f"v{i}" for i in range(SQ_ROWS)]
+    t0 = time.perf_counter()
+    store.add("sq1m", ids, rows)
+    result["add_s"] = time.perf_counter() - t0
+    queries = rng.standard_normal((SQ_QUERIES, DIM), dtype=np.float32)
+    lists, first_s, launches = query_counted(store, "sq1m", queries, SQ_K)
+    chunks = SQ_QUERIES // 256
+    want = {"block_max_sq": chunks, "block_seeds": chunks, "block_topk_sq": chunks,
+            "merge_topk": chunks}
+    log("  store launches:", json.dumps(launches))
+    check(launches == want, f"store query: launches {launches}, want {want}")
+    enc = store._collections["sq1m"].encoded
+    check(enc is not None and enc["kind"] == "sq" and enc["prepared"].table.device == dev,
+          "store: the sq cache is built on the card")
+    got = [[(x.id, x.score) for x in row] for row in lists]
+    check(got == store_lists(store, "sq1m", queries, SQ_K, enc["prepared"], "dot"),
+          "store: every list equals sq_topk_plain on the card")
+    t0 = time.perf_counter()
+    for _ in range(SQ_WARM_REPS):
+        store.query("sq1m", queries, SQ_K)
+    torch.cuda.synchronize()
+    warm_s = (time.perf_counter() - t0) / SQ_WARM_REPS
+    result.update(rows=SQ_ROWS, queries=SQ_QUERIES, k=SQ_K, first_query_s=first_s,
+                  warm_query_s=warm_s, warm_qps=SQ_QUERIES / warm_s, launches=launches)
+    log(f"  store sq 1M: add {result['add_s']:.2f} s, first query {first_s:.2f} s, warm "
+        f"{warm_s * 1e3:.1f} ms ({SQ_QUERIES / warm_s:.0f} q/s); lists equal the plain version")
+    del store, rows
+    torch.cuda.empty_cache()
+
+    # pq, rq (decode -> 8-bit recompress) and euclidean, cosine sq at 100k
+    small = rng.standard_normal((SQ_SMALL_ROWS, DIM), dtype=np.float32)
+    small_ids = [f"v{i}" for i in range(SQ_SMALL_ROWS)]
+    q256 = queries[:256]
+    for quant, bits, metric in (("pq", 8, "dot"), ("rq", 4, "dot"), ("sq", 8, "euclidean"),
+                                ("sq", 8, "cosine")):
+        name = f"{quant}{bits}_{metric}"
+        store = MemoryVectorStore(device=dev)
+        store.create_collection(name, DIM, distance=metric, quantization=quant, bits=bits)
+        store.add(name, small_ids, small)
+        lists, seconds, launches = query_counted(store, name, q256, SQ_K)
+        one = {"block_max_sq": 1, "block_seeds": 1, "block_topk_sq": 1, "merge_topk": 1}
+        check(launches == one, f"{name}: launches {launches}, want {one}")
+        enc = store._collections[name].encoded
+        prep = enc["prepared" if quant == "sq" else "sq_prepared"]
+        got = [[(x.id, x.score) for x in row] for row in lists]
+        check(got == store_lists(store, name, q256, SQ_K, prep, metric),
+              f"{name}: lists equal sq_topk_plain on the card")
+        result[name] = dict(first_query_s=seconds, launches=launches)
+        log(f"  store {name} at {SQ_SMALL_ROWS}: {seconds:.2f} s (cache build included), "
+            "kernel route, lists equal the plain version")
+    return errors, timings, result
+
+
 # ---------------------------------------------------------------- main
 
 
@@ -1064,6 +1422,10 @@ def main() -> int:
     log("== phase 6: master")
     master = phase_master(dev)
     log("  master: " + json.dumps(master))
+
+    log("== phase 7: vector store")
+    sq_errors, sq_timings, store = phase_vector_store(dev, args.seed)
+    log("  store: " + json.dumps(store))
     check("jax" not in sys.modules and "gorse_tpu" not in sys.modules,
           "neither JAX nor gorse_tpu was imported")
 
@@ -1100,6 +1462,23 @@ def main() -> int:
             "replaces": BPR_REPLACES[name],
             "launches": bpr_launches[name],
             "max_abs_err": bpr_errors[name],
+            "ms": row["ms"],
+            "plain_ms": row["plain_ms"],
+            "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"],
+            "library_ms": row["library_ms"],
+        })
+    # the SQ kernels: launches from the store path (phase 7b), times at the
+    # 1M x 64 dot shape (phase 7a)
+    for name in SQ_KERNELS:
+        row = sq_timings["dot"][name]
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": "gorse_tpu_torch/csrc/topk.cu",
+            "replaces": SQ_REPLACES[name],
+            "launches": store["launches"][name],
+            "max_abs_err": sq_errors[name],
             "ms": row["ms"],
             "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"],

@@ -1,4 +1,5 @@
-// Exact dot-product top-k over a bf16 item table, for Hopper (sm_90a).
+// Exact dot-product top-k over a bf16 or scalar-quantized item table, for
+// Hopper (sm_90a).
 //
 // Three kernels replace the TPU top-k in gorse_tpu/ops/topk.py. The TPU
 // version walks item blocks in order on one core and carries a sorted
@@ -16,11 +17,23 @@
 //
 // K6 (no gate) is block_topk with every block firing, then merge_topk.
 //
-// Scores: q (bf16) . item (bf16), accumulated in f32 by scalar FMA in
-// ascending dimension order. A bf16 x bf16 product is exact in f32, so
-// every dot equals the sequential f32 sum that the plain PyTorch version
-// (ops/topk.py, _scores_plain) computes: kernel and plain version agree
-// bit for bit, and block_max and block_topk see the same scores.
+// Two tables, as the TPU kernels' two bodies (``has_affine``):
+// - bf16 items: score = q (bf16) . item (bf16);
+// - uint8 scalar-quantized items (the _sq entries, gorse_tpu/ops/topk.py
+//   _block_scores :322-358): item v = minv + scale * codes per row, so
+//   score = (q . codes) * scale + qsum * minv, and for euclidean
+//   2 * that - norms2 - q2 (a negative squared distance). q is bf16 for
+//   the dot, qsum and q2 come from the f32 queries (computed by the
+//   wrapper, so kernel and plain version read the same bits).
+//
+// Scores: the dot accumulates in f32 by scalar FMA in ascending dimension
+// order. A bf16 x bf16 product, and a bf16 x integer (0-255) product, is
+// exact in f32, so every dot equals the sequential f32 sum that the plain
+// PyTorch version (ops/topk.py, _scores_plain) computes. The epilogue is
+// separate rounded multiplies and adds (__fmul_rn/__fadd_rn/__fsub_rn,
+// never a contracted FMA), one per torch op of the plain version. Kernel and
+// plain version agree bit for bit, and block_max and block_topk see the
+// same scores.
 //
 // Order: (score descending, item index ascending), the tie order of
 // jax.lax.top_k and of the TPU kernels. It is carried as one 64-bit key:
@@ -28,9 +41,11 @@
 // 0xFFFFFFFF - index. The candidate buffer stores the key as int64 (signed
 // order); kernels compare it as uint64 with the sign bit flipped.
 //
-// Layouts: q [b_pad, d_pad] bf16 and table [n_pad, d_pad] bf16, both
-// row-major, zero padded (b_pad % 32 == 0, d_pad % 64 == 0,
-// n_pad % 256 == 0). Padded items (index >= n_items) are never candidates.
+// Layouts: q [b_pad, d_pad] bf16 and table [n_pad, d_pad] bf16 or uint8,
+// both row-major, zero padded (b_pad % 32 == 0, d_pad % 64 == 0,
+// n_pad % 256 == 0); for the quantized table an affine [3, n_pad] f32
+// (scale, minv, norms2) and qstats [2, b_pad] f32 (qsum, q2). Padded items
+// (index >= n_items) are never candidates.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -70,19 +85,67 @@ constexpr unsigned long long SIGN64 = 0x8000000000000000ull;
 // Scores of the QT queries of tile ``q0`` against the BLOCK_N items of
 // block ``blk``. Thread t owns queries (t / 64) * 8 + a, a < 8, and items
 // (t % 64) * 4 + c, c < 4: acc[a][c]. Each 64-dim pass stages the query
-// tile as f32 [DC][QT] (read as broadcasts) and the item block as bf16
-// [DC][BLOCK_N] (transposed, so a thread's 4 items are one 8-byte read).
+// tile as f32 [DC][QT] (read as broadcasts) and the item block as T
+// [DC][BLOCK_N] (transposed, so a thread's 4 items are one 8-byte read of
+// bf16, one 4-byte read of uint8 codes).
+template <typename T>
 struct TileSmem {
   float q[DC][QT];                                  // 8 KB
   union {
-    __nv_bfloat16 items[DC][BLOCK_N];               // 32 KB
+    T items[DC][BLOCK_N];                           // 32 KB bf16, 16 KB uint8
     float scores[QT][BLOCK_N];                      // 32 KB
   } u;
 };
 
+// item block: thread t loads item t, dims c0 .. c0 + 63
+__device__ __forceinline__ void stage_items(const __nv_bfloat16* __restrict__ table, int blk,
+                                            int c0, int d_pad,
+                                            TileSmem<__nv_bfloat16>& sm) {
+  const int t = threadIdx.x;
+  const __nv_bfloat16* row = table + ((size_t)blk * BLOCK_N + t) * d_pad + c0;
+#pragma unroll
+  for (int u = 0; u < DC / 8; ++u) {
+    uint4 v = __ldg(reinterpret_cast<const uint4*>(row + u * 8));
+    const __nv_bfloat16* e = reinterpret_cast<const __nv_bfloat16*>(&v);
+#pragma unroll
+    for (int h = 0; h < 8; ++h) sm.u.items[u * 8 + h][t] = e[h];
+  }
+}
+
+__device__ __forceinline__ void stage_items(const uint8_t* __restrict__ table, int blk, int c0,
+                                            int d_pad, TileSmem<uint8_t>& sm) {
+  const int t = threadIdx.x;
+  const uint8_t* row = table + ((size_t)blk * BLOCK_N + t) * d_pad + c0;
+#pragma unroll
+  for (int u = 0; u < DC / 16; ++u) {
+    uint4 v = __ldg(reinterpret_cast<const uint4*>(row + u * 16));
+    const uint8_t* e = reinterpret_cast<const uint8_t*>(&v);
+#pragma unroll
+    for (int h = 0; h < 16; ++h) sm.u.items[u * 16 + h][t] = e[h];
+  }
+}
+
+// items ti * 4 .. + 3 of staged dim j as f32 (both conversions exact)
+__device__ __forceinline__ void load_items(const TileSmem<__nv_bfloat16>& sm, int j, int ti,
+                                           float it[4]) {
+  const uint2 iv = *reinterpret_cast<const uint2*>(&sm.u.items[j][ti * 4]);
+  it[0] = __uint_as_float(iv.x << 16);
+  it[1] = __uint_as_float(iv.x & 0xFFFF0000u);
+  it[2] = __uint_as_float(iv.y << 16);
+  it[3] = __uint_as_float(iv.y & 0xFFFF0000u);
+}
+
+__device__ __forceinline__ void load_items(const TileSmem<uint8_t>& sm, int j, int ti,
+                                           float it[4]) {
+  const uint32_t iv = *reinterpret_cast<const uint32_t*>(&sm.u.items[j][ti * 4]);
+#pragma unroll
+  for (int c = 0; c < 4; ++c) it[c] = __uint2float_rn((iv >> (8 * c)) & 0xFFu);
+}
+
+template <typename T>
 __device__ __forceinline__ void score_tile(
-    const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ table,
-    int q0, int blk, int d_pad, TileSmem& sm, float acc[8][4]) {
+    const __nv_bfloat16* __restrict__ q, const T* __restrict__ table,
+    int q0, int blk, int d_pad, TileSmem<T>& sm, float acc[8][4]) {
   const int t = threadIdx.x;
   const int tq = t >> 6, ti = t & 63;
 #pragma unroll
@@ -103,25 +166,14 @@ __device__ __forceinline__ void score_tile(
         sm.q[j0 + 2 * h + 1][r] = __uint_as_float(w[h] & 0xFFFF0000u);
       }
     }
-    {
-      // item block: thread t loads item t, dims u * 8 .. + 7 for u < 8
-      const __nv_bfloat16* row = table + ((size_t)blk * BLOCK_N + t) * d_pad + c0;
-#pragma unroll
-      for (int u = 0; u < DC / 8; ++u) {
-        uint4 v = __ldg(reinterpret_cast<const uint4*>(row + u * 8));
-        const __nv_bfloat16* e = reinterpret_cast<const __nv_bfloat16*>(&v);
-#pragma unroll
-        for (int h = 0; h < 8; ++h) sm.u.items[u * 8 + h][t] = e[h];
-      }
-    }
+    stage_items(table, blk, c0, d_pad, sm);
     __syncthreads();
 #pragma unroll 4
     for (int j = 0; j < DC; ++j) {
       const float4 qa = *reinterpret_cast<const float4*>(&sm.q[j][tq * 8]);
       const float4 qb = *reinterpret_cast<const float4*>(&sm.q[j][tq * 8 + 4]);
-      const uint2 iv = *reinterpret_cast<const uint2*>(&sm.u.items[j][ti * 4]);
-      const float it[4] = {__uint_as_float(iv.x << 16), __uint_as_float(iv.x & 0xFFFF0000u),
-                           __uint_as_float(iv.y << 16), __uint_as_float(iv.y & 0xFFFF0000u)};
+      float it[4];
+      load_items(sm, j, ti, it);
       const float qv[8] = {qa.x, qa.y, qa.z, qa.w, qb.x, qb.y, qb.z, qb.w};
 #pragma unroll
       for (int a = 0; a < 8; ++a)
@@ -131,25 +183,57 @@ __device__ __forceinline__ void score_tile(
   }
 }
 
+// The quantized table's per-item affine and per-query statistics; a null
+// ``affine`` means a plain bf16 table and no epilogue.
+struct Affine {
+  const float* affine;  // [3, n_pad]: scale, minv, norms2
+  const float* qstats;  // [2, b_pad]: qsum, q2 of the f32 queries
+  int n_pad, b_pad, euclid;
+};
+
+// The epilogue of gorse_tpu/ops/topk.py _block_scores (:353-357) on the
+// thread's acc[a][c]: dots = raw * scale + qsum * minv, and for euclidean
+// 2 * dots - norms2 - q2, each op rounded on its own.
+__device__ __forceinline__ void apply_affine(const Affine& af, int q0, int blk,
+                                             float acc[8][4]) {
+  const int t = threadIdx.x, tq = t >> 6, ti = t & 63;
+#pragma unroll
+  for (int c = 0; c < 4; ++c) {
+    const int idx = blk * BLOCK_N + ti * 4 + c;
+    const float scale = af.affine[idx], minv = af.affine[af.n_pad + idx];
+    const float n2 = af.affine[2 * af.n_pad + idx];
+#pragma unroll
+    for (int a = 0; a < 8; ++a) {
+      const int qi = q0 + tq * 8 + a;
+      const float qsum = af.qstats[qi], q2 = af.qstats[af.b_pad + qi];
+      const float d = __fadd_rn(__fmul_rn(acc[a][c], scale), __fmul_rn(qsum, minv));
+      acc[a][c] = af.euclid ? __fsub_rn(__fsub_rn(__fmul_rn(2.0f, d), n2), q2) : d;
+    }
+  }
+}
+
 // --------------------------------------------------------------- K4
 
 // Replaces gorse_tpu/ops/topk.py _block_max_kernel (pass 1).
 // Bound on this card: at the serving shape (B 256, 1M x 64 items) one
-// table stream is 128 MB (~38 us at 3.35 TB/s) and the dots are 33.6
-// GFLOP (~34 us on bf16 tensor cores). This kernel runs the dots as
+// table stream is 128 MB bf16 or 64 MB of codes + 12 MB of affine (~38 or
+// ~23 us at 3.35 TB/s) and the dots are 33.6 GFLOP (~34 us on bf16 tensor
+// cores). This kernel runs the dots as
 // scalar f32 FMA (67 TFLOP/s peak, so >= 0.5 ms): it is bound by FMA
 // issue, not by bytes. Its design keeps the bytes at one stream: grid x
 // is the query tile, so the tiles of one item block run side by side and
 // share the block through L2. The FMA order is fixed so that the plain
 // version reproduces every score; tensor cores (mma/wgmma) are later work.
+template <typename T>
 __global__ void __launch_bounds__(THREADS) block_max_kernel(
-    const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ table,
+    const __nv_bfloat16* __restrict__ q, const T* __restrict__ table, Affine af,
     float* __restrict__ bmax, int d_pad, int n_items, int n_blocks) {
-  __shared__ TileSmem sm;
+  __shared__ TileSmem<T> sm;
   __shared__ float red[WARPS][8];
   const int q0 = blockIdx.x * QT, blk = blockIdx.y;
   float acc[8][4];
   score_tile(q, table, q0, blk, d_pad, sm, acc);
+  if (af.affine != nullptr) apply_affine(af, q0, blk, acc);
 
   const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
   const int ti = t & 63;
@@ -263,13 +347,14 @@ __global__ void __launch_bounds__(THREADS) block_seeds_kernel(
 // fire at 1M items, at k = 300 most do. Grid: (query tiles, n_split);
 // a block reads its 32 seeds once and then walks every n_split-th item
 // block.
+template <typename T>
 __global__ void __launch_bounds__(THREADS) block_topk_kernel(
-    const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ table,
+    const __nv_bfloat16* __restrict__ q, const T* __restrict__ table, Affine af,
     const float* __restrict__ bmax, const float* __restrict__ seeds,
     long long* __restrict__ cand,
     int* __restrict__ count, int b, int d_pad, int n_items, int n_blocks, int k,
     int cap) {
-  __shared__ TileSmem sm;
+  __shared__ TileSmem<T> sm;
   __shared__ float seed[QT];
   __shared__ int fire[QT];
   const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
@@ -287,6 +372,7 @@ __global__ void __launch_bounds__(THREADS) block_topk_kernel(
 
     float acc[8][4];
     score_tile(q, table, q0, blk, d_pad, sm, acc);
+    if (af.affine != nullptr) apply_affine(af, q0, blk, acc);
     __syncthreads();  // the item staging buffer becomes the score buffer
     {
       const int tq = t >> 6, ti = t & 63;
@@ -413,9 +499,20 @@ __global__ void __launch_bounds__(THREADS) merge_topk_kernel(
 extern "C" int gt_block_max(const void* q, const void* table, void* bmax, int b_pad,
                             int d_pad, int n_items, int n_blocks, void* stream) {
   dim3 grid(b_pad / QT, n_blocks);
-  block_max_kernel<<<grid, THREADS, 0, (cudaStream_t)stream>>>(
-      (const __nv_bfloat16*)q, (const __nv_bfloat16*)table, (float*)bmax, d_pad, n_items,
-      n_blocks);
+  block_max_kernel<__nv_bfloat16><<<grid, THREADS, 0, (cudaStream_t)stream>>>(
+      (const __nv_bfloat16*)q, (const __nv_bfloat16*)table, Affine{nullptr, nullptr, 0, 0, 0},
+      (float*)bmax, d_pad, n_items, n_blocks);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int gt_block_max_sq(const void* q, const void* codes, const void* affine,
+                               const void* qstats, void* bmax, int b_pad, int d_pad,
+                               int n_items, int n_blocks, int euclid, void* stream) {
+  dim3 grid(b_pad / QT, n_blocks);
+  block_max_kernel<uint8_t><<<grid, THREADS, 0, (cudaStream_t)stream>>>(
+      (const __nv_bfloat16*)q, (const uint8_t*)codes,
+      Affine{(const float*)affine, (const float*)qstats, n_blocks * BLOCK_N, b_pad, euclid},
+      (float*)bmax, d_pad, n_items, n_blocks);
   return (int)cudaGetLastError();
 }
 
@@ -431,9 +528,24 @@ extern "C" int gt_block_topk(const void* q, const void* table, const void* bmax,
                              int d_pad, int n_items, int n_blocks, int k, int cap, int n_split,
                              void* stream) {
   dim3 grid(b_pad / QT, n_split);
-  block_topk_kernel<<<grid, THREADS, 0, (cudaStream_t)stream>>>(
-      (const __nv_bfloat16*)q, (const __nv_bfloat16*)table, (const float*)bmax,
-      (const float*)seeds, (long long*)cand, (int*)count, b, d_pad, n_items, n_blocks, k, cap);
+  block_topk_kernel<__nv_bfloat16><<<grid, THREADS, 0, (cudaStream_t)stream>>>(
+      (const __nv_bfloat16*)q, (const __nv_bfloat16*)table, Affine{nullptr, nullptr, 0, 0, 0},
+      (const float*)bmax, (const float*)seeds, (long long*)cand, (int*)count, b, d_pad, n_items,
+      n_blocks, k, cap);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int gt_block_topk_sq(const void* q, const void* codes, const void* affine,
+                                const void* qstats, const void* bmax, const void* seeds,
+                                void* cand, void* count, int b, int b_pad, int d_pad,
+                                int n_items, int n_blocks, int k, int cap, int n_split,
+                                int euclid, void* stream) {
+  dim3 grid(b_pad / QT, n_split);
+  block_topk_kernel<uint8_t><<<grid, THREADS, 0, (cudaStream_t)stream>>>(
+      (const __nv_bfloat16*)q, (const uint8_t*)codes,
+      Affine{(const float*)affine, (const float*)qstats, n_blocks * BLOCK_N, b_pad, euclid},
+      (const float*)bmax, (const float*)seeds, (long long*)cand, (int*)count, b, d_pad, n_items,
+      n_blocks, k, cap);
   return (int)cudaGetLastError();
 }
 

@@ -4,7 +4,7 @@ Semantics are the reference's: the top ``k`` items of every query by
 (score descending, item index ascending), scores accumulated in f32, slots
 with no item filled with ``NEG_INF`` and index 0.
 
-Two routes, as in the reference:
+Routes, as in the reference:
 
 - ``dot_topk``: the serving route. The item table is bf16 (the reference's
   serving embeddings are bf16 too) and the queries are cast to bf16 before
@@ -18,10 +18,19 @@ Two routes, as in the reference:
   ``<wrapper>.launches``.
 - ``dot_topk_xla``: the f32 route, a full f32 score matrix and a stable
   sort (the reference's non-Pallas path). ``dot_topk_xla.uses`` counts it.
+- ``sq_topk`` on a :class:`PreparedSQ`: the quantized vector store's
+  serving route. The table is uint8 codes with a per-row affine
+  (``v = minv + scale * codes``), and the same four kernels run with an
+  affine epilogue (``block_max_sq`` and ``block_topk_sq``, the
+  ``has_affine`` body of the reference's kernels). On raw arrays
+  ``sq_topk`` takes the reference's XLA formulation instead, as do
+  ``pq_topk`` and ``rq_topk``: plain PyTorch, an f32 product and a stable
+  sort.
 
-The table layout is the port's own: row-major ``[n_pad, d_pad]`` bf16, zero
-padded to multiples of 256 items and 64 dimensions. Zero dimensions add
-exactly nothing to an f32 sum, so padding never changes a score.
+The table layout is the port's own: row-major ``[n_pad, d_pad]`` bf16 (or
+uint8 codes), zero padded to multiples of 256 items and 64 dimensions. Zero
+dimensions add exactly nothing to an f32 sum, so padding never changes a
+score.
 """
 
 from __future__ import annotations
@@ -71,6 +80,45 @@ def prepare_items(items, device=None) -> PreparedItems:
     return PreparedItems(table, n, d)
 
 
+class PreparedSQ(NamedTuple):
+    """Scalar-quantized table laid out for :func:`sq_topk`: row-major
+    ``[n_pad, d_pad]`` uint8 codes, zero padded like :class:`PreparedItems`,
+    and an f32 ``[3, n_pad]`` affine (rows scale / minv / norms2, zero
+    padded). Build once with :func:`prepare_sq_items`, serve many."""
+
+    table: torch.Tensor
+    affine: torch.Tensor
+    n_items: int
+    dim: int
+    has_norms2: bool = False  # affine row 2 populated (euclidean-capable)
+
+
+def prepare_sq_items(codes, scale, minv, norms2=None, device=None) -> PreparedSQ:
+    """``[N, d]`` uint8 codes and their per-row ``scale``, ``minv`` (and
+    ``norms2`` = ||dequantized row||^2 for euclidean) -> the padded layout on
+    ``device``."""
+    dev = resolve_device(device)
+    codes = torch.as_tensor(codes).to(dev, torch.uint8)
+    n, d = codes.shape
+    n_pad = _round_up(max(n, 1), BLOCK_N)
+    table = torch.zeros((n_pad, _round_up(max(d, 1), DIM_CHUNK)), dtype=torch.uint8, device=dev)
+    table[:n, :d] = codes
+    affine = torch.zeros((3, n_pad), dtype=torch.float32, device=dev)
+    affine[0, :n] = torch.as_tensor(scale).to(dev, torch.float32)
+    affine[1, :n] = torch.as_tensor(minv).to(dev, torch.float32)
+    if norms2 is not None:
+        affine[2, :n] = torch.as_tensor(norms2).to(dev, torch.float32)
+    return PreparedSQ(table, affine, n, d, norms2 is not None)
+
+
+class Affine(NamedTuple):
+    """The quantized table's epilogue operands for one query chunk."""
+
+    affine: torch.Tensor  # [3, n_pad] f32: scale, minv, norms2 per item
+    qstats: torch.Tensor  # [2, b_pad] f32: sum(q), sum(q * q) of the f32 queries
+    euclidean: bool
+
+
 # ------------------------------------------------------------------- keys
 # (score desc, index asc) as one int64: high word the score mapped to an
 # order-preserving signed int, low word 0xFFFFFFFF - index (csrc/topk.cu).
@@ -92,20 +140,29 @@ def _decode(keys: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
 # ---------------------------------------------------------- plain versions
 
 
-def _scores_plain(qp: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
+def _scores_plain(qp: torch.Tensor, table: torch.Tensor, aff: Affine | None = None) -> torch.Tensor:
     """``[b_pad, n_pad]`` f32 scores summed in the kernels' order: one f32
-    multiply-add per dimension, ascending. bf16 products are exact in f32,
-    so this matches the kernels' FMA chain bit for bit."""
+    multiply-add per dimension, ascending. bf16 x bf16 and bf16 x uint8
+    products are exact in f32, so this matches the kernels' FMA chain bit
+    for bit. With ``aff`` (a uint8 table) the affine epilogue follows as
+    separate rounded ops, as the kernels apply it (gorse_tpu/ops/topk.py
+    _block_scores :353-357): raw * scale + qsum * minv, and for euclidean
+    2 * that - norms2 - q2."""
     qf = qp.float()
     tf = table.float().t().contiguous()  # [d_pad, n_pad]
     acc = torch.zeros((qp.shape[0], table.shape[0]), dtype=torch.float32, device=qp.device)
     for j in range(qp.shape[1]):
         acc.addcmul_(qf[:, j : j + 1], tf[j])
-    return acc
+    if aff is None:
+        return acc
+    dots = acc * aff.affine[0] + aff.qstats[0][:, None] * aff.affine[1]
+    if aff.euclidean:
+        return 2.0 * dots - aff.affine[2] - aff.qstats[1][:, None]
+    return dots
 
 
-def block_max_plain(qp, table, n_items: int) -> torch.Tensor:
-    s = _scores_plain(qp, table)
+def block_max_plain(qp, table, n_items: int, aff: Affine | None = None) -> torch.Tensor:
+    s = _scores_plain(qp, table, aff)
     s[:, n_items:] = NEG_INF
     return s.view(qp.shape[0], -1, BLOCK_N).amax(dim=2)
 
@@ -139,13 +196,14 @@ def _candidate_cap(gate: Gate | None, nb: int, k: int) -> int:
     return blocks * min(k, BLOCK_N)
 
 
-def block_topk_plain(qp, table, gate: Gate | None, b: int, n_items: int, k: int):
+def block_topk_plain(qp, table, gate: Gate | None, b: int, n_items: int, k: int,
+                     aff: Affine | None = None):
     """Candidates as the kernel writes them, sorted descending per query
     (the kernel's order within a query is arbitrary), and their counts."""
     b_pad, n_pad = qp.shape[0], table.shape[0]
     nb = n_pad // BLOCK_N
     dev = qp.device
-    scores = _scores_plain(qp, table).view(b_pad, nb, BLOCK_N)
+    scores = _scores_plain(qp, table, aff).view(b_pad, nb, BLOCK_N)
     idx = torch.arange(n_pad, device=dev).view(nb, BLOCK_N)
     valid = idx < n_items
     seeds = torch.full((b_pad,), NEG_INF, dtype=torch.float32, device=dev)
@@ -183,20 +241,39 @@ def merge_topk_plain(cand, count, b: int, k: int):
     )
 
 
-def dot_topk_plain(queries, prep: PreparedItems, k_top: int):
-    """The whole serving route in plain PyTorch: every score, then a stable
-    sort. Agrees with :func:`dot_topk` index for index."""
-    dev = prep.table.device
-    b = queries.shape[0]
-    qp = _pad_queries(queries, prep, _round_up(max(b, 1), QUERY_TILE))
-    s = _scores_plain(qp, prep.table)[:b, : prep.n_items]
+def _sorted_topk(s: torch.Tensor, k_top: int, n_items: int):
+    """Top ``k_top`` of ``s`` ``[b, n_items]`` by a stable descending sort,
+    NEG_INF / 0 past the catalog."""
+    b, dev = s.shape[0], s.device
     top = torch.sort(s, dim=1, descending=True, stable=True)
-    k = min(k_top, prep.n_items)
+    k = min(k_top, n_items)
     out_s = torch.full((b, k_top), NEG_INF, dtype=torch.float32, device=dev)
     out_i = torch.zeros((b, k_top), dtype=torch.int32, device=dev)
     out_s[:, :k] = top.values[:, :k]
     out_i[:, :k] = top.indices[:, :k].to(torch.int32)
     return out_s, out_i
+
+
+def dot_topk_plain(queries, prep: PreparedItems, k_top: int):
+    """The whole serving route in plain PyTorch: every score, then a stable
+    sort. Agrees with :func:`dot_topk` index for index."""
+    b = queries.shape[0]
+    qp = _pad_queries(queries, prep, _round_up(max(b, 1), QUERY_TILE))
+    s = _scores_plain(qp, prep.table)[:b, : prep.n_items]
+    return _sorted_topk(s, k_top, prep.n_items)
+
+
+def sq_topk_plain(queries, prep: PreparedSQ, k_top: int, metric: str = "dot"):
+    """The whole quantized route in plain PyTorch, in chunks of 256 queries:
+    every score, then a stable sort. Agrees with :func:`sq_topk` on a
+    :class:`PreparedSQ` index for index."""
+    def chunk(q):
+        b = q.shape[0]
+        qp, aff = _sq_operands(q, prep, _round_up(max(b, 1), QUERY_TILE), metric)
+        s = _scores_plain(qp, prep.table, aff)[:b, : prep.n_items]
+        return _sorted_topk(s, k_top, prep.n_items)
+
+    return _chunked(chunk, torch.as_tensor(queries).to(prep.table.device, torch.float32))
 
 
 # ---------------------------------------------------------------- kernels
@@ -207,10 +284,13 @@ def _lib() -> ctypes.CDLL:
     if not getattr(lib, "_gt_typed", False):
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.gt_block_max.argtypes = [p, p, p, i, i, i, i, p]
+        lib.gt_block_max_sq.argtypes = [p, p, p, p, p, i, i, i, i, i, p]
         lib.gt_block_seeds.argtypes = [p, p, p, i, i, i, p]
         lib.gt_block_topk.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, i, i, p]
+        lib.gt_block_topk_sq.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, i, p]
         lib.gt_merge_topk.argtypes = [p, p, p, p, i, i, i, i, p]
-        for fn in (lib.gt_block_max, lib.gt_block_seeds, lib.gt_block_topk, lib.gt_merge_topk):
+        for fn in (lib.gt_block_max, lib.gt_block_max_sq, lib.gt_block_seeds, lib.gt_block_topk,
+                   lib.gt_block_topk_sq, lib.gt_merge_topk):
             fn.restype = ctypes.c_int
         lib._gt_typed = True
     return lib
@@ -225,11 +305,12 @@ def _raise_on(rc: int, kernel: str) -> None:
         raise RuntimeError(f"{kernel} launch failed: CUDA error {rc}")
 
 
-def _check_operands(qp: torch.Tensor, table: torch.Tensor) -> None:
+def _check_operands(qp: torch.Tensor, table: torch.Tensor,
+                    table_dtype: torch.dtype = torch.bfloat16) -> None:
     if qp.device.type != "cuda" or table.device != qp.device:
         raise ValueError(f"operands on {qp.device} and {table.device}, need one CUDA device")
-    if qp.dtype != torch.bfloat16 or table.dtype != torch.bfloat16:
-        raise TypeError("queries and table must be bf16")
+    if qp.dtype != torch.bfloat16 or table.dtype != table_dtype:
+        raise TypeError(f"queries must be bf16 and the table {table_dtype}")
     if not (qp.is_contiguous() and table.is_contiguous()):
         raise ValueError("queries and table must be contiguous")
     b_pad, d_pad = qp.shape
@@ -238,6 +319,15 @@ def _check_operands(qp: torch.Tensor, table: torch.Tensor) -> None:
         raise ValueError(f"bad padded shapes q {tuple(qp.shape)}, table {tuple(table.shape)}")
     if n_pad // BLOCK_N > MAX_BLOCKS:
         raise ValueError(f"{n_pad} items exceed {MAX_BLOCKS} blocks of {BLOCK_N}")
+
+
+def _check_affine(aff: Affine, qp: torch.Tensor, table: torch.Tensor) -> None:
+    want = {"affine": (3, table.shape[0]), "qstats": (2, qp.shape[0])}
+    for name, shape in want.items():
+        t = getattr(aff, name)
+        if (t.device != qp.device or t.dtype != torch.float32 or not t.is_contiguous()
+                or tuple(t.shape) != shape):
+            raise ValueError(f"{name} must be a contiguous f32 {shape} on {qp.device}")
 
 
 def block_max(qp: torch.Tensor, table: torch.Tensor, n_items: int) -> torch.Tensor:
@@ -254,6 +344,25 @@ def block_max(qp: torch.Tensor, table: torch.Tensor, n_items: int) -> torch.Tens
     )
     _raise_on(rc, "block_max")
     block_max.launches += 1
+    return bmax
+
+
+def block_max_sq(qp: torch.Tensor, table: torch.Tensor, aff: Affine, n_items: int) -> torch.Tensor:
+    """:func:`block_max` over a uint8 table with the affine epilogue (the
+    ``has_affine`` body of gorse_tpu/ops/topk.py _block_max_kernel)."""
+    if qp.device.type == "cpu":
+        return block_max_plain(qp, table, n_items, aff)
+    _check_operands(qp, table, torch.uint8)
+    _check_affine(aff, qp, table)
+    b_pad, d_pad = qp.shape
+    nb = table.shape[0] // BLOCK_N
+    bmax = torch.empty((b_pad, nb), dtype=torch.float32, device=qp.device)
+    rc = _lib().gt_block_max_sq(
+        qp.data_ptr(), table.data_ptr(), aff.affine.data_ptr(), aff.qstats.data_ptr(),
+        bmax.data_ptr(), b_pad, d_pad, n_items, nb, int(aff.euclidean), _stream(qp),
+    )
+    _raise_on(rc, "block_max_sq")
+    block_max_sq.launches += 1
     return bmax
 
 
@@ -276,6 +385,20 @@ def block_seeds(bmax: torch.Tensor, b: int, k: int) -> Gate:
     return Gate(bmax, seeds, fired)
 
 
+def _gate_args(qp, table, gate: Gate | None, b: int):
+    b_pad = qp.shape[0]
+    nb = table.shape[0] // BLOCK_N
+    if gate is not None and (
+        gate.bmax.shape != (b_pad, nb) or gate.seeds.shape != (b,)
+        or gate.bmax.device != qp.device or gate.seeds.device != qp.device
+    ):
+        raise ValueError("the gate must hold [b_pad, n_blocks] maxima and [b] seeds "
+                         "on the queries' device")
+    if gate is None:
+        return None, None
+    return gate.bmax.data_ptr(), gate.seeds.data_ptr()
+
+
 def block_topk(qp, table, gate: Gate | None, b: int, n_items: int, k: int):
     """Candidates ``[b_pad, cap]`` int64 keys (the first ``count[q]`` of row
     q are live, in no order) and ``count`` ``[b_pad]``. ``gate`` gates
@@ -286,24 +409,41 @@ def block_topk(qp, table, gate: Gate | None, b: int, n_items: int, k: int):
     _check_operands(qp, table)
     b_pad, d_pad = qp.shape
     nb = table.shape[0] // BLOCK_N
-    if gate is not None and (
-        gate.bmax.shape != (b_pad, nb) or gate.seeds.shape != (b,)
-        or gate.bmax.device != qp.device or gate.seeds.device != qp.device
-    ):
-        raise ValueError("the gate must hold [b_pad, n_blocks] maxima and [b] seeds "
-                         "on the queries' device")
+    bmax_ptr, seeds_ptr = _gate_args(qp, table, gate, b)
     cap = _candidate_cap(gate, nb, k)
     cand = torch.empty((b_pad, cap), dtype=torch.int64, device=qp.device)
     count = torch.zeros((b_pad,), dtype=torch.int32, device=qp.device)
     rc = _lib().gt_block_topk(
-        qp.data_ptr(), table.data_ptr(),
-        None if gate is None else gate.bmax.data_ptr(),
-        None if gate is None else gate.seeds.data_ptr(),
+        qp.data_ptr(), table.data_ptr(), bmax_ptr, seeds_ptr,
         cand.data_ptr(), count.data_ptr(), b, b_pad, d_pad, n_items, nb, k, cap,
         min(nb, N_SPLIT), _stream(qp),
     )
     _raise_on(rc, "block_topk")
     block_topk.launches += 1
+    return cand, count
+
+
+def block_topk_sq(qp, table, aff: Affine, gate: Gate | None, b: int, n_items: int, k: int):
+    """:func:`block_topk` over a uint8 table with the affine epilogue (the
+    ``has_affine`` body of gorse_tpu/ops/topk.py _topk_seeded_kernel and
+    _topk_kernel)."""
+    if qp.device.type == "cpu":
+        return block_topk_plain(qp, table, gate, b, n_items, k, aff)
+    _check_operands(qp, table, torch.uint8)
+    _check_affine(aff, qp, table)
+    b_pad, d_pad = qp.shape
+    nb = table.shape[0] // BLOCK_N
+    bmax_ptr, seeds_ptr = _gate_args(qp, table, gate, b)
+    cap = _candidate_cap(gate, nb, k)
+    cand = torch.empty((b_pad, cap), dtype=torch.int64, device=qp.device)
+    count = torch.zeros((b_pad,), dtype=torch.int32, device=qp.device)
+    rc = _lib().gt_block_topk_sq(
+        qp.data_ptr(), table.data_ptr(), aff.affine.data_ptr(), aff.qstats.data_ptr(),
+        bmax_ptr, seeds_ptr, cand.data_ptr(), count.data_ptr(), b, b_pad, d_pad, n_items, nb,
+        k, cap, min(nb, N_SPLIT), int(aff.euclidean), _stream(qp),
+    )
+    _raise_on(rc, "block_topk_sq")
+    block_topk_sq.launches += 1
     return cand, count
 
 
@@ -330,8 +470,10 @@ def merge_topk(cand: torch.Tensor, count: torch.Tensor, b: int, k: int):
 
 
 block_max.launches = 0
+block_max_sq.launches = 0
 block_seeds.launches = 0
 block_topk.launches = 0
+block_topk_sq.launches = 0
 merge_topk.launches = 0
 
 
@@ -346,22 +488,66 @@ def _pad_queries(queries, prep: PreparedItems, b_pad: int) -> torch.Tensor:
     return qp
 
 
-def _dot_topk_prepared(queries, prep: PreparedItems, k_top: int, seeded: bool):
-    b = queries.shape[0]
-    if k_top <= 0:
-        dev = prep.table.device
-        return (torch.zeros((b, 0), dtype=torch.float32, device=dev),
-                torch.zeros((b, 0), dtype=torch.int32, device=dev))
-    qp = _pad_queries(queries, prep, _round_up(max(b, 1), QUERY_TILE))
-    nb = prep.table.shape[0] // BLOCK_N
+def _empty(b: int, dev):
+    return (torch.zeros((b, 0), dtype=torch.float32, device=dev),
+            torch.zeros((b, 0), dtype=torch.int32, device=dev))
+
+
+def _kernel_chain(qp, table, b: int, n_items: int, k_top: int, seeded: bool,
+                  aff: Affine | None = None):
+    """K4 -> seeds -> K5 (or K6) -> merge on one padded query chunk."""
+    nb = table.shape[0] // BLOCK_N
     # the seed is NEG_INF when k > n_blocks, so pass 1 would buy nothing:
     # take the ungated fold, as the reference drops to its single-pass
     # kernel when seeding does not fit
     gate = None
     if seeded and k_top <= nb:
-        gate = block_seeds(block_max(qp, prep.table, prep.n_items), b, k_top)
-    cand, count = block_topk(qp, prep.table, gate, b, prep.n_items, k_top)
+        if aff is None:
+            bmax = block_max(qp, table, n_items)
+        else:
+            bmax = block_max_sq(qp, table, aff, n_items)
+        gate = block_seeds(bmax, b, k_top)
+    if aff is None:
+        cand, count = block_topk(qp, table, gate, b, n_items, k_top)
+    else:
+        cand, count = block_topk_sq(qp, table, aff, gate, b, n_items, k_top)
     return merge_topk(cand, count, b, k_top)
+
+
+def _dot_topk_prepared(queries, prep: PreparedItems, k_top: int, seeded: bool):
+    b = queries.shape[0]
+    if k_top <= 0:
+        return _empty(b, prep.table.device)
+    qp = _pad_queries(queries, prep, _round_up(max(b, 1), QUERY_TILE))
+    return _kernel_chain(qp, prep.table, b, prep.n_items, k_top, seeded)
+
+
+def _sq_operands(queries, prep: PreparedSQ, b_pad: int, metric: str):
+    """bf16 queries for the dot and the epilogue's operands: qsum and q2
+    come from the f32 queries (gorse_tpu/ops/topk.py:342,353,356)."""
+    dev = prep.table.device
+    qf = torch.zeros((b_pad, prep.table.shape[1]), dtype=torch.float32, device=dev)
+    q = torch.as_tensor(queries).to(dev, torch.float32)
+    qf[: q.shape[0], : prep.dim] = q[:, : prep.dim]
+    qstats = torch.stack([qf.sum(dim=1), (qf * qf).sum(dim=1)]).contiguous()
+    return qf.to(torch.bfloat16), Affine(prep.affine, qstats, metric == "euclidean")
+
+
+def _sq_topk_prepared(queries, prep: PreparedSQ, k_top: int, metric: str):
+    b = queries.shape[0]
+    if k_top <= 0:
+        return _empty(b, prep.table.device)
+    qp, aff = _sq_operands(queries, prep, _round_up(max(b, 1), QUERY_TILE), metric)
+    return _kernel_chain(qp, prep.table, b, prep.n_items, k_top, True, aff)
+
+
+def _chunked(fn, queries, *args):
+    """``fn`` on chunks of 256 queries, results concatenated."""
+    if queries.shape[0] <= _CHUNK_B:
+        return fn(queries, *args)
+    parts = [fn(queries[lo : lo + _CHUNK_B], *args)
+             for lo in range(0, queries.shape[0], _CHUNK_B)]
+    return torch.cat([s for s, _ in parts]), torch.cat([i for _, i in parts])
 
 
 def dot_topk(queries, items, k_top: int = 10, seeded: bool = True, device=None):
@@ -378,13 +564,100 @@ def dot_topk(queries, items, k_top: int = 10, seeded: bool = True, device=None):
     elif items.table.device != dev:
         raise ValueError(f"items are prepared on {items.table.device}, not {dev}")
     queries = torch.as_tensor(queries).to(dev, torch.float32)
-    if queries.shape[0] <= _CHUNK_B:
-        return _dot_topk_prepared(queries, items, k_top, seeded)
-    parts = [
-        _dot_topk_prepared(queries[lo : lo + _CHUNK_B], items, k_top, seeded)
-        for lo in range(0, queries.shape[0], _CHUNK_B)
-    ]
-    return torch.cat([s for s, _ in parts]), torch.cat([i for _, i in parts])
+    return _chunked(_dot_topk_prepared, queries, items, k_top, seeded)
+
+
+def sq_topk(queries, codes, scale=None, minv=None, k_top: int = 10, norms2=None,
+            metric: str = "dot", device=None):
+    """Top-k over scalar-quantized rows ``v = minv + scale * codes``:
+    ``(scores [B, k_top] f32, indices [B, k_top] int32)``.
+
+    A :class:`PreparedSQ` goes through the CUDA kernels with the affine
+    epilogue (their plain versions on the CPU), in chunks of 256 queries:
+    the dot uses bf16(q), the corrections the f32 q, and euclidean scores
+    are ``2 dots - norms2 - q2`` (gorse_tpu/ops/topk.py _block_scores).
+    Raw ``(codes, scale, minv)`` arrays take the reference's XLA
+    formulation, q in f32 throughout and euclidean
+    ``-(q2 - 2 dots + norms2)``: the two routes round differently, so both
+    are kept. ``metric``: "dot" | "cosine" (rows normalized at ingest) |
+    "euclidean" (needs norms2; larger is closer)."""
+    dev = resolve_device(device)
+    if isinstance(codes, PreparedSQ):
+        if metric == "euclidean" and not codes.has_norms2:
+            raise ValueError(
+                "sq_topk(metric='euclidean') on a PreparedSQ built without "
+                "norms2 — pass norms2 to prepare_sq_items"
+            )
+        if codes.table.device != dev:
+            raise ValueError(f"items are prepared on {codes.table.device}, not {dev}")
+        queries = torch.as_tensor(queries).to(dev, torch.float32)
+        return _chunked(_sq_topk_prepared, queries, codes, k_top, metric)
+    if metric == "euclidean" and norms2 is None:
+        raise ValueError("sq_topk(metric='euclidean') requires norms2 (||v||^2 per row)")
+    return _sq_topk_xla(queries, codes, scale, minv, k_top, norms2, metric, dev)
+
+
+def _f32(x, dev) -> torch.Tensor:
+    return torch.as_tensor(x).to(dev, torch.float32)
+
+
+def _top(scores: torch.Tensor, k_top: int):
+    """``jax.lax.top_k``: the k largest, the lower index first on ties."""
+    top = torch.sort(scores, dim=1, descending=True, stable=True)
+    return top.values[:, :k_top].contiguous(), top.indices[:, :k_top].to(torch.int32)
+
+
+def _xla_top(q: torch.Tensor, dots: torch.Tensor, norms2, metric: str, k_top: int):
+    """The XLA routes' scores, ``dots`` or for euclidean
+    ``-(q2 - 2 dots + norms2)`` with q2 from the f32 queries ``q``, and
+    their top ``k_top``."""
+    if metric == "euclidean":
+        q2 = (q * q).sum(dim=1, keepdim=True)
+        dots = -(q2 - 2.0 * dots + _f32(norms2, q.device)[None, :])
+    return _top(dots, k_top)
+
+
+def _sq_topk_xla(queries, codes, scale, minv, k_top: int, norms2=None, metric: str = "dot",
+                 device=None):
+    """gorse_tpu/ops/topk.py _sq_topk_xla: an f32 product with the codes
+    (TF32 off), the affine corrections, a stable sort."""
+    dev = resolve_device(device)
+    q = _f32(queries, dev)
+    partial = q @ torch.as_tensor(codes).to(dev).float().T
+    dots = partial * _f32(scale, dev)[None, :] + q.sum(dim=1, keepdim=True) * _f32(minv, dev)[None, :]
+    return _xla_top(q, dots, norms2, metric, k_top)
+
+
+def pq_topk(queries, codes, codebooks, norms2, k_top: int, metric: str = "dot", device=None):
+    """Top-k over product-quantized rows (gorse_tpu/ops/topk.py pq_topk):
+    ``codes`` ``[N, M]`` uint8 index ``codebooks`` ``[M, C, ds]``; the
+    decoded rows are rounded to bf16 and scored by an f32 product."""
+    dev = resolve_device(device)
+    codes = torch.as_tensor(codes).to(dev).long()
+    books = _f32(codebooks, dev)
+    m = books.shape[0]
+    vhat = books[torch.arange(m, device=dev)[None, :], codes]  # [N, M, ds]
+    vhat = vhat.reshape(codes.shape[0], -1).to(torch.bfloat16).float()
+    q = _f32(queries, dev)
+    dots = q @ vhat.T
+    return _xla_top(q, dots, norms2, metric, k_top)
+
+
+def rq_topk(queries, packed, scale, minv, rot, norms2, k_top: int, bits: int, dim: int,
+            metric: str = "dot", device=None):
+    """Top-k over rotational quantized rows (gorse_tpu/ops/topk.py
+    rq_topk): unpack the ``bits``-bit codes, score in the rotated basis
+    with the sq affine corrections."""
+    dev = resolve_device(device)
+    packed = torch.as_tensor(packed).to(dev, torch.uint8)
+    per_byte = 8 // bits
+    shifts = (torch.arange(per_byte, device=dev, dtype=torch.uint8) * bits)[None, None, :]
+    vals = (packed[:, :, None] >> shifts) & ((1 << bits) - 1)
+    codes = vals.reshape(packed.shape[0], -1)[:, :dim].float()
+    q = _f32(queries, dev)
+    rq = q @ _f32(rot, dev).T
+    dots = (rq @ codes.T) * _f32(scale, dev)[None, :] + rq.sum(dim=1, keepdim=True) * _f32(minv, dev)[None, :]
+    return _xla_top(q, dots, norms2, metric, k_top)
 
 
 def dot_topk_xla(queries, items, k_top: int, device=None):
@@ -393,10 +666,7 @@ def dot_topk_xla(queries, items, k_top: int, device=None):
     ties like ``jax.lax.top_k``."""
     dev = resolve_device(device)
     dot_topk_xla.uses += 1
-    q = torch.as_tensor(queries).to(dev, torch.float32)
-    it = torch.as_tensor(items).to(dev, torch.float32)
-    top = torch.sort(q @ it.T, dim=1, descending=True, stable=True)
-    return top.values[:, :k_top].contiguous(), top.indices[:, :k_top].to(torch.int32)
+    return _top(_f32(queries, dev) @ _f32(items, dev).T, k_top)
 
 
 dot_topk_xla.uses = 0

@@ -6,12 +6,14 @@ the training dataset and its leave-one-out split, and records the catalog
 gauges, global-meta keys and time series under the reference's names.
 ``train_collaborative_filtering`` fits the MF model on the card (BPR by
 default), builds the serving index, saves it to the blob store and records
-its id in the meta store, where ``get_meta`` hands it to workers.
+its id in the meta store, where ``get_meta`` hands it to workers, and
+upserts the serving item factors into the vector store when one is given
+(``_sync_cf_vectors``).
 
 Not ported yet: the CTR dataset and ranker (``ctr`` stays ``None``), the
 data store's search-column reconcile, the other tasks of
-``run_tasks_once``, the vector-store sync, hyper-parameter search, and
-sharded training (``training_mesh`` is ``None``).
+``run_tasks_once``, hyper-parameter search, and sharded training
+(``training_mesh`` is ``None``).
 """
 
 from __future__ import annotations
@@ -30,6 +32,7 @@ from ..storage.cache import CacheStore, key
 from ..storage.data import DataStore
 from ..storage.meta import CLICK_THROUGH_RATE_MODEL, COLLABORATIVE_FILTERING_MODEL, MetaStore
 from ..storage.types import TimeSeriesPoint
+from ..storage.vectors import VectorStore
 from ..utils.config import Config
 from ..utils.expression import match_any
 from .metrics import MetricsRegistry
@@ -81,6 +84,7 @@ class Master:
         blob_store: BlobStore,
         meta_store: MetaStore,
         device=None,
+        vector_store: VectorStore | None = None,
     ) -> None:
         self.config = config
         self.data = data_store
@@ -88,8 +92,10 @@ class Master:
         self.blob = blob_store
         self.meta = meta_store
         self.device = device  # None: the card
+        self.vectors = vector_store
         self.progress = ProgressTracker()
         self.metrics = MetricsRegistry(namespace="gorse")
+        self.cf_model = None
         self.cf_index: MatrixFactorizationIndex | None = None
         self._load_models_from_meta()
 
@@ -251,6 +257,7 @@ class Master:
             self._record_ts(ck.CF_NDCG, score.ndcg)
             self._record_ts(ck.CF_PRECISION, score.precision)
             self._record_ts(ck.CF_RECALL, score.recall)
+        self.cf_model = model
         self.cf_index = MatrixFactorizationIndex.from_model(
             model, item_categories=data.item_categories, timestamp=time.time()
         )
@@ -266,9 +273,59 @@ class Master:
         self._sync_cf_vectors()
         logger.info("CF model %s (%s) trained: NDCG@10=%.4f", model_id, mtype, score.ndcg)
 
+    CF_COLLECTION = "collaborative_filtering"
+
     def _sync_cf_vectors(self) -> None:
-        """The reference upserts the item factors into its vector store
-        here; no vector store is ported yet (ROADMAP.md, M11)."""
+        """Keep the CF item-factor collection in the vector store: recreate
+        it when the dimension, the quantization or the configured bits
+        changed, then upsert the predictable items' factors
+        (gorse_tpu/serve/master.py:588-641)."""
+        if self.vectors is None or self.cf_index is None:
+            return
+        dim = int(self.cf_index.item_factors.shape[1])
+        db_cfg = self.config.database
+        want_q = db_cfg.vector_quantization_type
+        want_bits = db_cfg.vector_quantization_bits
+        info = self.vectors.describe_collection(self.CF_COLLECTION)
+        # the configured bits are compared with the meta record of what this
+        # master last created the collection with: backends normalize the
+        # bits they describe, so describe_collection alone would miss a
+        # bits-only change
+        created_with = None
+        if self.meta is not None:
+            raw = self.meta.get("cf_vector_config")
+            if raw:
+                try:
+                    created_with = json.loads(raw)
+                except ValueError:
+                    created_with = None
+        bits_changed = created_with is not None and (
+            created_with.get("quantization") != want_q
+            or created_with.get("bits") != want_bits
+        )
+        if info is not None and (
+            info["dimension"] != dim
+            or info.get("quantization", "") != want_q
+            or bits_changed
+        ):
+            logger.warning(
+                "recreating CF vector collection: dim %s->%s quantization %r->%r bits->%s",
+                info["dimension"], dim, info.get("quantization", ""), want_q, want_bits,
+            )
+            self.vectors.drop_collection(self.CF_COLLECTION)
+            info = None
+        if info is None:
+            self.vectors.create_collection(
+                self.CF_COLLECTION, dim, distance="dot",
+                quantization=want_q, bits=want_bits,
+            )
+            if self.meta is not None:
+                self.meta.put(
+                    "cf_vector_config",
+                    json.dumps({"quantization": want_q, "bits": want_bits}),
+                )
+        ids, serving = self.cf_index.serving_items()
+        self.vectors.add(self.CF_COLLECTION, ids, serving)
 
     def meta_model_params(self, kind: str) -> dict:
         """Best params from a past hyper-parameter search, if recorded."""

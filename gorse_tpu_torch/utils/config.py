@@ -1,10 +1,11 @@
-"""The configuration the port reads (the ``server`` and ``recommend``
-sections of gorse_tpu/utils/config.py).
+"""The configuration the port reads (the ``database``, ``server`` and
+``recommend`` sections of gorse_tpu/utils/config.py).
 
 Defaults and ``RecommendConfig.hash()`` are the reference's: the worker
 writes that digest into the cache, so both packages must agree on it.
-``Config.to_json`` is the master's meta payload. TOML loading, validation
-and the other sections are not ported yet.
+``Config.to_json`` is the master's meta payload. ``Config.validate`` checks
+the vector store only. TOML loading, the rest of validation and the other
+sections are not ported yet.
 """
 
 from __future__ import annotations
@@ -215,9 +216,72 @@ class RecommendConfig:
 
 
 @dataclasses.dataclass
+class MySQLConfig:
+    isolation_level: str = "READ-UNCOMMITTED"
+    max_open_conns: int = 0
+    max_idle_conns: int = 0
+    conn_max_lifetime: float = 0.0  # seconds
+
+
+@dataclasses.dataclass
+class SQLPoolConfig:
+    max_open_conns: int = 64
+    max_idle_conns: int = 64
+    conn_max_lifetime: float = 60.0  # seconds
+
+
+@dataclasses.dataclass
+class RedisConfig:
+    max_search_results: int = 10000
+
+
+@dataclasses.dataclass
+class DatabaseConfig:
+    data_store: str = "memory://"
+    cache_store: str = "memory://"
+    blob_store: str = ""  # directory path; empty -> [blob].uri or <workdir>/blobs
+    meta_store: str = ":memory:"
+    vector_store: str = ""  # empty -> CF served straight from the device index
+    table_prefix: str = ""
+    data_table_prefix: str = ""
+    cache_table_prefix: str = ""
+    vector_table_prefix: str = ""
+    cache_client_name: str = "gorse_cache_client"
+    mysql: MySQLConfig = dataclasses.field(default_factory=MySQLConfig)
+    postgres: SQLPoolConfig = dataclasses.field(default_factory=SQLPoolConfig)
+    redis: RedisConfig = dataclasses.field(default_factory=RedisConfig)
+    vector_quantization_type: str = ""  # "" | "sq" | "pq" | "rq"
+    vector_quantization_bits: int = 0
+
+    def effective_data_prefix(self) -> str:
+        return self.data_table_prefix or self.table_prefix
+
+    def effective_cache_prefix(self) -> str:
+        return self.cache_table_prefix or self.table_prefix
+
+
+_VECTOR_STORE_URLS = ("memory://", "sqlite://", "proxy://", "none://", "hnsw://",
+                      "qdrant://", "weaviate://", "milvus://")
+
+
+@dataclasses.dataclass
 class Config:
+    database: DatabaseConfig = dataclasses.field(default_factory=DatabaseConfig)
     server: ServerConfig = dataclasses.field(default_factory=ServerConfig)
     recommend: RecommendConfig = dataclasses.field(default_factory=RecommendConfig)
+
+    def validate(self) -> None:
+        """The reference's checks of the vector store's URL and quantization
+        (gorse_tpu/utils/config.py:476-485); the other checks are not
+        ported yet."""
+        url = self.database.vector_store
+        if url and not any(url.startswith(k) or url == k.rstrip("://")
+                           for k in _VECTOR_STORE_URLS):
+            raise ValueError(f"unsupported store URL {url!r}")
+        if self.database.vector_quantization_type not in ("", "sq", "pq", "rq"):
+            raise ValueError(
+                f"unsupported vector quantization {self.database.vector_quantization_type!r}"
+            )
 
     def to_json(self) -> str:
         return json.dumps(dataclasses.asdict(self), default=str)

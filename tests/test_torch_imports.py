@@ -27,7 +27,8 @@ def test_port_imports_no_jax_and_no_reference():
     assert "gorse_tpu_torch.ops.topk" in modules and "gorse_tpu_torch.serve.rest" in modules
     for name in ("data.dataset", "data.loaders", "models.base", "models.bpr", "models.params",
                  "models.registry", "ops.bpr_kernel", "ops.metrics", "ops.sampling",
-                 "serve.master", "storage.meta"):
+                 "serve.master", "storage.meta", "storage.vectors", "storage.none",
+                 "utils.config"):
         assert f"gorse_tpu_torch.{name}" in modules
     code = (
         "import importlib, json, sys\n"
@@ -49,9 +50,12 @@ def _entry_points():
     from gorse_tpu_torch.logics.cf import MatrixFactorizationIndex
     from gorse_tpu_torch.models import BPR, Params, create_mf_model
     from gorse_tpu_torch.ops import topk
+    from gorse_tpu_torch.storage import vectors
 
     q = np.ones((2, 4), np.float32)
     items = np.ones((8, 4), np.float32)
+    codes = np.ones((8, 4), np.uint8)
+    row = np.ones(8, np.float32)
     return {
         "resolve_device": lambda device: __import__("gorse_tpu_torch").resolve_device(device),
         "prepare_items": lambda device: topk.prepare_items(items, device=device),
@@ -65,12 +69,21 @@ def _entry_points():
         ),
         "bpr": lambda device: BPR(Params(n_factors=4), device=device),
         "create_mf_model": lambda device: create_mf_model("bpr", device=device),
+        "prepare_sq_items": lambda device: topk.prepare_sq_items(codes, row, row, device=device),
+        "sq_topk": lambda device: topk.sq_topk(q, codes, row, row, 3, device=device),
+        "pq_topk": lambda device: topk.pq_topk(q, codes, np.ones((4, 256, 1), np.float32), row,
+                                               3, device=device),
+        "rq_topk": lambda device: topk.rq_topk(q, codes, row, row, np.eye(4, dtype=np.float32),
+                                               row, 3, 2, 4, device=device),
+        "vector_store": lambda device: vectors.MemoryVectorStore(device=device),
+        "open_vector_store": lambda device: vectors.open_vector_store("sqlite://", device=device),
     }
 
 
 @pytest.mark.parametrize("name", ["resolve_device", "prepare_items", "dot_topk",
                                   "dot_topk_xla", "topk_excluding", "index", "bpr",
-                                  "create_mf_model"])
+                                  "create_mf_model", "prepare_sq_items", "sq_topk", "pq_topk",
+                                  "rq_topk", "vector_store", "open_vector_store"])
 def test_entry_points_default_to_cuda(name, monkeypatch):
     """``device=None`` means the card: without CUDA it raises; an explicit
     ``device="cpu"`` runs the plain versions."""

@@ -12,6 +12,13 @@ order only, as in tests/test_torch_bpr.py). The worker's lists must equal
 the reference index's bf16 kernel route (``search_users(use_pallas=True,
 interpret=True)``) on the port's saved index: ids exact, scores to 1e-6
 (the two sum the same bf16 products in another order).
+
+The vector-store sync: both masters' indexes built from the same numpy
+factors, then ``_sync_cf_vectors`` into each package's memory store. The
+collections must hold the same ids, codes, scales and mins; queries agree
+within tests/test_torch_vectors.py's tolerance (the kernel route: above
+1,024 predictable items); a quantization or bits change recreates the
+collection and an unchanged config does not.
 """
 
 import json
@@ -19,7 +26,10 @@ import re
 
 import numpy as np
 import pytest
+from test_torch_vectors import _assert_lists, _magnitudes
 
+import gorse_tpu.storage.vectors as RV
+from gorse_tpu.data.dict import FreqDict as RefFreqDict
 from gorse_tpu.logics.cf import MatrixFactorizationIndex as RefIndex
 from gorse_tpu.models.bpr import BPR as RefBPR
 from gorse_tpu.serve.master import Master as RefMaster
@@ -31,6 +41,7 @@ from gorse_tpu.storage.data import MemoryDataStore as RefData
 from gorse_tpu.storage.meta import MetaStore as RefMeta
 from gorse_tpu.utils.config import Config as RefConfig
 from gorse_tpu_torch.data.loaders import synthetic_cf
+from gorse_tpu_torch.logics.cf import MatrixFactorizationIndex
 from gorse_tpu_torch.models import bpr as port_bpr
 from gorse_tpu_torch.serve.master import Master
 from gorse_tpu_torch.serve.worker import Worker
@@ -40,6 +51,7 @@ from gorse_tpu_torch.storage.blob import BlobStore
 from gorse_tpu_torch.storage.cache import MemoryCacheStore
 from gorse_tpu_torch.storage.data import MemoryDataStore
 from gorse_tpu_torch.storage.meta import COLLABORATIVE_FILTERING_MODEL, MetaStore
+from gorse_tpu_torch.storage.vectors import MemoryVectorStore
 from gorse_tpu_torch.utils.config import Config
 
 N_USERS, N_ITEMS, EPOCHS = 90, 70, 5
@@ -91,7 +103,7 @@ def masters(tmp_path_factory):
     ref_data, ref_cache = RefData(), RefCache()
     _fill(ref_data, ref_types)
     ref = RefMaster(_configure(RefConfig()), ref_data, ref_cache,
-                    RefBlobStore(tmp / "ref_blobs"), RefMeta())
+                    RefBlobStore(tmp / "ref_blobs"), RefMeta(), vector_store=RV.MemoryVectorStore())
     ref_loaded = ref.load_dataset()
     ref.train_collaborative_filtering(ref_loaded)
     ref_init = RefBPR({})
@@ -101,7 +113,7 @@ def masters(tmp_path_factory):
     data, cache = MemoryDataStore(), MemoryCacheStore()
     _fill(data, types)
     port = Master(_configure(Config()), data, cache, BlobStore(tmp / "blobs"), MetaStore(),
-                  device="cpu")
+                  device="cpu", vector_store=MemoryVectorStore(device="cpu"))
     mp = pytest.MonkeyPatch()
     init = port_bpr.BPR.init
     mp.setattr(port_bpr.BPR, "init",
@@ -188,3 +200,93 @@ def test_master_resumes_the_index_from_meta(masters):
     assert again.cf_index is not None
     assert np.array_equal(again.cf_index.item_factors.numpy(), port.cf_index.item_factors.numpy())
     assert again.training_mesh() is None
+
+
+def test_fit_syncs_the_vector_store(masters):
+    """train_collaborative_filtering keeps the model and upserts the
+    predictable items into the CF collection, as the reference does."""
+    ref, _, port, _ = masters
+    assert np.array_equal(port.cf_model.item_factors.numpy(), port.cf_index.item_factors.numpy())
+    name = Master.CF_COLLECTION
+    assert name == RefMaster.CF_COLLECTION
+    assert port.vectors.describe_collection(name) == ref.vectors.describe_collection(name)
+    ids, _ = port.cf_index.serving_items()
+    assert list(port.vectors._collections[name].rows) == ids
+    assert list(ref.vectors._collections[name].rows) == ids
+    assert json.loads(port.meta.get("cf_vector_config")) == {"quantization": "", "bits": 0}
+
+
+N_VEC_ITEMS, VEC_DIM = 1200, 8
+
+
+def _vector_masters(tmp, quantization, bits):
+    """Both masters with an index from the same numpy factors (every 7th
+    item unpredictable: 1,028 serving rows) and an empty memory store."""
+    rng = np.random.default_rng(21)
+    uf = rng.normal(size=(6, VEC_DIM)).astype(np.float32)
+    itf = rng.normal(size=(N_VEC_ITEMS, VEC_DIM)).astype(np.float32)
+    itf[10] = itf[3]  # a duplicate item
+    pred = np.ones(N_VEC_ITEMS, bool)
+    pred[::7] = False
+    users = {"names": [f"u{u}" for u in range(6)], "freqs": [1] * 6}
+    items = {"names": [f"i{i}" for i in range(N_VEC_ITEMS)], "freqs": [1] * N_VEC_ITEMS}
+    ref_cfg, cfg = RefConfig(), Config()
+    for c in (ref_cfg, cfg):
+        c.database.vector_quantization_type = quantization
+        c.database.vector_quantization_bits = bits
+    ref = RefMaster(ref_cfg, RefData(), RefCache(), RefBlobStore(tmp / "rb"), RefMeta(),
+                    vector_store=RV.MemoryVectorStore())
+    ref.cf_index = RefIndex(uf, itf, RefFreqDict.from_dict(users), RefFreqDict.from_dict(items),
+                            item_predictable=pred)
+    port = Master(cfg, MemoryDataStore(), MemoryCacheStore(), BlobStore(tmp / "pb"), MetaStore(),
+                  device="cpu", vector_store=MemoryVectorStore(device="cpu"))
+    port.cf_index = MatrixFactorizationIndex.from_numpy(uf, itf, users, items,
+                                                        item_predictable=pred, device="cpu")
+    return ref, port, itf
+
+
+@pytest.mark.parametrize("quantization,bits", [("sq", 0), ("", 0), ("pq", 4), ("rq", 2)])
+def test_sync_cf_vectors_is_the_reference(tmp_path, monkeypatch, quantization, bits):
+    monkeypatch.setattr(RV, "_device_serving_enabled", lambda n: n >= 1024)
+    ref, port, itf = _vector_masters(tmp_path, quantization, bits)
+    ref._sync_cf_vectors()
+    port._sync_cf_vectors()
+    name = Master.CF_COLLECTION
+    assert port.vectors.describe_collection(name) == ref.vectors.describe_collection(name)
+    a, b = port.vectors._collections[name], ref.vectors._collections[name]
+    assert list(a.rows) == list(b.rows) and len(a.rows) == 1028
+    for vid in b.rows:
+        np.testing.assert_array_equal(a.rows[vid], b.rows[vid])
+        assert (a.scales.get(vid), a.mins.get(vid), a.norms2[vid]) == (
+            b.scales.get(vid), b.mins.get(vid), b.norms2[vid])
+    q = itf[1:17] * 1.5  # 16 items' factors
+    got = port.vectors.query(name, q, 10)
+    want = ref.vectors.query(name, q, 11)
+    mag, ids = _magnitudes(ref.vectors, name, q, kernel=quantization != "")
+    _assert_lists(got, want, 10, mag, ids)
+    if quantization == "sq":
+        assert a.encoded["kind"] == "sq" and a.encoded["prepared"].n_items == 1028
+
+
+def test_sync_cf_vectors_recreates_on_config_changes(tmp_path):
+    """A quantization or bits-only change recreates the collection (the
+    meta record of what it was created with), an unchanged config keeps it,
+    and a dimension change recreates it."""
+    ref, port, _ = _vector_masters(tmp_path, "sq", 0)
+    name = Master.CF_COLLECTION
+    for m in (ref, port):
+        m.vectors.create_collection(name, 3)  # stale: the wrong dimension
+        m._sync_cf_vectors()
+    seen = [port.vectors._collections[name]]
+    for q, bits in (("sq", 0), ("rq", 2), ("rq", 4), ("rq", 4), ("", 0)):
+        for m in (ref, port):
+            m.config.database.vector_quantization_type = q
+            m.config.database.vector_quantization_bits = bits
+            m._sync_cf_vectors()
+        assert port.vectors.describe_collection(name) == ref.vectors.describe_collection(name)
+        assert port.meta.get("cf_vector_config") == ref.meta.get("cf_vector_config")
+        seen.append(port.vectors._collections[name])
+    info = port.vectors.describe_collection(name)
+    assert (info["dimension"], info["quantization"]) == (VEC_DIM, "")
+    # the same collection (upserted) when unchanged, recreated at each change
+    assert [a is b for a, b in zip(seen, seen[1:])] == [True, False, False, True, False]
