@@ -10,16 +10,23 @@ any failure ends the run with a non-zero exit code:
 1. Environment: the card's name and power limit, the torch version, and the
    build of ``gorse_tpu_torch/csrc/topk.cu`` (its bf16 and SQ entries) and
    ``bpr.cu`` (one nvcc each, started together) with its seconds.
-2. Kernels: every kernel of the serving path (``block_max``, ``block_seeds``,
-   ``block_topk`` gated and ungated, ``merge_topk``) held against its plain
-   PyTorch version
+2. Kernels: every kernel of the serving path (``block_max`` with and
+   without its group output, ``block_seeds`` on block and on group maxima,
+   ``block_topk`` under the block gate, the group gate and no gate,
+   ``merge_topk``) held against its plain PyTorch version
    on the card, on small tie-heavy inputs and at the serving shape (1M x 64
    bf16 items, a 256-user chunk, k = 10 and the path's k = 100 + widest
    history). Indices must be equal and scores equal (tolerance 0: kernel and
    plain version sum in the same order). Then each kernel's median time
    (CUDA events), bound, plain time and library time, and the whole top-k
    per chunk, gated (K4 + K5) and ungated (K6), against the bound of the
-   top-k itself.
+   top-k itself. Then K6's function where the dispatch sends it (k between
+   n_blocks and n_pad / 4): 27,000 x 64 items (the repo's ml-20m catalog) at
+   k = 150 and 300, and 500,000 x 64 at k = 2048 (the widest fetch on the
+   largest catalog that takes the kernels there), held as above, and its
+   two routes timed in turn: the old one (no gate) and the group gate, each
+   with its launches, candidates per query, plain time, the top-k's bound
+   and the library's time.
 3. Path: a 1,000,000 x 64 item index and 50,000 users, made from ``--seed``,
    saved in gorse_tpu's index format to a blob store; a 4,096-user shard with
    feedback histories of up to 200 items in a MemoryDataStore;
@@ -50,16 +57,20 @@ any failure ends the run with a non-zero exit code:
    ``train_collaborative_filtering`` (fit_epoch cut to 10) on the card;
    the index saved to a blob store; ``Worker.sync_and_recommend`` of the
    master's meta fills every user's cache; a sample of lists equals the
-   plain top-k and ``GET /api/recommend`` equals the cache. The master also
+   plain top-k and ``GET /api/recommend`` equals the cache; each chunk's
+   launches are those of the route ``kernel_route`` gives its fetch (the
+   group gate on this 15-block catalog). The master also
    syncs its serving items into an sq ``MemoryVectorStore``; 16 item
-   queries of that collection at k = 10 (gated) and at the cache size, 100
-   (more than its 15 blocks: ungated, K6), go through the SQ kernels and
-   equal the plain version.
-7. Vector store: the SQ kernels (``block_max_sq``, ``block_topk_sq`` gated
-   and ungated, with ``block_seeds`` and ``merge_topk``) held against their
+   queries of that collection at k = 10 (the block gate) and at the cache
+   size, 100 (more than its 15 blocks: the group gate), go through the SQ
+   kernels and equal the plain version.
+7. Vector store: the SQ kernels (``block_max_sq`` with and without groups,
+   ``block_topk_sq`` under each gate, with ``block_seeds`` and
+   ``merge_topk``) held against their
    plain versions on the card, tolerance 0, on small tie-heavy tables
    (duplicate and constant rows, catalogs not a multiple of 256, k >
-   n_blocks, k = n) and at bench.py's ``topk_qps_1000k_sq8`` shape (1M x 64
+   n_blocks, k = n), at 27,000 (k = 150, 300) and 500,000 rows (k = 2048),
+   and at bench.py's ``topk_qps_1000k_sq8`` shape (1M x 64
    rows from ``--seed``, a 256-query chunk, k = 10, dot and euclidean);
    their median times (``block_topk_sq`` gated and ungated), bounds, plain
    and library times, and the whole SQ top-k per chunk. Then ``MemoryVectorStore.add`` of the 1M rows and 1,024
@@ -109,7 +120,7 @@ HBM_BYTES_S = 3.35e12
 BF16_FLOP_S = 989e12
 
 # block_seeds, block_topk and merge_topk together replace K5 (gated);
-# block_topk and merge_topk ungated replace K6.
+# with block_max's group output, or ungated, they replace K6.
 REPLACES = {
     "block_max": "gorse_tpu/ops/topk.py:361",
     "block_seeds": "gorse_tpu/ops/topk.py:442",
@@ -117,6 +128,12 @@ REPLACES = {
     "merge_topk": "gorse_tpu/ops/topk.py:442",
 }
 KERNELS = ("block_max", "block_seeds", "block_topk", "merge_topk")
+# K6's function where kernel_route sends it (n_blocks < k <= n_pad / 4),
+# as (items, k): the worker's fetch of 100 + history on the repo's ml-20m
+# catalog (bench.py:315-320), below and above 256, and the widest kernel
+# fetch (logics/cf.py _KERNEL_FETCH_MAX) on the largest catalog that
+# still takes this route for it
+ROUTE_SHAPES = ((27_000, 150), (27_000, 300), (500_000, 2048))
 
 # BPR: the sampled sweep replaces K2 (and is K1's body per step), the pairs
 # sweep K3, the fold K1's sweep boundary (bpr_kernel.py:392)
@@ -230,46 +247,80 @@ def _sorted_live(cand, count):
     return torch.where(live, cand, topk._INT64_MIN).sort(dim=1, descending=True).values
 
 
+def hold_chain(name: str, qp, table, b: int, n: int, k: int, aff=None) -> dict:
+    """``block_max`` (``_sq`` with ``aff``) with and without its group
+    output, ``block_seeds`` on the block and on the group maxima,
+    ``block_topk`` (``_sq``) under the block gate, the group gate (where
+    4 k <= n_pad) and no gate, and ``merge_topk``, each against its plain
+    version on the card: equal outputs (tolerance 0). Returns the largest
+    absolute score difference seen per kernel."""
+    import torch
+
+    from gorse_tpu_torch.ops import topk
+
+    sq = "" if aff is None else "_sq"
+
+    def maxima(groups):
+        if aff is None:
+            return topk.block_max(qp, table, n, groups)
+        return topk.block_max_sq(qp, table, aff, n, groups)
+
+    def topk_k(gate):
+        if aff is None:
+            return topk.block_topk(qp, table, gate, b, n, k)
+        return topk.block_topk_sq(qp, table, aff, gate, b, n, k)
+
+    bm, gm = maxima(True)
+    bm_p, gm_p = topk.block_max_plain(qp, table, n, aff, groups=True)
+    check(torch.equal(maxima(False), bm_p) and torch.equal(bm, bm_p) and torch.equal(gm, gm_p),
+          f"{name}: block_max{sq} (block and group maxima) equals its plain version")
+    err = {"block_max" + sq: float(max((bm - bm_p).abs().max(), (gm - gm_p).abs().max())),
+           "block_seeds": 0.0, "block_topk" + sq: 0.0, "merge_topk": 0.0}
+    gates = {"block": (topk.block_seeds(bm_p, b, k), topk.block_seeds_plain(bm_p, b, k))}
+    if topk.GROUP * k <= table.shape[0]:
+        gates["group"] = tuple(
+            g._replace(bmax=bm_p, width=topk.GROUP)
+            for g in (topk.block_seeds(gm_p, b, k), topk.block_seeds_plain(gm_p, b, k)))
+    gates["none"] = (None, None)
+    for route, (gate, gate_p) in gates.items():
+        if gate is not None:
+            check(torch.equal(gate.seeds, gate_p.seeds) and torch.equal(gate.fired, gate_p.fired),
+                  f"{name} {route}: block_seeds equals its plain version")
+            err["block_seeds"] = max(err["block_seeds"],
+                                     float((gate.seeds - gate_p.seeds).abs().max()))
+        cand, count = topk_k(gate)
+        cand_p, count_p = topk.block_topk_plain(qp, table, gate_p, b, n, k, aff)
+        check(torch.equal(count, count_p), f"{name} {route}: block_topk{sq} counts")
+        live, live_p = _sorted_live(cand, count), _sorted_live(cand_p, count_p)
+        width = live_p.shape[1]
+        check(torch.equal(live[:, :width], live_p), f"{name} {route}: block_topk{sq} keys")
+        filled = live_p[:b] != topk._INT64_MIN
+        if bool(filled.any()):
+            diff = (topk._decode(live[:b, :width])[0] - topk._decode(live_p[:b])[0]).abs()
+            err["block_topk" + sq] = max(err["block_topk" + sq], float(diff[filled].max()))
+        s, i = topk.merge_topk(cand, count, b, k)
+        s_p, i_p = topk.merge_topk_plain(cand_p, count_p, b, k)
+        check(torch.equal(i, i_p) and torch.equal(s, s_p), f"{name} {route}: merge_topk")
+        err["merge_topk"] = max(err["merge_topk"], float((s - s_p).abs().max()))
+        log(f"  {name} k={k} {route} gate: equal; candidates per query "
+            f"{int(count[:b].min())}..{int(count[:b].max())} in a buffer of {cand.shape[1]}")
+        del cand, count, cand_p, count_p, live, live_p
+    torch.cuda.empty_cache()
+    return err
+
+
 def hold_kernels(name: str, queries, prep, k: int) -> dict:
-    """Each kernel against its plain version on the card: equal outputs.
-    Returns the largest absolute score difference seen per kernel."""
+    """Each kernel against its plain version on the card under every gate
+    (hold_chain), then the dot_topk route. Returns the largest absolute
+    score difference seen per kernel."""
     import torch
 
     from gorse_tpu_torch.ops import topk
 
     b = queries.shape[0]
     qp = topk._pad_queries(queries, prep, topk._round_up(b, topk.QUERY_TILE))
-    err = {}
-    bm = topk.block_max(qp, prep.table, prep.n_items)
-    bm_plain = topk.block_max_plain(qp, prep.table, prep.n_items)
-    check(torch.equal(bm, bm_plain), f"{name}: block_max equals its plain version")
-    err["block_max"] = float((bm - bm_plain).abs().max())
-    gate = topk.block_seeds(bm_plain, b, k)
-    gate_p = topk.block_seeds_plain(bm_plain, b, k)
-    check(torch.equal(gate.seeds, gate_p.seeds) and torch.equal(gate.fired, gate_p.fired),
-          f"{name}: block_seeds equals its plain version")
-    err["block_seeds"] = float((gate.seeds - gate_p.seeds).abs().max())
-    err["block_topk"] = err["merge_topk"] = 0.0
-    for gated in (True, False):
-        cand, count = topk.block_topk(qp, prep.table, gate if gated else None, b,
-                                      prep.n_items, k)
-        cand_p, count_p = topk.block_topk_plain(qp, prep.table, gate_p if gated else None, b,
-                                                prep.n_items, k)
-        check(torch.equal(count, count_p), f"{name} gated={gated}: block_topk counts")
-        live, live_p = _sorted_live(cand, count), _sorted_live(cand_p, count_p)
-        width = live_p.shape[1]
-        check(torch.equal(live[:, :width], live_p), f"{name} gated={gated}: block_topk keys")
-        filled = live_p[:b] != topk._INT64_MIN
-        if bool(filled.any()):
-            diff = (topk._decode(live[:b, :width])[0] - topk._decode(live_p[:b])[0]).abs()
-            err["block_topk"] = max(err["block_topk"], float(diff[filled].max()))
-        s, i = topk.merge_topk(cand, count, b, k)
-        s_p, i_p = topk.merge_topk_plain(cand_p, count_p, b, k)
-        check(torch.equal(i, i_p) and torch.equal(s, s_p), f"{name} gated={gated}: merge_topk")
-        err["merge_topk"] = max(err["merge_topk"], float((s - s_p).abs().max()))
-        log(f"  {name} k={k} gated={gated}: equal; candidates per query "
-            f"{int(count[:b].min())}..{int(count[:b].max())} in a buffer of {cand.shape[1]}")
-    s, i = topk.dot_topk(queries, prep, k)
+    err = hold_chain(name, qp, prep.table, b, prep.n_items, k)
+    s, i = topk.dot_topk(queries, prep, k, device=prep.table.device)
     s_p, i_p = topk.dot_topk_plain(queries, prep, k)
     check(torch.equal(i, i_p) and torch.equal(s, s_p), f"{name}: dot_topk route")
     # the plain version itself against an independent f32 product of the
@@ -378,6 +429,97 @@ def time_kernels(queries, prep, k: int) -> dict:
             candidate_bytes=cand_bytes - b_pad * 4,
         )
     return out
+
+
+def plain_chain(qp, table, b: int, n: int, k: int, route: str):
+    """``route``'s passes and the merge by the plain versions:
+    ``(scores, ids, count)``."""
+    from gorse_tpu_torch.ops import topk
+
+    gate = None
+    if route != "none":
+        bm, gm = topk.block_max_plain(qp, table, n, groups=True)
+        if route == "group":
+            gate = topk.block_seeds_plain(gm, b, k)._replace(bmax=bm, width=topk.GROUP)
+        else:
+            gate = topk.block_seeds_plain(bm, b, k)
+    cand, count = topk.block_topk_plain(qp, table, gate, b, n, k)
+    return (*topk.merge_topk_plain(cand, count, b, k), count)
+
+
+def time_routes(queries, prep, k: int) -> dict:
+    """K6's function at one shape by its two routes, in turn: the old one
+    (no gate: every block fires, then the merge of every candidate) and the
+    new one (the group gate). Per route: the chain's median ms (its host
+    read of the fired counts included), plain ms, launches of one chunk and
+    candidates per query (min, max); the top-k's own bound and the library's
+    bf16 ``torch.matmul`` + ``torch.topk`` beside them; and the new route's
+    stages one by one, with ``block_max`` without groups for comparison."""
+    import torch
+
+    from gorse_tpu_torch.ops import topk
+
+    b = queries.shape[0]
+    qp = topk._pad_queries(queries, prep, topk._round_up(b, topk.QUERY_TILE))
+    table, n = prep.table, prep.n_items
+    check(topk.kernel_route(table.shape[0], k) == "group", f"{n} items, k = {k}: the group gate")
+    fn_ms, fn_by = bound(table.numel() * 2 + qp.numel() * 2 + b * k * 8, 2.0 * b * n * prep.dim)
+    lib = median_ms(lambda: torch.topk(torch.matmul(qp, table.T)[:b, :n], k, dim=1), 10)
+    out, lists = {}, []
+    for label, route in (("old", "none"), ("new", "group")):
+        def chain():
+            cand, count = topk._candidates(qp, table, b, n, k, route)
+            return (*topk.merge_topk(cand, count, b, k), count)
+
+        wrappers = zero_counts()
+        s, i, count = chain()
+        torch.cuda.synchronize()
+        launches = {w.__name__: w.launches for w in wrappers if w.launches}
+        s_p, i_p, _ = plain_chain(qp, table, b, n, k, route)
+        check(torch.equal(s, s_p) and torch.equal(i, i_p), f"{n} items k={k} {route}: plain")
+        lists.append((s, i))
+        out[label] = dict(
+            route=route, ms=median_ms(chain, 10),
+            plain_ms=median_ms(lambda: plain_chain(qp, table, b, n, k, route), 3),
+            bound_ms=fn_ms, bound_by=fn_by, library_ms=lib, launches=launches,
+            candidates=[int(count[:b].min()), int(count[:b].max())],
+        )
+        torch.cuda.empty_cache()
+    check(all(torch.equal(x, y) for x, y in zip(*lists)), "both routes give the same lists")
+    bm, gm = topk.block_max(qp, table, n, True)
+    gate = topk.block_seeds(gm, b, k)._replace(bmax=bm, width=topk.GROUP)
+    cand, count = topk.block_topk(qp, table, gate, b, n, k)
+    out["new"]["stages_ms"] = dict(
+        block_max_groups=median_ms(lambda: topk.block_max(qp, table, n, True), 10),
+        block_max=median_ms(lambda: topk.block_max(qp, table, n), 10),
+        block_seeds=median_ms(lambda: topk.block_seeds(gm, b, k), 10),
+        block_topk=median_ms(lambda: topk.block_topk(qp, table, gate, b, n, k), 10),
+        merge_topk=median_ms(lambda: topk.merge_topk(cand, count, b, k), 10),
+    )
+    out["new"]["fired_groups"] = [int(gate.fired.min()), int(gate.fired.max())]
+    return out
+
+
+def phase_routes(dev, seed: int) -> tuple[dict, dict]:
+    """K6's function at ROUTE_SHAPES: every kernel held under every gate,
+    then the two routes timed. Returns (errors, timings by "items x k")."""
+    import torch
+
+    from gorse_tpu_torch.ops import topk
+
+    rng = np.random.default_rng(seed + 3)
+    queries = torch.as_tensor(rng.standard_normal((256, DIM), dtype=np.float32), device=dev)
+    errors, out, preps = {}, {}, {}
+    for n, k in ROUTE_SHAPES:
+        if n not in preps:
+            items = rng.standard_normal((n, DIM), dtype=np.float32)
+            preps = {n: topk.prepare_items(torch.as_tensor(items, device=dev), device=dev)}
+        for key, v in hold_kernels(f"routes{n}", queries, preps[n], k).items():
+            errors[key] = max(errors.get(key, 0.0), v)
+        out[f"{n}x{k}"] = rows = time_routes(queries, preps[n], k)
+        for label, row in rows.items():
+            log(f"  time {n} items k={k} {label} route: " + json.dumps(row))
+    return errors, out
 
 
 def phase_kernels(user_factors, item_factors, histories, dev):
@@ -910,6 +1052,37 @@ def phase_training(train, test, csr, dev) -> dict:
 # ---------------------------------------------------------------- phase 6
 
 
+def route_launches(route: str, sq: bool) -> dict:
+    """The launches of one query chunk on ``route`` (topk.kernel_route's
+    "block", "group" or "none"; "f32" for the f32 route), the nonzero ones."""
+    if route == "f32":
+        return {}
+    sfx = "_sq" if sq else ""
+    names = ["block_topk" + sfx, "merge_topk"]
+    if route != "none":
+        names = ["block_max" + sfx, "block_seeds"] + names
+    return dict.fromkeys(names, 1)
+
+
+def worker_routes(index, users: list[str], data, n: int) -> list[str]:
+    """The route of each 256-user chunk of ``search_users(users, n,
+    exclude=histories)``, from its fetch as logics/cf.py computes it."""
+    from gorse_tpu_torch.ops import topk
+
+    n_serving = len(index._serving_rows)
+    n_eff = min(n, n_serving)
+    n_pad = index._prepared_items.table.shape[0]
+    size = index._SEARCH_CHUNK
+    routes = []
+    for lo in range(0, len(users), size):
+        width = max(len(data.get_user_feedback(u)) for u in users[lo : lo + size])
+        if n_eff + width > index._KERNEL_FETCH_MAX:
+            routes.append("f32")
+        else:
+            routes.append(topk.kernel_route(n_pad, min(n_eff + width, n_serving)))
+    return routes
+
+
 def phase_master(dev) -> dict:
     import torch
 
@@ -981,23 +1154,26 @@ def phase_master(dev) -> dict:
               and len(serving_ids) >= 1024,
               f"master: the sq collection holds the {len(serving_ids)} serving items")
         probe = serving[:: max(len(serving) // MASTER_SAMPLE_USERS, 1)][:MASTER_SAMPLE_USERS]
-        # k = 10 takes the gated route; the cache size (100) exceeds the
-        # collection's 15 blocks, so it takes the ungated one (K6)
-        gated = {"block_max_sq": 1, "block_seeds": 1, "block_topk_sq": 1, "merge_topk": 1}
-        ungated = {"block_topk_sq": 1, "merge_topk": 1}
-        vec_launches = {}
-        for k, want in ((SQ_K, gated), (cfg.recommend.cache_size, ungated)):
+        # k = 10 takes the block gate; the cache size (100) exceeds the
+        # collection's 15 blocks, so it takes the group gate (K6's function)
+        n_pad = topk._round_up(len(serving_ids), topk.BLOCK_N)
+        vec_launches, vec_routes = {}, {}
+        for k in (SQ_K, cfg.recommend.cache_size):
+            vec_routes[k] = topk.kernel_route(n_pad, k)
+            want = route_launches(vec_routes[k], sq=True)
             lists, _, counts = query_counted(vectors, name, probe, k)
-            check(counts == want, f"master's collection at k = {k}: launches {counts}")
+            check(counts == want, f"master's collection at k = {k}: launches {counts}, want "
+                  f"{want} ({vec_routes[k]} gate)")
             got = [[(x.id, x.score) for x in row] for row in lists]
             check(got == store_lists(vectors, name, probe, k,
                                      vectors._collections[name].encoded["prepared"], "dot"),
                   f"master's collection at k = {k}: lists equal sq_topk_plain on the card")
             vec_launches[k] = counts
-        result.update(vector_rows=len(serving_ids), vector_launches=vec_launches)
+        result.update(vector_rows=len(serving_ids), vector_launches=vec_launches,
+                      vector_routes=vec_routes)
         log(f"  master's sq collection: {len(serving_ids)} rows; {MASTER_SAMPLE_USERS} item "
-            f"queries at k = {SQ_K} (gated) and {cfg.recommend.cache_size} (ungated) through "
-            "the kernels equal the plain version")
+            f"queries at k = {SQ_K} and {cfg.recommend.cache_size} (gates "
+            f"{json.dumps(vec_routes)}) through the kernels equal the plain version")
 
         # ---- the worker serves the fresh index (its own path's counts)
         worker = Worker(cfg, data, cache, blobs, device=dev)
@@ -1011,12 +1187,19 @@ def phase_master(dev) -> dict:
         check(refreshed == n_users, f"worker refreshed {refreshed} of {n_users} users")
         check(worker.cf_model_id == meta["cf_model_id"] and worker.cf_index.device == dev,
               "worker: pulled the master's index onto the card")
-        # 3,706 items are 15 blocks of 256, fewer than any fetch (100 + the
-        # widest history): every chunk takes the ungated route (K6)
-        chunks = -(-n_users // MatrixFactorizationIndex._SEARCH_CHUNK)
-        check(topk_launches == {"block_max": 0, "block_seeds": 0, "block_topk": chunks,
-                                "merge_topk": chunks}, f"worker: {topk_launches}")
+        # each chunk's launches are those of the route its fetch (100 + the
+        # chunk's widest history) takes: more than the catalog's 15 blocks,
+        # so the group gate while 4 x fetch fits the padded catalog
         index = worker.cf_index
+        routes = worker_routes(index, worker.pull_users([worker.node_id]), data,
+                               cfg.recommend.cache_size)
+        want = dict.fromkeys(KERNELS, 0)
+        for route in routes:
+            for kernel, c in route_launches(route, sq=False).items():
+                want[kernel] += c
+        log(f"  worker chunks by gate: "
+            f"{json.dumps({r: routes.count(r) for r in sorted(set(routes))})}")
+        check(topk_launches == want, f"worker: launches {topk_launches}, want {want}")
         check(torch.equal(index.item_factors, master.cf_index.item_factors),
               "worker: the index it pulled is the one the master trained")
         trained = {ds.user_dict.to_name(u) for u, fb in enumerate(train.user_feedback) if fb}
@@ -1056,6 +1239,7 @@ def phase_master(dev) -> dict:
         users=n_users, items=n_items, feedback=train.count_feedback(), n_steps=n_steps,
         fit_s=float(fit_s.group(1)), ndcg=model_meta["score"], launches=launches,
         worker_topk_launches=topk_launches, refreshed=refreshed,
+        worker_routes={r: routes.count(r) for r in sorted(set(routes))},
     )
     return result
 
@@ -1117,39 +1301,16 @@ def sq_rescored(queries, prep, metric: str, idx):
 
 
 def hold_sq_kernels(name: str, queries, prep, k: int, metric: str) -> dict:
-    """block_max_sq, block_seeds on its maxima, block_topk_sq gated and
-    ungated and merge_topk against their plain versions on the card:
-    equal outputs (tolerance 0). Returns the largest |difference| seen."""
+    """The SQ kernels against their plain versions on the card under every
+    gate (hold_chain), then the sq_topk route. Returns the largest
+    |difference| seen per kernel."""
     import torch
 
     from gorse_tpu_torch.ops import topk
 
     b = queries.shape[0]
     qp, aff = topk._sq_operands(queries, prep, topk._round_up(b, topk.QUERY_TILE), metric)
-    n = prep.n_items
-    bm = topk.block_max_sq(qp, prep.table, aff, n)
-    bm_p = topk.block_max_plain(qp, prep.table, n, aff)
-    check(torch.equal(bm, bm_p), f"{name}: block_max_sq equals its plain version")
-    gate = topk.block_seeds(bm_p, b, k)
-    gate_p = topk.block_seeds_plain(bm_p, b, k)
-    check(torch.equal(gate.seeds, gate_p.seeds) and torch.equal(gate.fired, gate_p.fired),
-          f"{name}: block_seeds on the SQ maxima equals its plain version")
-    err = {"block_max_sq": float((bm - bm_p).abs().max()), "block_topk_sq": 0.0}
-    for gated in (True, False):
-        cand, count = topk.block_topk_sq(qp, prep.table, aff, gate if gated else None, b, n, k)
-        cand_p, count_p = topk.block_topk_plain(qp, prep.table, gate_p if gated else None, b, n,
-                                                k, aff)
-        check(torch.equal(count, count_p), f"{name} gated={gated}: block_topk_sq counts")
-        live, live_p = _sorted_live(cand, count), _sorted_live(cand_p, count_p)
-        width = live_p.shape[1]
-        check(torch.equal(live[:, :width], live_p), f"{name} gated={gated}: block_topk_sq keys")
-        filled = live_p[:b] != topk._INT64_MIN
-        if bool(filled.any()):
-            diff = (topk._decode(live[:b, :width])[0] - topk._decode(live_p[:b])[0]).abs()
-            err["block_topk_sq"] = max(err["block_topk_sq"], float(diff[filled].max()))
-        s, i = topk.merge_topk(cand, count, b, k)
-        s_p, i_p = topk.merge_topk_plain(cand_p, count_p, b, k)
-        check(torch.equal(i, i_p) and torch.equal(s, s_p), f"{name} gated={gated}: merge_topk")
+    err = hold_chain(f"{name} sq", qp, prep.table, b, prep.n_items, k, aff)
     s, i = topk.sq_topk(queries, prep, k_top=k, metric=metric, device=prep.table.device)
     s_p, i_p = topk.sq_topk_plain(queries, prep, k, metric)
     check(torch.equal(i, i_p) and torch.equal(s, s_p), f"{name}: sq_topk route")
@@ -1157,7 +1318,6 @@ def hold_sq_kernels(name: str, queries, prep, k: int, metric: str) -> dict:
     want, mag = sq_rescored(queries, prep, metric, i_p)
     check(bool(((want - s_p.double()).abs() <= 1e-5 * mag + 1e-6)[real].all()),
           f"{name}: plain scores equal the f64 formula to 1e-5 of their terms")
-    log(f"  {name} k={k}: equal; candidates per query up to {int(count[:b].max())}")
     return err
 
 
@@ -1288,6 +1448,16 @@ def phase_vector_store(dev, seed: int) -> tuple[dict, dict, dict]:
 
     for name, q, prep, k, metric in sq_small_cases(dev):
         merge_err(hold_sq_kernels(name, q, prep, k, metric))
+    # K6's function where the dispatch sends it, as in phase 2
+    route_rng = np.random.default_rng(seed + 8)
+    q256 = torch.as_tensor(route_rng.standard_normal((256, DIM), dtype=np.float32), device=dev)
+    preps = {}
+    for n, k in ROUTE_SHAPES:
+        if n not in preps:
+            preps = {n: topk.prepare_sq_items(
+                *sq_table(route_rng.standard_normal((n, DIM), dtype=np.float32)), device=dev)}
+        merge_err(hold_sq_kernels(f"routes{n}", q256, preps[n], k, "dot"))
+    del preps, q256
 
     rng = np.random.default_rng(seed + 7)
     rows = rng.standard_normal((SQ_ROWS, DIM), dtype=np.float32)
@@ -1398,6 +1568,11 @@ def main() -> int:
     prep, errors, timings, k_path = phase_kernels(user_factors, item_factors, histories, dev)
     del prep
     torch.cuda.empty_cache()
+    log("== phase 2b: K6's function at 27,000 and 500,000 items, both routes")
+    route_errors, route_timings = phase_routes(dev, args.seed)
+    for key, v in route_errors.items():
+        errors[key] = max(errors.get(key, 0.0), v)
+    torch.cuda.empty_cache()
 
     log("== phase 3: path")
     path = phase_path(user_factors, item_factors, histories, dev, args.seed)
@@ -1485,6 +1660,9 @@ def main() -> int:
             "bound_by": row["bound_by"],
             "library_ms": row["library_ms"],
         })
+    log("  K6 routes (ms old -> new, library, candidates new): " + json.dumps({
+        shape: [rows["old"]["ms"], rows["new"]["ms"], rows["new"]["library_ms"],
+                rows["new"]["candidates"]] for shape, rows in route_timings.items()}))
     log(f"  total {time.perf_counter() - t_start:.1f} s; path k = {k_path}")
     print(json.dumps({"kernels": kernels}))
     print(smi)

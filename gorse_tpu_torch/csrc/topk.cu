@@ -7,15 +7,28 @@
 // parallel with nothing carried between them, so the work splits into
 // four launches per query chunk:
 //
-//   block_max    per-query maximum score of every item block     (K4)
-//   block_seeds  per query, the seed (k-th largest block maximum,
-//                nudged down) and how many blocks beat it        (K5)
+//   block_max    per-query maximum score of every item block, and
+//                optionally of every group of 4 items            (K4)
+//   block_seeds  per query, the seed (k-th largest block or group
+//                maximum, nudged down) and how many beat it      (K5)
 //   block_topk   every block whose maximum beats the query's seed
 //                appends its best entries to a per-query
 //                candidate buffer                                  (K5, K6)
 //   merge_topk   per query, the final k from the candidates      (K5, K6)
 //
-// K6 (no gate) is block_topk with every block firing, then merge_topk.
+// The route for a top-k of k over n_pad items (n_blocks = n_pad / 256) is
+// chosen by ops/topk.py kernel_route:
+//   k <= n_blocks             block gate: block_max, block_seeds on the
+//                             block maxima, gated block_topk, merge (K5)
+//   k <= n_pad / 4            group gate: block_max with its group output,
+//                             block_seeds on the group maxima, gated
+//                             block_topk, merge (K6's function: the TPU
+//                             kernel carries its own running k-th best)
+//   n_pad < 4 k               no gate: block_topk with every block firing,
+//                             then merge_topk (K6's single pass)
+// The k largest group maxima belong to k distinct items, so the k-th of
+// them, nudged down, is below the k-th best score, as the k-th block
+// maximum is: every top-k item beats the seed and lands in the candidates.
 //
 // Two tables, as the TPU kernels' two bodies (``has_affine``):
 // - bf16 items: score = q (bf16) . item (bf16);
@@ -54,6 +67,7 @@
 namespace {
 
 constexpr int BLOCK_N = 256;  // items per block: the gate's granularity
+constexpr int GROUP = 4;      // items per group maximum: a thread's 4 items
 constexpr int QT = 32;        // queries per tile
 constexpr int DC = 64;        // dimensions staged per pass
 constexpr int THREADS = 256;
@@ -224,10 +238,16 @@ __device__ __forceinline__ void apply_affine(const Affine& af, int q0, int blk,
 // is the query tile, so the tiles of one item block run side by side and
 // share the block through L2. The FMA order is fixed so that the plain
 // version reproduces every score; tensor cores (mma/wgmma) are later work.
+// With ``gmax`` (the group gate) each thread also writes the maximum of its
+// 4 items for each of its 8 queries, [b_pad, n_pad / 4] f32: a query's 64
+// group maxima of a block are 64 neighbouring floats, so the stores
+// coalesce. That adds b_pad * n_pad bytes written (128 MB at 256 x 500k,
+// ~38 us) to a kernel bound by FMA issue.
 template <typename T>
 __global__ void __launch_bounds__(THREADS) block_max_kernel(
     const __nv_bfloat16* __restrict__ q, const T* __restrict__ table, Affine af,
-    float* __restrict__ bmax, int d_pad, int n_items, int n_blocks) {
+    float* __restrict__ bmax, float* __restrict__ gmax, int d_pad, int n_items,
+    int n_blocks) {
   __shared__ TileSmem<T> sm;
   __shared__ float red[WARPS][8];
   const int q0 = blockIdx.x * QT, blk = blockIdx.y;
@@ -236,15 +256,18 @@ __global__ void __launch_bounds__(THREADS) block_max_kernel(
   if (af.affine != nullptr) apply_affine(af, q0, blk, acc);
 
   const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
-  const int ti = t & 63;
+  const int tq = t >> 6, ti = t & 63;
+  const size_t n_groups = (size_t)n_blocks * (BLOCK_N / GROUP);
 #pragma unroll
   for (int a = 0; a < 8; ++a) {
     float m = NEG_INF;
 #pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      const int idx = blk * BLOCK_N + ti * 4 + c;
+    for (int c = 0; c < GROUP; ++c) {
+      const int idx = blk * BLOCK_N + ti * GROUP + c;
       if (idx < n_items) m = fmaxf(m, acc[a][c]);
     }
+    if (gmax != nullptr)
+      gmax[(q0 + tq * 8 + a) * n_groups + blk * (BLOCK_N / GROUP) + ti] = m;
 #pragma unroll
     for (int off = 16; off > 0; off >>= 1) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, off));
     if (lane == 0) red[warp][a] = m;
@@ -333,14 +356,16 @@ __global__ void __launch_bounds__(THREADS) block_seeds_kernel(
 }
 
 // Replaces gorse_tpu/ops/topk.py _topk_seeded_kernel (K5, with ``bmax``)
-// and _topk_kernel (K6, ``bmax`` and ``seeds`` null: every block fires).
+// and _topk_kernel (K6: with ``bmax`` and seeds from the group maxima, or
+// with ``bmax`` and ``seeds`` null, every block firing, when n_pad < 4 k).
 // A block fires for a query when its maximum beats the query's seed
 // (block_seeds); it then appends its entries above the seed to the
 // query's candidates, or, when more than k are, its own top k by key.
 // Every global top-k entry beats the seed and is among its block's top
-// k, so the candidates hold the answer. The buffer holds min(k, BLOCK_N)
-// keys for each block that fires for the query that fires most (every
-// block when ungated), so nothing is cut.
+// k, so the candidates hold the answer. Every entry above the seed lies in
+// a block (group) whose maximum beats it, so the buffer holds min(k, 256)
+// keys for each block (min(k, 4) for each group) that fires for the query
+// that fires most, every block's when ungated: nothing is cut.
 // Bound on this card: the dots of the tiles that fire (same FMA issue
 // bound as block_max) plus the candidate bytes. The gate skips a whole
 // tile when none of its 32 queries fires; at k = 10 about 8% of tiles
@@ -496,23 +521,23 @@ __global__ void __launch_bounds__(THREADS) merge_topk_kernel(
 // Each returns cudaGetLastError() after its launch; the Python wrapper
 // raises when it is not 0. Launches go on the caller's stream.
 
-extern "C" int gt_block_max(const void* q, const void* table, void* bmax, int b_pad,
-                            int d_pad, int n_items, int n_blocks, void* stream) {
+extern "C" int gt_block_max(const void* q, const void* table, void* bmax, void* gmax,
+                            int b_pad, int d_pad, int n_items, int n_blocks, void* stream) {
   dim3 grid(b_pad / QT, n_blocks);
   block_max_kernel<__nv_bfloat16><<<grid, THREADS, 0, (cudaStream_t)stream>>>(
       (const __nv_bfloat16*)q, (const __nv_bfloat16*)table, Affine{nullptr, nullptr, 0, 0, 0},
-      (float*)bmax, d_pad, n_items, n_blocks);
+      (float*)bmax, (float*)gmax, d_pad, n_items, n_blocks);
   return (int)cudaGetLastError();
 }
 
 extern "C" int gt_block_max_sq(const void* q, const void* codes, const void* affine,
-                               const void* qstats, void* bmax, int b_pad, int d_pad,
+                               const void* qstats, void* bmax, void* gmax, int b_pad, int d_pad,
                                int n_items, int n_blocks, int euclid, void* stream) {
   dim3 grid(b_pad / QT, n_blocks);
   block_max_kernel<uint8_t><<<grid, THREADS, 0, (cudaStream_t)stream>>>(
       (const __nv_bfloat16*)q, (const uint8_t*)codes,
       Affine{(const float*)affine, (const float*)qstats, n_blocks * BLOCK_N, b_pad, euclid},
-      (float*)bmax, d_pad, n_items, n_blocks);
+      (float*)bmax, (float*)gmax, d_pad, n_items, n_blocks);
   return (int)cudaGetLastError();
 }
 

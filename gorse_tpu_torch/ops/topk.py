@@ -9,13 +9,22 @@ Routes, as in the reference:
 - ``dot_topk``: the serving route. The item table is bf16 (the reference's
   serving embeddings are bf16 too) and the queries are cast to bf16 before
   the dot. Four hand-written CUDA kernels (``csrc/topk.cu``) do the work
-  on the card: ``block_max`` (per-query maximum of each 256-item block),
-  ``block_seeds`` (each query's seed and how many blocks beat it),
-  ``block_topk`` (blocks that beat a query's seed append their best
-  entries to its candidates) and ``merge_topk`` (the final k). Each wrapper
-  takes its kernel's plain PyTorch version when its tensors lie on the CPU,
-  launches the kernel for CUDA tensors, and counts its launches in
-  ``<wrapper>.launches``.
+  on the card: ``block_max`` (per-query maximum of each 256-item block,
+  and optionally of each group of 4 items), ``block_seeds`` (each query's
+  seed and how many maxima beat it), ``block_topk`` (blocks that beat a
+  query's seed append their best entries to its candidates) and
+  ``merge_topk`` (the final k). Each wrapper takes its kernel's plain
+  PyTorch version when its tensors lie on the CPU, launches the kernel for
+  CUDA tensors, and counts its launches in ``<wrapper>.launches``.
+
+  :func:`kernel_route` picks the gate for a top-k of k over ``n_pad``
+  items (``n_blocks = n_pad / 256``): ``"block"`` when k <= n_blocks (the
+  seed is the k-th largest block maximum, nudged down; the reference's
+  seeded kernel), ``"group"`` when k <= n_pad / 4 (the seed is the k-th
+  largest maximum of the 4-item groups: k group maxima belong to k
+  distinct items, so it too lies below the k-th best score), and
+  ``"none"`` otherwise, or with ``seeded=False``: every block fires, the
+  reference's single-pass kernel.
 - ``dot_topk_xla``: the f32 route, a full f32 score matrix and a stable
   sort (the reference's non-Pallas path). ``dot_topk_xla.uses`` counts it.
 - ``sq_topk`` on a :class:`PreparedSQ`: the quantized vector store's
@@ -45,6 +54,7 @@ from . import _build
 
 NEG_INF = -1e30
 BLOCK_N = 256  # items per block (csrc/topk.cu BLOCK_N)
+GROUP = 4  # items per group maximum (csrc/topk.cu GROUP)
 QUERY_TILE = 32  # queries per kernel tile (csrc/topk.cu QT)
 DIM_CHUNK = 64  # dimensions per staged pass (csrc/topk.cu DC)
 MERGE_MAX_K = 2048  # widest k merge_topk sorts in shared memory
@@ -161,18 +171,27 @@ def _scores_plain(qp: torch.Tensor, table: torch.Tensor, aff: Affine | None = No
     return dots
 
 
-def block_max_plain(qp, table, n_items: int, aff: Affine | None = None) -> torch.Tensor:
+def block_max_plain(qp, table, n_items: int, aff: Affine | None = None, groups: bool = False):
+    """Block maxima ``[b_pad, n_blocks]``; with ``groups`` also the group
+    maxima ``[b_pad, n_pad / 4]``, as ``(bmax, gmax)``. Padded items count
+    as NEG_INF."""
     s = _scores_plain(qp, table, aff)
     s[:, n_items:] = NEG_INF
-    return s.view(qp.shape[0], -1, BLOCK_N).amax(dim=2)
+    bmax = s.view(qp.shape[0], -1, BLOCK_N).amax(dim=2)
+    if not groups:
+        return bmax
+    return bmax, s.view(qp.shape[0], -1, GROUP).amax(dim=2)
 
 
 class Gate(NamedTuple):
-    """What :func:`block_topk` gates on, from :func:`block_seeds`."""
+    """What :func:`block_topk` gates on: block maxima, and the seeds and
+    fired counts :func:`block_seeds` derived from maxima over ``width``
+    items (the blocks themselves, or the 4-item groups)."""
 
     bmax: torch.Tensor  # [b_pad, n_blocks] f32 block maxima
     seeds: torch.Tensor  # [b] f32
-    fired: torch.Tensor  # [b] int32: blocks whose maximum beats the seed
+    fired: torch.Tensor  # [b] int32: blocks (groups) whose maximum beats the seed
+    width: int = BLOCK_N  # items per maximum the seeds came from
 
 
 def block_seeds_plain(bmax: torch.Tensor, b: int, k: int) -> Gate:
@@ -190,10 +209,12 @@ def block_seeds_plain(bmax: torch.Tensor, b: int, k: int) -> Gate:
 
 
 def _candidate_cap(gate: Gate | None, nb: int, k: int) -> int:
-    """Keys per query in block_topk's buffer: min(k, 256) for each block
-    that fires for the query that fires most. Every block fires ungated."""
-    blocks = nb if gate is None else max(int(gate.fired.max()), 1)
-    return blocks * min(k, BLOCK_N)
+    """Keys per query in block_topk's buffer: min(k, width) for each block
+    or group that fires for the query that fires most (a candidate beats
+    the seed, so its group's maximum does). Every block fires ungated."""
+    if gate is None:
+        return nb * min(k, BLOCK_N)
+    return max(int(gate.fired.max()), 1) * min(k, gate.width)
 
 
 def block_topk_plain(qp, table, gate: Gate | None, b: int, n_items: int, k: int,
@@ -283,8 +304,8 @@ def _lib() -> ctypes.CDLL:
     lib = _build.load("topk")
     if not getattr(lib, "_gt_typed", False):
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.gt_block_max.argtypes = [p, p, p, i, i, i, i, p]
-        lib.gt_block_max_sq.argtypes = [p, p, p, p, p, i, i, i, i, i, p]
+        lib.gt_block_max.argtypes = [p, p, p, p, i, i, i, i, p]
+        lib.gt_block_max_sq.argtypes = [p, p, p, p, p, p, i, i, i, i, i, p]
         lib.gt_block_seeds.argtypes = [p, p, p, i, i, i, p]
         lib.gt_block_topk.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, i, i, p]
         lib.gt_block_topk_sq.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, i, p]
@@ -330,46 +351,58 @@ def _check_affine(aff: Affine, qp: torch.Tensor, table: torch.Tensor) -> None:
             raise ValueError(f"{name} must be a contiguous f32 {shape} on {qp.device}")
 
 
-def block_max(qp: torch.Tensor, table: torch.Tensor, n_items: int) -> torch.Tensor:
+def _maxima_out(qp, table, groups: bool):
+    """block_max's outputs: block maxima, and the group maxima or None."""
+    b_pad, n_pad = qp.shape[0], table.shape[0]
+    bmax = torch.empty((b_pad, n_pad // BLOCK_N), dtype=torch.float32, device=qp.device)
+    gmax = (torch.empty((b_pad, n_pad // GROUP), dtype=torch.float32, device=qp.device)
+            if groups else None)
+    return bmax, gmax
+
+
+def block_max(qp: torch.Tensor, table: torch.Tensor, n_items: int, groups: bool = False):
     """Per-query maximum score of each 256-item block, ``[b_pad, n_blocks]``
-    f32 (pass 1; replaces gorse_tpu/ops/topk.py _block_max_kernel)."""
+    f32 (pass 1; replaces gorse_tpu/ops/topk.py _block_max_kernel). With
+    ``groups``, ``(bmax, gmax)``: also the maximum of each 4-item group,
+    ``[b_pad, n_pad / 4]``, what the group gate seeds from."""
     if qp.device.type == "cpu":
-        return block_max_plain(qp, table, n_items)
+        return block_max_plain(qp, table, n_items, groups=groups)
     _check_operands(qp, table)
     b_pad, d_pad = qp.shape
-    nb = table.shape[0] // BLOCK_N
-    bmax = torch.empty((b_pad, nb), dtype=torch.float32, device=qp.device)
+    bmax, gmax = _maxima_out(qp, table, groups)
     rc = _lib().gt_block_max(
-        qp.data_ptr(), table.data_ptr(), bmax.data_ptr(), b_pad, d_pad, n_items, nb, _stream(qp)
+        qp.data_ptr(), table.data_ptr(), bmax.data_ptr(), gmax.data_ptr() if groups else None,
+        b_pad, d_pad, n_items, bmax.shape[1], _stream(qp),
     )
     _raise_on(rc, "block_max")
     block_max.launches += 1
-    return bmax
+    return (bmax, gmax) if groups else bmax
 
 
-def block_max_sq(qp: torch.Tensor, table: torch.Tensor, aff: Affine, n_items: int) -> torch.Tensor:
+def block_max_sq(qp: torch.Tensor, table: torch.Tensor, aff: Affine, n_items: int,
+                 groups: bool = False):
     """:func:`block_max` over a uint8 table with the affine epilogue (the
     ``has_affine`` body of gorse_tpu/ops/topk.py _block_max_kernel)."""
     if qp.device.type == "cpu":
-        return block_max_plain(qp, table, n_items, aff)
+        return block_max_plain(qp, table, n_items, aff, groups)
     _check_operands(qp, table, torch.uint8)
     _check_affine(aff, qp, table)
     b_pad, d_pad = qp.shape
-    nb = table.shape[0] // BLOCK_N
-    bmax = torch.empty((b_pad, nb), dtype=torch.float32, device=qp.device)
+    bmax, gmax = _maxima_out(qp, table, groups)
     rc = _lib().gt_block_max_sq(
         qp.data_ptr(), table.data_ptr(), aff.affine.data_ptr(), aff.qstats.data_ptr(),
-        bmax.data_ptr(), b_pad, d_pad, n_items, nb, int(aff.euclidean), _stream(qp),
+        bmax.data_ptr(), gmax.data_ptr() if groups else None, b_pad, d_pad, n_items,
+        bmax.shape[1], int(aff.euclidean), _stream(qp),
     )
     _raise_on(rc, "block_max_sq")
     block_max_sq.launches += 1
-    return bmax
+    return (bmax, gmax) if groups else bmax
 
 
 def block_seeds(bmax: torch.Tensor, b: int, k: int) -> Gate:
-    """Each of the first ``b`` queries' seed and fired-block count from its
-    block maxima (the seed step of gorse_tpu/ops/topk.py
-    _topk_seeded_kernel)."""
+    """Each of the first ``b`` queries' seed and fired count from its block
+    maxima, or from its group maxima for the group gate (the seed step of
+    gorse_tpu/ops/topk.py _topk_seeded_kernel)."""
     if bmax.device.type == "cpu":
         return block_seeds_plain(bmax, b, k)
     if bmax.dtype != torch.float32 or not bmax.is_contiguous() or bmax.shape[0] < b:
@@ -402,8 +435,9 @@ def _gate_args(qp, table, gate: Gate | None, b: int):
 def block_topk(qp, table, gate: Gate | None, b: int, n_items: int, k: int):
     """Candidates ``[b_pad, cap]`` int64 keys (the first ``count[q]`` of row
     q are live, in no order) and ``count`` ``[b_pad]``. ``gate`` gates
-    blocks (K5) and sizes ``cap`` from its fired counts (one read back to
-    the host); ``None`` lets every block fire (K6)."""
+    blocks on their maxima against seeds from block (K5) or group maxima
+    (K6's function) and sizes ``cap`` from its fired counts (one read back
+    to the host); ``None`` lets every block fire (K6's single pass)."""
     if qp.device.type == "cpu":
         return block_topk_plain(qp, table, gate, b, n_items, k)
     _check_operands(qp, table)
@@ -493,24 +527,39 @@ def _empty(b: int, dev):
             torch.zeros((b, 0), dtype=torch.int32, device=dev))
 
 
+def kernel_route(n_pad: int, k: int, seeded: bool = True) -> str:
+    """The gate of a top-k of ``k`` over ``n_pad`` padded items: "block"
+    (k <= n_blocks), "group" (k <= n_pad / 4) or "none"."""
+    if not seeded or k * GROUP > n_pad:
+        return "none"
+    return "block" if k <= n_pad // BLOCK_N else "group"
+
+
+def _candidates(qp, table, b: int, n_items: int, k_top: int, route: str,
+                aff: Affine | None = None):
+    """The passes of ``route`` before the merge: ``(cand, count)``."""
+    gate = None
+    if route != "none":
+        groups = route == "group"
+        if aff is None:
+            maxima = block_max(qp, table, n_items, groups)
+        else:
+            maxima = block_max_sq(qp, table, aff, n_items, groups)
+        if groups:
+            gate = block_seeds(maxima[1], b, k_top)._replace(bmax=maxima[0], width=GROUP)
+        else:
+            gate = block_seeds(maxima, b, k_top)
+    if aff is None:
+        return block_topk(qp, table, gate, b, n_items, k_top)
+    return block_topk_sq(qp, table, aff, gate, b, n_items, k_top)
+
+
 def _kernel_chain(qp, table, b: int, n_items: int, k_top: int, seeded: bool,
                   aff: Affine | None = None):
-    """K4 -> seeds -> K5 (or K6) -> merge on one padded query chunk."""
-    nb = table.shape[0] // BLOCK_N
-    # the seed is NEG_INF when k > n_blocks, so pass 1 would buy nothing:
-    # take the ungated fold, as the reference drops to its single-pass
-    # kernel when seeding does not fit
-    gate = None
-    if seeded and k_top <= nb:
-        if aff is None:
-            bmax = block_max(qp, table, n_items)
-        else:
-            bmax = block_max_sq(qp, table, aff, n_items)
-        gate = block_seeds(bmax, b, k_top)
-    if aff is None:
-        cand, count = block_topk(qp, table, gate, b, n_items, k_top)
-    else:
-        cand, count = block_topk_sq(qp, table, aff, gate, b, n_items, k_top)
+    """K4 -> seeds -> K5 (or K6) -> merge on one padded query chunk, gated
+    as :func:`kernel_route` says."""
+    route = kernel_route(table.shape[0], k_top, seeded)
+    cand, count = _candidates(qp, table, b, n_items, k_top, route, aff)
     return merge_topk(cand, count, b, k_top)
 
 

@@ -70,8 +70,10 @@ def _assert_topk(s, i, rs, ri, exact, mag):
 
 
 # n in {300, 3000}, d in {16, 64}, B in {4, 300} (300 runs two chunks), k in
-# {1, 10, n}, each metric at each k
+# {1, 10, n}, each metric at each k; and k = 300 over 3,000 items (12 blocks
+# < k <= 3072 / 4: the group gate)
 SQ_CASES = [
+    (3000, 64, 4, 300, "dot"),
     (300, 16, 4, 1, "dot"),
     (300, 64, 300, 10, "cosine"),
     (300, 16, 300, 300, "euclidean"),
@@ -219,9 +221,10 @@ def _exact_inputs(rng, n, d, b):
 @pytest.mark.parametrize("metric", ["dot", "euclidean"])
 @pytest.mark.parametrize("n,k", [(1000, 5), (1000, 7), (700, 700)])
 def test_sq_plain_kernels_equal_the_formula(metric, n, k):
-    """block_max_sq and the gated and ungated chains (plain versions) equal
-    a dense f64 evaluation of the epilogue formula, tolerance 0: k = 7 >
-    n_blocks (4) forces the ungated route, k = n returns every item."""
+    """block_max_sq (block and group maxima) and the chains of every route
+    that applies (plain versions) equal a dense f64 evaluation of the
+    epilogue formula, tolerance 0: k = 7 > n_blocks (4) leaves the group
+    gate and no gate, k = n returns every item (no gate only)."""
     rng = np.random.default_rng(n + k)
     d, b = 16, 40
     q, codes, scale, minv, norms2 = _exact_inputs(rng, n, d, b)
@@ -230,16 +233,19 @@ def test_sq_plain_kernels_equal_the_formula(metric, n, k):
     prep = port.prepare_sq_items(codes, scale, minv, norms2, device="cpu")
     b_pad = port._round_up(b, port.QUERY_TILE)
     qp, aff = port._sq_operands(torch.as_tensor(q), prep, b_pad, metric)
-    nb = prep.table.shape[0] // port.BLOCK_N
-    bmax = port.block_max_sq(qp, prep.table, aff, n)
-    padded = np.full((b, nb * port.BLOCK_N), port.NEG_INF, np.float32)
+    n_pad = prep.table.shape[0]
+    nb = n_pad // port.BLOCK_N
+    bmax, gmax = port.block_max_sq(qp, prep.table, aff, n, groups=True)
+    padded = np.full((b, n_pad), port.NEG_INF, np.float32)
     padded[:, :n] = exact
     np.testing.assert_array_equal(bmax.numpy()[:b], padded.reshape(b, nb, -1).max(2))
+    np.testing.assert_array_equal(gmax.numpy()[:b], padded.reshape(b, -1, port.GROUP).max(2))
     order = np.argsort(-exact, axis=1, kind="stable")[:, :k]
     want_s = np.take_along_axis(exact, order, 1)
-    for gated in (True, False):
-        gate = port.block_seeds(bmax, b, k) if gated and k <= nb else None
-        cand, count = port.block_topk_sq(qp, prep.table, aff, gate, b, n, k)
+    routes = [r for r, fits in (("block", k <= nb), ("group", 4 * k <= n_pad), ("none", True))
+              if fits]
+    for route in routes:
+        cand, count = port._candidates(qp, prep.table, b, n, k, route, aff)
         s, i = port.merge_topk(cand, count, b, k)
         np.testing.assert_array_equal(i.numpy(), order)
         np.testing.assert_array_equal(s.numpy(), want_s)

@@ -66,17 +66,19 @@ def _case(name):
         for b in range(6):
             ex[b, : b + 3] = rng.choice(300, size=b + 3, replace=False)
         return q, items, 7, ex
-    if name == "wide_k":  # k past the port's 256-item block: whole blocks are candidates
+    if name == "wide_k":  # k past 256 and the 6 blocks: the group gate; ungated, whole blocks
         return _quantized(rng, (3, 16)), _quantized(rng, (1500, 16)), 300, None
     if name == "chunked_batch":
         return _quantized(rng, (600, 32)), _quantized(rng, (2048, 32)), 7, None
+    if name == "group_k":  # 8 blocks < k <= 2048 / 4: the group gate
+        return _quantized(rng, (3, 16)), _quantized(rng, (2000, 16)), 300, None
     raise KeyError(name)
 
 
 CASES = [
     "small", "unaligned", "multi_block", "k_all_items", "massive_ties", "hot_chunk",
     "hot_block", "many_blocks", "duplicate_scores", "exclusions", "ragged_exclusions",
-    "wide_k", "chunked_batch",
+    "wide_k", "chunked_batch", "group_k",
 ]
 
 
@@ -138,27 +140,112 @@ def test_topk_fills_missing_slots():
     assert (s[:, 20:] == port.NEG_INF).all() and (i[:, 20:] == 0).all()
 
 
-@pytest.mark.parametrize("gated", [True, False])
+@pytest.mark.parametrize("gated", ["block", "group", "none"])
 def test_kernel_stages_compose(gated):
     """block_max -> block_seeds -> block_topk -> merge_topk equals the
     whole-route plain version, and every candidate list fits its buffer:
     min(k, 256) keys for each block that fires for the query that fires
-    most, every block when ungated."""
+    most (min(k, 4) for each group under the group gate), every block when
+    ungated. 3,000 items are 12 blocks: k = 12 for the block gate, 20 for
+    the others."""
     rng = np.random.default_rng(11)
     q, items = _quantized(rng, (40, 16), -2, 2, 1.0), _quantized(rng, (3000, 16), -2, 2, 1.0)
     prep = port.prepare_items(items, device="cpu")
     qp = port._pad_queries(torch.as_tensor(q), prep, 64)
-    k = 20
     nb = prep.table.shape[0] // port.BLOCK_N
-    gate = port.block_seeds(port.block_max(qp, prep.table, prep.n_items), 40, k) if gated else None
+    k = nb if gated == "block" else 20
+    gate = None
+    if gated == "block":
+        gate = port.block_seeds(port.block_max(qp, prep.table, prep.n_items), 40, k)
+    elif gated == "group":
+        bmax, gmax = port.block_max(qp, prep.table, prep.n_items, groups=True)
+        gate = port.block_seeds(gmax, 40, k)._replace(bmax=bmax, width=port.GROUP)
     cand, count = port.block_topk(qp, prep.table, gate, 40, prep.n_items, k)
-    blocks = int(gate.fired.max()) if gated else nb
-    assert cand.shape == (64, blocks * k) and int(count.max()) <= blocks * k
-    if gated:
-        assert (count[:40] <= gate.fired * k).all()
+    per = min(k, port.GROUP if gated == "group" else port.BLOCK_N)
+    units = nb if gate is None else int(gate.fired.max())
+    assert cand.shape == (64, units * per) and int(count.max()) <= units * per
+    if gate is not None:
+        assert (count[:40] <= gate.fired * per).all()
+    if gated == "group":  # fired groups hold far fewer items than the catalog
+        assert int(count.max()) < prep.n_items // 4
     assert (count[40:] == 0).all()  # padded query rows never fire
     s, i = port.merge_topk(cand, count, 40, k)
     ps, pi = port.dot_topk_plain(torch.as_tensor(q), prep, k)
+    assert torch.equal(s, ps) and torch.equal(i, pi)
+
+
+@pytest.mark.parametrize("kind", ["bf16", "sq"])
+def test_block_max_group_output(kind):
+    """The group output of block_max (plain) is the maximum of each 4
+    items of a dense score matrix, NEG_INF for groups past the catalog; its
+    block output is unchanged by asking for groups."""
+    rng = np.random.default_rng(13)
+    n, b = 1030, 5  # 1,030 items pad to 1,280: groups 258 on are padding
+    q = _quantized(rng, (b, 16), -2, 2, 1.0)
+    if kind == "bf16":
+        items = _quantized(rng, (n, 16), -2, 2, 1.0)
+        prep = port.prepare_items(items, device="cpu")
+        qp, aff = port._pad_queries(torch.as_tensor(q), prep, 32), None
+        dense = q @ items.T
+    else:
+        codes = rng.integers(0, 256, size=(n, 16)).astype(np.uint8)
+        scale = np.full(n, 2.0**-6, np.float32)
+        minv = (rng.integers(-16, 17, size=n) / 8).astype(np.float32)
+        prep = port.prepare_sq_items(codes, scale, minv, device="cpu")
+        qp, aff = port._sq_operands(torch.as_tensor(q), prep, 32, "dot")
+        dense = (q @ codes.T.astype(np.float32)) * scale + q.sum(1, keepdims=True) * minv
+    n_pad = prep.table.shape[0]
+    padded = np.full((b, n_pad), port.NEG_INF, np.float32)
+    padded[:, :n] = dense  # exact in f32 on these inputs
+    if kind == "bf16":
+        bmax, gmax = port.block_max(qp, prep.table, n, groups=True)
+        alone = port.block_max(qp, prep.table, n)
+    else:
+        bmax, gmax = port.block_max_sq(qp, prep.table, aff, n, groups=True)
+        alone = port.block_max_sq(qp, prep.table, aff, n)
+    assert gmax.shape == (32, n_pad // port.GROUP) and bmax.shape == (32, n_pad // port.BLOCK_N)
+    np.testing.assert_array_equal(gmax.numpy()[:b], padded.reshape(b, -1, port.GROUP).max(2))
+    assert (gmax[:, n_pad // port.GROUP - (n_pad - n) // port.GROUP :] == port.NEG_INF).all()
+    assert torch.equal(bmax, alone)
+    np.testing.assert_array_equal(bmax.numpy()[:b], padded.reshape(b, -1, port.BLOCK_N).max(2))
+
+
+@pytest.mark.parametrize("kind", ["bf16", "sq"])
+@pytest.mark.parametrize("k,route", [(12, "block"), (13, "group"), (769, "none")])
+def test_kernel_chain_dispatch(monkeypatch, kind, k, route):
+    """_kernel_chain's route at the boundaries of a 3,000-item catalog (12
+    blocks, 768 groups): the block gate up to k = n_blocks, the group gate
+    up to n_pad / 4, then no gate. Each stage is counted as it is called,
+    and the lists equal the whole-route plain version."""
+    rng = np.random.default_rng(k)
+    q = rng.normal(size=(6, 16)).astype(np.float32)
+    items = rng.normal(size=(3000, 16)).astype(np.float32)
+    calls = []
+    for name in ("block_max", "block_max_sq", "block_seeds", "block_topk", "block_topk_sq",
+                 "merge_topk"):
+        def spy(*args, _fn=getattr(port, name), _name=name, **kwargs):
+            out = _fn(*args, **kwargs)
+            calls.append(_name + ("+groups" if isinstance(out, tuple) and "max" in _name else ""))
+            return out
+        monkeypatch.setattr(port, name, spy)
+    if kind == "bf16":
+        prep = port.prepare_items(items, device="cpu")
+        s, i = port.dot_topk(q, prep, k, device="cpu")
+        ps, pi = port.dot_topk_plain(q, prep, k)
+    else:
+        codes = rng.integers(0, 256, size=(3000, 16)).astype(np.uint8)
+        prep = port.prepare_sq_items(codes, np.full(3000, 0.01, np.float32),
+                                     rng.normal(size=3000).astype(np.float32), device="cpu")
+        s, i = port.sq_topk(q, prep, k_top=k, device="cpu")
+        ps, pi = port.sq_topk_plain(q, prep, k)
+    sfx = "" if kind == "bf16" else "_sq"
+    want = {
+        "block": ["block_max" + sfx, "block_seeds", "block_topk" + sfx, "merge_topk"],
+        "group": ["block_max" + sfx + "+groups", "block_seeds", "block_topk" + sfx, "merge_topk"],
+        "none": ["block_topk" + sfx, "merge_topk"],
+    }[route]
+    assert port.kernel_route(prep.table.shape[0], k) == route
+    assert calls == want
     assert torch.equal(s, ps) and torch.equal(i, pi)
 
 
