@@ -1,38 +1,57 @@
 #!/usr/bin/env python3
 """Smoke run of gorse_tpu_torch, the PyTorch/CUDA port, on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--seed N]
+    python3 chip_smoke.py [--seed N] [--phases 2,2b,...]
 
 Run from the root of a checkout on a machine with a CUDA card, ``nvcc``
 (``/usr/local/cuda`` or ``CUDA_HOME``) and ``nvidia-smi``. Phases, in order;
-any failure ends the run with a non-zero exit code:
+any failure ends the run with a non-zero exit code. ``--phases`` runs phase
+1 and the phases named (for a short check, or to time another checkout's
+package with these measurements), prints their numbers and no result line.
+
+How kernels are held against their plain versions. The top-k kernels score
+on the tensor cores, the plain versions by a sequential f32 FMA chain, so
+on integer-valued inputs (every partial sum exact) every stage must be
+equal, and elsewhere (random normal factors) a score may differ by the
+summation-order tolerance (``score_tol``): maxima and candidate scores
+within it, lists by ``compare_lists`` (tie-aware: ids equal wherever the
+plain score is more than twice the tolerance from its neighbours, the same
+set well above the k-th score). Exactly, always: seeds and merges of the
+same candidates, each candidate above its seed, at least min(k, n)
+candidates a query, and each query's top score equal to the largest of the
+kernel's own block maxima.
 
 1. Environment: the card's name and power limit, the torch version, and the
    build of ``gorse_tpu_torch/csrc/topk.cu`` (its bf16 and SQ entries) and
-   ``bpr.cu`` (one nvcc each, started together) with its seconds.
+   ``bpr.cu`` (one nvcc each, started together) with its seconds and
+   ptxas's register and spill lines.
 2. Kernels: every kernel of the serving path (``block_max`` with and
    without its group output, ``block_seeds`` on block and on group maxima,
    ``block_topk`` under the block gate, the group gate and no gate,
-   ``merge_topk``) held against its plain PyTorch version
-   on the card, on small tie-heavy inputs and at the serving shape (1M x 64
-   bf16 items, a 256-user chunk, k = 10 and the path's k = 100 + widest
-   history). Indices must be equal and scores equal (tolerance 0: kernel and
-   plain version sum in the same order). Then each kernel's median time
-   (CUDA events), bound, plain time and library time, and the whole top-k
-   per chunk, gated (K4 + K5) and ungated (K6), against the bound of the
-   top-k itself. Then K6's function where the dispatch sends it (k between
-   n_blocks and n_pad / 4): 27,000 x 64 items (the repo's ml-20m catalog) at
-   k = 150 and 300, and 500,000 x 64 at k = 2048 (the widest fetch on the
-   largest catalog that takes the kernels there), held as above, and its
-   two routes timed in turn: the old one (no gate) and the group gate, each
+   ``merge_topk``) held against its plain PyTorch version on the card, on
+   small tie-heavy inputs (exact; one of 128 dimensions over 320 queries)
+   and at the serving shape (1M x 64 bf16 items, a 256-user chunk, k = 10
+   and the path's k = 100 + widest history; within tolerance). Then each
+   kernel's median time (CUDA events), bound, plain time and library time
+   (the bf16 ``torch.matmul`` of the same product beside ``block_max``),
+   and the whole top-k per chunk, gated (K4 + K5) and ungated (K6),
+   against the bound of the top-k itself.
+2b. K6's function where the dispatch sends it (k between n_blocks and
+   n_pad / 4): 27,000 x 64 items (the repo's ml-20m catalog) at k = 150 and
+   300, and 500,000 x 64 at k = 2048 (the widest fetch on the largest
+   catalog that takes the kernels there), held as above, and its two
+   routes timed in turn: the old one (no gate) and the group gate, each
    with its launches, candidates per query, plain time, the top-k's bound
    and the library's time.
+2c. A catalog of 65,536 item blocks (16,777,216 x 64 bf16, made on the
+   card): ``dot_topk`` through the kernels against ``dot_topk_plain``.
 3. Path: a 1,000,000 x 64 item index and 50,000 users, made from ``--seed``,
    saved in gorse_tpu's index format to a blob store; a 4,096-user shard with
    feedback histories of up to 200 items in a MemoryDataStore;
    ``Worker.pull_models`` + ``Worker.recommend`` on the card, with every
-   kernel launched and the f32 route unused; a sample of users' lists held
-   against the plain version on the card; ``GET /api/recommend/...`` through
+   kernel launched and the f32 route unused; a sample of users' fetched
+   lists held against the plain version, and their caches equal to those
+   lists after the exclusions; ``GET /api/recommend/...`` through
    ``RestServer`` on 127.0.0.1, equal to the cache.
 4. BPR kernels: ``bpr_sweep`` in both modes (sampled, explicit pairs) and
    ``bpr_fold`` held against their plain PyTorch versions on the card, on
@@ -49,35 +68,40 @@ any failure ends the run with a non-zero exit code:
 5. Training: ``BPR.fit`` at k = 64 on ``synthetic_cf_access(138000, 27000,
    nnz=2000000, seed=1)`` (the repo's bpr_ml20m_shape_k64) for a few epochs,
    every epoch launching ``n_steps`` sweeps and folds, the first epoch held
-   against its plain version on the card; examples/s per epoch. Quality: ``synthetic://400,300,8,0.08,1`` at k = 8 for 20 epochs
-   reaches NDCG@10 >= 0.35 and agrees with the fit's plain version on the
-   CPU.
+   against its plain version on the card; examples/s per epoch. Quality:
+   ``synthetic://400,300,8,0.08,1`` at k = 8 for 20 epochs reaches NDCG@10
+   >= 0.35 and agrees with the fit's plain version on the CPU.
 6. Master: feedback rows of the ml-1m-shaped ``synthetic_cf`` in a
    MemoryDataStore; ``Master.load_dataset`` and
    ``train_collaborative_filtering`` (fit_epoch cut to 10) on the card;
    the index saved to a blob store; ``Worker.sync_and_recommend`` of the
-   master's meta fills every user's cache; a sample of lists equals the
-   plain top-k and ``GET /api/recommend`` equals the cache; each chunk's
-   launches are those of the route ``kernel_route`` gives its fetch (the
-   group gate on this 15-block catalog). The master also
-   syncs its serving items into an sq ``MemoryVectorStore``; 16 item
-   queries of that collection at k = 10 (the block gate) and at the cache
-   size, 100 (more than its 15 blocks: the group gate), go through the SQ
-   kernels and equal the plain version.
+   master's meta fills every user's cache; a sample of fetched lists agrees
+   with the plain top-k, the caches equal them after the exclusions, and
+   ``GET /api/recommend`` equals the cache; each chunk's launches are those
+   of the route ``kernel_route`` gives its fetch (the group gate on this
+   15-block catalog). The master also syncs its serving items into an sq
+   ``MemoryVectorStore``; 16 item queries of that collection at k = 10 and
+   at the cache size, 100, go through the SQ kernels and agree with the
+   plain version.
 7. Vector store: the SQ kernels (``block_max_sq`` with and without groups,
    ``block_topk_sq`` under each gate, with ``block_seeds`` and
-   ``merge_topk``) held against their
-   plain versions on the card, tolerance 0, on small tie-heavy tables
-   (duplicate and constant rows, catalogs not a multiple of 256, k >
-   n_blocks, k = n), at 27,000 (k = 150, 300) and 500,000 rows (k = 2048),
-   and at bench.py's ``topk_qps_1000k_sq8`` shape (1M x 64
+   ``merge_topk``) held against their plain versions on the card, exactly
+   on small tie-heavy tables (duplicate and constant rows, catalogs not a
+   multiple of 256, k > n_blocks, k = n, 128 dimensions), within tolerance
+   at 27,000 (k = 150, 300) and 500,000 rows (k = 2048), where both routes
+   are also timed, and at bench.py's ``topk_qps_1000k_sq8`` shape (1M x 64
    rows from ``--seed``, a 256-query chunk, k = 10, dot and euclidean);
    their median times (``block_topk_sq`` gated and ungated), bounds, plain
-   and library times, and the whole SQ top-k per chunk. Then ``MemoryVectorStore.add`` of the 1M rows and 1,024
-   queries through ``query`` (four chunks, each launching the four kernels
-   once; lists equal to ``sq_topk_plain``; first-query and warm seconds),
-   and pq (8 bits), rq (4 bits), euclidean and cosine sq collections of
-   100,000 rows, each through the kernels and equal to the plain version.
+   and library times, and the whole SQ top-k per chunk. Then
+   ``MemoryVectorStore.add`` of the 1M rows and 1,024 queries through
+   ``query`` (four chunks, each launching the four kernels once; lists
+   agree with ``sq_topk_plain``; first-query and warm seconds), and pq
+   (8 bits), rq (4 bits), euclidean and cosine sq collections of 100,000
+   rows, each through the kernels and agreeing with the plain version.
+7c. Top-k above 2048 on the kernel route: a bf16 ``dot_topk`` at 27,000 x
+   64, k = 4,096, and an sq ``MemoryVectorStore`` of 100,000 rows queried
+   at k = 4,096 and 20,000, each agreeing with the plain version;
+   ``merge_topk`` timed at each k.
 
 The last three lines of standard output are the kernels' JSON record, the
 card's ``name, power.limit`` as nvidia-smi gives them, and
@@ -159,6 +183,11 @@ MASTER_SAMPLE_USERS = 16
 SQ_ROWS, SQ_SMALL_ROWS, SQ_QUERIES, SQ_K = 1_000_000, 100_000, 1024, 10
 SQ_WARM_REPS = 5
 SQ_KERNELS = ("block_max_sq", "block_topk_sq")
+# phase 2c: a catalog of 65,536 item blocks (the old grid.y limit + 1)
+WIDE_BLOCKS, WIDE_QUERIES, WIDE_K = 65_536, 32, 10
+# phase 7c: top-k above 2048 (merge_topk sorted at most 2048 in shared memory)
+WIDE_K_ROWS, WIDE_K_QUERIES, WIDE_KS = 100_000, 32, (4096, 20_000)
+PHASES = ("2", "2b", "2c", "3", "4", "5", "6", "7", "7c")
 SQ_REPLACES = {
     "block_max_sq": "gorse_tpu/ops/topk.py:361",
     "block_topk_sq": "gorse_tpu/ops/topk.py:442",
@@ -197,6 +226,110 @@ def bound(bytes_moved: float, flops: float, flop_s: float = BF16_FLOP_S) -> tupl
     return (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations")
 
 
+# ---------------------------------------------------------------- tolerance
+#
+# The score tile sums each dot on the tensor cores, the plain version as a
+# sequential f32 FMA chain. Two f32 summation orders of d terms each differ
+# from the exact sum by at most (d - 1) 2^-24 sum|terms|, so the two agree
+# within d_pad 2^-23 sum_j |q_j| |v_j|, from the same bf16 operands (codes
+# for the quantized table). The SQ epilogue carries that through its ops:
+#     tol = m (|scale| M (d_pad 2^-23 + 2^-21) + 2^-21 |qsum minv|)
+#           [+ 2^-21 (|norms2| + q2) for euclidean]
+# with M = sum_j |q_j| code_j and m = 2 for euclidean, 1 for the dot: each
+# rounded op of the epilogue, applied to sums that differ, may round to a
+# value up to an ulp apart, and four ulps of each magnitude (2^-21) cover
+# the ops. Integer-valued inputs have every partial sum exact, so there the
+# kernels are held to equality instead.
+
+
+def _tol_from_mag(mag, d_pad: int, aff, rows, items):
+    """Tolerance from ``mag`` = sum_j |q_j| |v_j| (any shape); ``rows`` and
+    ``items`` index the queries and items of ``mag``'s entries (same
+    shape, or broadcastable) for the SQ epilogue's terms."""
+    u = 2.0**-23
+    if aff is None:
+        return d_pad * u * mag
+    scale, minv, n2 = (aff.affine[j][items].abs() for j in range(3))
+    qsum, q2 = aff.qstats[0][rows].abs(), aff.qstats[1][rows].abs()
+    dot = scale * mag * (d_pad * u + 4 * u) + 4 * u * qsum * minv
+    if not aff.euclidean:
+        return dot
+    return 2.0 * dot + 4 * u * (n2 + q2)
+
+
+def score_tol(qp, table, aff=None):
+    """``[b_pad, n_pad]`` tolerance of every kernel score against its plain
+    version (the form above)."""
+    import torch
+
+    mag = torch.matmul(qp.float().abs(), table.float().abs().T)
+    rows = torch.arange(qp.shape[0], device=qp.device)[:, None]
+    items = torch.arange(table.shape[0], device=qp.device)[None, :]
+    return _tol_from_mag(mag, qp.shape[1], aff, rows, items)
+
+
+def tol_at(qp, table, idx, aff=None):
+    """The tolerance of the scores of items ``idx`` ``[b, k]`` for the first
+    ``b`` queries of ``qp``."""
+    import torch
+
+    idx = idx.long()
+    mag = torch.einsum("bd,bkd->bk", qp[: idx.shape[0]].float().abs(),
+                       table[idx].float().abs())
+    rows = torch.arange(idx.shape[0], device=qp.device)[:, None]
+    return _tol_from_mag(mag, qp.shape[1], aff, rows, idx)
+
+
+def compare_lists(what: str, s, i, s_p, i_p, tol, tol_p) -> float:
+    """Hold a kernel's top-k lists ``(s, i)`` ``[b, k]`` against the plain
+    version's ``(s_p, i_p)``, tie-aware, when each score may differ from
+    its plain value by its tolerance (``tol`` for the kernel's item at each
+    slot, ``tol_p`` for the plain version's). Per query, with T the largest
+    tolerance of its listed items:
+    - the same slots are filled; empty slots are NEG_INF with index 0 in both;
+    - scores at each slot within T (the j-th largest of values moved by at
+      most T each moves by at most T);
+    - ids equal at every slot whose plain score is more than 2 T from both
+      neighbours (no rounding can reorder it; the last filled slot's lower
+      neighbour is unknown, so the next rule holds it);
+    - every id whose plain score is more than 2 T above the plain k-th score
+      is in the kernel's list, and every id whose kernel score is more than
+      T above the plain k-th is in the plain list.
+    Raises on the first rule broken; returns the largest |s - s_p| / T."""
+    import torch
+
+    from gorse_tpu_torch.ops.topk import NEG_INF
+
+    s, s_p = s.double(), s_p.double()
+    i, i_p = i.long(), i_p.long()
+    filled, filled_p = s > NEG_INF / 2, s_p > NEG_INF / 2
+    check(torch.equal(filled, filled_p), f"{what}: the same slots are filled")
+    check(bool((i[~filled] == 0).all() and (i_p[~filled] == 0).all()
+               and (s[~filled] == s_p[~filled]).all()), f"{what}: empty slots NEG_INF / 0")
+    zero = torch.zeros((), dtype=torch.float64, device=s.device)
+    t = torch.maximum(torch.where(filled, tol.double(), zero).amax(1),
+                      torch.where(filled, tol_p.double(), zero).amax(1))[:, None]
+    err = (s - s_p).abs()
+    worst = float((err / t.clamp_min(1e-300))[filled].max()) if bool(filled.any()) else 0.0
+    check(bool((err <= t)[filled].all()),
+          f"{what}: scores within tolerance (worst {worst:.3g} of it)")
+    gap = s_p[:, :-1] - s_p[:, 1:]  # slot j to slot j + 1
+    inf = torch.full_like(s_p[:, :1], float("inf"))
+    above_ok = torch.cat([inf, gap], 1) > 2 * t
+    below_ok = torch.cat([gap, -inf], 1) > 2 * t
+    apart = filled_p & above_ok & below_ok
+    check(torch.equal(i[apart], i_p[apart]), f"{what}: ids at the slots apart from their neighbours")
+    kth = s_p[:, -1:]
+    must = filled_p & (s_p > kth + 2 * t)
+    known = filled & (s > kth + t)
+    for q in range(s.shape[0]):
+        check(bool(torch.isin(i_p[q][must[q]], i[q][filled[q]]).all()),
+              f"{what}: query {q} keeps every id well above the k-th score")
+        check(bool(torch.isin(i[q][known[q]], i_p[q][filled_p[q]]).all()),
+              f"{what}: query {q} has no id well above the k-th score that the plain list lacks")
+    return worst
+
+
 # ---------------------------------------------------------------- phase 1
 
 
@@ -217,7 +350,12 @@ def phase_environment() -> str:
     log(f"build_seconds {time.perf_counter() - t0:.2f}")
     for name in ("topk", "bpr"):
         for line in _build.build_log.get(name, "").splitlines():
-            if "Used" in line or "spill" in line:
+            entry = re.search(r"Compiling entry function '\w*?\d([a-z][a-z_]*_kernel)(I(\w+?)E)?",
+                              line)
+            if entry:
+                kind = {"h": "<uint8>", "13__nv_bfloat16": "<bf16>"}.get(entry.group(3), "")
+                log(f"  ptxas {name}: {entry.group(1)}{kind}")
+            elif "Used" in line or "spill" in line:
                 log(f"  ptxas {name}:", line.strip())
     return smi
 
@@ -247,18 +385,26 @@ def _sorted_live(cand, count):
     return torch.where(live, cand, topk._INT64_MIN).sort(dim=1, descending=True).values
 
 
-def hold_chain(name: str, qp, table, b: int, n: int, k: int, aff=None) -> dict:
+def hold_chain(name: str, qp, table, b: int, n: int, k: int, aff=None, exact=False) -> dict:
     """``block_max`` (``_sq`` with ``aff``) with and without its group
     output, ``block_seeds`` on the block and on the group maxima,
     ``block_topk`` (``_sq``) under the block gate, the group gate (where
     4 k <= n_pad) and no gate, and ``merge_topk``, each against its plain
-    version on the card: equal outputs (tolerance 0). Returns the largest
-    absolute score difference seen per kernel."""
+    version on the card. Every gate is the kernels' own: seeds from the
+    kernel's maxima, as the route computes them. ``exact`` (integer-valued
+    inputs): every stage equal. Otherwise maxima and candidate scores
+    within the score tolerance, the seeds and the merge of the kernel's
+    candidates equal, the merged lists by ``compare_lists``, and,
+    exactly: each candidate beats its seed, each query has at least
+    min(k, n) candidates, and on the gated routes its top score is the
+    largest of the kernel's own block maxima. Returns the largest absolute
+    score difference seen per kernel."""
     import torch
 
     from gorse_tpu_torch.ops import topk
 
     sq = "" if aff is None else "_sq"
+    nb = table.shape[0] // topk.BLOCK_N
 
     def maxima(groups):
         if aff is None:
@@ -272,44 +418,98 @@ def hold_chain(name: str, qp, table, b: int, n: int, k: int, aff=None) -> dict:
 
     bm, gm = maxima(True)
     bm_p, gm_p = topk.block_max_plain(qp, table, n, aff, groups=True)
-    check(torch.equal(maxima(False), bm_p) and torch.equal(bm, bm_p) and torch.equal(gm, gm_p),
-          f"{name}: block_max{sq} (block and group maxima) equals its plain version")
+    check(torch.equal(maxima(False), bm), f"{name}: block_max{sq} with and without groups")
+    if exact:
+        check(torch.equal(bm, bm_p) and torch.equal(gm, gm_p),
+              f"{name}: block_max{sq} (block and group maxima) equals its plain version")
+        tol = scores_p = None
+    else:
+        tol = score_tol(qp, table, aff)
+        tol[:, n:] = 0.0  # padded items: NEG_INF on both sides
+        share = 0.0  # the largest |kernel - plain| as a share of its tolerance
+        for got, want, width in ((bm, bm_p, topk.BLOCK_N), (gm, gm_p, topk.GROUP)):
+            t = tol.view(qp.shape[0], -1, width).amax(dim=2)
+            check(bool(((got - want).abs() <= t).all()),
+                  f"{name}: block_max{sq} maxima over {width} items within tolerance")
+            share = max(share, float(((got - want).abs() / t.clamp_min(1e-30)).max()))
+        log(f"  {name}: block_max{sq} maxima within tolerance, at most {share:.3g} of it")
+        scores_p = topk._scores_plain(qp, table, aff)
     err = {"block_max" + sq: float(max((bm - bm_p).abs().max(), (gm - gm_p).abs().max())),
            "block_seeds": 0.0, "block_topk" + sq: 0.0, "merge_topk": 0.0}
-    gates = {"block": (topk.block_seeds(bm_p, b, k), topk.block_seeds_plain(bm_p, b, k))}
+    # per route: the kernels' gate, block_seeds_plain on the same maxima,
+    # and the plain chain's own gate (from the plain maxima: the kernels'
+    # seeds sit an ulp below the kernels' scores, not the plain ones)
+    gates = {"block": (topk.block_seeds(bm, b, k), topk.block_seeds_plain(bm, b, k),
+                       topk.block_seeds_plain(bm_p, b, k))}
     if topk.GROUP * k <= table.shape[0]:
         gates["group"] = tuple(
-            g._replace(bmax=bm_p, width=topk.GROUP)
-            for g in (topk.block_seeds(gm_p, b, k), topk.block_seeds_plain(gm_p, b, k)))
-    gates["none"] = (None, None)
-    for route, (gate, gate_p) in gates.items():
+            g._replace(bmax=m, width=topk.GROUP)
+            for g, m in ((topk.block_seeds(gm, b, k), bm), (topk.block_seeds_plain(gm, b, k), bm),
+                         (topk.block_seeds_plain(gm_p, b, k), bm_p)))
+    gates["none"] = (None, None, None)
+    for route, (gate, gate_same, gate_p) in gates.items():
         if gate is not None:
-            check(torch.equal(gate.seeds, gate_p.seeds) and torch.equal(gate.fired, gate_p.fired),
+            check(torch.equal(gate.seeds, gate_same.seeds)
+                  and torch.equal(gate.fired, gate_same.fired),
                   f"{name} {route}: block_seeds equals its plain version")
-            err["block_seeds"] = max(err["block_seeds"],
-                                     float((gate.seeds - gate_p.seeds).abs().max()))
         cand, count = topk_k(gate)
         cand_p, count_p = topk.block_topk_plain(qp, table, gate_p, b, n, k, aff)
-        check(torch.equal(count, count_p), f"{name} {route}: block_topk{sq} counts")
         live, live_p = _sorted_live(cand, count), _sorted_live(cand_p, count_p)
-        width = live_p.shape[1]
-        check(torch.equal(live[:, :width], live_p), f"{name} {route}: block_topk{sq} keys")
-        filled = live_p[:b] != topk._INT64_MIN
-        if bool(filled.any()):
-            diff = (topk._decode(live[:b, :width])[0] - topk._decode(live_p[:b])[0]).abs()
-            err["block_topk" + sq] = max(err["block_topk" + sq], float(diff[filled].max()))
         s, i = topk.merge_topk(cand, count, b, k)
+        s_m, i_m = topk.merge_topk_plain(cand, count, b, k)
+        check(torch.equal(i, i_m) and torch.equal(s, s_m),
+              f"{name} {route}: merge_topk equals its plain version on the kernel's candidates")
         s_p, i_p = topk.merge_topk_plain(cand_p, count_p, b, k)
-        check(torch.equal(i, i_p) and torch.equal(s, s_p), f"{name} {route}: merge_topk")
+        if exact:
+            check(torch.equal(count, count_p), f"{name} {route}: block_topk{sq} counts")
+            width = live_p.shape[1]
+            check(torch.equal(live[:, :width], live_p), f"{name} {route}: block_topk{sq} keys")
+            check(torch.equal(i, i_p) and torch.equal(s, s_p), f"{name} {route}: merge_topk")
+        else:
+            c_s, c_i = topk._decode(live[:b])
+            filled = live[:b] != topk._INT64_MIN
+            seeds = gate.seeds if gate is not None else torch.full_like(c_s[:, 0], topk.NEG_INF)
+            check(bool((c_s > seeds[:, None])[filled].all()),
+                  f"{name} {route}: every candidate beats the kernel's seed")
+            check(bool((count[:b] >= min(k, n)).all()),
+                  f"{name} {route}: at least min(k, n) candidates a query")
+            want = scores_p[:b].gather(1, c_i.long().clamp_min(0))
+            t = tol[:b].gather(1, c_i.long().clamp_min(0))
+            diff = (c_s - want).abs()
+            check(bool((diff <= t)[filled].all()),
+                  f"{name} {route}: block_topk{sq} scores within tolerance")
+            if bool(filled.any()):
+                err["block_topk" + sq] = max(err["block_topk" + sq], float(diff[filled].max()))
+            compare_lists(f"{name} {route}: merged lists", s, i, s_p, i_p,
+                          tol[:b].gather(1, i.long()), tol[:b].gather(1, i_p.long()))
+            if gate is not None:
+                check(torch.equal(s[:, 0], bm[:b].amax(dim=1)),
+                      f"{name} {route}: top score equals the largest of the kernel's maxima")
         err["merge_topk"] = max(err["merge_topk"], float((s - s_p).abs().max()))
-        log(f"  {name} k={k} {route} gate: equal; candidates per query "
-            f"{int(count[:b].min())}..{int(count[:b].max())} in a buffer of {cand.shape[1]}")
+        log(f"  {name} k={k} {route} gate: {'equal' if exact else 'within tolerance'}; "
+            f"candidates per query {int(count[:b].min())}..{int(count[:b].max())} in a buffer "
+            f"of {cand.shape[1]}")
         del cand, count, cand_p, count_p, live, live_p
+    del bm_p, gm_p
     torch.cuda.empty_cache()
     return err
 
 
-def hold_kernels(name: str, queries, prep, k: int) -> dict:
+def hold_lists(what: str, got, want, qp, table, aff=None, exact=False) -> float:
+    """A route's ``(scores, ids)`` against the plain version's: equal when
+    ``exact``, else ``compare_lists`` with the score tolerance. Returns the
+    largest |score difference|."""
+    import torch
+
+    (s, i), (s_p, i_p) = got, want
+    if exact:
+        check(torch.equal(i, i_p) and torch.equal(s, s_p), f"{what}: equal")
+    else:
+        compare_lists(what, s, i, s_p, i_p, tol_at(qp, table, i, aff), tol_at(qp, table, i_p, aff))
+    return float((s - s_p).abs().max()) if s.numel() else 0.0
+
+
+def hold_kernels(name: str, queries, prep, k: int, exact=False) -> dict:
     """Each kernel against its plain version on the card under every gate
     (hold_chain), then the dot_topk route. Returns the largest absolute
     score difference seen per kernel."""
@@ -319,10 +519,10 @@ def hold_kernels(name: str, queries, prep, k: int) -> dict:
 
     b = queries.shape[0]
     qp = topk._pad_queries(queries, prep, topk._round_up(b, topk.QUERY_TILE))
-    err = hold_chain(name, qp, prep.table, b, prep.n_items, k)
+    err = hold_chain(name, qp, prep.table, b, prep.n_items, k, exact=exact)
     s, i = topk.dot_topk(queries, prep, k, device=prep.table.device)
     s_p, i_p = topk.dot_topk_plain(queries, prep, k)
-    check(torch.equal(i, i_p) and torch.equal(s, s_p), f"{name}: dot_topk route")
+    hold_lists(f"{name}: dot_topk route", (s, i), (s_p, i_p), qp, prep.table, exact=exact)
     # the plain version itself against an independent f32 product of the
     # bf16-rounded operands (summation order differs: 1e-4 relative)
     qb = queries[:, : prep.dim].to(torch.bfloat16).float()
@@ -334,7 +534,9 @@ def hold_kernels(name: str, queries, prep, k: int) -> dict:
 
 
 def small_cases(dev):
-    """Tie-heavy shapes: integer factors, all-equal scores, one hot block."""
+    """Tie-heavy shapes, integer-valued (every partial sum exact, so held
+    equal): integer factors, all-equal scores, one hot block, and 128
+    dimensions over 320 queries."""
     import torch
 
     from gorse_tpu_torch.ops import topk
@@ -350,6 +552,11 @@ def small_cases(dev):
     items = (rng.integers(-4, 5, size=(8192, 16)) / 256).astype(np.float32)
     items[2048:2048 + 12] = 4.0  # one hot block, all tied
     cases.append(("hot_block", np.ones((3, 16), np.float32), items, 10))
+    # 128 padded dimensions (two passes of the tile) and 320 queries (two
+    # launches of at most 256)
+    q = rng.integers(-2, 3, size=(300, 100)).astype(np.float32)
+    items = rng.integers(-2, 3, size=(3000, 100)).astype(np.float32)
+    cases.append(("wide", q, items, 20))
     return [
         (name, torch.as_tensor(q, device=dev), topk.prepare_items(items, device=dev), k)
         for name, q, items, k in cases
@@ -375,7 +582,11 @@ def time_kernels(queries, prep, k: int) -> dict:
     ms = median_ms(lambda: topk.block_max(qp, table, n), 20)
     plain = median_ms(lambda: topk.block_max_plain(qp, table, n), 3)
     bms, by = bound(table.numel() * 2 + q_bytes + bmax_bytes, 2.0 * b * n * prep.dim)
-    out["block_max"] = dict(ms=ms, plain_ms=plain, bound_ms=bms, bound_by=by, library_ms=None)
+    # no call computes block maxima; the bf16 product of the same operands
+    # alone is the yardstick of the scoring pass
+    matmul = median_ms(lambda: torch.matmul(qp, table.T), 20)
+    out["block_max"] = dict(ms=ms, plain_ms=plain, bound_ms=bms, bound_by=by, library_ms=None,
+                            matmul_ms=matmul)
 
     gate = topk.block_seeds(bm, b, k)
     ms = median_ms(lambda: topk.block_seeds(bm, b, k), 20)
@@ -431,69 +642,111 @@ def time_kernels(queries, prep, k: int) -> dict:
     return out
 
 
-def plain_chain(qp, table, b: int, n: int, k: int, route: str):
+def plain_chain(qp, table, b: int, n: int, k: int, route: str, aff=None):
     """``route``'s passes and the merge by the plain versions:
     ``(scores, ids, count)``."""
     from gorse_tpu_torch.ops import topk
 
     gate = None
     if route != "none":
-        bm, gm = topk.block_max_plain(qp, table, n, groups=True)
+        bm, gm = topk.block_max_plain(qp, table, n, aff, groups=True)
         if route == "group":
             gate = topk.block_seeds_plain(gm, b, k)._replace(bmax=bm, width=topk.GROUP)
         else:
             gate = topk.block_seeds_plain(bm, b, k)
-    cand, count = topk.block_topk_plain(qp, table, gate, b, n, k)
+    cand, count = topk.block_topk_plain(qp, table, gate, b, n, k, aff)
     return (*topk.merge_topk_plain(cand, count, b, k), count)
 
 
-def time_routes(queries, prep, k: int) -> dict:
+def sq_library(qp, prep, aff, b: int, k: int):
+    """The library's SQ top-k: a bf16 ``torch.matmul`` over the table
+    dequantized to bf16 once (the euclidean epilogue after it), then
+    ``torch.topk``."""
+    import torch
+
+    n = prep.n_items
+    scale, minv, n2 = aff.affine[0, :n], aff.affine[1, :n], aff.affine[2, :n]
+    vhat = (minv[:, None] + scale[:, None] * prep.table[:n].float()).to(torch.bfloat16)
+
+    def call():
+        dots = torch.matmul(qp[:b], vhat.T)
+        if aff.euclidean:
+            dots = 2.0 * dots.float() - n2 - aff.qstats[1, :b][:, None]
+        return torch.topk(dots, k, dim=1)
+
+    return call
+
+
+def time_routes(queries, prep, k: int, metric: str | None = None) -> dict:
     """K6's function at one shape by its two routes, in turn: the old one
     (no gate: every block fires, then the merge of every candidate) and the
-    new one (the group gate). Per route: the chain's median ms (its host
-    read of the fired counts included), plain ms, launches of one chunk and
-    candidates per query (min, max); the top-k's own bound and the library's
-    bf16 ``torch.matmul`` + ``torch.topk`` beside them; and the new route's
-    stages one by one, with ``block_max`` without groups for comparison."""
+    new one (the group gate); the SQ kernels with ``metric``. Per route:
+    the chain's median ms (its host read of the fired counts included),
+    plain ms, launches of one chunk and candidates per query (min, max),
+    its lists held against the plain version's (``compare_lists``); the
+    top-k's own bound and the library's ``torch.matmul`` + ``torch.topk``
+    (bf16; for SQ over the dequantized table) beside them; and the new
+    route's stages one by one, with ``block_max`` without groups for
+    comparison."""
     import torch
 
     from gorse_tpu_torch.ops import topk
 
     b = queries.shape[0]
-    qp = topk._pad_queries(queries, prep, topk._round_up(b, topk.QUERY_TILE))
+    b_pad = topk._round_up(b, topk.QUERY_TILE)
     table, n = prep.table, prep.n_items
+    if metric is None:
+        qp, aff = topk._pad_queries(queries, prep, b_pad), None
+        table_bytes = table.numel() * 2
+        lib = median_ms(lambda: torch.topk(torch.matmul(qp, table.T)[:b, :n], k, dim=1), 10)
+
+        def maxima(groups=False):
+            return topk.block_max(qp, table, n, groups)
+
+        def candidates(gate):
+            return topk.block_topk(qp, table, gate, b, n, k)
+    else:
+        qp, aff = topk._sq_operands(queries, prep, b_pad, metric)
+        table_bytes = table.numel() + n * (12 if aff.euclidean else 8)
+        lib = median_ms(sq_library(qp, prep, aff, b, k), 10)
+
+        def maxima(groups=False):
+            return topk.block_max_sq(qp, table, aff, n, groups)
+
+        def candidates(gate):
+            return topk.block_topk_sq(qp, table, aff, gate, b, n, k)
     check(topk.kernel_route(table.shape[0], k) == "group", f"{n} items, k = {k}: the group gate")
-    fn_ms, fn_by = bound(table.numel() * 2 + qp.numel() * 2 + b * k * 8, 2.0 * b * n * prep.dim)
-    lib = median_ms(lambda: torch.topk(torch.matmul(qp, table.T)[:b, :n], k, dim=1), 10)
+    fn_ms, fn_by = bound(table_bytes + qp.numel() * 2 + b * k * 8, 2.0 * b * n * prep.dim)
     out, lists = {}, []
     for label, route in (("old", "none"), ("new", "group")):
         def chain():
-            cand, count = topk._candidates(qp, table, b, n, k, route)
+            cand, count = topk._candidates(qp, table, b, n, k, route, aff)
             return (*topk.merge_topk(cand, count, b, k), count)
 
         wrappers = zero_counts()
         s, i, count = chain()
         torch.cuda.synchronize()
         launches = {w.__name__: w.launches for w in wrappers if w.launches}
-        s_p, i_p, _ = plain_chain(qp, table, b, n, k, route)
-        check(torch.equal(s, s_p) and torch.equal(i, i_p), f"{n} items k={k} {route}: plain")
+        s_p, i_p, _ = plain_chain(qp, table, b, n, k, route, aff)
+        hold_lists(f"{n} items k={k} {route}", (s, i), (s_p, i_p), qp, table, aff)
         lists.append((s, i))
         out[label] = dict(
             route=route, ms=median_ms(chain, 10),
-            plain_ms=median_ms(lambda: plain_chain(qp, table, b, n, k, route), 3),
+            plain_ms=median_ms(lambda: plain_chain(qp, table, b, n, k, route, aff), 3),
             bound_ms=fn_ms, bound_by=fn_by, library_ms=lib, launches=launches,
             candidates=[int(count[:b].min()), int(count[:b].max())],
         )
         torch.cuda.empty_cache()
+    # both routes score with the one tile: the same lists, exactly
     check(all(torch.equal(x, y) for x, y in zip(*lists)), "both routes give the same lists")
-    bm, gm = topk.block_max(qp, table, n, True)
+    bm, gm = maxima(True)
     gate = topk.block_seeds(gm, b, k)._replace(bmax=bm, width=topk.GROUP)
-    cand, count = topk.block_topk(qp, table, gate, b, n, k)
+    cand, count = candidates(gate)
     out["new"]["stages_ms"] = dict(
-        block_max_groups=median_ms(lambda: topk.block_max(qp, table, n, True), 10),
-        block_max=median_ms(lambda: topk.block_max(qp, table, n), 10),
+        block_max_groups=median_ms(lambda: maxima(True), 10),
+        block_max=median_ms(maxima, 10),
         block_seeds=median_ms(lambda: topk.block_seeds(gm, b, k), 10),
-        block_topk=median_ms(lambda: topk.block_topk(qp, table, gate, b, n, k), 10),
+        block_topk=median_ms(lambda: candidates(gate), 10),
         merge_topk=median_ms(lambda: topk.merge_topk(cand, count, b, k), 10),
     )
     out["new"]["fired_groups"] = [int(gate.fired.min()), int(gate.fired.max())]
@@ -535,7 +788,7 @@ def phase_kernels(user_factors, item_factors, histories, dev):
             errors[key] = max(errors.get(key, 0.0), v)
 
     for name, q, prep, k in small_cases(dev):
-        merge_err(hold_kernels(name, q, prep, k))
+        merge_err(hold_kernels(name, q, prep, k, exact=True))
 
     prep = topk.prepare_items(torch.as_tensor(item_factors, device=dev), device=dev)
     chunk = torch.as_tensor(user_factors[:256], device=dev)
@@ -649,7 +902,9 @@ def phase_path(user_factors, item_factors, histories, dev, seed: int) -> dict:
         result["ms_per_chunk"] = statistics.median(chunk_ms)
 
         # ---- the output: shape, finiteness, order, and a sample against
-        # the plain version on the card
+        # the plain version on the card: the kernels' fetched lists held
+        # tie-aware, then the cache equal to the kernels' list after the
+        # user's exclusions (the worker's chunk fetched a prefix of it)
         cf_index = worker.cf_index
         for u in shard:
             scores = cache.search_scores(ck.COLLABORATIVE, u)
@@ -661,15 +916,19 @@ def phase_path(user_factors, item_factors, histories, dev, seed: int) -> dict:
         sample = sorted(rng.choice(SHARD, size=SAMPLE_USERS, replace=False).tolist())
         q = torch.as_tensor(user_factors[sample], device=dev)
         fetch = cfg.recommend.cache_size + MAX_HISTORY
-        s_p, i_p = topk.dot_topk_plain(q, cf_index._prepared_items, fetch)
-        s_p, i_p = s_p.cpu().numpy(), i_p.cpu().numpy()
+        items = cf_index._prepared_items
+        got = topk.dot_topk(q, items, fetch, device=dev)
+        qp = topk._pad_queries(q, items, topk._round_up(SAMPLE_USERS, topk.QUERY_TILE))
+        hold_lists("sampled users' fetched lists", got, topk.dot_topk_plain(q, items, fetch), qp,
+                   items.table)
+        s_k, i_k = got[0].cpu().numpy(), got[1].cpu().numpy()
         for row, u_idx in enumerate(sample):
             banned = set(histories[u_idx].tolist())
-            want = [(item_names[j], float(s)) for s, j in zip(s_p[row], i_p[row])
+            want = [(item_names[j], float(s)) for s, j in zip(s_k[row], i_k[row])
                     if j not in banned][: cfg.recommend.cache_size]
             got = [(s.id, s.score) for s in cache.search_scores(ck.COLLABORATIVE, shard[u_idx])]
-            check(got == want, f"{shard[u_idx]}: cache equals the plain version")
-        log(f"  {SAMPLE_USERS} sampled users equal the plain version on the card")
+            check(got == want, f"{shard[u_idx]}: cache equals the kernels' list after exclusions")
+        log(f"  {SAMPLE_USERS} sampled users agree with the plain version on the card")
 
         # ---- REST on 127.0.0.1
         server = RestServer(cfg, data, cache)
@@ -1164,10 +1423,8 @@ def phase_master(dev) -> dict:
             lists, _, counts = query_counted(vectors, name, probe, k)
             check(counts == want, f"master's collection at k = {k}: launches {counts}, want "
                   f"{want} ({vec_routes[k]} gate)")
-            got = [[(x.id, x.score) for x in row] for row in lists]
-            check(got == store_lists(vectors, name, probe, k,
-                                     vectors._collections[name].encoded["prepared"], "dot"),
-                  f"master's collection at k = {k}: lists equal sq_topk_plain on the card")
+            hold_store(f"master's collection at k = {k}", vectors, name, probe, k,
+                       vectors._collections[name].encoded["prepared"], "dot", lists)
             vec_launches[k] = counts
         result.update(vector_rows=len(serving_ids), vector_launches=vec_launches,
                       vector_routes=vec_routes)
@@ -1210,16 +1467,22 @@ def phase_master(dev) -> dict:
             check(len(scores) == want_len, f"{uid}: {len(scores)} collaborative entries")
         rng = np.random.default_rng(2)
         sample = sorted(rng.choice(sorted(trained), size=MASTER_SAMPLE_USERS, replace=False))
+        items = index._prepared_items
         for uid in sample:
+            # the kernels' fetched list held tie-aware; the cache equal to it
+            # after the exclusions (the worker's chunk fetched a longer list)
             seen = {fb.item_id for fb in data.get_user_feedback(uid)}
             row = index.user_index.to_number(uid)
-            s_p, i_p = topk.dot_topk_plain(index.user_factors[row : row + 1],
-                                           index._prepared_items,
-                                           cfg.recommend.cache_size + len(seen))
-            ids = [index.item_index.to_name(int(index._serving_rows[j])) for j in i_p[0].tolist()]
-            want = [(i, float(s)) for i, s in zip(ids, s_p[0].tolist()) if i not in seen]
+            q = index.user_factors[row : row + 1]
+            fetch = cfg.recommend.cache_size + len(seen)
+            s_k, i_k = topk.dot_topk(q, items, fetch, device=dev)
+            hold_lists(f"{uid}: fetched list", (s_k, i_k), topk.dot_topk_plain(q, items, fetch),
+                       topk._pad_queries(q, items, topk.QUERY_TILE), items.table)
+            ids = [index.item_index.to_name(int(index._serving_rows[j])) for j in i_k[0].tolist()]
+            want = [(i, float(s)) for i, s in zip(ids, s_k[0].tolist()) if i not in seen]
             got = [(s.id, s.score) for s in cache.search_scores(ck.COLLABORATIVE, uid)]
-            check(got == want[: cfg.recommend.cache_size], f"{uid}: cache equals the plain top-k")
+            check(got == want[: cfg.recommend.cache_size],
+                  f"{uid}: cache equals the kernels' list after exclusions")
 
         server = RestServer(cfg, data, cache)
         httpd = server.serve("127.0.0.1", 0)
@@ -1259,9 +1522,10 @@ def sq_table(rows: np.ndarray):
 
 
 def sq_small_cases(dev):
-    """Tie-heavy quantized tables: integer rows (many equal codes and
-    scores), duplicate rows, constant rows (scale 1.0), catalogs that are
-    not a multiple of 256, k > n_blocks, and k = n."""
+    """Tie-heavy quantized tables, integer-valued (held equal): integer rows
+    (many equal codes and scores), duplicate rows, constant rows (scale
+    1.0), catalogs that are not a multiple of 256, k > n_blocks, k = n,
+    and 128 dimensions over 300 queries."""
     import torch
 
     from gorse_tpu_torch.ops import topk
@@ -1269,7 +1533,7 @@ def sq_small_cases(dev):
     rng = np.random.default_rng(17)
     cases = []
     for name, n, d, b, k in (("ties", 3000, 16, 40, 20), ("k_over_blocks", 1000, 16, 8, 7),
-                             ("k_all", 300, 8, 4, 300)):
+                             ("k_all", 300, 8, 4, 300), ("wide", 3000, 100, 300, 20)):
         rows = rng.integers(-2, 3, size=(n, d)).astype(np.float32)
         rows[10:30] = rows[3]  # duplicate rows
         rows[40:50] = 1.5  # constant rows
@@ -1300,20 +1564,18 @@ def sq_rescored(queries, prep, metric: str, idx):
     return dots, mag
 
 
-def hold_sq_kernels(name: str, queries, prep, k: int, metric: str) -> dict:
+def hold_sq_kernels(name: str, queries, prep, k: int, metric: str, exact=False) -> dict:
     """The SQ kernels against their plain versions on the card under every
     gate (hold_chain), then the sq_topk route. Returns the largest
     |difference| seen per kernel."""
-    import torch
-
     from gorse_tpu_torch.ops import topk
 
     b = queries.shape[0]
     qp, aff = topk._sq_operands(queries, prep, topk._round_up(b, topk.QUERY_TILE), metric)
-    err = hold_chain(f"{name} sq", qp, prep.table, b, prep.n_items, k, aff)
+    err = hold_chain(f"{name} sq", qp, prep.table, b, prep.n_items, k, aff, exact)
     s, i = topk.sq_topk(queries, prep, k_top=k, metric=metric, device=prep.table.device)
     s_p, i_p = topk.sq_topk_plain(queries, prep, k, metric)
-    check(torch.equal(i, i_p) and torch.equal(s, s_p), f"{name}: sq_topk route")
+    hold_lists(f"{name}: sq_topk route", (s, i), (s_p, i_p), qp, prep.table, aff, exact)
     real = s_p > topk.NEG_INF / 2
     want, mag = sq_rescored(queries, prep, metric, i_p)
     check(bool(((want - s_p.double()).abs() <= 1e-5 * mag + 1e-6)[real].all()),
@@ -1347,23 +1609,21 @@ def time_sq_kernels(queries, prep, k: int, metric: str) -> dict:
     )
     gate = topk.block_seeds(bm, b, k)
     seeds_ms = median_ms(lambda: topk.block_seeds(bm, b, k), 20)
-    # the library's top-k, two ways: a bf16 matmul over the table
-    # dequantized to bf16 once (the euclidean epilogue after it), then
-    # torch.topk; and the same function as the kernels compute it, a bf16
-    # matmul over the codes (exact in bf16), the affine epilogue, torch.topk
+    # the library's top-k, two ways: sq_library's; and the same function as
+    # the kernels compute it, a bf16 matmul over the codes (exact in bf16),
+    # the affine epilogue, torch.topk
     qstats = aff.qstats[:, :b]
     scale, minv, n2 = aff.affine[0, :n], aff.affine[1, :n], aff.affine[2, :n]
     codes_bf16 = table[:n].to(torch.bfloat16)
-    vhat = (minv[:, None] + scale[:, None] * table[:n].float()).to(torch.bfloat16)
 
     def euclid(dots):
         return 2.0 * dots.float() - n2 - qstats[1][:, None] if metric == "euclidean" else dots
 
-    lib = median_ms(lambda: torch.topk(euclid(torch.matmul(qp[:b], vhat.T)), k, dim=1), 10)
+    lib = median_ms(sq_library(qp, prep, aff, b, k), 10)
     lib_exact = median_ms(lambda: torch.topk(euclid(
         torch.matmul(qp[:b], codes_bf16.T).float() * scale + qstats[0][:, None] * minv), k,
         dim=1), 10)
-    del codes_bf16, vhat
+    del codes_bf16
     cand, count = topk.block_topk_sq(qp, table, aff, gate, b, n, k)
     fire = bm[:b] > gate.seeds[:, None]
     pairs, blocks = int(fire.sum()), int(fire.any(0).sum())
@@ -1403,19 +1663,28 @@ def time_sq_kernels(queries, prep, k: int, metric: str) -> dict:
     return out
 
 
-def store_lists(store, name: str, queries, k: int, prep, metric: str):
-    """The store's query against sq_topk_plain on its prepared table (the
-    store's own cosine normalization applied to the queries first)."""
+def hold_store(what: str, store, name: str, queries, k: int, prep, metric: str, lists) -> float:
+    """The store's ``lists`` (from ``query``) against sq_topk_plain on its
+    prepared table (the store's own cosine normalization applied to the
+    queries first), by ``compare_lists``. Returns the largest |score
+    difference|."""
+    import torch
+
     from gorse_tpu_torch.ops import topk
 
     q = np.asarray(queries, np.float32)
     if metric == "cosine":
         qn = np.linalg.norm(q, axis=1, keepdims=True)
         q = q / np.where(qn > 0, qn, 1.0)
-    s_p, i_p = topk.sq_topk_plain(q, prep, k, "euclidean" if metric == "euclidean" else "dot")
-    ids = store._collections[name].encoded["ids"]
-    return [[(ids[j], float(v)) for v, j in zip(sr, ir)]
-            for sr, ir in zip(s_p.cpu().tolist(), i_p.cpu().tolist())]
+    kind = "euclidean" if metric == "euclidean" else "dot"
+    want = topk.sq_topk_plain(q, prep, k, kind)
+    pos = {x: j for j, x in enumerate(store._collections[name].encoded["ids"])}
+    dev = prep.table.device
+    got = (torch.tensor([[x.score for x in row] for row in lists], dtype=torch.float32, device=dev),
+           torch.tensor([[pos[x.id] for x in row] for row in lists], dtype=torch.int32, device=dev))
+    qp, aff = topk._sq_operands(torch.as_tensor(q, device=dev), prep,
+                                topk._round_up(len(q), topk.QUERY_TILE), kind)
+    return hold_lists(what, got, want, qp, prep.table, aff)
 
 
 def query_counted(store, name: str, queries, k: int):
@@ -1447,16 +1716,20 @@ def phase_vector_store(dev, seed: int) -> tuple[dict, dict, dict]:
             errors[key_] = max(errors.get(key_, 0.0), v)
 
     for name, q, prep, k, metric in sq_small_cases(dev):
-        merge_err(hold_sq_kernels(name, q, prep, k, metric))
-    # K6's function where the dispatch sends it, as in phase 2
+        merge_err(hold_sq_kernels(name, q, prep, k, metric, exact=True))
+    # K6's function where the dispatch sends it, as in phase 2, held and
+    # its two routes timed
     route_rng = np.random.default_rng(seed + 8)
     q256 = torch.as_tensor(route_rng.standard_normal((256, DIM), dtype=np.float32), device=dev)
-    preps = {}
+    preps, route_timings = {}, {}
     for n, k in ROUTE_SHAPES:
         if n not in preps:
             preps = {n: topk.prepare_sq_items(
                 *sq_table(route_rng.standard_normal((n, DIM), dtype=np.float32)), device=dev)}
         merge_err(hold_sq_kernels(f"routes{n}", q256, preps[n], k, "dot"))
+        route_timings[f"{n}x{k}"] = rows = time_routes(q256, preps[n], k, "dot")
+        for label, row in rows.items():
+            log(f"  time sq {n} items k={k} {label} route: " + json.dumps(row))
     del preps, q256
 
     rng = np.random.default_rng(seed + 7)
@@ -1477,7 +1750,7 @@ def phase_vector_store(dev, seed: int) -> tuple[dict, dict, dict]:
     torch.cuda.empty_cache()
 
     # ---- (b) the store path: MemoryVectorStore.add -> query on the card
-    result = {}
+    result = {"routes": route_timings}
     store = MemoryVectorStore(device=dev)
     store.create_collection("sq1m", DIM, quantization="sq")
     ids = [f"v{i}" for i in range(SQ_ROWS)]
@@ -1494,9 +1767,7 @@ def phase_vector_store(dev, seed: int) -> tuple[dict, dict, dict]:
     enc = store._collections["sq1m"].encoded
     check(enc is not None and enc["kind"] == "sq" and enc["prepared"].table.device == dev,
           "store: the sq cache is built on the card")
-    got = [[(x.id, x.score) for x in row] for row in lists]
-    check(got == store_lists(store, "sq1m", queries, SQ_K, enc["prepared"], "dot"),
-          "store: every list equals sq_topk_plain on the card")
+    hold_store("store sq1m", store, "sq1m", queries, SQ_K, enc["prepared"], "dot", lists)
     t0 = time.perf_counter()
     for _ in range(SQ_WARM_REPS):
         store.query("sq1m", queries, SQ_K)
@@ -1524,13 +1795,110 @@ def phase_vector_store(dev, seed: int) -> tuple[dict, dict, dict]:
         check(launches == one, f"{name}: launches {launches}, want {one}")
         enc = store._collections[name].encoded
         prep = enc["prepared" if quant == "sq" else "sq_prepared"]
-        got = [[(x.id, x.score) for x in row] for row in lists]
-        check(got == store_lists(store, name, q256, SQ_K, prep, metric),
-              f"{name}: lists equal sq_topk_plain on the card")
+        hold_store(name, store, name, q256, SQ_K, prep, metric, lists)
         result[name] = dict(first_query_s=seconds, launches=launches)
         log(f"  store {name} at {SQ_SMALL_ROWS}: {seconds:.2f} s (cache build included), "
             "kernel route, lists equal the plain version")
     return errors, timings, result
+
+
+# ------------------------------------------------------ phases 2c and 7c
+
+
+def phase_wide_catalog(dev, seed: int) -> dict:
+    """A catalog of exactly WIDE_BLOCKS item blocks (16,777,216 x 64 bf16,
+    2.1 GB, made on the card from ``seed``), WIDE_QUERIES queries, k = 10:
+    ``dot_topk`` through the kernels (the block gate, one launch each)
+    against ``dot_topk_plain`` by ``compare_lists``, its top score equal to
+    the largest of ``block_max``'s maxima. Returns its numbers."""
+    import torch
+
+    from gorse_tpu_torch.ops import topk
+
+    gen = torch.Generator(device=dev).manual_seed(seed + 9)
+    n = WIDE_BLOCKS * topk.BLOCK_N
+    prep = topk.prepare_items(torch.randn((n, DIM), generator=gen, device=dev), device=dev)
+    queries = torch.randn((WIDE_QUERIES, DIM), generator=gen, device=dev)
+    qp = topk._pad_queries(queries, prep, WIDE_QUERIES)
+    check(prep.table.shape[0] // topk.BLOCK_N == WIDE_BLOCKS, f"{WIDE_BLOCKS} blocks")
+    wrappers = zero_counts()
+    s, i = topk.dot_topk(queries, prep, WIDE_K, device=dev)
+    torch.cuda.synchronize()
+    launches = {w.__name__: w.launches for w in wrappers if w.launches}
+    check(launches == route_launches("block", sq=False), f"{n} items: launches {launches}")
+    bm = topk.block_max(qp, prep.table, n)
+    check(torch.equal(s[:, 0], bm.amax(dim=1)), f"{n} items: top score is the largest maximum")
+    err = hold_lists(f"{n} items", (s, i), topk.dot_topk_plain(queries, prep, WIDE_K), qp,
+                     prep.table)
+    ms = median_ms(lambda: topk.dot_topk(queries, prep, WIDE_K, device=dev), 5)
+    bm_ms = median_ms(lambda: topk.block_max(qp, prep.table, n), 5)
+    del prep, bm
+    torch.cuda.empty_cache()
+    out = dict(items=n, blocks=WIDE_BLOCKS, queries=WIDE_QUERIES, k=WIDE_K, launches=launches,
+               max_abs_err=err, dot_topk_ms=ms, block_max_ms=bm_ms)
+    log(f"  {n} items ({WIDE_BLOCKS} blocks): the kernels' lists agree with the plain "
+        "version; " + json.dumps(out))
+    return out
+
+
+def time_merge(qp, table, b: int, n: int, k: int, aff=None) -> dict:
+    """``merge_topk`` at one shape, on the candidates of ``kernel_route``'s
+    route: median ms, plain ms, the library's ``torch.topk`` of the keys,
+    and its bound."""
+    import torch
+
+    from gorse_tpu_torch.ops import topk
+
+    cand, count = topk._candidates(qp, table, b, n, k, topk.kernel_route(table.shape[0], k), aff)
+    live = torch.arange(cand.shape[1], device=qp.device)[None] < count[:, None]
+    keys = torch.where(live, cand, topk._INT64_MIN)[:b]
+    bms, by = bound(int(count[:b].sum()) * 8 + b * 4 + b * k * 8, 0.0)
+    return dict(ms=median_ms(lambda: topk.merge_topk(cand, count, b, k), 5),
+                plain_ms=median_ms(lambda: topk.merge_topk_plain(cand, count, b, k), 3),
+                library_ms=median_ms(lambda: torch.topk(keys, k, dim=1), 5),
+                bound_ms=bms, bound_by=by, candidates=int(count[:b].max()))
+
+
+def phase_wide_k(dev, seed: int) -> dict:
+    """Top-k above 2048 on the kernel route: a bf16 ``dot_topk`` at
+    27,000 x 64, k = 4,096 (256 queries), and an sq ``MemoryVectorStore``
+    of WIDE_K_ROWS rows queried at each of WIDE_KS, each held against the
+    plain version by ``compare_lists``; ``merge_topk`` timed at each k.
+    Returns their numbers."""
+    import torch
+
+    from gorse_tpu_torch.ops import topk
+    from gorse_tpu_torch.storage.vectors import MemoryVectorStore
+
+    rng = np.random.default_rng(seed + 10)
+    out = {}
+    items = rng.standard_normal((ROUTE_SHAPES[0][0], DIM), dtype=np.float32)
+    prep = topk.prepare_items(items, device=dev)
+    queries = torch.as_tensor(rng.standard_normal((256, DIM), dtype=np.float32), device=dev)
+    k = WIDE_KS[0]
+    qp = topk._pad_queries(queries, prep, 256)
+    err = hold_lists(f"bf16 {len(items)} items k={k}", topk.dot_topk(queries, prep, k, device=dev),
+                     topk.dot_topk_plain(queries, prep, k), qp, prep.table)
+    out[f"bf16_{len(items)}x{k}"] = dict(max_abs_err=err,
+                                         merge=time_merge(qp, prep.table, 256, len(items), k))
+    rows = rng.standard_normal((WIDE_K_ROWS, DIM), dtype=np.float32)
+    store = MemoryVectorStore(device=dev)
+    store.create_collection("wide", DIM, quantization="sq")
+    store.add("wide", [f"v{j}" for j in range(WIDE_K_ROWS)], rows)
+    q = rng.standard_normal((WIDE_K_QUERIES, DIM), dtype=np.float32)
+    for k in WIDE_KS:
+        lists, seconds, launches = query_counted(store, "wide", q, k)
+        check(launches == route_launches(topk.kernel_route(topk._round_up(WIDE_K_ROWS, 256), k),
+                                         sq=True), f"sq store k={k}: launches {launches}")
+        prep = store._collections["wide"].encoded["prepared"]
+        err = hold_store(f"sq store k={k}", store, "wide", q, k, prep, "dot", lists)
+        qp, aff = topk._sq_operands(torch.as_tensor(q, device=dev), prep, WIDE_K_QUERIES, "dot")
+        out[f"sq_{WIDE_K_ROWS}x{k}"] = dict(
+            query_s=seconds, launches=launches, max_abs_err=err,
+            merge=time_merge(qp, prep.table, WIDE_K_QUERIES, WIDE_K_ROWS, k, aff))
+    for key, row in out.items():
+        log(f"  {key}: the kernels' lists agree with the plain version; " + json.dumps(row))
+    return out
 
 
 # ---------------------------------------------------------------- main
@@ -1539,7 +1907,13 @@ def phase_vector_store(dev, seed: int) -> tuple[dict, dict, dict]:
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
+    parser.add_argument("--phases", default=",".join(PHASES),
+                        help="comma-separated phases to run after phase 1 (default: all); "
+                             "a partial run prints its numbers and no result line")
     args = parser.parse_args()
+    phases = args.phases.split(",")
+    if any(x not in PHASES for x in phases):
+        parser.error(f"--phases: choose from {','.join(PHASES)}")
 
     import torch
 
@@ -1557,120 +1931,114 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda", 0)
     t_start = time.perf_counter()
+    out = {}
 
     log("== phase 1: environment")
     smi = phase_environment()
 
-    log("== phase 2: kernels")
-    t0 = time.perf_counter()
-    user_factors, item_factors, histories = make_data(args.seed)
-    log(f"  data made in {time.perf_counter() - t0:.1f} s")
-    prep, errors, timings, k_path = phase_kernels(user_factors, item_factors, histories, dev)
-    del prep
-    torch.cuda.empty_cache()
-    log("== phase 2b: K6's function at 27,000 and 500,000 items, both routes")
-    route_errors, route_timings = phase_routes(dev, args.seed)
-    for key, v in route_errors.items():
-        errors[key] = max(errors.get(key, 0.0), v)
-    torch.cuda.empty_cache()
+    if "2" in phases or "3" in phases:
+        t0 = time.perf_counter()
+        user_factors, item_factors, histories = make_data(args.seed)
+        log(f"  data made in {time.perf_counter() - t0:.1f} s")
+    if "2" in phases:
+        log("== phase 2: kernels")
+        prep, out["errors"], out["timings"], out["k_path"] = phase_kernels(
+            user_factors, item_factors, histories, dev)
+        del prep
+        torch.cuda.empty_cache()
+    if "2b" in phases:
+        log("== phase 2b: K6's function at 27,000 and 500,000 items, both routes")
+        route_errors, out["routes"] = phase_routes(dev, args.seed)
+        errors = out.setdefault("errors", {})
+        for key, v in route_errors.items():
+            errors[key] = max(errors.get(key, 0.0), v)
+        torch.cuda.empty_cache()
+    if "2c" in phases:
+        log(f"== phase 2c: a catalog of {WIDE_BLOCKS} item blocks")
+        out["wide_catalog"] = phase_wide_catalog(dev, args.seed)
+    if "3" in phases:
+        log("== phase 3: path")
+        out["path"] = phase_path(user_factors, item_factors, histories, dev, args.seed)
+        log("  path: " + json.dumps(out["path"]))
+    if "2" in phases or "3" in phases:
+        del user_factors, item_factors, histories
+        torch.cuda.empty_cache()
 
-    log("== phase 3: path")
-    path = phase_path(user_factors, item_factors, histories, dev, args.seed)
-    log("  path: " + json.dumps(path))
-    del user_factors, item_factors, histories
-    torch.cuda.empty_cache()
+    if "4" in phases or "5" in phases:
+        t0 = time.perf_counter()
+        train, test, csr = make_training_data()
+        log(f"  training data made in {time.perf_counter() - t0:.1f} s: {train.count_users()} "
+            f"users, {train.count_items()} items, {train.count_feedback()} train feedback, "
+            f"padded width {csr.padded.shape[1]}")
+    if "4" in phases:
+        log("== phase 4: BPR kernels")
+        out["bpr_errors"], out["bpr_timings"] = phase_bpr_kernels(csr, dev)
+        out["pairs_launches"] = phase_pairs_path(csr, dev)
+    if "5" in phases:
+        log("== phase 5: training")
+        out["training"] = phase_training(train, test, csr, dev)
+        log("  training: " + json.dumps(out["training"]))
+    if "4" in phases or "5" in phases:
+        del train, test, csr
 
-    log("== phase 4: BPR kernels")
-    t0 = time.perf_counter()
-    train, test, csr = make_training_data()
-    log(f"  training data made in {time.perf_counter() - t0:.1f} s: {train.count_users()} users, "
-        f"{train.count_items()} items, {train.count_feedback()} train feedback, "
-        f"padded width {csr.padded.shape[1]}")
-    bpr_errors, bpr_timings = phase_bpr_kernels(csr, dev)
-    pairs_launches = phase_pairs_path(csr, dev)
-
-    log("== phase 5: training")
-    training = phase_training(train, test, csr, dev)
-    log("  training: " + json.dumps(training))
-    del train, test, csr
-
-    log("== phase 6: master")
-    master = phase_master(dev)
-    log("  master: " + json.dumps(master))
-
-    log("== phase 7: vector store")
-    sq_errors, sq_timings, store = phase_vector_store(dev, args.seed)
-    log("  store: " + json.dumps(store))
+    if "6" in phases:
+        log("== phase 6: master")
+        out["master"] = phase_master(dev)
+        log("  master: " + json.dumps(out["master"]))
+    if "7" in phases:
+        log("== phase 7: vector store")
+        out["sq_errors"], out["sq_timings"], out["store"] = phase_vector_store(dev, args.seed)
+        log("  store: " + json.dumps(out["store"]))
+    if "7c" in phases:
+        log("== phase 7c: top-k above 2048")
+        out["wide_k"] = phase_wide_k(dev, args.seed)
     check("jax" not in sys.modules and "gorse_tpu" not in sys.modules,
           "neither JAX nor gorse_tpu was imported")
-
-    rows = timings[k_path]
-    device_ms = rows["topk_gated"]["ms"]
-    log(f"  kernel time per chunk {device_ms:.3f} ms = "
-        f"{100 * device_ms / path['ms_per_chunk']:.1f}% of a chunk's search_users")
-    kernels = []
-    for name in KERNELS:
-        row = rows[name]
-        kernels.append({
-            "name": name,
-            "route": "cuda",
-            "source": "gorse_tpu_torch/csrc/topk.cu",
-            "replaces": REPLACES[name],
-            "launches": path["launches"][name],
-            "max_abs_err": errors[name],
-            "ms": row["ms"],
-            "plain_ms": row["plain_ms"],
-            "bound_ms": row["bound_ms"],
-            "bound_by": row["bound_by"],
-            "library_ms": row["library_ms"],
-        })
-    # the training path's launches (phase 5); the pairs sweep's from its
-    # own path (phase 4). No single PyTorch call computes a sweep or the
-    # fold (q += delta and delta = 0 are two), so library_ms is null.
-    bpr_launches = dict(training["launches"], bpr_sweep_pairs=pairs_launches)
-    for name in BPR_KERNELS:
-        row = bpr_timings[name]
-        kernels.append({
-            "name": name,
-            "route": "cuda",
-            "source": "gorse_tpu_torch/csrc/bpr.cu",
-            "replaces": BPR_REPLACES[name],
-            "launches": bpr_launches[name],
-            "max_abs_err": bpr_errors[name],
-            "ms": row["ms"],
-            "plain_ms": row["plain_ms"],
-            "bound_ms": row["bound_ms"],
-            "bound_by": row["bound_by"],
-            "library_ms": row["library_ms"],
-        })
-    # the SQ kernels: launches from the store path (phase 7b), times at the
-    # 1M x 64 dot shape (phase 7a)
-    for name in SQ_KERNELS:
-        row = sq_timings["dot"][name]
-        kernels.append({
-            "name": name,
-            "route": "cuda",
-            "source": "gorse_tpu_torch/csrc/topk.cu",
-            "replaces": SQ_REPLACES[name],
-            "launches": store["launches"][name],
-            "max_abs_err": sq_errors[name],
-            "ms": row["ms"],
-            "plain_ms": row["plain_ms"],
-            "bound_ms": row["bound_ms"],
-            "bound_by": row["bound_by"],
-            "library_ms": row["library_ms"],
-        })
-    log("  K6 routes (ms old -> new, library, candidates new): " + json.dumps({
-        shape: [rows["old"]["ms"], rows["new"]["ms"], rows["new"]["library_ms"],
-                rows["new"]["candidates"]] for shape, rows in route_timings.items()}))
-    log(f"  total {time.perf_counter() - t_start:.1f} s; path k = {k_path}")
-    print(json.dumps({"kernels": kernels}))
+    log(f"  total {time.perf_counter() - t_start:.1f} s")
+    if len(phases) < len(PHASES):
+        print(json.dumps({"partial": phases, **{key: out[key] for key in out if key != "errors"}},
+                         default=str))
+        print(smi)
+        return 0
+    print(json.dumps({"kernels": kernel_rows(out)}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count(),
     }}), flush=True)
     return 0
+
+
+def kernel_rows(out: dict) -> list[dict]:
+    """The kernels' JSON rows: launches from each kernel's path, times at
+    the main path's shapes."""
+    rows = out["timings"][out["k_path"]]
+    path = out["path"]
+    log(f"  kernel time per chunk {rows['topk_gated']['ms']:.3f} ms = "
+        f"{100 * rows['topk_gated']['ms'] / path['ms_per_chunk']:.1f}% of a chunk's search_users")
+
+    def row(name, source, replaces, launches, err, timing):
+        return {"name": name, "route": "cuda", "source": f"gorse_tpu_torch/csrc/{source}",
+                "replaces": replaces, "launches": launches, "max_abs_err": err,
+                **{key: timing[key] for key in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                                "library_ms")}}
+
+    kernels = [row(name, "topk.cu", REPLACES[name], path["launches"][name],
+                   out["errors"][name], rows[name]) for name in KERNELS]
+    # the training path's launches (phase 5); the pairs sweep's from its
+    # own path (phase 4). No single PyTorch call computes a sweep or the
+    # fold (q += delta and delta = 0 are two), so library_ms is null.
+    bpr_launches = dict(out["training"]["launches"], bpr_sweep_pairs=out["pairs_launches"])
+    kernels += [row(name, "bpr.cu", BPR_REPLACES[name], bpr_launches[name],
+                    out["bpr_errors"][name], out["bpr_timings"][name]) for name in BPR_KERNELS]
+    # the SQ kernels: launches from the store path (phase 7b), times at the
+    # 1M x 64 dot shape (phase 7a)
+    kernels += [row(name, "topk.cu", SQ_REPLACES[name], out["store"]["launches"][name],
+                    out["sq_errors"][name], out["sq_timings"]["dot"][name]) for name in SQ_KERNELS]
+    log("  K6 routes (ms old -> new, library, candidates new): " + json.dumps({
+        shape: [r["old"]["ms"], r["new"]["ms"], r["new"]["library_ms"], r["new"]["candidates"]]
+        for shape, r in out["routes"].items()}))
+    return kernels
 
 
 if __name__ == "__main__":

@@ -39,14 +39,22 @@
 //   the dot, qsum and q2 come from the f32 queries (computed by the
 //   wrapper, so kernel and plain version read the same bits).
 //
-// Scores: the dot accumulates in f32 by scalar FMA in ascending dimension
-// order. A bf16 x bf16 product, and a bf16 x integer (0-255) product, is
-// exact in f32, so every dot equals the sequential f32 sum that the plain
-// PyTorch version (ops/topk.py, _scores_plain) computes. The epilogue is
-// separate rounded multiplies and adds (__fmul_rn/__fadd_rn/__fsub_rn,
-// never a contracted FMA), one per torch op of the plain version. Kernel and
-// plain version agree bit for bit, and block_max and block_topk see the
-// same scores.
+// Scores: one score tile (score_blocks / mma_pass) serves block_max and
+// block_topk, both tables. The dot runs on the tensor cores,
+// mma.sync m16n8k16 bf16 x bf16 -> f32, operands from shared memory by
+// ldmatrix; codes 0-255 are exact in bf16, so they are converted as they
+// are staged and take the same instruction (the reference scores each
+// block with one MXU dot with f32 accumulation, gorse_tpu/ops/topk.py
+// :336-351). The epilogue is separate rounded multiplies and adds
+// (__fmul_rn/__fadd_rn/__fsub_rn, never a contracted FMA), one per torch
+// op of the plain version. The tensor cores sum in another order than the
+// plain version's sequential f32 FMA chain (ops/topk.py _scores_plain), so
+// kernel and plain version agree within a summation-order bound, exactly
+// where every partial sum is an integer below 2^24. block_max and
+// block_topk run the same instructions on the same fragments in the same
+// k order, so they see the same f32 bits for every (query, item): a block
+// whose maximum beats a seed holds an item that beats it in block_topk too,
+// which is what keeps the gate sound.
 //
 // Order: (score descending, item index ascending), the tie order of
 // jax.lax.top_k and of the TPU kernels. It is carried as one 64-bit key:
@@ -58,7 +66,8 @@
 // both row-major, zero padded (b_pad % 32 == 0, d_pad % 64 == 0,
 // n_pad % 256 == 0); for the quantized table an affine [3, n_pad] f32
 // (scale, minv, norms2) and qstats [2, b_pad] f32 (qsum, q2). Padded items
-// (index >= n_items) are never candidates.
+// (index >= n_items) are never candidates. A launch holds at most 256
+// queries; the C entries launch once per 256-query slice.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -67,13 +76,19 @@
 namespace {
 
 constexpr int BLOCK_N = 256;  // items per block: the gate's granularity
-constexpr int GROUP = 4;      // items per group maximum: a thread's 4 items
-constexpr int QT = 32;        // queries per tile
-constexpr int DC = 64;        // dimensions staged per pass
+constexpr int GROUP = 4;      // items per group maximum
+constexpr int DC = 64;        // dimensions per pass: one 128-byte bf16 row
+constexpr int RQ = 64;        // queries per round of the score tile
+constexpr int QSLICE = 256;   // most queries one launch holds
 constexpr int THREADS = 256;
 constexpr int WARPS = THREADS / 32;
-constexpr int MERGE_MAX_K = 2048;
+constexpr int NSTAGE = 2;     // item slabs in flight
+constexpr int WIN = 256;      // block_topk: item blocks gated per window
+constexpr int GSTRIDE = 68;   // floats per row of the staged group maxima
+constexpr int SSTRIDE = 264;  // floats per row of block_topk's staged scores
+constexpr int MERGE_SMEM_KEYS = 16384;  // merge_topk sorts up to this in shared memory
 constexpr float NEG_INF = -1e30f;
+constexpr unsigned FULL = 0xffffffffu;
 
 // ------------------------------------------------------------------ keys
 
@@ -94,190 +109,367 @@ __device__ __forceinline__ unsigned long long make_key(float s, int idx) {
 
 constexpr unsigned long long SIGN64 = 0x8000000000000000ull;
 
+// ------------------------------------------------- staging (cp.async)
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_u32(dst)), "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// A staged row is 64 bf16 = 8 chunks of 16 bytes; chunk c of row r sits at
+// chunk c ^ (r % 8), so the 8 rows an ldmatrix reads hit 8 distinct bank
+// groups.
+__device__ __forceinline__ int swz(int row, int chunk) {
+  return row * 128 + ((chunk ^ (row & 7)) << 4);
+}
+
+// rows row0 .. row0 + nrows - 1, dims c0 .. c0 + 63 of a bf16 [*, d_pad]
+// array into a swizzled [nrows][64] slab
+__device__ __forceinline__ void stage_rows(const __nv_bfloat16* __restrict__ src, size_t row0,
+                                           int nrows, int c0, int d_pad, uint8_t* dst) {
+  for (int id = threadIdx.x; id < nrows * 8; id += THREADS) {
+    const int r = id >> 3, c = id & 7;
+    cp_async16(dst + swz(r, c), src + (row0 + r) * (size_t)d_pad + c0 + c * 8);
+  }
+}
+
+__device__ __forceinline__ void stage_items(const __nv_bfloat16* __restrict__ table, int blk,
+                                            int c0, int d_pad, uint8_t* dst) {
+  stage_rows(table, (size_t)blk * BLOCK_N, BLOCK_N, c0, d_pad, dst);
+}
+
+// uint8 codes land raw ([256][64] bytes) and are converted by convert_codes
+__device__ __forceinline__ void stage_items(const uint8_t* __restrict__ table, int blk, int c0,
+                                            int d_pad, uint8_t* dst) {
+  for (int id = threadIdx.x; id < BLOCK_N * 4; id += THREADS) {
+    const int r = id >> 2, c = id & 3;
+    cp_async16(dst + id * 16, table + ((size_t)blk * BLOCK_N + r) * d_pad + c0 + c * 16);
+  }
+}
+
+template <typename T>
+__host__ __device__ constexpr int slab_bytes() {
+  return BLOCK_N * DC * (int)sizeof(T);
+}
+
+// two codes (bytes j and j + 1 of w) as a bf16 pair: an integer below 256
+// has at most 8 significant bits, so its f32 value's upper half is its
+// bf16 value exactly
+__device__ __forceinline__ uint32_t bf16x2_of_codes(uint32_t w, int j) {
+  const uint32_t lo = __float_as_uint(__uint2float_rn((w >> (8 * j)) & 0xFFu));
+  const uint32_t hi = __float_as_uint(__uint2float_rn((w >> (8 * j + 8)) & 0xFFu));
+  return __byte_perm(lo, hi, 0x7632);
+}
+
+// raw codes [256][64] -> the swizzled bf16 slab the tile reads
+__device__ __forceinline__ void convert_codes(const uint8_t* raw, uint8_t* dst) {
+  for (int id = threadIdx.x; id < BLOCK_N * 4; id += THREADS) {
+    const int r = id >> 2, c = id & 3;
+    const uint4 v = *reinterpret_cast<const uint4*>(raw + id * 16);
+    *reinterpret_cast<uint4*>(dst + swz(r, 2 * c)) =
+        make_uint4(bf16x2_of_codes(v.x, 0), bf16x2_of_codes(v.x, 2), bf16x2_of_codes(v.y, 0),
+                   bf16x2_of_codes(v.y, 2));
+    *reinterpret_cast<uint4*>(dst + swz(r, 2 * c + 1)) =
+        make_uint4(bf16x2_of_codes(v.z, 0), bf16x2_of_codes(v.z, 2), bf16x2_of_codes(v.w, 0),
+                   bf16x2_of_codes(v.w, 2));
+  }
+}
+
 // ------------------------------------------------------------ score tile
 
-// Scores of the QT queries of tile ``q0`` against the BLOCK_N items of
-// block ``blk``. Thread t owns queries (t / 64) * 8 + a, a < 8, and items
-// (t % 64) * 4 + c, c < 4: acc[a][c]. Each 64-dim pass stages the query
-// tile as f32 [DC][QT] (read as broadcasts) and the item block as T
-// [DC][BLOCK_N] (transposed, so a thread's 4 items are one 8-byte read of
-// bf16, one 4-byte read of uint8 codes).
-template <typename T>
-struct TileSmem {
-  float q[DC][QT];                                  // 8 KB
-  union {
-    T items[DC][BLOCK_N];                           // 32 KB bf16, 16 KB uint8
-    float scores[QT][BLOCK_N];                      // 32 KB
-  } u;
-};
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const uint8_t* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p)));
+}
 
-// item block: thread t loads item t, dims c0 .. c0 + 63
-__device__ __forceinline__ void stage_items(const __nv_bfloat16* __restrict__ table, int blk,
-                                            int c0, int d_pad,
-                                            TileSmem<__nv_bfloat16>& sm) {
-  const int t = threadIdx.x;
-  const __nv_bfloat16* row = table + ((size_t)blk * BLOCK_N + t) * d_pad + c0;
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// The score tile of one round: RQ = 64 queries x 256 items. Warp w holds
+// queries (w / 4) * 32 + [0, 32) (two 16-row m tiles) and items
+// (w % 4) * 64 + [0, 64) (eight 8-column n tiles): acc[mt][nt][e] is the
+// m16n8 C fragment, row (lane / 4) + 8 (e / 2), column 2 (lane % 4) + e % 2.
+// One pass adds the 64 dimensions of the staged slabs to acc, in four k16
+// steps, ascending; passes run in ascending dimension order. ``live`` has a
+// bit per 16-query m tile of the round; a dead tile is not computed.
+using Acc = float[2][8][4];
+
+__device__ __forceinline__ void mma_pass(const uint8_t* qs, const uint8_t* items, unsigned live,
+                                         Acc& acc) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int wq = warp >> 2, wn = warp & 3;
+  const unsigned mine = (live >> (2 * wq)) & 3u;
+  if (mine == 0) return;
 #pragma unroll
-  for (int u = 0; u < DC / 8; ++u) {
-    uint4 v = __ldg(reinterpret_cast<const uint4*>(row + u * 8));
-    const __nv_bfloat16* e = reinterpret_cast<const __nv_bfloat16*>(&v);
+  for (int ks = 0; ks < DC / 16; ++ks) {
+    uint32_t a[2][4], b[4][4];
 #pragma unroll
-    for (int h = 0; h < 8; ++h) sm.u.items[u * 8 + h][t] = e[h];
+    for (int mt = 0; mt < 2; ++mt)
+      if (mine >> mt & 1u)
+        ldsm_x4(a[mt], qs + swz(wq * 32 + mt * 16 + (lane & 15), 2 * ks + (lane >> 4)));
+#pragma unroll
+    for (int np = 0; np < 4; ++np)
+      ldsm_x4(b[np], items + swz(wn * 64 + np * 16 + (lane & 7) + ((lane >> 4) << 3),
+                                 2 * ks + ((lane >> 3) & 1)));
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt)
+      if (mine >> mt & 1u)
+#pragma unroll
+        for (int nt = 0; nt < 8; ++nt)
+          mma_bf16(acc[mt][nt], a[mt], b[nt >> 1][(nt & 1) * 2], b[nt >> 1][(nt & 1) * 2 + 1]);
   }
 }
 
-__device__ __forceinline__ void stage_items(const uint8_t* __restrict__ table, int blk, int c0,
-                                            int d_pad, TileSmem<uint8_t>& sm) {
-  const int t = threadIdx.x;
-  const uint8_t* row = table + ((size_t)blk * BLOCK_N + t) * d_pad + c0;
-#pragma unroll
-  for (int u = 0; u < DC / 16; ++u) {
-    uint4 v = __ldg(reinterpret_cast<const uint4*>(row + u * 16));
-    const uint8_t* e = reinterpret_cast<const uint8_t*>(&v);
-#pragma unroll
-    for (int h = 0; h < 16; ++h) sm.u.items[u * 16 + h][t] = e[h];
-  }
-}
-
-// items ti * 4 .. + 3 of staged dim j as f32 (both conversions exact)
-__device__ __forceinline__ void load_items(const TileSmem<__nv_bfloat16>& sm, int j, int ti,
-                                           float it[4]) {
-  const uint2 iv = *reinterpret_cast<const uint2*>(&sm.u.items[j][ti * 4]);
-  it[0] = __uint_as_float(iv.x << 16);
-  it[1] = __uint_as_float(iv.x & 0xFFFF0000u);
-  it[2] = __uint_as_float(iv.y << 16);
-  it[3] = __uint_as_float(iv.y & 0xFFFF0000u);
-}
-
-__device__ __forceinline__ void load_items(const TileSmem<uint8_t>& sm, int j, int ti,
-                                           float it[4]) {
-  const uint32_t iv = *reinterpret_cast<const uint32_t*>(&sm.u.items[j][ti * 4]);
-#pragma unroll
-  for (int c = 0; c < 4; ++c) it[c] = __uint2float_rn((iv >> (8 * c)) & 0xFFu);
-}
-
 template <typename T>
-__device__ __forceinline__ void score_tile(
-    const __nv_bfloat16* __restrict__ q, const T* __restrict__ table,
-    int q0, int blk, int d_pad, TileSmem<T>& sm, float acc[8][4]) {
-  const int t = threadIdx.x;
-  const int tq = t >> 6, ti = t & 63;
-#pragma unroll
-  for (int a = 0; a < 8; ++a)
-#pragma unroll
-    for (int c = 0; c < 4; ++c) acc[a][c] = 0.0f;
+__host__ __device__ constexpr int score_smem_bytes(int nq, int d_pad) {
+  return (d_pad == DC ? nq : RQ) * 128 + NSTAGE * slab_bytes<T>() +
+         (sizeof(T) == 1 ? BLOCK_N * DC * 2 : 0);
+}
 
-  for (int c0 = 0; c0 < d_pad; c0 += DC) {
-    __syncthreads();  // previous readers of the staging buffers are done
-    {
-      // query tile: thread t loads row t / 8, dims (t % 8) * 8 .. + 7
-      const int r = t >> 3, j0 = (t & 7) * 8;
-      uint4 v = *reinterpret_cast<const uint4*>(q + (size_t)(q0 + r) * d_pad + c0 + j0);
-      const uint32_t w[4] = {v.x, v.y, v.z, v.w};
+// Scores the listed item blocks against the launch's nq queries, round by
+// round, and hands each round's fragments to ``epi(i, blk, round, acc)``.
+// ``block_at(i)`` is the i-th block of the list, ``live(i, round)`` the
+// round's live m tiles (0: the round is skipped). With d_pad = 64 the
+// queries stay resident in shared memory and the item slabs stream through
+// an NSTAGE-deep cp.async ring, so the table is read once; wider tables
+// stage each (round, 64-dimension pass) in turn. All threads of the block
+// call this with the same arguments; ``epi`` may synchronise.
+template <typename T, typename BlockAt, typename Live, typename Epi>
+__device__ __forceinline__ void score_blocks(const __nv_bfloat16* __restrict__ q,
+                                             const T* __restrict__ table, int nq, int d_pad,
+                                             uint8_t* smem, int n_list, BlockAt block_at,
+                                             Live live, Epi epi) {
+  const bool resident = d_pad == DC;
+  uint8_t* qbuf = smem;
+  uint8_t* stages = qbuf + (resident ? nq : RQ) * 128;
+  uint8_t* conv = stages + NSTAGE * slab_bytes<T>();
+  const bool codes = sizeof(T) == 1;
+  const int n_rounds = (nq + RQ - 1) / RQ;
+  Acc acc;
+
+  auto zero = [&acc]() {
 #pragma unroll
-      for (int h = 0; h < 4; ++h) {
-        sm.q[j0 + 2 * h][r] = __uint_as_float(w[h] << 16);
-        sm.q[j0 + 2 * h + 1][r] = __uint_as_float(w[h] & 0xFFFF0000u);
+    for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0.0f;
+  };
+
+  if (resident) {
+    stage_rows(q, 0, nq, 0, d_pad, qbuf);
+#pragma unroll
+    for (int s = 0; s < NSTAGE - 1; ++s) {
+      if (s < n_list) stage_items(table, block_at(s), 0, d_pad, stages + s * slab_bytes<T>());
+      cp_async_commit();
+    }
+    for (int i = 0; i < n_list; ++i) {
+      cp_async_wait<NSTAGE - 2>();
+      __syncthreads();  // slab i landed; the slab read at i - 1 is free
+      const int nx = i + NSTAGE - 1;
+      if (nx < n_list)
+        stage_items(table, block_at(nx), 0, d_pad, stages + (nx % NSTAGE) * slab_bytes<T>());
+      cp_async_commit();
+      const uint8_t* items = stages + (i % NSTAGE) * slab_bytes<T>();
+      if (codes) {
+        convert_codes(items, conv);
+        __syncthreads();
+        items = conv;
+      }
+      const int blk = block_at(i);
+      for (int r = 0; r < n_rounds; ++r) {
+        const unsigned m = live(i, r);
+        if (m == 0) continue;
+        zero();
+        mma_pass(qbuf + r * RQ * 128, items, m, acc);
+        epi(i, blk, r, acc);
       }
     }
-    stage_items(table, blk, c0, d_pad, sm);
-    __syncthreads();
-#pragma unroll 4
-    for (int j = 0; j < DC; ++j) {
-      const float4 qa = *reinterpret_cast<const float4*>(&sm.q[j][tq * 8]);
-      const float4 qb = *reinterpret_cast<const float4*>(&sm.q[j][tq * 8 + 4]);
-      float it[4];
-      load_items(sm, j, ti, it);
-      const float qv[8] = {qa.x, qa.y, qa.z, qa.w, qb.x, qb.y, qb.z, qb.w};
+  } else {
+    for (int i = 0; i < n_list; ++i) {
+      const int blk = block_at(i);
+      for (int r = 0; r < n_rounds; ++r) {
+        const unsigned m = live(i, r);
+        if (m == 0) continue;
+        zero();
+        for (int c0 = 0; c0 < d_pad; c0 += DC) {
+          __syncthreads();  // the previous pass's readers are done
+          stage_rows(q, (size_t)r * RQ, min(RQ, nq - r * RQ), c0, d_pad, qbuf);
+          stage_items(table, blk, c0, d_pad, stages);
+          cp_async_commit();
+          cp_async_wait<0>();
+          __syncthreads();
+          const uint8_t* items = stages;
+          if (codes) {
+            convert_codes(items, conv);
+            __syncthreads();
+            items = conv;
+          }
+          mma_pass(qbuf, items, m, acc);
+        }
+        epi(i, blk, r, acc);
+      }
+    }
+  }
+  cp_async_wait<0>();
+  __syncthreads();  // the buffers are free for the caller
+}
+
+// The quantized table's per-item affine and the slice's per-query
+// statistics; a null ``affine`` means a plain bf16 table and no epilogue.
+struct Affine {
+  const float* affine;  // [3, n_pad]: scale, minv, norms2
+  const float* qsum;    // [nq]: sum(q) of the f32 queries
+  const float* q2;      // [nq]: sum(q * q)
+  int n_pad, euclid;
+};
+
+// The epilogue of gorse_tpu/ops/topk.py _block_scores (:353-357) on a
+// round's fragments: dots = raw * scale + qsum * minv, and for euclidean
+// 2 * dots - norms2 - q2, each op rounded on its own.
+__device__ __forceinline__ void apply_affine(const Affine& af, int blk, int q0, int nq, Acc& acc) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int wq = warp >> 2, wn = warp & 3, g = lane >> 2, tq = lane & 3;
 #pragma unroll
-      for (int a = 0; a < 8; ++a)
+  for (int mt = 0; mt < 2; ++mt) {
+    const int row0 = q0 + wq * 32 + mt * 16;
+    if (row0 >= nq) continue;
+    float qs[2], qq[2];
 #pragma unroll
-        for (int c = 0; c < 4; ++c) acc[a][c] = fmaf(qv[a], it[c], acc[a][c]);
+    for (int h = 0; h < 2; ++h) {
+      qs[h] = __ldg(af.qsum + row0 + g + 8 * h);
+      qq[h] = __ldg(af.q2 + row0 + g + 8 * h);
+    }
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt) {
+#pragma unroll
+      for (int e1 = 0; e1 < 2; ++e1) {
+        const int idx = blk * BLOCK_N + wn * 64 + nt * 8 + tq * 2 + e1;
+        const float scale = __ldg(af.affine + idx), minv = __ldg(af.affine + af.n_pad + idx);
+        const float n2 = __ldg(af.affine + 2 * af.n_pad + idx);
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          float& x = acc[mt][nt][2 * h + e1];
+          const float d = __fadd_rn(__fmul_rn(x, scale), __fmul_rn(qs[h], minv));
+          x = af.euclid ? __fsub_rn(__fsub_rn(__fmul_rn(2.0f, d), n2), qq[h]) : d;
+        }
+      }
     }
   }
 }
 
-// The quantized table's per-item affine and per-query statistics; a null
-// ``affine`` means a plain bf16 table and no epilogue.
-struct Affine {
-  const float* affine;  // [3, n_pad]: scale, minv, norms2
-  const float* qstats;  // [2, b_pad]: qsum, q2 of the f32 queries
-  int n_pad, b_pad, euclid;
-};
+// this block's share of the n item blocks: a contiguous range
+__device__ __forceinline__ void block_range(int n, int& lo, int& hi) {
+  lo = (int)((long long)blockIdx.x * n / gridDim.x);
+  hi = (int)((long long)(blockIdx.x + 1) * n / gridDim.x);
+}
 
-// The epilogue of gorse_tpu/ops/topk.py _block_scores (:353-357) on the
-// thread's acc[a][c]: dots = raw * scale + qsum * minv, and for euclidean
-// 2 * dots - norms2 - q2, each op rounded on its own.
-__device__ __forceinline__ void apply_affine(const Affine& af, int q0, int blk,
-                                             float acc[8][4]) {
-  const int t = threadIdx.x, tq = t >> 6, ti = t & 63;
+// m tiles of round r that hold queries below nq
+__device__ __forceinline__ unsigned rows_live(int r, int nq) {
+  unsigned m = 0;
 #pragma unroll
-  for (int c = 0; c < 4; ++c) {
-    const int idx = blk * BLOCK_N + ti * 4 + c;
-    const float scale = af.affine[idx], minv = af.affine[af.n_pad + idx];
-    const float n2 = af.affine[2 * af.n_pad + idx];
-#pragma unroll
-    for (int a = 0; a < 8; ++a) {
-      const int qi = q0 + tq * 8 + a;
-      const float qsum = af.qstats[qi], q2 = af.qstats[af.b_pad + qi];
-      const float d = __fadd_rn(__fmul_rn(acc[a][c], scale), __fmul_rn(qsum, minv));
-      acc[a][c] = af.euclid ? __fsub_rn(__fsub_rn(__fmul_rn(2.0f, d), n2), q2) : d;
-    }
-  }
+  for (int j = 0; j < RQ / 16; ++j)
+    if (r * RQ + j * 16 < nq) m |= 1u << j;
+  return m;
 }
 
 // --------------------------------------------------------------- K4
 
 // Replaces gorse_tpu/ops/topk.py _block_max_kernel (pass 1).
 // Bound on this card: at the serving shape (B 256, 1M x 64 items) one
-// table stream is 128 MB bf16 or 64 MB of codes + 12 MB of affine (~38 or
-// ~23 us at 3.35 TB/s) and the dots are 33.6 GFLOP (~34 us on bf16 tensor
-// cores). This kernel runs the dots as
-// scalar f32 FMA (67 TFLOP/s peak, so >= 0.5 ms): it is bound by FMA
-// issue, not by bytes. Its design keeps the bytes at one stream: grid x
-// is the query tile, so the tiles of one item block run side by side and
-// share the block through L2. The FMA order is fixed so that the plain
-// version reproduces every score; tensor cores (mma/wgmma) are later work.
-// With ``gmax`` (the group gate) each thread also writes the maximum of its
-// 4 items for each of its 8 queries, [b_pad, n_pad / 4] f32: a query's 64
-// group maxima of a block are 64 neighbouring floats, so the stores
-// coalesce. That adds b_pad * n_pad bytes written (128 MB at 256 x 500k,
-// ~38 us) to a kernel bound by FMA issue.
+// table stream is 128 MB bf16 or 64 MB of codes + 8-12 MB of affine (~38
+// or ~23 us at 3.35 TB/s) and the dots are 33.6 GFLOP (~34 us on bf16
+// tensor cores): about balanced. The design reads the table once (queries
+// resident, slabs through a cp.async ring, a persistent grid of one or two
+// blocks per SM over contiguous ranges of item blocks, so no grid limit on
+// the catalog) and runs the dots as mma.sync. Block maxima: a register max
+// over the fragment, a quad shuffle, a reduction across the 4 warps of a
+// row in shared memory. With ``gmax`` (the group gate) also the maximum of
+// every 4 items, [b_pad, n_pad / 4] f32: in the C fragment a lane holds
+// two adjacent columns, so a group is one shuffle between neighbouring
+// lanes; the round's groups are staged in shared memory and written a row
+// at a time (coalesced). That adds b_pad * n_pad bytes written (128 MB at
+// 256 x 500k, ~38 us).
 template <typename T>
 __global__ void __launch_bounds__(THREADS) block_max_kernel(
     const __nv_bfloat16* __restrict__ q, const T* __restrict__ table, Affine af,
-    float* __restrict__ bmax, float* __restrict__ gmax, int d_pad, int n_items,
+    float* __restrict__ bmax, float* __restrict__ gmax, int nq, int d_pad, int n_items,
     int n_blocks) {
-  __shared__ TileSmem<T> sm;
-  __shared__ float red[WARPS][8];
-  const int q0 = blockIdx.x * QT, blk = blockIdx.y;
-  float acc[8][4];
-  score_tile(q, table, q0, blk, d_pad, sm, acc);
-  if (af.affine != nullptr) apply_affine(af, q0, blk, acc);
-
+  extern __shared__ __align__(128) uint8_t dsm[];
+  float* red = reinterpret_cast<float*>(dsm + score_smem_bytes<T>(nq, d_pad));  // [4][RQ]
+  float* gsm = red + 4 * RQ;                                                     // [RQ][GSTRIDE]
   const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
-  const int tq = t >> 6, ti = t & 63;
+  const int wq = warp >> 2, wn = warp & 3, g = lane >> 2, tq = lane & 3;
   const size_t n_groups = (size_t)n_blocks * (BLOCK_N / GROUP);
+  int lo, hi;
+  block_range(n_blocks, lo, hi);
+
+  auto epi = [&](int, int blk, int r, Acc& acc) {
+    if (af.affine != nullptr) apply_affine(af, blk, r * RQ, nq, acc);
+    float rmax[2][2] = {{NEG_INF, NEG_INF}, {NEG_INF, NEG_INF}};
 #pragma unroll
-  for (int a = 0; a < 8; ++a) {
-    float m = NEG_INF;
+    for (int nt = 0; nt < 8; ++nt) {
+      const int col = wn * 64 + nt * 8 + tq * 2;
+      const bool ok0 = blk * BLOCK_N + col < n_items, ok1 = blk * BLOCK_N + col + 1 < n_items;
 #pragma unroll
-    for (int c = 0; c < GROUP; ++c) {
-      const int idx = blk * BLOCK_N + ti * GROUP + c;
-      if (idx < n_items) m = fmaxf(m, acc[a][c]);
+      for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          float m = fmaxf(ok0 ? acc[mt][nt][2 * h] : NEG_INF, ok1 ? acc[mt][nt][2 * h + 1] : NEG_INF);
+          rmax[mt][h] = fmaxf(rmax[mt][h], m);
+          if (gmax != nullptr) {
+            m = fmaxf(m, __shfl_xor_sync(FULL, m, 1));
+            if ((tq & 1) == 0) gsm[(wq * 32 + mt * 16 + g + 8 * h) * GSTRIDE + col / GROUP] = m;
+          }
+        }
     }
-    if (gmax != nullptr)
-      gmax[(q0 + tq * 8 + a) * n_groups + blk * (BLOCK_N / GROUP) + ti] = m;
 #pragma unroll
-    for (int off = 16; off > 0; off >>= 1) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, off));
-    if (lane == 0) red[warp][a] = m;
-  }
-  __syncthreads();
-  if (t < QT) {
-    // query t lives in warps 2 * (t / 8) and 2 * (t / 8) + 1, slot t % 8
-    const int w0 = 2 * (t >> 3), a = t & 7;
-    bmax[(size_t)(q0 + t) * n_blocks + blk] = fmaxf(red[w0][a], red[w0 + 1][a]);
-  }
+    for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        float m = rmax[mt][h];
+        m = fmaxf(m, __shfl_xor_sync(FULL, m, 1));
+        m = fmaxf(m, __shfl_xor_sync(FULL, m, 2));
+        if (tq == 0) red[wn * RQ + wq * 32 + mt * 16 + g + 8 * h] = m;
+      }
+    __syncthreads();
+    const int q0 = r * RQ;
+    if (t < RQ && q0 + t < nq)
+      bmax[(size_t)(q0 + t) * n_blocks + blk] =
+          fmaxf(fmaxf(red[t], red[RQ + t]), fmaxf(red[2 * RQ + t], red[3 * RQ + t]));
+    if (gmax != nullptr) {
+      for (int id = t; id < RQ * (BLOCK_N / GROUP / 4); id += THREADS) {
+        const int row = id >> 4, f = id & 15;
+        if (q0 + row < nq)
+          *reinterpret_cast<float4*>(gmax + (size_t)(q0 + row) * n_groups +
+                                     (size_t)blk * (BLOCK_N / GROUP) + f * 4) =
+              *reinterpret_cast<const float4*>(gsm + row * GSTRIDE + f * 4);
+      }
+    }
+    __syncthreads();  // red and gsm are read before the next round writes them
+  };
+  score_blocks<T>(q, table, nq, d_pad, dsm, hi - lo, [lo](int i) { return lo + i; },
+                  [nq](int, int r) { return rows_live(r, nq); }, epi);
 }
 
 // --------------------------------------------------------------- K5, K6
@@ -327,8 +519,8 @@ __device__ U block_kth_largest(int n, int k, KeyFn key, SelectSmem& sm) {
 // what the gate lets through, not with the catalog. Bound: one read of
 // bmax (4 MB at the serving shape, ~1.2 us at 3.35 TB/s); four radix
 // passes over a row that stays in L1/L2. Deriving the seeds here once,
-// not in each of block_topk's item-block stripes, keeps block_topk's
-// work to the blocks that fire.
+// not in each of block_topk's blocks, keeps block_topk's work to the
+// blocks that fire.
 __global__ void __launch_bounds__(THREADS) block_seeds_kernel(
     const float* __restrict__ bmax, float* __restrict__ seeds, int* __restrict__ fired,
     int n_blocks, int k) {
@@ -346,7 +538,7 @@ __global__ void __launch_bounds__(THREADS) block_seeds_kernel(
   __syncthreads();
   int c = 0;
   for (int i = t; i < n_blocks; i += THREADS) c += row[i] > s;
-  c = __reduce_add_sync(0xffffffffu, c);
+  c = __reduce_add_sync(FULL, c);
   if ((t & 31) == 0) atomicAdd(&n_fired, c);
   __syncthreads();
   if (t == 0) {
@@ -366,109 +558,159 @@ __global__ void __launch_bounds__(THREADS) block_seeds_kernel(
 // a block (group) whose maximum beats it, so the buffer holds min(k, 256)
 // keys for each block (min(k, 4) for each group) that fires for the query
 // that fires most, every block's when ungated: nothing is cut.
-// Bound on this card: the dots of the tiles that fire (same FMA issue
-// bound as block_max) plus the candidate bytes. The gate skips a whole
-// tile when none of its 32 queries fires; at k = 10 about 8% of tiles
-// fire at 1M items, at k = 300 most do. Grid: (query tiles, n_split);
-// a block reads its 32 seeds once and then walks every n_split-th item
-// block.
+// Bound on this card: the dots of the (query, block) pairs that fire plus
+// the candidate bytes. Design: the persistent grid of block_max; each
+// block first reads its range's maxima row by row (coalesced) into a fire
+// mask per item block (one bit per query), then runs the score tile over
+// the blocks where some query fires, skipping rounds and 16-query m tiles
+// where none does. A round's scores of the firing queries go to shared
+// memory; a warp per firing query ballots its 256 entries in index order
+// and appends the selected ones with one atomicAdd on the query's count.
 template <typename T>
 __global__ void __launch_bounds__(THREADS) block_topk_kernel(
     const __nv_bfloat16* __restrict__ q, const T* __restrict__ table, Affine af,
     const float* __restrict__ bmax, const float* __restrict__ seeds,
-    long long* __restrict__ cand,
-    int* __restrict__ count, int b, int d_pad, int n_items, int n_blocks, int k,
-    int cap) {
-  __shared__ TileSmem<T> sm;
-  __shared__ float seed[QT];
-  __shared__ int fire[QT];
+    long long* __restrict__ cand, int* __restrict__ count, int nq, int b, int d_pad,
+    int n_items, int n_blocks, int k, int cap) {
+  extern __shared__ __align__(128) uint8_t dsm[];
+  float* scores = reinterpret_cast<float*>(dsm + score_smem_bytes<T>(nq, d_pad));  // [RQ][SSTRIDE]
+  uint32_t* qmask = reinterpret_cast<uint32_t*>(scores + RQ * SSTRIDE);  // [WIN][QSLICE / 32]
+  float* seed = reinterpret_cast<float*>(qmask + WIN * (QSLICE / 32));   // [QSLICE]
+  int* list = reinterpret_cast<int*>(seed + QSLICE);                     // [WIN]
+  int* wcount = list + WIN;                                              // [WARPS]
   const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
-  const int q0 = blockIdx.x * QT;
+  const int wq = warp >> 2, wn = warp & 3, g = lane >> 2, tq = lane & 3;
+  constexpr int MW = QSLICE / 32;  // mask words per item block
+  int lo, hi;
+  block_range(n_blocks, lo, hi);
+  if (t < QSLICE) seed[t] = (seeds != nullptr && t < b) ? seeds[t] : NEG_INF;
 
-  if (t < QT) seed[t] = (seeds != nullptr && q0 + t < b) ? seeds[q0 + t] : NEG_INF;
-  __syncthreads();
+  auto fires = [&](int slot, int qi) { return (qmask[slot * MW + (qi >> 5)] >> (qi & 31)) & 1u; };
 
-  for (int blk = blockIdx.y; blk < n_blocks; blk += gridDim.y) {
-    int f = 0;
-    if (t < QT && q0 + t < b)
-      f = bmax == nullptr ? 1 : (bmax[(size_t)(q0 + t) * n_blocks + blk] > seed[t]);
-    if (t < QT) fire[t] = f;
-    if (!__syncthreads_or(f)) continue;  // no query of the tile needs this block
-
-    float acc[8][4];
-    score_tile(q, table, q0, blk, d_pad, sm, acc);
-    if (af.affine != nullptr) apply_affine(af, q0, blk, acc);
-    __syncthreads();  // the item staging buffer becomes the score buffer
-    {
-      const int tq = t >> 6, ti = t & 63;
-#pragma unroll
-      for (int a = 0; a < 8; ++a)
-        *reinterpret_cast<float4*>(&sm.u.scores[tq * 8 + a][ti * 4]) =
-            make_float4(acc[a][0], acc[a][1], acc[a][2], acc[a][3]);
+  for (int w0 = lo; w0 < hi; w0 += WIN) {
+    const int wl = min(WIN, hi - w0);
+    for (int i = t; i < WIN * MW; i += THREADS) qmask[i] = 0;
+    __syncthreads();
+    for (int qi = warp; qi < b; qi += WARPS) {
+      const float sd = seed[qi];
+      for (int j = lane; j < wl; j += 32)
+        if (bmax == nullptr || bmax[(size_t)qi * n_blocks + w0 + j] > sd)
+          atomicOr(&qmask[j * MW + (qi >> 5)], 1u << (qi & 31));
     }
     __syncthreads();
-
-    for (int r = warp * (QT / WARPS); r < (warp + 1) * (QT / WARPS); ++r) {
-      if (!fire[r]) continue;
-      const float sd = seed[r];
-      unsigned long long key[8];
-      bool valid[8], sel[8];
-      int c = 0;
+    // the window's blocks where some query fires, in order
+    bool any = false;
+    if (t < wl)
 #pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        const int idx = blk * BLOCK_N + i * 32 + lane;  // ballot order = index order
-        const float s = sm.u.scores[r][i * 32 + lane];
-        valid[i] = idx < n_items;
-        key[i] = valid[i] ? make_key(s, idx) : 0ull;
-        sel[i] = valid[i] && s > sd;
-        c += __popc(__ballot_sync(0xffffffffu, sel[i]));
+      for (int w = 0; w < MW; ++w) any |= qmask[t * MW + w] != 0u;
+    const unsigned bal = __ballot_sync(FULL, any);
+    if (lane == 0) wcount[warp] = __popc(bal);
+    __syncthreads();
+    int off = 0, n_list = 0;
+    for (int w = 0; w < WARPS; ++w) {
+      off += w < warp ? wcount[w] : 0;
+      n_list += wcount[w];
+    }
+    if (any) list[off + __popc(bal & ((1u << lane) - 1u))] = t;
+    __syncthreads();
+
+    auto live = [&](int i, int r) {
+      const int slot = list[i];
+      unsigned m = 0;
+#pragma unroll
+      for (int j = 0; j < RQ / 16; ++j) {
+        const int q16 = r * RQ + j * 16;
+        if (q16 < nq && ((qmask[slot * MW + (q16 >> 5)] >> (q16 & 16)) & 0xFFFFu) != 0u)
+          m |= 1u << j;
       }
-      if (c == 0) continue;
-      if (c > k) {
-        // more than k above the seed: keep the block's own top k. rank =
-        // number of keys of the block larger than this one.
-        int rank[8] = {0, 0, 0, 0, 0, 0, 0, 0};
+      return m;
+    };
+    auto epi = [&](int i, int blk, int r, Acc& acc) {
+      const int slot = list[i], q0 = r * RQ;
+      if (af.affine != nullptr) apply_affine(af, blk, q0, nq, acc);
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int row = wq * 32 + mt * 16 + g + 8 * h;
+          if (q0 + row < nq && fires(slot, q0 + row))
+#pragma unroll
+            for (int nt = 0; nt < 8; ++nt)
+              *reinterpret_cast<float2*>(scores + row * SSTRIDE + wn * 64 + nt * 8 + tq * 2) =
+                  make_float2(acc[mt][nt][2 * h], acc[mt][nt][2 * h + 1]);
+        }
+      __syncthreads();
+      for (int row = warp * (RQ / WARPS); row < (warp + 1) * (RQ / WARPS); ++row) {
+        const int qi = q0 + row;
+        if (qi >= b || !fires(slot, qi)) continue;
+        const float sd = seed[qi];
+        unsigned long long key[8];
+        bool valid[8], sel[8];
+        int c = 0;
 #pragma unroll
         for (int i2 = 0; i2 < 8; ++i2) {
-          for (int src = 0; src < 32; ++src) {
-            const unsigned long long o = __shfl_sync(0xffffffffu, key[i2], src);
-#pragma unroll
-            for (int i = 0; i < 8; ++i) rank[i] += (o > key[i]);
-          }
+          const int idx = blk * BLOCK_N + i2 * 32 + lane;  // ballot order = index order
+          const float s = scores[row * SSTRIDE + i2 * 32 + lane];
+          valid[i2] = idx < n_items;
+          key[i2] = valid[i2] ? make_key(s, idx) : 0ull;
+          sel[i2] = valid[i2] && s > sd;
+          c += __popc(__ballot_sync(FULL, sel[i2]));
         }
+        if (c == 0) continue;
+        if (c > k) {
+          // more than k above the seed: keep the block's own top k. rank =
+          // number of keys of the block larger than this one.
+          int rank[8] = {0, 0, 0, 0, 0, 0, 0, 0};
 #pragma unroll
-        for (int i = 0; i < 8; ++i) sel[i] = valid[i] && rank[i] < k;
-        c = k;
-      }
-      int off = 0;
-      if (lane == 0) off = atomicAdd(&count[q0 + r], c);
-      off = __shfl_sync(0xffffffffu, off, 0);
-      long long* dst = cand + (size_t)(q0 + r) * cap;
-      const unsigned int lt = (1u << lane) - 1u;
+          for (int i2 = 0; i2 < 8; ++i2) {
+            for (int src = 0; src < 32; ++src) {
+              const unsigned long long o = __shfl_sync(FULL, key[i2], src);
 #pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        const unsigned int m = __ballot_sync(0xffffffffu, sel[i]);
-        if (sel[i]) dst[off + __popc(m & lt)] = (long long)(key[i] ^ SIGN64);
-        off += __popc(m);
+              for (int i3 = 0; i3 < 8; ++i3) rank[i3] += (o > key[i3]);
+            }
+          }
+#pragma unroll
+          for (int i2 = 0; i2 < 8; ++i2) sel[i2] = valid[i2] && rank[i2] < k;
+          c = k;
+        }
+        int at = 0;
+        if (lane == 0) at = atomicAdd(&count[qi], c);
+        at = __shfl_sync(FULL, at, 0);
+        long long* dst = cand + (size_t)qi * cap;
+        const unsigned int lt = (1u << lane) - 1u;
+#pragma unroll
+        for (int i2 = 0; i2 < 8; ++i2) {
+          const unsigned int m = __ballot_sync(FULL, sel[i2]);
+          if (sel[i2]) dst[at + __popc(m & lt)] = (long long)(key[i2] ^ SIGN64);
+          at += __popc(m);
+        }
       }
-    }
-    __syncthreads();  // score buffer is read before the next tile restages
+      __syncthreads();  // the score rows are read before the next round writes them
+    };
+    score_blocks<T>(q, table, nq, d_pad, dsm, n_list, [&](int i) { return w0 + list[i]; }, live,
+                    epi);
   }
 }
 
 // The final merge of K5/K6: one block per query selects the k largest
 // keys of its candidates (block_kth_largest over the 64-bit keys, when
-// there are more than k), sorts them (bitonic, in shared
-// memory) and writes (score, index), with NEG_INF / 0 filling the slots
-// that have no candidate. Bound: the candidate bytes, a few KB per query
-// at the serving shape.
+// there are more than k), sorts them (bitonic, descending) and writes
+// (score, index), with NEG_INF / 0 filling the slots that have no
+// candidate. The sort runs in dynamic shared memory up to MERGE_SMEM_KEYS
+// keys (128 KB); above that (``SMEM`` false) in ``scratch`` ([b, k_pow2] in
+// device memory, allocated by the wrapper), any k. Bound: the candidate
+// bytes, a few KB per query at the serving shape.
+template <bool SMEM>
 __global__ void __launch_bounds__(THREADS) merge_topk_kernel(
-    const long long* __restrict__ cand, const int* __restrict__ count,
-    float* __restrict__ out_s, int* __restrict__ out_i, int k, int k_pow2, int cap) {
-  __shared__ unsigned long long keys[MERGE_MAX_K];
+    const long long* __restrict__ cand, const int* __restrict__ count, float* __restrict__ out_s,
+    int* __restrict__ out_i, int k, int k_pow2, int cap,
+    unsigned long long* __restrict__ scratch) {
+  extern __shared__ __align__(128) uint8_t dsm[];
   __shared__ SelectSmem sm;
   __shared__ int n_sel;
   const int t = threadIdx.x, qi = blockIdx.x;
+  unsigned long long* keys = SMEM ? reinterpret_cast<unsigned long long*>(dsm)
+                                  : scratch + (size_t)qi * k_pow2;
   const int c = count[qi];
   const long long* src = cand + (size_t)qi * cap;
 
@@ -515,30 +757,82 @@ __global__ void __launch_bounds__(THREADS) merge_topk_kernel(
   }
 }
 
+// A persistent grid: as many blocks as fit on the card at once, at most
+// one per item block.
+template <typename K>
+int persistent_grid(K kernel, int smem, int n_blocks) {
+  int dev = 0, n_sm = 0, occ = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev);
+  cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occ, kernel, THREADS, smem);
+  return max(1, min(n_blocks, max(occ, 1) * n_sm));
+}
+
+template <typename T>
+int launch_block_max(const void* q, const void* table, const void* affine, const void* qstats,
+                     void* bmax, void* gmax, int b_pad, int d_pad, int n_items, int n_blocks,
+                     int euclid, cudaStream_t stream) {
+  const size_t n_groups = (size_t)n_blocks * (BLOCK_N / GROUP);
+  for (int s = 0; s < b_pad; s += QSLICE) {
+    const int nq = min(QSLICE, b_pad - s);
+    const int smem = score_smem_bytes<T>(nq, d_pad) + 4 * RQ * 4 +
+                     (gmax != nullptr ? RQ * GSTRIDE * 4 : 0);
+    const Affine af{(const float*)affine, qstats ? (const float*)qstats + s : nullptr,
+                    qstats ? (const float*)qstats + b_pad + s : nullptr, n_blocks * BLOCK_N,
+                    euclid};
+    const int grid = persistent_grid(block_max_kernel<T>, smem, n_blocks);
+    block_max_kernel<T><<<grid, THREADS, smem, stream>>>(
+        (const __nv_bfloat16*)q + (size_t)s * d_pad, (const T*)table, af,
+        (float*)bmax + (size_t)s * n_blocks, gmax ? (float*)gmax + s * n_groups : nullptr, nq,
+        d_pad, n_items, n_blocks);
+    const int rc = (int)cudaGetLastError();
+    if (rc != 0) return rc;
+  }
+  return 0;
+}
+
+template <typename T>
+int launch_block_topk(const void* q, const void* table, const void* affine, const void* qstats,
+                      const void* bmax, const void* seeds, void* cand, void* count, int b,
+                      int b_pad, int d_pad, int n_items, int n_blocks, int k, int cap, int euclid,
+                      cudaStream_t stream) {
+  for (int s = 0; s < b; s += QSLICE) {
+    const int nq = min(QSLICE, b_pad - s);
+    const int smem = score_smem_bytes<T>(nq, d_pad) +
+                     (RQ * SSTRIDE + WIN * (QSLICE / 32) + QSLICE + WIN + WARPS) * 4;
+    const Affine af{(const float*)affine, qstats ? (const float*)qstats + s : nullptr,
+                    qstats ? (const float*)qstats + b_pad + s : nullptr, n_blocks * BLOCK_N,
+                    euclid};
+    const int grid = persistent_grid(block_topk_kernel<T>, smem, n_blocks);
+    block_topk_kernel<T><<<grid, THREADS, smem, stream>>>(
+        (const __nv_bfloat16*)q + (size_t)s * d_pad, (const T*)table, af,
+        bmax ? (const float*)bmax + (size_t)s * n_blocks : nullptr,
+        seeds ? (const float*)seeds + s : nullptr, (long long*)cand + (size_t)s * cap,
+        (int*)count + s, nq, min(QSLICE, b - s), d_pad, n_items, n_blocks, k, cap);
+    const int rc = (int)cudaGetLastError();
+    if (rc != 0) return rc;
+  }
+  return 0;
+}
+
 }  // namespace
 
 // ------------------------------------------------------------ C entries
-// Each returns cudaGetLastError() after its launch; the Python wrapper
+// Each returns cudaGetLastError() after its launches; the Python wrapper
 // raises when it is not 0. Launches go on the caller's stream.
 
-extern "C" int gt_block_max(const void* q, const void* table, void* bmax, void* gmax,
-                            int b_pad, int d_pad, int n_items, int n_blocks, void* stream) {
-  dim3 grid(b_pad / QT, n_blocks);
-  block_max_kernel<__nv_bfloat16><<<grid, THREADS, 0, (cudaStream_t)stream>>>(
-      (const __nv_bfloat16*)q, (const __nv_bfloat16*)table, Affine{nullptr, nullptr, 0, 0, 0},
-      (float*)bmax, (float*)gmax, d_pad, n_items, n_blocks);
-  return (int)cudaGetLastError();
+extern "C" int gt_block_max(const void* q, const void* table, void* bmax, void* gmax, int b_pad,
+                            int d_pad, int n_items, int n_blocks, void* stream) {
+  return launch_block_max<__nv_bfloat16>(q, table, nullptr, nullptr, bmax, gmax, b_pad, d_pad,
+                                         n_items, n_blocks, 0, (cudaStream_t)stream);
 }
 
 extern "C" int gt_block_max_sq(const void* q, const void* codes, const void* affine,
                                const void* qstats, void* bmax, void* gmax, int b_pad, int d_pad,
                                int n_items, int n_blocks, int euclid, void* stream) {
-  dim3 grid(b_pad / QT, n_blocks);
-  block_max_kernel<uint8_t><<<grid, THREADS, 0, (cudaStream_t)stream>>>(
-      (const __nv_bfloat16*)q, (const uint8_t*)codes,
-      Affine{(const float*)affine, (const float*)qstats, n_blocks * BLOCK_N, b_pad, euclid},
-      (float*)bmax, (float*)gmax, d_pad, n_items, n_blocks);
-  return (int)cudaGetLastError();
+  return launch_block_max<uint8_t>(q, codes, affine, qstats, bmax, gmax, b_pad, d_pad, n_items,
+                                   n_blocks, euclid, (cudaStream_t)stream);
 }
 
 extern "C" int gt_block_seeds(const void* bmax, void* seeds, void* fired, int b, int n_blocks,
@@ -550,33 +844,37 @@ extern "C" int gt_block_seeds(const void* bmax, void* seeds, void* fired, int b,
 
 extern "C" int gt_block_topk(const void* q, const void* table, const void* bmax,
                              const void* seeds, void* cand, void* count, int b, int b_pad,
-                             int d_pad, int n_items, int n_blocks, int k, int cap, int n_split,
-                             void* stream) {
-  dim3 grid(b_pad / QT, n_split);
-  block_topk_kernel<__nv_bfloat16><<<grid, THREADS, 0, (cudaStream_t)stream>>>(
-      (const __nv_bfloat16*)q, (const __nv_bfloat16*)table, Affine{nullptr, nullptr, 0, 0, 0},
-      (const float*)bmax, (const float*)seeds, (long long*)cand, (int*)count, b, d_pad, n_items,
-      n_blocks, k, cap);
-  return (int)cudaGetLastError();
+                             int d_pad, int n_items, int n_blocks, int k, int cap, void* stream) {
+  return launch_block_topk<__nv_bfloat16>(q, table, nullptr, nullptr, bmax, seeds, cand, count, b,
+                                          b_pad, d_pad, n_items, n_blocks, k, cap, 0,
+                                          (cudaStream_t)stream);
 }
 
 extern "C" int gt_block_topk_sq(const void* q, const void* codes, const void* affine,
                                 const void* qstats, const void* bmax, const void* seeds,
                                 void* cand, void* count, int b, int b_pad, int d_pad,
-                                int n_items, int n_blocks, int k, int cap, int n_split,
-                                int euclid, void* stream) {
-  dim3 grid(b_pad / QT, n_split);
-  block_topk_kernel<uint8_t><<<grid, THREADS, 0, (cudaStream_t)stream>>>(
-      (const __nv_bfloat16*)q, (const uint8_t*)codes,
-      Affine{(const float*)affine, (const float*)qstats, n_blocks * BLOCK_N, b_pad, euclid},
-      (const float*)bmax, (const float*)seeds, (long long*)cand, (int*)count, b, d_pad, n_items,
-      n_blocks, k, cap);
-  return (int)cudaGetLastError();
+                                int n_items, int n_blocks, int k, int cap, int euclid,
+                                void* stream) {
+  return launch_block_topk<uint8_t>(q, codes, affine, qstats, bmax, seeds, cand, count, b, b_pad,
+                                    d_pad, n_items, n_blocks, k, cap, euclid,
+                                    (cudaStream_t)stream);
 }
 
 extern "C" int gt_merge_topk(const void* cand, const void* count, void* out_s, void* out_i,
-                             int b, int k, int k_pow2, int cap, void* stream) {
-  merge_topk_kernel<<<b, THREADS, 0, (cudaStream_t)stream>>>(
-      (const long long*)cand, (const int*)count, (float*)out_s, (int*)out_i, k, k_pow2, cap);
+                             int b, int k, int k_pow2, int cap, void* scratch, void* stream) {
+  if (scratch != nullptr) {
+    merge_topk_kernel<false><<<b, THREADS, 0, (cudaStream_t)stream>>>(
+        (const long long*)cand, (const int*)count, (float*)out_s, (int*)out_i, k, k_pow2, cap,
+        (unsigned long long*)scratch);
+    return (int)cudaGetLastError();
+  }
+  if (k_pow2 > MERGE_SMEM_KEYS) return (int)cudaErrorInvalidValue;
+  const int smem = k_pow2 * 8;
+  if (smem > 48 * 1024)
+    cudaFuncSetAttribute(merge_topk_kernel<true>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         smem);
+  merge_topk_kernel<true><<<b, THREADS, smem, (cudaStream_t)stream>>>(
+      (const long long*)cand, (const int*)count, (float*)out_s, (int*)out_i, k, k_pow2, cap,
+      nullptr);
   return (int)cudaGetLastError();
 }

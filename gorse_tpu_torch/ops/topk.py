@@ -55,11 +55,9 @@ from . import _build
 NEG_INF = -1e30
 BLOCK_N = 256  # items per block (csrc/topk.cu BLOCK_N)
 GROUP = 4  # items per group maximum (csrc/topk.cu GROUP)
-QUERY_TILE = 32  # queries per kernel tile (csrc/topk.cu QT)
+QUERY_TILE = 32  # query padding: a warp of the score tile holds 32 query rows
 DIM_CHUNK = 64  # dimensions per staged pass (csrc/topk.cu DC)
-MERGE_MAX_K = 2048  # widest k merge_topk sorts in shared memory
-N_SPLIT = 64  # item-block stripes per query tile in block_topk
-MAX_BLOCKS = 65535  # grid.y limit of block_max: 16.7M items
+MERGE_SMEM_KEYS = 16384  # merge_topk sorts up to this many keys in shared memory
 _CHUNK_B = 256  # queries per kernel chunk
 _INT64_MIN = -(2**63)
 
@@ -151,11 +149,13 @@ def _decode(keys: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
 
 
 def _scores_plain(qp: torch.Tensor, table: torch.Tensor, aff: Affine | None = None) -> torch.Tensor:
-    """``[b_pad, n_pad]`` f32 scores summed in the kernels' order: one f32
-    multiply-add per dimension, ascending. bf16 x bf16 and bf16 x uint8
-    products are exact in f32, so this matches the kernels' FMA chain bit
-    for bit. With ``aff`` (a uint8 table) the affine epilogue follows as
-    separate rounded ops, as the kernels apply it (gorse_tpu/ops/topk.py
+    """``[b_pad, n_pad]`` f32 scores: one f32 multiply-add per dimension,
+    ascending. bf16 x bf16 and bf16 x uint8 products are exact in f32; the
+    kernels sum the same products on the tensor cores in another order, so
+    they agree with this within a summation-order bound, and exactly where
+    every partial sum is an integer below 2^24 (scaled by a power of two).
+    With ``aff`` (a uint8 table) the affine epilogue follows as separate
+    rounded ops, as the kernels apply it (gorse_tpu/ops/topk.py
     _block_scores :353-357): raw * scale + qsum * minv, and for euclidean
     2 * that - norms2 - q2."""
     qf = qp.float()
@@ -277,7 +277,8 @@ def _sorted_topk(s: torch.Tensor, k_top: int, n_items: int):
 
 def dot_topk_plain(queries, prep: PreparedItems, k_top: int):
     """The whole serving route in plain PyTorch: every score, then a stable
-    sort. Agrees with :func:`dot_topk` index for index."""
+    sort. On the CPU :func:`dot_topk` agrees with it index for index; on the
+    card within the score tile's summation order (:func:`_scores_plain`)."""
     b = queries.shape[0]
     qp = _pad_queries(queries, prep, _round_up(max(b, 1), QUERY_TILE))
     s = _scores_plain(qp, prep.table)[:b, : prep.n_items]
@@ -287,7 +288,7 @@ def dot_topk_plain(queries, prep: PreparedItems, k_top: int):
 def sq_topk_plain(queries, prep: PreparedSQ, k_top: int, metric: str = "dot"):
     """The whole quantized route in plain PyTorch, in chunks of 256 queries:
     every score, then a stable sort. Agrees with :func:`sq_topk` on a
-    :class:`PreparedSQ` index for index."""
+    :class:`PreparedSQ` as :func:`dot_topk_plain` with :func:`dot_topk`."""
     def chunk(q):
         b = q.shape[0]
         qp, aff = _sq_operands(q, prep, _round_up(max(b, 1), QUERY_TILE), metric)
@@ -307,9 +308,9 @@ def _lib() -> ctypes.CDLL:
         lib.gt_block_max.argtypes = [p, p, p, p, i, i, i, i, p]
         lib.gt_block_max_sq.argtypes = [p, p, p, p, p, p, i, i, i, i, i, p]
         lib.gt_block_seeds.argtypes = [p, p, p, i, i, i, p]
-        lib.gt_block_topk.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, i, i, p]
-        lib.gt_block_topk_sq.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, i, p]
-        lib.gt_merge_topk.argtypes = [p, p, p, p, i, i, i, i, p]
+        lib.gt_block_topk.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, i, p]
+        lib.gt_block_topk_sq.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, p]
+        lib.gt_merge_topk.argtypes = [p, p, p, p, i, i, i, i, p, p]
         for fn in (lib.gt_block_max, lib.gt_block_max_sq, lib.gt_block_seeds, lib.gt_block_topk,
                    lib.gt_block_topk_sq, lib.gt_merge_topk):
             fn.restype = ctypes.c_int
@@ -338,8 +339,6 @@ def _check_operands(qp: torch.Tensor, table: torch.Tensor,
     n_pad, d_tab = table.shape
     if d_tab != d_pad or d_pad % DIM_CHUNK or b_pad % QUERY_TILE or n_pad % BLOCK_N:
         raise ValueError(f"bad padded shapes q {tuple(qp.shape)}, table {tuple(table.shape)}")
-    if n_pad // BLOCK_N > MAX_BLOCKS:
-        raise ValueError(f"{n_pad} items exceed {MAX_BLOCKS} blocks of {BLOCK_N}")
 
 
 def _check_affine(aff: Affine, qp: torch.Tensor, table: torch.Tensor) -> None:
@@ -449,8 +448,7 @@ def block_topk(qp, table, gate: Gate | None, b: int, n_items: int, k: int):
     count = torch.zeros((b_pad,), dtype=torch.int32, device=qp.device)
     rc = _lib().gt_block_topk(
         qp.data_ptr(), table.data_ptr(), bmax_ptr, seeds_ptr,
-        cand.data_ptr(), count.data_ptr(), b, b_pad, d_pad, n_items, nb, k, cap,
-        min(nb, N_SPLIT), _stream(qp),
+        cand.data_ptr(), count.data_ptr(), b, b_pad, d_pad, n_items, nb, k, cap, _stream(qp),
     )
     _raise_on(rc, "block_topk")
     block_topk.launches += 1
@@ -474,7 +472,7 @@ def block_topk_sq(qp, table, aff: Affine, gate: Gate | None, b: int, n_items: in
     rc = _lib().gt_block_topk_sq(
         qp.data_ptr(), table.data_ptr(), aff.affine.data_ptr(), aff.qstats.data_ptr(),
         bmax_ptr, seeds_ptr, cand.data_ptr(), count.data_ptr(), b, b_pad, d_pad, n_items, nb,
-        k, cap, min(nb, N_SPLIT), int(aff.euclidean), _stream(qp),
+        k, cap, int(aff.euclidean), _stream(qp),
     )
     _raise_on(rc, "block_topk_sq")
     block_topk_sq.launches += 1
@@ -483,20 +481,25 @@ def block_topk_sq(qp, table, aff: Affine, gate: Gate | None, b: int, n_items: in
 
 def merge_topk(cand: torch.Tensor, count: torch.Tensor, b: int, k: int):
     """Final ``(scores [b, k] f32, indices [b, k] int32)`` from the
-    candidates, NEG_INF / 0 where a query has fewer than k."""
+    candidates, NEG_INF / 0 where a query has fewer than k. Any k: the
+    kernel sorts in shared memory up to ``MERGE_SMEM_KEYS`` keys a query,
+    above that in a device-memory scratch this wrapper allocates."""
     if cand.device.type == "cpu":
         return merge_topk_plain(cand, count, b, k)
-    if k > MERGE_MAX_K:
-        raise ValueError(f"merge_topk sorts at most {MERGE_MAX_K} per query, asked for {k}")
     if cand.dtype != torch.int64 or count.dtype != torch.int32 or count.device != cand.device:
         raise TypeError("cand must be int64 and count int32 on one device")
     if not (cand.is_contiguous() and count.is_contiguous()) or count.shape[0] < b:
         raise ValueError("cand and count must be contiguous, with a count per query")
     out_s = torch.empty((b, k), dtype=torch.float32, device=cand.device)
     out_i = torch.empty((b, k), dtype=torch.int32, device=cand.device)
+    k_pow2 = 1 << (k - 1).bit_length()
+    scratch = None
+    if k_pow2 > MERGE_SMEM_KEYS:
+        scratch = torch.empty((b, k_pow2), dtype=torch.int64, device=cand.device)
     rc = _lib().gt_merge_topk(
         cand.data_ptr(), count.data_ptr(), out_s.data_ptr(), out_i.data_ptr(),
-        b, k, 1 << (k - 1).bit_length(), cand.shape[1], _stream(cand),
+        b, k, k_pow2, cand.shape[1], None if scratch is None else scratch.data_ptr(),
+        _stream(cand),
     )
     _raise_on(rc, "merge_topk")
     merge_topk.launches += 1
