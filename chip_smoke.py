@@ -35,14 +35,21 @@ kernel's own block maxima.
    kernel's median time (CUDA events), bound, plain time and library time
    (the bf16 ``torch.matmul`` of the same product beside ``block_max``),
    and the whole top-k per chunk, gated (K4 + K5) and ungated (K6),
-   against the bound of the top-k itself.
+   against the bound of the top-k itself. ``block_seeds`` is also held
+   bit-equal on synthetic maxima that reach each branch of its select
+   (``hold_seeds``: constant rows, heavy ties, one 12-bit bin, a
+   power-of-two k-th, a k-th on a 24-bit bin's edge, NEG_INF tails, +-0,
+   k = 1, n, n + 1, n = 7 and 30,001), with the rows that took each branch,
+   as the kernel counted them, in the log.
 2b. K6's function where the dispatch sends it (k between n_blocks and
    n_pad / 4): 27,000 x 64 items (the repo's ml-20m catalog) at k = 150 and
    300, and 500,000 x 64 at k = 2048 (the widest fetch on the largest
    catalog that takes the kernels there), held as above, and its two
    routes timed in turn: the old one (no gate) and the group gate, each
    with its launches, candidates per query, plain time, the top-k's bound
-   and the library's time.
+   and the library's time; ``block_seeds`` on the group maxima beside
+   ``torch.kthvalue`` on the same maxima, its one-read bound and two-read
+   floor.
 2c. A catalog of 65,536 item blocks (16,777,216 x 64 bf16, made on the
    card): ``dot_topk`` through the kernels against ``dot_topk_plain``.
 3. Path: a 1,000,000 x 64 item index and 50,000 users, made from ``--seed``,
@@ -219,6 +226,23 @@ def median_ms(fn, reps: int) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def queued_ms(fn, n: int = 20) -> float:
+    """ms a call when ``n`` calls are queued between two CUDA events: the
+    card's time with the host's work per call overlapped."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(n):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / n
 
 
 def bound(bytes_moved: float, flops: float, flop_s: float = BF16_FLOP_S) -> tuple[float, str]:
@@ -563,6 +587,101 @@ def small_cases(dev):
     ]
 
 
+def seed_rows(kind: str, b: int, n: int, k: int, gen, dev):
+    """[b, n] f32 maxima of one kind, made on the card from ``gen``."""
+    import torch
+
+    from gorse_tpu_torch.ops import topk
+
+    def uniform(lo, hi, shape):
+        return torch.rand(shape, generator=gen, device=dev) * (hi - lo) + lo
+
+    def shuffled(rows):
+        order = torch.rand(rows.shape, generator=gen, device=dev).argsort(dim=1)
+        return rows.gather(1, order)
+
+    if kind == "random":  # the maxima of 4 normal scores of scale 8
+        return (torch.randn((b, n, 4), generator=gen, device=dev) * 8).amax(2)
+    if kind == "constant":
+        return torch.full((b, n), 1.5, device=dev)
+    if kind == "ties":  # three values: the boundary value repeated n / 3 times
+        vals = torch.tensor([0.5, 3.0, 7.0], device=dev)
+        return vals[torch.randint(0, 3, (b, n), generator=gen, device=dev)]
+    if kind == "one_bin":  # every key in one 12-bit bin (1 <= x < 1.125)
+        return uniform(1.0, 1.12, (b, n))
+    if kind == "pow2":  # the k-th largest is exactly 16.0, its bin's lower edge
+        return shuffled(torch.cat([uniform(17.0, 31.0, (b, k - 1)),
+                                   torch.full((b, 1), 16.0, device=dev),
+                                   uniform(-16.0, 15.5, (b, n - k))], 1))
+    if kind == "edge24":  # every key in one 12-bit bin, the k-th on a 24-bit bin's lower edge
+        v = 1.0 + 256 * 2.0**-23
+        return shuffled(torch.cat([uniform(1.01, 1.12, (b, k - 1)),
+                                   torch.full((b, 1), v, device=dev),
+                                   uniform(1.0, v, (b, n - k))], 1))
+    if kind == "neg_inf_tail":  # the groups past the catalog
+        rows = torch.randn((b, n), generator=gen, device=dev) * 8
+        rows[:, n - n // 4 :] = topk.NEG_INF
+        return rows
+    if kind == "signed_zeros":  # the k-th largest and a 16th of the row are +0.0 or -0.0
+        zeros = torch.where(torch.rand((b, n // 16), generator=gen, device=dev) < 0.5,
+                            torch.tensor(0.0, device=dev), torch.tensor(-0.0, device=dev))
+        return shuffled(torch.cat([uniform(1.0, 2.0, (b, k - 1)), zeros,
+                                   -uniform(1.0, 2.0, (b, n - k + 1 - n // 16))], 1))
+    raise KeyError(kind)
+
+
+SEED_KINDS = ("random", "constant", "ties", "one_bin", "pow2", "edge24", "neg_inf_tail",
+              "signed_zeros")
+# block_seeds' two shapes on the main path (n maxima a query, k): the block
+# gate at 1M items (3,907 blocks, k = 100 + the widest history) and the group
+# gate at 500k items (125,056 groups, the widest kernel fetch)
+SEED_SHAPES = ((3907, 298), (125_056, 2048))
+
+
+def hold_seeds(dev) -> dict:
+    """``block_seeds`` on the card against ``block_seeds_plain``, exactly
+    (seeds bit-equal, fired equal), on 256 queries of each SEED_KINDS kind at
+    each SEED_SHAPES shape, then at k = 1, k = n and k = n + 1 on the random
+    rows, on 13 rows of 7 maxima and on 256 rows of 30,001 (rows that start
+    unaligned). Logs the rows that took each branch of the select on each
+    input, as the kernel counted them (``block_seeds_branches``); fails
+    unless every branch was reached. Returns those counts by input."""
+    import torch
+
+    from gorse_tpu_torch.ops import topk
+
+    gen = torch.Generator(device=dev).manual_seed(11)
+    b = 256
+    seen, out = set(), {}
+    topk.block_seeds_branches()  # clears the kernel's counts
+
+    def hold(what, rows, k):
+        got = topk.block_seeds(rows, rows.shape[0], k)
+        branches = topk.block_seeds_branches()
+        want = topk.block_seeds_plain(rows, rows.shape[0], k)
+        check(torch.equal(got.seeds.view(torch.int32), want.seeds.view(torch.int32))
+              and torch.equal(got.fired, want.fired),
+              f"block_seeds {what}: seeds bit-equal and fired equal to the plain version")
+        check(sum(branches.values()) == rows.shape[0], f"block_seeds {what}: a branch a row")
+        seen.update(branches)
+        out[what] = branches
+
+    for n, k in SEED_SHAPES:
+        for kind in SEED_KINDS:
+            hold(f"{kind} n={n} k={k}", seed_rows(kind, b, n, k, gen, dev), k)
+        rows = seed_rows("random", b, n, k, gen, dev)
+        for kk in (1, n, n + 1):
+            hold(f"random n={n} k={kk}", rows, kk)
+        del rows
+    hold("random n=7 k=3", seed_rows("random", 13, 7, 3, gen, dev), 3)
+    hold("random n=30001 k=2048", seed_rows("random", b, 30_001, 2048, gen, dev), 2048)
+    torch.cuda.empty_cache()
+    check(seen == set(topk.SEED_BRANCHES), f"block_seeds holds reach every branch: {sorted(seen)}")
+    log("  block_seeds equals its plain version (seeds bit-equal, fired equal); branches by "
+        "input: " + json.dumps(out))
+    return out
+
+
 def time_kernels(queries, prep, k: int) -> dict:
     """Median times, bounds, plain and library times of every kernel at one
     shape (gated block_topk for the main path, ungated beside it), and of
@@ -595,7 +714,8 @@ def time_kernels(queries, prep, k: int) -> dict:
     if k <= nb:
         lib = median_ms(lambda: torch.kthvalue(bm[:b], nb - k + 1, dim=1), 20)
     bms, by = bound(b * nb * 4 + b * 8, 0.0)
-    out["block_seeds"] = dict(ms=ms, plain_ms=plain, bound_ms=bms, bound_by=by, library_ms=lib)
+    out["block_seeds"] = dict(ms=ms, plain_ms=plain, bound_ms=bms, bound_by=by, library_ms=lib,
+                              queued_ms=queued_ms(lambda: topk.block_seeds(bm, b, k)))
 
     # the top-k itself: each table item and query read once, the k results
     # written once, every dot on bf16 tensor cores
@@ -742,12 +862,22 @@ def time_routes(queries, prep, k: int, metric: str | None = None) -> dict:
     bm, gm = maxima(True)
     gate = topk.block_seeds(gm, b, k)._replace(bmax=bm, width=topk.GROUP)
     cand, count = candidates(gate)
+    n_groups = gm.shape[1]
     out["new"]["stages_ms"] = dict(
         block_max_groups=median_ms(lambda: maxima(True), 10),
         block_max=median_ms(maxima, 10),
         block_seeds=median_ms(lambda: topk.block_seeds(gm, b, k), 10),
         block_topk=median_ms(lambda: candidates(gate), 10),
         merge_topk=median_ms(lambda: topk.merge_topk(cand, count, b, k), 10),
+    )
+    # block_seeds' yardsticks: the k-th largest group maximum by one library
+    # call (no fired count), one read of the group maxima (the bound) and
+    # two (the floor of a histogram pass and a pass for the boundary bin)
+    seeds_bytes = b * n_groups * 4 + b * 8
+    out["new"]["seeds_yardsticks"] = dict(
+        queued_ms=queued_ms(lambda: topk.block_seeds(gm, b, k)),
+        kthvalue_ms=median_ms(lambda: torch.kthvalue(gm[:b], n_groups - k + 1, dim=1), 10),
+        bound_ms=bound(seeds_bytes, 0.0)[0], two_reads_ms=bound(2 * seeds_bytes, 0.0)[0],
     )
     out["new"]["fired_groups"] = [int(gate.fired.min()), int(gate.fired.max())]
     return out
@@ -789,6 +919,7 @@ def phase_kernels(user_factors, item_factors, histories, dev):
 
     for name, q, prep, k in small_cases(dev):
         merge_err(hold_kernels(name, q, prep, k, exact=True))
+    hold_seeds(dev)
 
     prep = topk.prepare_items(torch.as_tensor(item_factors, device=dev), device=dev)
     chunk = torch.as_tensor(user_factors[:256], device=dev)

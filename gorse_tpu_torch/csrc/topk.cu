@@ -10,7 +10,9 @@
 //   block_max    per-query maximum score of every item block, and
 //                optionally of every group of 4 items            (K4)
 //   block_seeds  per query, the seed (k-th largest block or group
-//                maximum, nudged down) and how many beat it      (K5)
+//                maximum, nudged down) and how many beat it, by a
+//                4,096-bin select that reads the maxima once or
+//                twice                                             (K5)
 //   block_topk   every block whose maximum beats the query's seed
 //                appends its best entries to a per-query
 //                candidate buffer                                  (K5, K6)
@@ -480,7 +482,8 @@ struct SelectSmem {
 };
 
 // The k-th largest of the n unsigned keys key(0..n) (duplicates counted),
-// by the whole thread block: radix select, 8 bits per pass from the top.
+// by the whole thread block: radix select, 8 bits per pass from the top
+// (merge_topk's select over its 64-bit candidate keys).
 template <typename U, typename KeyFn>
 __device__ U block_kth_largest(int n, int k, KeyFn key, SelectSmem& sm) {
   const int t = threadIdx.x;
@@ -511,39 +514,257 @@ __device__ U block_kth_largest(int n, int k, KeyFn key, SelectSmem& sm) {
   return prefix;
 }
 
+// ------------------------------------------------------------ block_seeds
+//
 // The seed step of gorse_tpu/ops/topk.py _topk_seeded_kernel (topk.py:501).
-// One thread block per query: the k-th largest of its block maxima, nudged
-// down (a lower bound on its k-th best score), or NEG_INF when
-// k > n_blocks, and the number of blocks whose maximum beats it. That
-// number sizes block_topk's candidate buffer, so the buffer grows with
-// what the gate lets through, not with the catalog. Bound: one read of
-// bmax (4 MB at the serving shape, ~1.2 us at 3.35 TB/s); four radix
-// passes over a row that stays in L1/L2. Deriving the seeds here once,
-// not in each of block_topk's blocks, keeps block_topk's work to the
-// blocks that fire.
-__global__ void __launch_bounds__(THREADS) block_seeds_kernel(
-    const float* __restrict__ bmax, float* __restrict__ seeds, int* __restrict__ fired,
-    int n_blocks, int k) {
-  __shared__ SelectSmem sm;
-  __shared__ int n_fired;
-  const int t = threadIdx.x;
-  const float* row = bmax + (size_t)blockIdx.x * n_blocks;
-  float s = NEG_INF;
-  if (k <= n_blocks) {
-    const float v = from_ord_u32(block_kth_largest<uint32_t>(
-        n_blocks, k, [row](int i) { return ord_u32(row[i]); }, sm));
-    s = __fsub_rn(v, __fadd_rn(__fmul_rn(fabsf(v), 1.2e-7f), 1e-30f));
+// One thread block per query: v, the k-th largest of its n maxima (block or
+// group maxima; duplicates counted), the seed s = v - (|v| 1.2e-7 + 1e-30)
+// in separately rounded f32 ops (a lower bound on the k-th best score), or
+// NEG_INF when k > n, and ``fired``, the number of maxima above s. Both
+// are exact. ``fired`` sizes block_topk's candidate buffer, so the buffer
+// grows with what the gate lets through, not with the catalog.
+//
+// Bound on this card: one read of the maxima. At the group gate (256
+// queries x 125,056 group maxima, 500k items) that is 128 MB, ~38 us at
+// 3.35 TB/s, and it does not fit the 50 MB L2; at the block gate (256 x
+// 3,907 block maxima, 1M items) 4 MB, ~1.2 us, and there the time is
+// latency: barriers and serial steps.
+//
+// The select works on the order-preserving key u = ord_u32(x), whose top 12
+// bits (sign, 8 exponent bits, 3 mantissa bits) split the line into 4,096
+// bins an eighth of an octave wide:
+// - A row of at most SEED_CAP maxima is read once, into shared memory, and
+//   every pass runs there.
+// - A longer row is read once for a 4,096-bin histogram of the top digit;
+//   a block-wide scan (warp shuffles) finds the boundary bin B, the one
+//   that holds the k-th largest, and the count above it. A second read
+//   appends the keys of bin B to shared memory (one ballot and one
+//   atomicAdd a warp); the select finishes there on the low 20 bits.
+// - When bin B holds more than SEED_CAP keys (heavy ties, constant rows),
+//   the next 12 bits take another histogram pass over the row, and so on;
+//   the same launch, only slower on those inputs.
+// - Histogram increments are plain shared atomicAdds. The maxima of one
+//   query crowd a few dozen of the 4,096 bins, so lanes of a warp collide
+//   a few at a time; aggregating within the warp first (__match_any_sync)
+//   measured slower on the card than the collisions it avoids. Only
+//   constant rows and heavy ties, where a warp's 32 lanes hit one bin,
+//   serialise.
+// - fired without another read: every key above the buffer's prefix beats
+//   v and so s (s < v), and there are k - need of them; the rest that beat
+//   s are in the buffer when s shares its prefix. When the nudge takes s
+//   below the prefix (v at its bin's lower edge, e.g. a power of two), or
+//   no buffer was used, one counting pass over the row gives fired.
+// For floats that are not NaN, x > s exactly when ord_u32(x) > ord_u32(s)
+// unless s is -0.0, which v - (positive) never is; so keys compare as the
+// reference's floats do.
+// Each row adds one to the count of the branch it took (one global atomic
+// a launch's block), so a check can show which branch an input reached;
+// gt_block_seeds_branches reads and clears the counts.
+
+constexpr int SEED_THREADS = 1024;
+constexpr int SEED_WARPS = SEED_THREADS / 32;
+constexpr int SEED_BITS = 12;                    // digit of a histogram pass
+constexpr int SEED_BINS = 1 << SEED_BITS;
+constexpr int SEED_CAP = 8000;                   // keys the shared buffer holds (32 KB)
+// the branches, in the order of ops/topk.py SEED_BRANCHES: k > n; the row
+// staged whole; one histogram pass, fired from the buffer or (edge) by a
+// count; two passes, likewise; every bit by passes over the row
+enum SeedBranch {
+  SB_K_ABOVE_N, SB_STAGED, SB_BIN, SB_EDGE, SB_OVERFLOW, SB_OVERFLOW_EDGE, SB_GLOBAL,
+  SEED_BRANCHES
+};
+__device__ unsigned int seed_branch_rows[SEED_BRANCHES];
+
+struct SeedSmem {
+  unsigned int hist[SEED_BINS];                  // first: 16-byte aligned for uint4 reads
+  int part[SEED_WARPS];
+  int bin, above, count, n_buf, fired;
+};
+
+constexpr int seed_smem_bytes() { return (int)sizeof(SeedSmem) + SEED_CAP * 4; }
+// within the 48 KB a launch may take without an opt-in attribute; two
+// blocks of 1,024 threads (at most 32 registers each) share an SM
+static_assert(seed_smem_bytes() <= 48 * 1024, "block_seeds' shared memory");
+
+// f(u, ok) for the key of each of the n floats of ``row``, in no order.
+// Every lane of a warp makes the same calls (ok false for the padding), so
+// f may use warp collectives (the compaction's ballot). The 16-byte-aligned
+// body goes in float4 loads, two in flight a thread; the unaligned head and
+// the tail (at most 3 floats each) go to warp 0.
+template <typename F>
+__device__ __forceinline__ void each_in_row(const float* __restrict__ row, int n, F&& f) {
+  const int t = threadIdx.x, lane = t & 31;
+  const int head = min(n, (int)(((16u - ((uint32_t)(uintptr_t)row & 15u)) & 15u) >> 2));
+  const int nv = (n - head) >> 2;
+  const int tail0 = head + 4 * nv;
+  if (t < 32) {
+    const bool ok = t < head + (n - tail0);
+    f(ok ? ord_u32(row[t < head ? t : tail0 + t - head]) : 0u, ok);
   }
-  if (t == 0) n_fired = 0;
+  const float4* body = reinterpret_cast<const float4*>(row + head);
+  for (int base = t - lane; base < nv; base += 2 * SEED_THREADS) {
+    const int i0 = base + lane, i1 = i0 + SEED_THREADS;
+    const bool ok0 = i0 < nv, ok1 = i1 < nv;
+    const float4 x0 = ok0 ? __ldg(body + i0) : make_float4(0.f, 0.f, 0.f, 0.f);
+    const float4 x1 = ok1 ? __ldg(body + i1) : make_float4(0.f, 0.f, 0.f, 0.f);
+    f(ord_u32(x0.x), ok0);
+    f(ord_u32(x0.y), ok0);
+    f(ord_u32(x0.z), ok0);
+    f(ord_u32(x0.w), ok0);
+    f(ord_u32(x1.x), ok1);
+    f(ord_u32(x1.y), ok1);
+    f(ord_u32(x1.z), ok1);
+    f(ord_u32(x1.w), ok1);
+  }
+}
+
+// The same over the n keys of the shared buffer.
+template <typename F>
+__device__ __forceinline__ void each_in_buf(const uint32_t* buf, int n, F&& f) {
+  const int lane = threadIdx.x & 31;
+  for (int base = threadIdx.x - lane; base < n; base += SEED_THREADS) {
+    const bool ok = base + lane < n;
+    f(ok ? buf[base + lane] : 0u, ok);
+  }
+}
+
+// After a histogram pass of digit (u >> sh) & dmask: the boundary bin of
+// the need-th largest key, by a scan from the top bin down (warp shuffles,
+// then across warps). Narrows prefix/mask to it, leaves need for within
+// the bin and cnt = the keys in it.
+__device__ void seed_boundary(int sh, uint32_t dmask, uint32_t& prefix, uint32_t& mask,
+                              int& need, int& cnt, SeedSmem& sm) {
+  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+  // thread t holds bins 4 (SEED_THREADS - 1 - t) .. + 3, so a scan in thread
+  // order runs from the top bin down
+  const int b0 = (SEED_THREADS - 1 - t) * 4;
+  const uint4 h = *reinterpret_cast<const uint4*>(&sm.hist[b0]);
+  const int local = (int)(h.x + h.y + h.z + h.w);
+  int incl = local;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const int y = __shfl_up_sync(FULL, incl, o);
+    if (lane >= o) incl += y;
+  }
+  if (lane == 31) sm.part[warp] = incl;
   __syncthreads();
+  if (warp == 0) {
+    const int p = sm.part[lane];
+    int q = p;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const int y = __shfl_up_sync(FULL, q, o);
+      if (lane >= o) q += y;
+    }
+    sm.part[lane] = q - p;
+  }
+  __syncthreads();
+  const int need0 = need;
+  int cum = sm.part[warp] + incl - local;  // keys in the bins above this thread's
+  if (cum < need0 && need0 <= cum + local) {
+    const int c[4] = {(int)h.w, (int)h.z, (int)h.y, (int)h.x};
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      if (cum + c[j] >= need0) {
+        sm.bin = b0 + 3 - j;
+        sm.above = cum;
+        sm.count = c[j];
+        break;
+      }
+      cum += c[j];
+    }
+  }
+  __syncthreads();
+  prefix |= (uint32_t)sm.bin << sh;
+  mask |= dmask << sh;
+  need -= sm.above;
+  cnt = sm.count;
+}
+
+// One select pass over ``each``'s keys with (u & mask) == prefix: the
+// histogram of their next digit of at most SEED_BITS bits below ``shift``
+// (plain shared atomicAdds), then seed_boundary.
+template <typename Each>
+__device__ void seed_pass(Each each, uint32_t& prefix, uint32_t& mask, int& need, int& shift,
+                          int& cnt, SeedSmem& sm) {
+  const int bits = min(SEED_BITS, shift);
+  shift -= bits;
+  const uint32_t dmask = (1u << bits) - 1u, pre = prefix, msk = mask;
+  const int sh = shift;
+  for (int i = threadIdx.x; i < SEED_BINS; i += SEED_THREADS) sm.hist[i] = 0;
+  __syncthreads();
+  each([&](uint32_t u, bool ok) {
+    if (ok && (u & msk) == pre) atomicAdd(&sm.hist[(u >> sh) & dmask], 1u);
+  });
+  __syncthreads();
+  seed_boundary(sh, dmask, prefix, mask, need, cnt, sm);
+}
+
+// The keys of ``each`` that beat us, summed over the block (called once a
+// launch: sm.fired starts at 0).
+template <typename Each>
+__device__ int seed_count_above(Each each, uint32_t us, SeedSmem& sm) {
   int c = 0;
-  for (int i = t; i < n_blocks; i += THREADS) c += row[i] > s;
+  each([&](uint32_t u, bool ok) { c += ok && u > us; });
   c = __reduce_add_sync(FULL, c);
-  if ((t & 31) == 0) atomicAdd(&n_fired, c);
+  if ((threadIdx.x & 31) == 0 && c != 0) atomicAdd(&sm.fired, c);
   __syncthreads();
+  return sm.fired;
+}
+
+__global__ void __launch_bounds__(SEED_THREADS, 2) block_seeds_kernel(
+    const float* __restrict__ bmax, float* __restrict__ seeds, int* __restrict__ fired, int n,
+    int k) {
+  extern __shared__ __align__(16) uint8_t dsm[];
+  SeedSmem& sm = *reinterpret_cast<SeedSmem*>(dsm);
+  uint32_t* buf = reinterpret_cast<uint32_t*>(dsm + sizeof(SeedSmem));
+  const int t = threadIdx.x, lane = t & 31;
+  const float* row = bmax + (size_t)blockIdx.x * n;
+  auto global = [row, n](auto&& f) { each_in_row(row, n, f); };
+  if (t == 0) {
+    sm.n_buf = 0;
+    sm.fired = 0;
+  }
+  __syncthreads();
+  float s = NEG_INF;
+  int n_fired = -1;  // -1: not known without a counting pass over the row
+  int branch = SB_K_ABOVE_N;
+  if (k <= n) {
+    uint32_t prefix = 0, mask = 0;
+    int need = k, shift = 32, cnt = n, passes = 0;
+    for (; shift > 0 && cnt > SEED_CAP; ++passes)
+      seed_pass(global, prefix, mask, need, shift, cnt, sm);
+    const uint32_t bprefix = prefix, bmask = mask;
+    const int bneed = need, bcnt = cnt;
+    const bool buffered = shift > 0;
+    if (buffered) {
+      // the keys under the prefix (the whole row, when it fits) into shared memory
+      each_in_row(row, n, [&](uint32_t u, bool ok) {
+        const bool in = ok && (u & bmask) == bprefix;
+        const unsigned bal = __ballot_sync(FULL, in);
+        if (bal == 0u) return;
+        int at = 0;
+        if (lane == 0) at = atomicAdd(&sm.n_buf, __popc(bal));
+        at = __shfl_sync(FULL, at, 0);
+        if (in) buf[at + __popc(bal & ((1u << lane) - 1u))] = u;
+      });
+      __syncthreads();
+      auto shared = [buf, bcnt](auto&& f) { each_in_buf(buf, bcnt, f); };
+      while (shift > 0) seed_pass(shared, prefix, mask, need, shift, cnt, sm);
+    }
+    const float v = from_ord_u32(prefix);
+    s = __fsub_rn(v, __fadd_rn(__fmul_rn(fabsf(v), 1.2e-7f), 1e-30f));
+    if (buffered && (ord_u32(s) & bmask) == bprefix)
+      n_fired = (k - bneed) + seed_count_above(
+          [buf, bcnt](auto&& f) { each_in_buf(buf, bcnt, f); }, ord_u32(s), sm);
+    branch = !buffered ? SB_GLOBAL : passes == 0 ? SB_STAGED
+             : (passes == 1 ? SB_BIN : SB_OVERFLOW) + (n_fired < 0);
+  }
+  if (n_fired < 0) n_fired = seed_count_above(global, ord_u32(s), sm);
   if (t == 0) {
     seeds[blockIdx.x] = s;
     fired[blockIdx.x] = n_fired;
+    atomicAdd(&seed_branch_rows[branch], 1u);
   }
 }
 
@@ -837,9 +1058,20 @@ extern "C" int gt_block_max_sq(const void* q, const void* codes, const void* aff
 
 extern "C" int gt_block_seeds(const void* bmax, void* seeds, void* fired, int b, int n_blocks,
                               int k, void* stream) {
-  block_seeds_kernel<<<b, THREADS, 0, (cudaStream_t)stream>>>(
+  if (k < 1 || b < 1) return (int)cudaErrorInvalidValue;
+  block_seeds_kernel<<<b, SEED_THREADS, seed_smem_bytes(), (cudaStream_t)stream>>>(
       (const float*)bmax, (float*)seeds, (int*)fired, n_blocks, k);
   return (int)cudaGetLastError();
+}
+
+// The rows that took each branch of block_seeds' select on the current
+// device since the last call, into ``rows`` [SEED_BRANCHES]; clears them.
+// Synchronous: call it after the launches it should see have finished.
+extern "C" int gt_block_seeds_branches(unsigned int* rows) {
+  static const unsigned int zero[SEED_BRANCHES] = {};
+  cudaError_t e = cudaMemcpyFromSymbol(rows, seed_branch_rows, sizeof(zero));
+  if (e == cudaSuccess) e = cudaMemcpyToSymbol(seed_branch_rows, zero, sizeof(zero));
+  return (int)e;
 }
 
 extern "C" int gt_block_topk(const void* q, const void* table, const void* bmax,

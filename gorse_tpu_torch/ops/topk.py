@@ -58,6 +58,8 @@ GROUP = 4  # items per group maximum (csrc/topk.cu GROUP)
 QUERY_TILE = 32  # query padding: a warp of the score tile holds 32 query rows
 DIM_CHUNK = 64  # dimensions per staged pass (csrc/topk.cu DC)
 MERGE_SMEM_KEYS = 16384  # merge_topk sorts up to this many keys in shared memory
+# the branches of block_seeds' select, in csrc/topk.cu SeedBranch's order
+SEED_BRANCHES = ("k>n", "staged", "bin", "edge", "overflow", "overflow-edge", "global")
 _CHUNK_B = 256  # queries per kernel chunk
 _INT64_MIN = -(2**63)
 
@@ -308,11 +310,13 @@ def _lib() -> ctypes.CDLL:
         lib.gt_block_max.argtypes = [p, p, p, p, i, i, i, i, p]
         lib.gt_block_max_sq.argtypes = [p, p, p, p, p, p, i, i, i, i, i, p]
         lib.gt_block_seeds.argtypes = [p, p, p, i, i, i, p]
+        lib.gt_block_seeds_branches.argtypes = [p]
         lib.gt_block_topk.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, i, p]
         lib.gt_block_topk_sq.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, p]
         lib.gt_merge_topk.argtypes = [p, p, p, p, i, i, i, i, p, p]
-        for fn in (lib.gt_block_max, lib.gt_block_max_sq, lib.gt_block_seeds, lib.gt_block_topk,
-                   lib.gt_block_topk_sq, lib.gt_merge_topk):
+        for fn in (lib.gt_block_max, lib.gt_block_max_sq, lib.gt_block_seeds,
+                   lib.gt_block_seeds_branches, lib.gt_block_topk, lib.gt_block_topk_sq,
+                   lib.gt_merge_topk):
             fn.restype = ctypes.c_int
         lib._gt_typed = True
     return lib
@@ -401,7 +405,14 @@ def block_max_sq(qp: torch.Tensor, table: torch.Tensor, aff: Affine, n_items: in
 def block_seeds(bmax: torch.Tensor, b: int, k: int) -> Gate:
     """Each of the first ``b`` queries' seed and fired count from its block
     maxima, or from its group maxima for the group gate (the seed step of
-    gorse_tpu/ops/topk.py _topk_seeded_kernel)."""
+    gorse_tpu/ops/topk.py _topk_seeded_kernel), exactly as
+    :func:`block_seeds_plain`. The kernel selects on the maxima's
+    order-preserving keys: a row of at most 8,000 maxima is read once into
+    shared memory; a longer one is read once for a histogram of the top 12
+    key bits and once more for the keys of the bin that holds the k-th
+    largest, and further passes over the row are taken only when that bin
+    holds more than 8,000 keys or the nudged seed leaves it
+    (:func:`block_seeds_branches` counts which)."""
     if bmax.device.type == "cpu":
         return block_seeds_plain(bmax, b, k)
     if bmax.dtype != torch.float32 or not bmax.is_contiguous() or bmax.shape[0] < b:
@@ -415,6 +426,16 @@ def block_seeds(bmax: torch.Tensor, b: int, k: int) -> Gate:
     _raise_on(rc, "block_seeds")
     block_seeds.launches += 1
     return Gate(bmax, seeds, fired)
+
+
+def block_seeds_branches() -> dict[str, int]:
+    """Rows that took each branch of ``block_seeds``' select (named as in
+    ``SEED_BRANCHES``) on the current CUDA device since the last call, which
+    clears the counts. Waits for the device."""
+    torch.cuda.synchronize()
+    rows = (ctypes.c_uint * len(SEED_BRANCHES))()
+    _raise_on(_lib().gt_block_seeds_branches(rows), "block_seeds_branches")
+    return {name: rows[i] for i, name in enumerate(SEED_BRANCHES) if rows[i]}
 
 
 def _gate_args(qp, table, gate: Gate | None, b: int):
