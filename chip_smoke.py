@@ -40,7 +40,15 @@ kernel's own block maxima.
    (``hold_seeds``: constant rows, heavy ties, one 12-bit bin, a
    power-of-two k-th, a k-th on a 24-bit bin's edge, NEG_INF tails, +-0,
    k = 1, n, n + 1, n = 7 and 30,001), with the rows that took each branch,
-   as the kernel counted them, in the log.
+   as the kernel counted them, in the log. ``merge_topk`` likewise
+   (``hold_merge``): bit-equal on synthetic candidate rows that reach each
+   path of its rank-split select (ranks past the count, no select, the row
+   staged, a long row's boundary bins staged, a bin too large to stage):
+   counts from 0 to above k, k = 1, k at, under and over a multiple of the
+   slice, ties across slices, all-equal scores, NEG_INF among the live
+   keys, b = 1 and b not a multiple of 32. ``merge_topk``'s times here and
+   in 2b, 7 and 7c: median and queued ms, bound, plain ms and
+   ``torch.topk`` of the same keys.
 2b. K6's function where the dispatch sends it (k between n_blocks and
    n_pad / 4): 27,000 x 64 items (the repo's ml-20m catalog) at k = 150 and
    300, and 500,000 x 64 at k = 2048 (the widest fetch on the largest
@@ -192,7 +200,7 @@ SQ_WARM_REPS = 5
 SQ_KERNELS = ("block_max_sq", "block_topk_sq")
 # phase 2c: a catalog of 65,536 item blocks (the old grid.y limit + 1)
 WIDE_BLOCKS, WIDE_QUERIES, WIDE_K = 65_536, 32, 10
-# phase 7c: top-k above 2048 (merge_topk sorted at most 2048 in shared memory)
+# phase 7c: top-k above 2048 (merge_topk once sorted at most 2048 keys)
 WIDE_K_ROWS, WIDE_K_QUERIES, WIDE_KS = 100_000, 32, (4096, 20_000)
 PHASES = ("2", "2b", "2c", "3", "4", "5", "6", "7", "7c")
 SQ_REPLACES = {
@@ -682,6 +690,114 @@ def hold_seeds(dev) -> dict:
     return out
 
 
+# merge_topk's holds: (what, b, k, the counts cycled over the b rows, the
+# scores). Every row holds count unique keys, then junk to its width (the
+# largest count + 1: odd widths start every other row unaligned). They
+# reach each path of the kernel: ranks past the count, no select, the row
+# staged, a long row's boundary bins staged, a bin too large to stage.
+MERGE_CASES = (
+    ("main path", 256, 298, (0, 1, 297, 298, 299, 400, 600), "normal"),
+    ("group gate", 256, 2048, (2048, 2100, 2200, 2047), "normal"),
+    ("k=1", 33, 1, (1, 2, 50, 0), "normal"),
+    ("k=1 long", 1, 1, (5000,), "normal"),
+    ("b=1 k=S-1", 1, 1023, (1523,), "normal"),
+    ("b=2 k=S", 2, 1024, (1524, 1024), "normal"),
+    ("b=1 k=S+1", 1, 1025, (1525,), "normal"),
+    ("b=1 k=2S", 1, 2048, (2548,), "neg_inf"),
+    ("b=256 k=S-1", 256, 4095, (4795, 4095, 2000), "normal"),
+    ("b=256 k=S", 256, 4096, (4796,), "normal"),
+    ("b=256 k=S+1", 256, 4097, (4797, 4096), "normal"),
+    ("b=256 k=2S", 256, 8192, (8892,), "normal"),
+    ("b=256 k=4S", 256, 16_384, (17_084,), "normal"),
+    ("wide k", 32, 20_000, (20_800, 20_001, 20_000, 19_000, 0), "normal"),
+    ("ties across slices", 3, 9000, (12_000,), "five"),
+    ("two scores", 5, 3000, (10_000,), "two"),
+    ("all equal long", 7, 3000, (10_000, 3000), "equal"),
+    ("all equal staged", 7, 100, (1000,), "equal"),
+    ("NEG_INF among the live", 40, 500, (800, 600, 300, 499), "neg_inf"),
+)
+
+
+def merge_rows(b: int, counts, kind: str, gen, dev):
+    """(cand [b, width] int64, count [b] int32) for a merge_topk hold, made
+    on the card from ``gen``."""
+    import torch
+
+    from gorse_tpu_torch.ops import topk
+
+    count = torch.tensor([counts[q % len(counts)] for q in range(b)], dtype=torch.int32,
+                         device=dev)
+    width = max(counts) + 1
+    levels = {"five": [-1.0, 0.25, 0.5, 3.0, 7.0], "two": [0.5, 2.0], "equal": [1.5]}
+    if kind in levels:
+        vals = torch.tensor(levels[kind], device=dev)
+        scores = vals[torch.randint(0, len(vals), (b, width), generator=gen, device=dev)]
+    else:
+        scores = torch.randn((b, width), generator=gen, device=dev) * 4
+        if kind == "neg_inf":
+            scores[torch.rand((b, width), generator=gen, device=dev) < 0.3] = topk.NEG_INF
+    ids = torch.rand((b, width), generator=gen, device=dev).argsort(dim=1) * 7 + 3  # unique
+    junk = torch.randint(-2**62, 2**62, (b, width), generator=gen, device=dev)
+    live = torch.arange(width, device=dev)[None] < count[:, None]
+    return torch.where(live, topk._keys(scores, ids), junk).contiguous(), count
+
+
+def hold_merge(dev) -> dict:
+    """``merge_topk`` on the card against ``merge_topk_plain``, exactly
+    (scores bit-equal, ids equal), on the MERGE_CASES rows. Logs each
+    input's slice and the blocks that took each path, as the kernel counted
+    them (``merge_topk_paths``); fails unless every path was reached.
+    Returns those counts by input."""
+    import torch
+
+    from gorse_tpu_torch.ops import topk
+
+    gen = torch.Generator(device=dev).manual_seed(12)
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    seen, out = set(), {}
+    topk.merge_topk_paths()  # clears the kernel's counts
+    for what, b, k, counts, kind in MERGE_CASES:
+        cand, count = merge_rows(b, counts, kind, gen, dev)
+        s, i = topk.merge_topk(cand, count, b, k)
+        paths = topk.merge_topk_paths()
+        s_p, i_p = topk.merge_topk_plain(cand, count, b, k)
+        check(torch.equal(s.view(torch.int32), s_p.view(torch.int32)) and torch.equal(i, i_p),
+              f"merge_topk {what}: scores bit-equal and ids equal to the plain version")
+        slice_ = topk.merge_slice(b, k, n_sm)
+        check(sum(paths.values()) == b * -(-k // slice_), f"merge_topk {what}: a path a block")
+        seen.update(paths)
+        out[f"{what} (b={b}, k={k}, slice={slice_})"] = paths
+        del cand, count
+    torch.cuda.empty_cache()
+    check(seen == set(topk.MERGE_PATHS), f"merge_topk holds reach every path: {sorted(seen)}")
+    log("  merge_topk equals its plain version (bit-equal); blocks by path and input: "
+        + json.dumps(out))
+    return out
+
+
+def merge_timing(cand, count, b: int, k: int, reps: int = 20) -> dict:
+    """``merge_topk`` on these candidates: median ms, queued ms, plain ms,
+    ``torch.topk`` of the same keys, its bound (the live keys read once, the
+    output written once), candidates per query and the slice."""
+    import torch
+
+    from gorse_tpu_torch.ops import topk
+
+    live = torch.arange(cand.shape[1], device=cand.device)[None] < count[:, None]
+    keys = torch.where(live, cand, topk._INT64_MIN)[:b]
+    n_sm = torch.cuda.get_device_properties(cand.device).multi_processor_count
+    bms, by = bound(int(count[:b].sum()) * 8 + b * 4 + b * k * 8, 0.0)
+    return dict(
+        ms=median_ms(lambda: topk.merge_topk(cand, count, b, k), reps),
+        queued_ms=queued_ms(lambda: topk.merge_topk(cand, count, b, k)),
+        plain_ms=median_ms(lambda: topk.merge_topk_plain(cand, count, b, k), 3),
+        library_ms=(median_ms(lambda: torch.topk(keys, k, dim=1), reps)
+                    if keys.shape[1] >= k else None),
+        bound_ms=bms, bound_by=by, candidates=[int(count[:b].min()), int(count[:b].max())],
+        slice=topk.merge_slice(b, k, n_sm),
+    )
+
+
 def time_kernels(queries, prep, k: int) -> dict:
     """Median times, bounds, plain and library times of every kernel at one
     shape (gated block_topk for the main path, ungated beside it), and of
@@ -742,15 +858,9 @@ def time_kernels(queries, prep, k: int) -> dict:
             ms=ms, plain_ms=plain, bound_ms=bms, bound_by=by, library_ms=lib_topk,
             fired_pairs=pairs, candidates=int(count.sum()), buffer_bytes=cand.numel() * 8,
         )
-        live = torch.arange(cand.shape[1], device=qp.device)[None] < count[:, None]
-        keys = torch.where(live, cand, topk._INT64_MIN)[:b]
-        m_ms = median_ms(lambda: topk.merge_topk(cand, count, b, k), 20)
-        m_plain = median_ms(lambda: topk.merge_topk_plain(cand, count, b, k), 3)
-        m_lib = median_ms(lambda: torch.topk(keys, k, dim=1), 20)
-        bms, by = bound(int(count[:b].sum()) * 8 + b * 4 + b * k * 8, 0.0)
-        out["merge_topk" + suffix] = dict(ms=m_ms, plain_ms=m_plain, bound_ms=bms, bound_by=by,
-                                          library_ms=m_lib)
-        del cand, count, keys, live
+        out["merge_topk" + suffix] = merge = merge_timing(cand, count, b, k)
+        m_ms, m_plain = merge["ms"], merge["plain_ms"]
+        del cand, count
         torch.cuda.empty_cache()
         first = ("block_max", "block_seeds") if gated else ()
         out["topk" + ("_gated" if gated else "_ungated")] = dict(
@@ -807,7 +917,7 @@ def time_routes(queries, prep, k: int, metric: str | None = None) -> dict:
     top-k's own bound and the library's ``torch.matmul`` + ``torch.topk``
     (bf16; for SQ over the dequantized table) beside them; and the new
     route's stages one by one, with ``block_max`` without groups for
-    comparison."""
+    comparison and ``merge_timing`` for the merge."""
     import torch
 
     from gorse_tpu_torch.ops import topk
@@ -868,8 +978,8 @@ def time_routes(queries, prep, k: int, metric: str | None = None) -> dict:
         block_max=median_ms(maxima, 10),
         block_seeds=median_ms(lambda: topk.block_seeds(gm, b, k), 10),
         block_topk=median_ms(lambda: candidates(gate), 10),
-        merge_topk=median_ms(lambda: topk.merge_topk(cand, count, b, k), 10),
     )
+    out["new"]["merge"] = merge_timing(cand, count, b, k, 10)
     # block_seeds' yardsticks: the k-th largest group maximum by one library
     # call (no fired count), one read of the group maxima (the bound) and
     # two (the floor of a histogram pass and a pass for the boundary bin)
@@ -920,6 +1030,7 @@ def phase_kernels(user_factors, item_factors, histories, dev):
     for name, q, prep, k in small_cases(dev):
         merge_err(hold_kernels(name, q, prep, k, exact=True))
     hold_seeds(dev)
+    hold_merge(dev)
 
     prep = topk.prepare_items(torch.as_tensor(item_factors, device=dev), device=dev)
     chunk = torch.as_tensor(user_factors[:256], device=dev)
@@ -1766,7 +1877,8 @@ def time_sq_kernels(queries, prep, k: int, metric: str) -> dict:
         bound_ms=bms, bound_by=by, library_ms=lib, fired_pairs=pairs,
         candidates=int(count.sum()),
     )
-    merge_ms = median_ms(lambda: topk.merge_topk(cand, count, b, k), 20)
+    out["merge_topk"] = merge_timing(cand, count, b, k)
+    merge_ms = out["merge_topk"]["ms"]
     # K6's SQ body: every block fires, then the merge of all candidates
     cand_u, count_u = topk.block_topk_sq(qp, table, aff, None, b, n, k)
     bms, by = bound(n * (d + aff_bytes) + in_bytes + int(count_u.sum()) * 8 + b_pad * 4, flops)
@@ -1775,12 +1887,7 @@ def time_sq_kernels(queries, prep, k: int, metric: str) -> dict:
         plain_ms=median_ms(lambda: topk.block_topk_plain(qp, table, None, b, n, k, aff), 3),
         bound_ms=bms, bound_by=by, library_ms=lib, candidates=int(count_u.sum()),
     )
-    bms, by = bound(int(count_u[:b].sum()) * 8 + b * 4 + b * k * 8, 0.0)
-    out["merge_topk_ungated"] = dict(
-        ms=median_ms(lambda: topk.merge_topk(cand_u, count_u, b, k), 20),
-        plain_ms=median_ms(lambda: topk.merge_topk_plain(cand_u, count_u, b, k), 3),
-        bound_ms=bms, bound_by=by,
-    )
+    out["merge_topk_ungated"] = merge_timing(cand_u, count_u, b, k)
     del cand_u, count_u
     fn_ms, fn_by = bound(n * d + n * aff_bytes + in_bytes + b * k * 8, flops)
     out["sq_topk_chunk"] = dict(
@@ -1973,21 +2080,12 @@ def phase_wide_catalog(dev, seed: int) -> dict:
 
 
 def time_merge(qp, table, b: int, n: int, k: int, aff=None) -> dict:
-    """``merge_topk`` at one shape, on the candidates of ``kernel_route``'s
-    route: median ms, plain ms, the library's ``torch.topk`` of the keys,
-    and its bound."""
-    import torch
-
+    """``merge_timing`` at one shape, on the candidates of
+    ``kernel_route``'s route."""
     from gorse_tpu_torch.ops import topk
 
     cand, count = topk._candidates(qp, table, b, n, k, topk.kernel_route(table.shape[0], k), aff)
-    live = torch.arange(cand.shape[1], device=qp.device)[None] < count[:, None]
-    keys = torch.where(live, cand, topk._INT64_MIN)[:b]
-    bms, by = bound(int(count[:b].sum()) * 8 + b * 4 + b * k * 8, 0.0)
-    return dict(ms=median_ms(lambda: topk.merge_topk(cand, count, b, k), 5),
-                plain_ms=median_ms(lambda: topk.merge_topk_plain(cand, count, b, k), 3),
-                library_ms=median_ms(lambda: torch.topk(keys, k, dim=1), 5),
-                bound_ms=bms, bound_by=by, candidates=int(count[:b].max()))
+    return merge_timing(cand, count, b, k, 5)
 
 
 def phase_wide_k(dev, seed: int) -> dict:

@@ -16,7 +16,10 @@
 //   block_topk   every block whose maximum beats the query's seed
 //                appends its best entries to a per-query
 //                candidate buffer                                  (K5, K6)
-//   merge_topk   per query, the final k from the candidates      (K5, K6)
+//   merge_topk   per query, the final k from the candidates: the
+//                output cut by rank into slices of up to 4,096, a
+//                block per slice, each selecting its two boundary
+//                keys and sorting its keys in shared memory      (K5, K6)
 //
 // The route for a top-k of k over n_pad items (n_blocks = n_pad / 256) is
 // chosen by ops/topk.py kernel_route:
@@ -88,7 +91,6 @@ constexpr int NSTAGE = 2;     // item slabs in flight
 constexpr int WIN = 256;      // block_topk: item blocks gated per window
 constexpr int GSTRIDE = 68;   // floats per row of the staged group maxima
 constexpr int SSTRIDE = 264;  // floats per row of block_topk's staged scores
-constexpr int MERGE_SMEM_KEYS = 16384;  // merge_topk sorts up to this in shared memory
 constexpr float NEG_INF = -1e30f;
 constexpr unsigned FULL = 0xffffffffu;
 
@@ -475,44 +477,6 @@ __global__ void __launch_bounds__(THREADS) block_max_kernel(
 }
 
 // --------------------------------------------------------------- K5, K6
-
-struct SelectSmem {
-  unsigned int hist[256];
-  int bin, above;
-};
-
-// The k-th largest of the n unsigned keys key(0..n) (duplicates counted),
-// by the whole thread block: radix select, 8 bits per pass from the top
-// (merge_topk's select over its 64-bit candidate keys).
-template <typename U, typename KeyFn>
-__device__ U block_kth_largest(int n, int k, KeyFn key, SelectSmem& sm) {
-  const int t = threadIdx.x;
-  U prefix = 0, mask = 0;
-  int need = k;
-  for (int shift = 8 * (int)sizeof(U) - 8; shift >= 0; shift -= 8) {
-    for (int i = t; i < 256; i += THREADS) sm.hist[i] = 0;
-    __syncthreads();
-    for (int i = t; i < n; i += THREADS) {
-      const U u = key(i);
-      if ((u & mask) == prefix) atomicAdd(&sm.hist[(unsigned int)(u >> shift) & 255u], 1u);
-    }
-    __syncthreads();
-    if (t == 0) {
-      int cum = 0, b = 255;
-      for (; b > 0; --b) {
-        if (cum + (int)sm.hist[b] >= need) break;
-        cum += (int)sm.hist[b];
-      }
-      sm.bin = b;
-      sm.above = cum;
-    }
-    __syncthreads();
-    need -= sm.above;
-    prefix |= (U)sm.bin << shift;
-    mask |= (U)0xFF << shift;
-  }
-  return prefix;
-}
 
 // ------------------------------------------------------------ block_seeds
 //
@@ -913,69 +877,321 @@ __global__ void __launch_bounds__(THREADS) block_topk_kernel(
   }
 }
 
-// The final merge of K5/K6: one block per query selects the k largest
-// keys of its candidates (block_kth_largest over the 64-bit keys, when
-// there are more than k), sorts them (bitonic, descending) and writes
-// (score, index), with NEG_INF / 0 filling the slots that have no
-// candidate. The sort runs in dynamic shared memory up to MERGE_SMEM_KEYS
-// keys (128 KB); above that (``SMEM`` false) in ``scratch`` ([b, k_pow2] in
-// device memory, allocated by the wrapper), any k. Bound: the candidate
-// bytes, a few KB per query at the serving shape.
-template <bool SMEM>
-__global__ void __launch_bounds__(THREADS) merge_topk_kernel(
-    const long long* __restrict__ cand, const int* __restrict__ count, float* __restrict__ out_s,
-    int* __restrict__ out_i, int k, int k_pow2, int cap,
-    unsigned long long* __restrict__ scratch) {
-  extern __shared__ __align__(128) uint8_t dsm[];
-  __shared__ SelectSmem sm;
-  __shared__ int n_sel;
-  const int t = threadIdx.x, qi = blockIdx.x;
-  unsigned long long* keys = SMEM ? reinterpret_cast<unsigned long long*>(dsm)
-                                  : scratch + (size_t)qi * k_pow2;
-  const int c = count[qi];
-  const long long* src = cand + (size_t)qi * cap;
+// ------------------------------------------------------------- merge_topk
+//
+// The final stage of K5/K6, the running top-k fold of
+// gorse_tpu/ops/topk.py (:404): each query's min(count, k) largest
+// candidate keys, sorted descending, written as (score, index), NEG_INF / 0
+// in the slots past the count. The keys of a query are unique (one per
+// item), so the result is exact.
+//
+// Bound on this card: the live candidate keys read once and the output
+// written once, a few KB a query at the serving shapes (0.4 us at 256
+// queries x k = 298), so the time is latency: barriers and dependent
+// steps. The design:
+// - Split by rank. A query's output is cut into slices of ``slice`` ranks
+//   (at most MERGE_SLICE); one block of 1,024 threads owns a slice. Its
+//   keys are exactly those between two boundary keys, the (lo + 1)-th and
+//   the hi-th largest, so blocks share nothing and any k runs on chip. The
+//   wrapper halves the slice (down to 1,024) while b x slices would leave
+//   SMs idle.
+// - The boundaries by block_seeds' select (seed_pass, seed_boundary): 12-bit
+//   digits of the high word (the score's ord), then of the low word among
+//   the keys that share it, stopping when the boundary bin holds one key,
+//   which a last read finds. A row of at most MERGE_STAGE keys is read once
+//   into shared memory and every pass runs there. A longer row is read once
+//   for the top digit of both boundaries; each boundary's bin is appended to
+//   shared memory (one ballot and one atomicAdd a warp) and its select
+//   finishes there; a bin over MERGE_STAGE keys (heavy ties) takes its
+//   passes over the row instead (L2-resident).
+// - The slice's keys appended to shared memory (padded with zero keys to a
+//   power of two) and sorted there: each warp sorts runs of 32 by a bitonic
+//   network of shuffles, then rounds of merges double the runs, each
+//   thread placing 4 outputs after a binary search on its diagonal (merge
+//   path), one block barrier a round. Two other sorts measured slower on
+//   the card: a bitonic network over the whole slice (66 steps at 2,048
+//   keys, bound by the SM's one warp shuffle a clock) and merges that
+//   place every key by a binary search of the partner run (shared-memory
+//   traffic). Decoded and written by coalesced stores.
+// Shared memory: 16.5 KB for the select, the staging buffer (32 KB, the
+// sort's second buffer too) and the slice (32 KB) at most: two blocks an
+// SM, at 32 registers a thread.
+// Each block adds one to the count of the path it took;
+// gt_merge_topk_paths reads and clears the counts.
 
-  unsigned long long prefix = 0;
-  if (c > k)
-    prefix = block_kth_largest<unsigned long long>(
-        c, k, [src](int i) { return (unsigned long long)src[i] ^ SIGN64; }, sm);
-  // keys are unique, so exactly min(c, k) of them are >= the k-th largest
-  if (t == 0) n_sel = 0;
-  for (int i = t; i < k_pow2; i += THREADS) keys[i] = 0ull;
-  __syncthreads();
-  for (int i = t; i < c; i += THREADS) {
-    const unsigned long long u = (unsigned long long)src[i] ^ SIGN64;
-    if (c <= k || u >= prefix) keys[atomicAdd(&n_sel, 1)] = u;
+constexpr int MERGE_SLICE = 4096;  // most ranks one block sorts (32 KB of keys)
+constexpr int MERGE_STAGE = 4096;  // most keys of a row staged in shared memory (32 KB)
+// the paths, in the order of ops/topk.py MERGE_PATHS: ranks past the count
+// (fill only); no select (the slice holds every key); the row staged; a
+// long row, its boundary bins staged; a boundary bin too large to stage
+enum MergePath { MP_FILL, MP_WHOLE, MP_STAGED, MP_BIN, MP_GLOBAL, MERGE_PATHS };
+__device__ unsigned int merge_path_blocks[MERGE_PATHS];
+
+struct MergeSmem {
+  SeedSmem seed;             // the select's histogram and scan
+  unsigned long long found;  // a boundary key
+  int n_buf, n_sel;
+};
+constexpr int MERGE_HEAD = ((int)sizeof(MergeSmem) + 15) / 16 * 16;
+
+// the staged row, then the slice's keys; the staging buffer holds at least
+// the slice, as the sort's second buffer
+constexpr int merge_smem_bytes(int stage_cap, int slots) {
+  return MERGE_HEAD + ((stage_cap > slots ? stage_cap : slots) + slots) * 8;
+}
+static_assert(MERGE_SLICE <= MERGE_STAGE, "the staging buffer holds a slice");
+static_assert(2 * (merge_smem_bytes(MERGE_STAGE, MERGE_SLICE) + 1024) <= 228 * 1024,
+              "two merge_topk blocks an SM");
+
+typedef unsigned long long u64;
+
+// f(u, ok) for each of the n keys of a candidate row (int64, compared as
+// uint64 with the sign bit flipped), in no order. Every lane of a warp
+// makes the same calls, so f may use warp collectives. 16-byte loads; an
+// unaligned first key and an odd last one go to warp 0.
+template <typename F>
+__device__ __forceinline__ void each_in_cand(const long long* __restrict__ row, int n, F&& f) {
+  const int t = threadIdx.x, lane = t & 31;
+  const int head = min(n, (int)(((uintptr_t)row >> 3) & 1u));
+  const int nv = (n - head) >> 1;
+  const int tail = n - head - 2 * nv;
+  if (t < 32) {
+    const bool ok = t < head + tail;
+    f(ok ? (u64)__ldg(row + (t < head ? 0 : n - 1)) ^ SIGN64 : 0ull, ok);
   }
-  // bitonic sort, descending
-  for (int size = 2; size <= k_pow2; size <<= 1) {
-    for (int stride = size >> 1; stride > 0; stride >>= 1) {
-      __syncthreads();
-      for (int i = t; i < k_pow2; i += THREADS) {
-        const int j = i ^ stride;
-        if (j > i) {
-          const unsigned long long a = keys[i], bb = keys[j];
-          if (((i & size) == 0) ? (a < bb) : (a > bb)) {
-            keys[i] = bb;
-            keys[j] = a;
-          }
+  const longlong2* body = reinterpret_cast<const longlong2*>(row + head);
+  for (int base = t - lane; base < nv; base += SEED_THREADS) {
+    const int i = base + lane;
+    const bool ok = i < nv;
+    const longlong2 v = ok ? __ldg(body + i) : make_longlong2(0, 0);
+    f((u64)v.x ^ SIGN64, ok);
+    f((u64)v.y ^ SIGN64, ok);
+  }
+}
+
+// The same over n keys in shared memory.
+template <typename F>
+__device__ __forceinline__ void each_in_keys(const u64* buf, int n, F&& f) {
+  const int lane = threadIdx.x & 31;
+  for (int base = threadIdx.x - lane; base < n; base += SEED_THREADS) {
+    const bool ok = base + lane < n;
+    f(ok ? buf[base + lane] : 0ull, ok);
+  }
+}
+
+// Warp-collective: the lanes with ``in`` append u to dst at *n (at most
+// lim keys are kept).
+__device__ __forceinline__ void append_key(u64 u, bool in, u64* dst, int* n, int lim) {
+  const int lane = threadIdx.x & 31;
+  const unsigned bal = __ballot_sync(FULL, in);
+  if (bal == 0u) return;
+  int at = 0;
+  if (lane == 0) at = atomicAdd(n, __popc(bal));
+  at = __shfl_sync(FULL, at, 0) + __popc(bal & ((1u << lane) - 1u));
+  if (in && at < lim) dst[at] = u;
+}
+
+// The need-th largest of ``each``'s keys, continuing a select whose
+// high-word digits so far are (prefix, mask, shift) with cnt keys under
+// them: 12-bit passes over the high word, then over the low word of the
+// keys that share the high word, until the boundary bin holds one key,
+// which one more read finds.
+template <typename Each>
+__device__ u64 merge_select(Each each, int need, int cnt, uint32_t prefix, uint32_t mask,
+                            int shift, MergeSmem& sm) {
+  auto high = [&](auto&& f) { each([&](u64 u, bool ok) { f((uint32_t)(u >> 32), ok); }); };
+  while (shift > 0 && cnt > 1) seed_pass(high, prefix, mask, need, shift, cnt, sm.seed);
+  const uint32_t hword = prefix, hmask = mask;
+  const bool low = cnt > 1;  // every high bit fixed, and cnt keys share them
+  if (low) {
+    prefix = 0;
+    mask = 0;
+    shift = 32;
+    auto lowf = [&](auto&& f) {
+      each([&](u64 u, bool ok) { f((uint32_t)u, ok && (uint32_t)(u >> 32) == hword); });
+    };
+    while (shift > 0 && cnt > 1) seed_pass(lowf, prefix, mask, need, shift, cnt, sm.seed);
+    if (shift == 0) return ((u64)hword << 32) | prefix;
+  }
+  each([&](u64 u, bool ok) {
+    const uint32_t h = (uint32_t)(u >> 32);
+    const bool at = low ? h == hword && ((uint32_t)u & mask) == prefix : (h & hmask) == hword;
+    if (ok && at) sm.found = u;
+  });
+  __syncthreads();
+  const u64 key = sm.found;
+  __syncthreads();  // read before another select writes it
+  return key;
+}
+
+// One compare-exchange of a bitonic network: of keys x and y (y the one
+// ``stride`` away in the network), the larger stays at the lower index of
+// a descending block.
+__device__ __forceinline__ u64 bitonic_keep(u64 x, u64 y, bool lower, bool desc) {
+  return lower == desc ? (x > y ? x : y) : (x < y ? x : y);
+}
+
+// The 32 keys of a warp (x at its lane) sorted descending by a bitonic
+// network, every step a shuffle.
+__device__ __forceinline__ u64 warp_sort32(u64 x, int lane) {
+#pragma unroll
+  for (int size = 2; size <= 32; size <<= 1) {
+    const bool desc = (lane & size) == 0;  // the last stage: every lane
+#pragma unroll
+    for (int stride = size >> 1; stride > 0; stride >>= 1)
+      x = bitonic_keep(x, __shfl_xor_sync(FULL, x, stride), (lane & stride) == 0, desc);
+  }
+  return x;
+}
+
+constexpr int MERGE_ITEMS = 4;  // outputs a thread merges a round
+
+// keys[0, n) sorted descending (n a power of two, at least 32), using tmp
+// [n]: each warp sorts runs of 32 in registers, then rounds of merges
+// double the runs. In a round each thread writes MERGE_ITEMS outputs of a
+// pair of runs: a binary search on its diagonal finds how many of them
+// come from the first run (merge path), then a sequential merge. Returns
+// the buffer that holds the result.
+__device__ u64* sort_desc(u64* keys, u64* tmp, int n) {
+  const int t = threadIdx.x;
+  for (int i = t; i < n; i += SEED_THREADS) keys[i] = warp_sort32(keys[i], t & 31);
+  u64 *src = keys, *dst = tmp;
+  for (int run = 32; run < n; run <<= 1) {
+    __syncthreads();
+    for (int o = t * MERGE_ITEMS; o < n; o += SEED_THREADS * MERGE_ITEMS) {
+      const int d = o & (2 * run - 1);  // the diagonal within the pair
+      const u64* a = src + (o - d);
+      const u64* b = a + run;
+      int lo = max(0, d - run), hi = min(d, run);
+      while (lo < hi) {  // a[mid] is among the pair's first d outputs?
+        const int mid = (lo + hi) >> 1;
+        if (a[mid] >= b[d - 1 - mid])
+          lo = mid + 1;
+        else
+          hi = mid;
+      }
+      int i = lo, j = d - lo;
+      u64 va = i < run ? a[i] : 0ull, vb = j < run ? b[j] : 0ull;
+#pragma unroll
+      for (int e = 0; e < MERGE_ITEMS; ++e) {
+        if (j >= run || (i < run && va >= vb)) {  // the first run's key first on ties
+          dst[o + e] = va;
+          va = ++i < run ? a[i] : 0ull;
+        } else {
+          dst[o + e] = vb;
+          vb = ++j < run ? b[j] : 0ull;
         }
       }
     }
+    u64* x = src;
+    src = dst;
+    dst = x;
   }
   __syncthreads();
-  const int n = min(c, k);
-  for (int j = t; j < k; j += THREADS) {
+  return src;
+}
+
+// Block blockIdx.x owns ranks [lo, hi) of query blockIdx.x / n_slices.
+// Shared memory (merge_smem_bytes): MergeSmem, the staging buffer
+// (stage_cap = min(cap, MERGE_STAGE) keys staged, at least ``slots``
+// long), then ``slots`` keys of the slice.
+__global__ void __launch_bounds__(SEED_THREADS, 2) merge_topk_kernel(
+    const long long* __restrict__ cand, const int* __restrict__ count, float* __restrict__ out_s,
+    int* __restrict__ out_i, int k, int cap, int slice, int n_slices, int stage_cap,
+    int slots) {
+  extern __shared__ __align__(16) uint8_t dsm[];
+  MergeSmem& sm = *reinterpret_cast<MergeSmem*>(dsm);
+  u64* stage = reinterpret_cast<u64*>(dsm + MERGE_HEAD);
+  u64* keys = stage + max(stage_cap, slots);
+  const int t = threadIdx.x;
+  const int qi = blockIdx.x / n_slices, r = blockIdx.x % n_slices;
+  const long long* row = cand + (size_t)qi * cap;
+  const int c = min(count[qi], cap);
+  const int lo = r * slice, hi = min(k, lo + slice);
+  const int hi_live = min(hi, c), m = max(hi_live - lo, 0);
+  int path = MP_FILL;
+  if (m > 0) {
+    if (t == 0) {
+      sm.n_buf = 0;
+      sm.n_sel = 0;
+    }
+    __syncthreads();
+    const bool upper = lo > 0, lower = hi_live < c;  // which boundaries bound the slice
+    u64 ukey = ~0ull, lkey = 0ull;
+    auto global = [row, c](auto&& f) { each_in_cand(row, c, f); };
+    if (!upper && !lower) {
+      path = MP_WHOLE;
+    } else if (c <= stage_cap) {
+      path = MP_STAGED;
+      each_in_cand(row, c, [&](u64 u, bool ok) { append_key(u, ok, stage, &sm.n_buf, stage_cap); });
+      __syncthreads();
+      auto shared = [stage, c](auto&& f) { each_in_keys(stage, c, f); };
+      if (upper) ukey = merge_select(shared, lo + 1, c, 0u, 0u, 32, sm);
+      if (lower) lkey = merge_select(shared, hi_live, c, 0u, 0u, 32, sm);
+    } else {
+      path = MP_BIN;
+      // the top digit of both boundaries from one read of the row
+      for (int i = t; i < SEED_BINS; i += SEED_THREADS) sm.seed.hist[i] = 0;
+      __syncthreads();
+      each_in_cand(row, c, [&](u64 u, bool ok) {
+        if (ok) atomicAdd(&sm.seed.hist[(uint32_t)(u >> (64 - SEED_BITS))], 1u);
+      });
+      __syncthreads();
+      constexpr int SH = 32 - SEED_BITS;
+      uint32_t pre[2] = {0u, 0u}, msk[2] = {0u, 0u};
+      int need[2] = {lo + 1, hi_live}, cnt[2] = {0, 0};
+      const bool want[2] = {upper, lower};
+      for (int j = 0; j < 2; ++j)
+        if (want[j]) seed_boundary(SH, SEED_BINS - 1, pre[j], msk[j], need[j], cnt[j], sm.seed);
+      for (int j = 0; j < 2; ++j) {
+        if (!want[j]) continue;
+        u64 key;
+        if (cnt[j] <= stage_cap) {
+          if (t == 0) sm.n_buf = 0;
+          __syncthreads();
+          const uint32_t p = pre[j], mk = msk[j];
+          each_in_cand(row, c, [&](u64 u, bool ok) {
+            append_key(u, ok && ((uint32_t)(u >> 32) & mk) == p, stage, &sm.n_buf, stage_cap);
+          });
+          __syncthreads();
+          const int nb = cnt[j];
+          key = merge_select([stage, nb](auto&& f) { each_in_keys(stage, nb, f); }, need[j], nb,
+                             pre[j], msk[j], SH, sm);
+        } else {
+          path = MP_GLOBAL;
+          key = merge_select(global, need[j], cnt[j], pre[j], msk[j], SH, sm);
+        }
+        (j == 0 ? ukey : lkey) = key;
+      }
+    }
+    // the slice: the keys from the lower boundary to the upper one
+    auto in_slice = [&](u64 u, bool ok) {
+      append_key(u, ok && u >= lkey && u <= ukey, keys, &sm.n_sel, m);
+    };
+    if (path == MP_STAGED)
+      each_in_keys(stage, c, in_slice);
+    else
+      each_in_cand(row, c, in_slice);
+    int pc = 32;
+    while (pc < m) pc <<= 1;
+    for (int i = m + t; i < pc; i += SEED_THREADS) keys[i] = 0ull;
+    __syncthreads();
+    keys = sort_desc(keys, stage, pc);
+  }
+  float* os = out_s + (size_t)qi * k + lo;
+  int* oi = out_i + (size_t)qi * k + lo;
+  for (int j = t; j < hi - lo; j += SEED_THREADS) {
     float s = NEG_INF;
     int idx = 0;
-    if (j < n) {
-      const unsigned long long u = keys[j];
+    if (j < m) {
+      const u64 u = keys[j];
       s = from_ord_u32((uint32_t)(u >> 32));
-      idx = (int)(0xFFFFFFFFu - (uint32_t)(u & 0xFFFFFFFFull));
+      idx = (int)(0xFFFFFFFFu - (uint32_t)u);
     }
-    out_s[(size_t)qi * k + j] = s;
-    out_i[(size_t)qi * k + j] = idx;
+    os[j] = s;
+    oi[j] = idx;
   }
+  if (t == 0) atomicAdd(&merge_path_blocks[path], 1u);
 }
 
 // A persistent grid: as many blocks as fit on the card at once, at most
@@ -1093,20 +1309,38 @@ extern "C" int gt_block_topk_sq(const void* q, const void* codes, const void* af
 }
 
 extern "C" int gt_merge_topk(const void* cand, const void* count, void* out_s, void* out_i,
-                             int b, int k, int k_pow2, int cap, void* scratch, void* stream) {
-  if (scratch != nullptr) {
-    merge_topk_kernel<false><<<b, THREADS, 0, (cudaStream_t)stream>>>(
-        (const long long*)cand, (const int*)count, (float*)out_s, (int*)out_i, k, k_pow2, cap,
-        (unsigned long long*)scratch);
-    return (int)cudaGetLastError();
+                             int b, int k, int cap, int slice, void* stream) {
+  if (b < 1 || k < 1 || cap < 0 || slice < 1 || slice > MERGE_SLICE)
+    return (int)cudaErrorInvalidValue;
+  const int n_slices = (k - 1) / slice + 1;
+  if ((long long)b * n_slices > 0x7FFFFFFFLL) return (int)cudaErrorInvalidValue;
+  // over 48 KB of dynamic shared memory needs the attribute: set once a
+  // device, to the most any launch takes
+  static unsigned long long opted = 0;
+  int dev = 0;
+  cudaGetDevice(&dev);
+  if (dev < 64 && !((opted >> dev) & 1ull)) {
+    const cudaError_t e = cudaFuncSetAttribute(merge_topk_kernel,
+                                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                               merge_smem_bytes(MERGE_STAGE, MERGE_SLICE));
+    if (e != cudaSuccess) return (int)e;
+    opted |= 1ull << dev;
   }
-  if (k_pow2 > MERGE_SMEM_KEYS) return (int)cudaErrorInvalidValue;
-  const int smem = k_pow2 * 8;
-  if (smem > 48 * 1024)
-    cudaFuncSetAttribute(merge_topk_kernel<true>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                         smem);
-  merge_topk_kernel<true><<<b, THREADS, smem, (cudaStream_t)stream>>>(
-      (const long long*)cand, (const int*)count, (float*)out_s, (int*)out_i, k, k_pow2, cap,
-      nullptr);
+  const int stage_cap = min(cap, MERGE_STAGE);
+  int slots = 32;
+  while (slots < min(slice, k)) slots <<= 1;
+  merge_topk_kernel<<<b * n_slices, SEED_THREADS, merge_smem_bytes(stage_cap, slots),
+                      (cudaStream_t)stream>>>((const long long*)cand, (const int*)count,
+                                              (float*)out_s, (int*)out_i, k, cap, slice,
+                                              n_slices, stage_cap, slots);
   return (int)cudaGetLastError();
+}
+
+// The blocks of merge_topk that took each path on the current device since
+// the last call, into ``blocks`` [MERGE_PATHS]; clears them. Synchronous.
+extern "C" int gt_merge_topk_paths(unsigned int* blocks) {
+  static const unsigned int zero[MERGE_PATHS] = {};
+  cudaError_t e = cudaMemcpyFromSymbol(blocks, merge_path_blocks, sizeof(zero));
+  if (e == cudaSuccess) e = cudaMemcpyToSymbol(merge_path_blocks, zero, sizeof(zero));
+  return (int)e;
 }

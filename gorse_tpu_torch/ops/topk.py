@@ -45,6 +45,7 @@ score.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import NamedTuple
 
 import torch
@@ -57,7 +58,10 @@ BLOCK_N = 256  # items per block (csrc/topk.cu BLOCK_N)
 GROUP = 4  # items per group maximum (csrc/topk.cu GROUP)
 QUERY_TILE = 32  # query padding: a warp of the score tile holds 32 query rows
 DIM_CHUNK = 64  # dimensions per staged pass (csrc/topk.cu DC)
-MERGE_SMEM_KEYS = 16384  # merge_topk sorts up to this many keys in shared memory
+MERGE_SLICE = 4096  # most output ranks one merge_topk block sorts (csrc/topk.cu)
+MERGE_SLICE_MIN = 1024  # merge_slice halves the slice down to this
+# the paths of merge_topk's blocks, in csrc/topk.cu MergePath's order
+MERGE_PATHS = ("fill", "whole", "staged", "bin", "global")
 # the branches of block_seeds' select, in csrc/topk.cu SeedBranch's order
 SEED_BRANCHES = ("k>n", "staged", "bin", "edge", "overflow", "overflow-edge", "global")
 _CHUNK_B = 256  # queries per kernel chunk
@@ -313,10 +317,11 @@ def _lib() -> ctypes.CDLL:
         lib.gt_block_seeds_branches.argtypes = [p]
         lib.gt_block_topk.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, i, p]
         lib.gt_block_topk_sq.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, p]
-        lib.gt_merge_topk.argtypes = [p, p, p, p, i, i, i, i, p, p]
+        lib.gt_merge_topk.argtypes = [p, p, p, p, i, i, i, i, p]
+        lib.gt_merge_topk_paths.argtypes = [p]
         for fn in (lib.gt_block_max, lib.gt_block_max_sq, lib.gt_block_seeds,
                    lib.gt_block_seeds_branches, lib.gt_block_topk, lib.gt_block_topk_sq,
-                   lib.gt_merge_topk):
+                   lib.gt_merge_topk, lib.gt_merge_topk_paths):
             fn.restype = ctypes.c_int
         lib._gt_typed = True
     return lib
@@ -500,11 +505,29 @@ def block_topk_sq(qp, table, aff: Affine, gate: Gate | None, b: int, n_items: in
     return cand, count
 
 
+def merge_slice(b: int, k: int, n_sm: int) -> int:
+    """Output ranks one ``merge_topk`` block owns: ``MERGE_SLICE``, halved
+    (down to ``MERGE_SLICE_MIN``) while ``b`` x ceil(k / slice) blocks would
+    leave some of the card's ``n_sm`` SMs idle."""
+    s = MERGE_SLICE
+    while s > MERGE_SLICE_MIN and b * -(-k // s) < n_sm:
+        s //= 2
+    return s
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
 def merge_topk(cand: torch.Tensor, count: torch.Tensor, b: int, k: int):
     """Final ``(scores [b, k] f32, indices [b, k] int32)`` from the
-    candidates, NEG_INF / 0 where a query has fewer than k. Any k: the
-    kernel sorts in shared memory up to ``MERGE_SMEM_KEYS`` keys a query,
-    above that in a device-memory scratch this wrapper allocates."""
+    candidates, NEG_INF / 0 where a query has fewer than k; exactly
+    :func:`merge_topk_plain`. Any k: each query's output is cut by rank into
+    slices of :func:`merge_slice` ranks, one kernel block a slice, which
+    selects the slice's two boundary keys among the candidates and sorts
+    the keys between them in shared memory (:func:`merge_topk_paths` counts
+    the path each block took)."""
     if cand.device.type == "cpu":
         return merge_topk_plain(cand, count, b, k)
     if cand.dtype != torch.int64 or count.dtype != torch.int32 or count.device != cand.device:
@@ -513,18 +536,24 @@ def merge_topk(cand: torch.Tensor, count: torch.Tensor, b: int, k: int):
         raise ValueError("cand and count must be contiguous, with a count per query")
     out_s = torch.empty((b, k), dtype=torch.float32, device=cand.device)
     out_i = torch.empty((b, k), dtype=torch.int32, device=cand.device)
-    k_pow2 = 1 << (k - 1).bit_length()
-    scratch = None
-    if k_pow2 > MERGE_SMEM_KEYS:
-        scratch = torch.empty((b, k_pow2), dtype=torch.int64, device=cand.device)
+    slice_ = merge_slice(b, k, _sm_count(cand.device.index))
     rc = _lib().gt_merge_topk(
         cand.data_ptr(), count.data_ptr(), out_s.data_ptr(), out_i.data_ptr(),
-        b, k, k_pow2, cand.shape[1], None if scratch is None else scratch.data_ptr(),
-        _stream(cand),
+        b, k, cand.shape[1], slice_, _stream(cand),
     )
     _raise_on(rc, "merge_topk")
     merge_topk.launches += 1
     return out_s, out_i
+
+
+def merge_topk_paths() -> dict[str, int]:
+    """Blocks of ``merge_topk`` that took each path (named as in
+    ``MERGE_PATHS``) on the current CUDA device since the last call, which
+    clears the counts. Waits for the device."""
+    torch.cuda.synchronize()
+    blocks = (ctypes.c_uint * len(MERGE_PATHS))()
+    _raise_on(_lib().gt_merge_topk_paths(blocks), "merge_topk_paths")
+    return {name: blocks[i] for i, name in enumerate(MERGE_PATHS) if blocks[i]}
 
 
 block_max.launches = 0
