@@ -24,7 +24,8 @@ kernel's own block maxima.
 1. Environment: the card's name and power limit, the torch version, and the
    build of ``gorse_tpu_torch/csrc/topk.cu`` (its bf16 and SQ entries) and
    ``bpr.cu`` (one nvcc each, started together) with its seconds and
-   ptxas's register and spill lines.
+   ptxas's register, shared-memory and spill lines for each kernel
+   (``bpr_epoch_kernel`` among them).
 2. Kernels: every kernel of the serving path (``block_max`` with and
    without its group output, ``block_seeds`` on block and on group maxima,
    ``block_topk`` under the block gate, the group gate and no gate,
@@ -69,26 +70,40 @@ kernel's own block maxima.
    lists after the exclusions; ``GET /api/recommend/...`` through
    ``RestServer`` on 127.0.0.1, equal to the cache.
 4. BPR kernels: ``bpr_sweep`` in both modes (sampled, explicit pairs) and
-   ``bpr_fold`` held against their plain PyTorch versions on the card, on
-   small tie-heavy inputs (repeated items in a sweep, users with no
-   positives, one item in every history; k = 8, 16, 64; f32 and bf16) and
-   at the training shape below. Sampled pos and neg must be equal and the
-   fold exact; p_new and the cost agree to 1e-5 relative + 1e-7 absolute
-   (the dot products sum in another order and expf/log1pf differ from
-   torch's by ulps), delta to that plus the most two summation orders of a
-   row's adds can differ (atomics add in any order). The pairs mode fed the
-   sampled mode's pairs must give its p_new and delta. Then each kernel's
-   median time, bound and plain time, and one epoch of the explicit-pairs
-   path (the reference's sharded-fused step on one card).
+   ``bpr_epoch`` (K1: a whole epoch in one cooperative launch) held against
+   their plain PyTorch versions on the card, on small tie-heavy inputs
+   (repeated items in a sweep, users with no positives, one item in every
+   history; k = 8, 16, 64; f32 and bf16; the epoch over 1, 3 and 5 steps),
+   on a wide case (more users than 32 x the most warps the card holds, so
+   warps take several 32-user batches; 4,000 items, so staged and unstaged
+   rows; k = 64 and 128), on a dense case whose rows collide with
+   the first 8 candidates (12 tries: the one-at-a-time draws), and at the
+   training shape below (the epoch over 1 and 3 steps). Sampled pos and neg
+   (every step's, for the epoch) must be equal; p_new and the cost agree to
+   1e-5 relative +
+   1e-7 absolute (the dot products sum in another order and expf/log1pf
+   differ from torch's by ulps), delta and a one-step epoch's q to that plus
+   the most two summation orders of a row's adds can differ (atomics add in
+   any order; the epoch also stages the Zipf head in shared memory); over
+   several steps, where each step's reordered sums feed the next, p and q
+   within ``EPOCH_TOL`` of each table's largest magnitude. The pairs mode
+   fed the sampled mode's pairs must give its p_new and delta. Then each
+   kernel's median and queued time, bound and plain time (the epoch's bound
+   both by the rule and with p, q and delta making a round trip every
+   step), the epoch under each ``ablate`` value of the reference's cost
+   attribution, and one epoch each of the explicit-pairs path (the
+   reference's sharded-fused step on one card) and of K2's entry.
 5. Training: ``BPR.fit`` at k = 64 on ``synthetic_cf_access(138000, 27000,
    nnz=2000000, seed=1)`` (the repo's bpr_ml20m_shape_k64) for a few epochs,
-   every epoch launching ``n_steps`` sweeps and folds, the first epoch held
-   against its plain version on the card; examples/s per epoch. Quality:
+   each epoch one launch of ``bpr_epoch``, the first epoch held against its
+   plain version on the card (every step's samples equal; both beside an
+   f64 evaluation of the plain epoch); examples/s per epoch. Quality:
    ``synthetic://400,300,8,0.08,1`` at k = 8 for 20 epochs reaches NDCG@10
    >= 0.35 and agrees with the fit's plain version on the CPU.
 6. Master: feedback rows of the ml-1m-shaped ``synthetic_cf`` in a
    MemoryDataStore; ``Master.load_dataset`` and
-   ``train_collaborative_filtering`` (fit_epoch cut to 10) on the card;
+   ``train_collaborative_filtering`` (fit_epoch cut to 10: ten launches of
+   ``bpr_epoch``) on the card;
    the index saved to a blob store; ``Worker.sync_and_recommend`` of the
    master's meta fills every user's cache; a sample of fetched lists agrees
    with the plain top-k, the caches equal them after the exclusions, and
@@ -174,14 +189,25 @@ KERNELS = ("block_max", "block_seeds", "block_topk", "merge_topk")
 # still takes this route for it
 ROUTE_SHAPES = ((27_000, 150), (27_000, 300), (500_000, 2048))
 
-# BPR: the sampled sweep replaces K2 (and is K1's body per step), the pairs
-# sweep K3, the fold K1's sweep boundary (bpr_kernel.py:392)
-BPR_KERNELS = ("bpr_sweep_sampled", "bpr_sweep_pairs", "bpr_fold")
+# BPR: the sampled sweep replaces K2, the pairs sweep K3, bpr_epoch K1 (a
+# whole epoch: the sampled sweep's body and the fold each step)
+BPR_KERNELS = ("bpr_sweep_sampled", "bpr_sweep_pairs", "bpr_epoch")
 BPR_REPLACES = {
     "bpr_sweep_sampled": "gorse_tpu/ops/bpr_kernel.py:285",
     "bpr_sweep_pairs": "gorse_tpu/ops/bpr_kernel.py:206",
-    "bpr_fold": "gorse_tpu/ops/bpr_kernel.py:329",
+    "bpr_epoch": "gorse_tpu/ops/bpr_kernel.py:329",
 }
+# bpr_epoch over several steps: each step's reordered sums feed the next, so
+# p and q are held to this share of each table's largest magnitude (f32: a
+# hundred times a step's order bound on the small cases; bf16: one bf16 ulp,
+# a payload near a rounding boundary may round the other way)
+EPOCH_TOL = {"float32": 1e-4, "bfloat16": 2.0**-8}
+EPOCH_STEPS = (1, 3, 5)
+# the sweep's candidates drawn ahead of the scan (csrc/bpr.cu MAXC); more
+# tries are drawn one at a time, so the dense case asks for more
+SAMPLE_AHEAD = 8
+DENSE_TRIES = 12
+ABLATIONS = ("", "nosample", "samp_nopos", "samp_norej", "nogather", "noscatter")
 F32_FLOP_S = 67e12  # f32 outside the tensor cores
 BPR_RTOL, BPR_ATOL = 1e-5, 1e-7
 LR, REG = 0.05, 0.01
@@ -385,7 +411,14 @@ def phase_environment() -> str:
             entry = re.search(r"Compiling entry function '\w*?\d([a-z][a-z_]*_kernel)(I(\w+?)E)?",
                               line)
             if entry:
+                # template arguments: the top-k kernels' item type, the BPR
+                # kernels' <sampled, bf16, KPL, vec> flags and widths
                 kind = {"h": "<uint8>", "13__nv_bfloat16": "<bf16>"}.get(entry.group(3), "")
+                flags = re.search(entry.group(1) + r"I((?:L[bi]\d+E)+)E", line)
+                if flags:
+                    kind = "<" + ", ".join(
+                        ("false", "true")[int(v)] if t == "b" else v
+                        for t, v in re.findall(r"L([bi])(\d+)E", flags.group(1))) + ">"
                 log(f"  ptxas {name}: {entry.group(1)}{kind}")
             elif "Used" in line or "spill" in line:
                 log(f"  ptxas {name}:", line.strip())
@@ -1261,8 +1294,8 @@ def within(name: str, got, want, extra=0.0) -> float:
 
 
 def hold_bpr(name, p, q, padded, counts, step_key, mm_dtype, n_tries=4) -> dict:
-    """Both sweep modes and the fold against their plain versions on the
-    card. Returns the largest absolute difference seen per kernel."""
+    """Both sweep modes against their plain versions on the card. Returns
+    the largest absolute difference seen per kernel."""
     import torch
 
     from gorse_tpu_torch.ops import bpr_kernel as bk
@@ -1303,14 +1336,47 @@ def hold_bpr(name, p, q, padded, counts, step_key, mm_dtype, n_tries=4) -> dict:
     within(f"{name}: pairs p_new vs sampled", pk2, pk)
     within(f"{name}: pairs delta vs sampled", dk2, dk, bnd)
     cost_ok("pairs vs sampled", ck2, ck)
+    return err
 
-    qk, qp = q.clone(), q.clone()
-    dfk, dfp = dk.clone(), dk.clone()
-    bk.bpr_fold(qk, dfk)
-    bk.bpr_fold_plain(qp, dfp)
+
+def hold_epoch(name, p, q, padded, counts, keys, mm_dtype, n_tries=4) -> float:
+    """bpr_epoch against its plain version on the card: every step's pos
+    and neg equal, delta zero after the fold. One step: p to the sweep's
+    tolerance, q to it plus ``order_bound``, the cost as the sweep's. More
+    steps: each table and the cost within EPOCH_TOL of its largest
+    magnitude. Returns the largest absolute difference."""
+    import torch
+
+    from gorse_tpu_torch.ops import bpr_kernel as bk
+
+    dev, n_items, n_steps = p.device, q.shape[0], len(keys)
+    got = {}
+    for side, fn in (("kernel", bk.bpr_epoch), ("plain", bk.bpr_epoch_plain)):
+        qs, delta, cost = q.clone(), torch.zeros_like(q), torch.zeros((1,), device=dev)
+        pairs = torch.full((2, n_steps, p.shape[0]), -7, dtype=torch.int32, device=dev)
+        ps = fn(p, qs, delta, cost, padded, counts, keys, n_items, LR, REG, n_tries, mm_dtype,
+                pairs=pairs)
+        got[side] = (ps, qs, cost, pairs, delta)
     torch.cuda.synchronize()
-    check(torch.equal(qk, qp) and not bool(dfk.any()), f"{name}: fold equals its plain version")
-    err["bpr_fold"] = float((qk - qp).abs().max())
+    (pk, qk, ck, pairs_k, dk), (pp, qp, cp, pairs_p, _) = got["kernel"], got["plain"]
+    check(torch.equal(pairs_k, pairs_p), f"{name}: every step's pos and neg equal the plain ones")
+    check(not bool(dk.any()), f"{name}: delta is zero after the epoch")
+    if n_steps == 1:
+        active = (counts > 0).to(torch.int32)
+        bnd = order_bound(p, q, pairs_p[0, 0], pairs_p[1, 0], active, mm_dtype)
+        err = max(within(f"{name}: p", pk, pp), within(f"{name}: q", qk, qp,
+                                                        bnd + BPR_RTOL * q.abs()))
+        tol = BPR_RTOL + 2.0 * int(active.sum()) * 2.0**-24
+    else:
+        tol = EPOCH_TOL[str(mm_dtype)[6:]]
+        err = 0.0
+        for what, a, b in (("p", pk, pp), ("q", qk, qp)):
+            diff = float((a - b).abs().max())
+            check(diff <= tol * float(b.abs().max()),
+                  f"{name}: {what} differs by {diff:.3g}, max |{what}| {float(b.abs().max()):.3g}")
+            err = max(err, diff)
+    check(abs(float(ck) - float(cp)) <= tol * abs(float(cp)) + BPR_ATOL,
+          f"{name}: cost {float(ck)} vs {float(cp)}")
     return err
 
 
@@ -1337,8 +1403,76 @@ def bpr_small_cases(dev):
     return cases
 
 
-def phase_bpr_kernels(csr, dev) -> tuple[dict, dict]:
-    """Returns (errors, timings) per BPR kernel."""
+def bpr_wide_case(dev, k: int):
+    """Repeated items at width: more users than 32 x the most warps the card
+    can hold (64 an SM), so on any grid some warp takes more than one
+    32-user batch and prefetches across users; 4,000 items, more than the
+    staged head, so both staged and unstaged rows take adds (about 120 a
+    row a step); every 7th user with no positives. Few enough adds a row
+    that the factors stay bounded over a few steps (300 items, about 1,800
+    adds a row, grew p to 114 in 3 steps, and the steps' reordered sums with
+    it)."""
+    import torch
+
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    n_users, n_items, width = 32 * 64 * sms + 4_097, 4_000, 24
+    gen = torch.Generator(device=dev).manual_seed(12 + k)
+    counts = torch.randint(1, width + 1, (n_users,), generator=gen, device=dev,
+                           dtype=torch.int32)
+    counts[::7] = 0
+    # distinct items a row: a random start plus gaps of 1 to 149 (at most
+    # 24 x 149 < 4,000 in all)
+    start = torch.randint(0, n_items, (n_users, 1), generator=gen, device=dev)
+    gaps = torch.randint(1, 150, (n_users, width), generator=gen, device=dev)
+    rows = (start + gaps.cumsum(dim=1)) % n_items
+    live = torch.arange(width, device=dev)[None, :] < counts[:, None]
+    padded = torch.where(live, rows, -1).to(torch.int32).contiguous()
+    p = 0.5 * torch.randn((n_users, k), generator=gen, device=dev)
+    q = 0.5 * torch.randn((n_items, k), generator=gen, device=dev)
+    return f"wide k={k}", p, q, padded, counts
+
+
+def bpr_dense_case(dev):
+    """Rows that hold most of a 16-item catalog (counts 10 to 16, some rows
+    every item; every 9th user with none): the first SAMPLE_AHEAD
+    candidates often all collide, so the sweep draws on one at a time."""
+    import torch
+
+    rng = np.random.default_rng(13)
+    n_users, n_items, k = 2_000, 16, 64
+    counts = rng.integers(10, n_items + 1, size=n_users).astype(np.int32)
+    counts[::9] = 0
+    padded = np.full((n_users, n_items), -1, np.int32)
+    for u in range(n_users):
+        padded[u, : counts[u]] = rng.permutation(n_items)[: counts[u]]
+    p = rng.normal(scale=0.5, size=(n_users, k)).astype(np.float32)
+    q = rng.normal(scale=0.5, size=(n_items, k)).astype(np.float32)
+    return ("dense k=64", *(torch.as_tensor(x, device=dev) for x in (p, q, padded, counts)))
+
+
+def late_draws(padded, counts, keys, n_items: int, n_tries: int) -> tuple[int, int]:
+    """Over the step keys: the active users whose first SAMPLE_AHEAD
+    candidates all lie in their rows (the sweep then draws one at a time),
+    and of those the ones a later candidate freed."""
+    import torch
+
+    from gorse_tpu_torch.ops import sampling
+
+    uids = torch.arange(padded.shape[0], device=padded.device)
+    reached = freed = 0
+    for step in keys:
+        u = sampling.per_user_uniforms(step, uids, 1 + n_tries)[:, 1:]
+        cand = (u * float(n_items)).to(torch.int32)
+        hit = (padded[:, None, :] == cand[:, :, None]).any(dim=2) & (counts > 0)[:, None]
+        late = hit[:, :SAMPLE_AHEAD].all(dim=1)
+        reached += int(late.sum())
+        freed += int((late & ~hit[:, SAMPLE_AHEAD:].all(dim=1)).sum())
+    return reached, freed
+
+
+def phase_bpr_kernels(csr, dev, n_steps: int) -> tuple[dict, dict]:
+    """Returns (errors, timings) per BPR kernel; ``n_steps`` is the fit's
+    steps an epoch at this shape."""
     import torch
 
     from gorse_tpu_torch.models.bpr import adaptive_neg_tries
@@ -1352,10 +1486,27 @@ def phase_bpr_kernels(csr, dev) -> tuple[dict, dict]:
             errors[key_] = max(errors.get(key_, 0.0), v)
 
     key = sampling.raw_step_keys(sampling.prng_key(3), 2)
-    for name, p, q, padded, counts in bpr_small_cases(dev):
+    dense = bpr_dense_case(dev)
+    cases = [(c, 4, EPOCH_STEPS) for c in bpr_small_cases(dev)]
+    cases += [(bpr_wide_case(dev, k), 4, (1, 3)) for k in (64, 128)]
+    cases += [(dense, DENSE_TRIES, (1, 3))]
+    for (name, p, q, padded, counts), n_tries, step_counts in cases:
         for mm in (torch.float32, torch.bfloat16):
-            merge_err(hold_bpr(f"{name} {str(mm)[6:]}", p, q, padded, counts, key[0], mm))
-    log("  small cases: every kernel within tolerance of its plain version")
+            merge_err(hold_bpr(f"{name} {str(mm)[6:]}", p, q, padded, counts, key[0], mm,
+                               n_tries))
+            for steps in step_counts:
+                keys = sampling.raw_step_keys(sampling.prng_key(8), steps)
+                merge_err({"bpr_epoch": hold_epoch(f"{name} {str(mm)[6:]} epoch of {steps}",
+                                                   p, q, padded, counts, keys, mm, n_tries)})
+        log(f"  {name} ({p.shape[0]} users, {q.shape[0]} items, n_tries {n_tries}): every "
+            f"kernel within tolerance; bpr_epoch over {step_counts} steps, samples equal")
+    _, _, q, padded, counts = dense
+    late = late_draws(padded, counts, [key[0], *sampling.raw_step_keys(sampling.prng_key(8), 3)],
+                      q.shape[0], DENSE_TRIES)
+    check(late[0] > late[1] > 0, f"dense case: {late} (users past the first {SAMPLE_AHEAD} "
+          "candidates, freed by a later one): both kinds must occur")
+    log(f"  dense case: {late[0]} draws past the first {SAMPLE_AHEAD} candidates, {late[1]} "
+        "freed by a later one")
 
     rng = np.random.default_rng(5)
     n_users, n_items, k = TRAIN_USERS, TRAIN_ITEMS, TRAIN_DIM
@@ -1365,8 +1516,13 @@ def phase_bpr_kernels(csr, dev) -> tuple[dict, dict]:
     counts = torch.as_tensor(csr.counts, device=dev)
     n_tries = adaptive_neg_tries(float(np.mean(csr.counts)) / n_items)
     merge_err(hold_bpr("full width", p, q, padded, counts, key[1], torch.float32, n_tries))
+    for steps in (1, 3):
+        keys = sampling.raw_step_keys(sampling.prng_key(10), steps)
+        merge_err({"bpr_epoch": hold_epoch(f"full width epoch of {steps}", p, q, padded, counts,
+                                           keys, torch.float32, n_tries)})
     log(f"  full width ({n_users} users, {n_items} items, k = {k}, L = {padded.shape[1]}, "
-        f"n_tries = {n_tries}): within tolerance; errors {json.dumps(errors)}")
+        f"n_tries = {n_tries}; the epoch over 1 and 3 steps): within tolerance; errors "
+        f"{json.dumps(errors)}")
 
     # ---- times at the training shape
     delta, cost = torch.zeros_like(q), torch.zeros((1,), device=dev)
@@ -1377,47 +1533,80 @@ def phase_bpr_kernels(csr, dev) -> tuple[dict, dict]:
     touched = int(torch.unique(torch.cat([pos[active.bool()], neg[active.bool()]])).numel())
     hits = torch.bincount(torch.cat([pos[active.bool()], neg[active.bool()]]).long(),
                           minlength=n_items)
-    L = padded.shape[1]
     user_bytes = 2 * n_users * k * 4  # p read, p_new written
     row_bytes = touched * 3 * k * 4  # q rows read once, delta rows read and written
+    # the rows' items (the scan stops at each row's count) and the counts
+    hist_bytes = int(counts.sum()) * 4 + n_users * 4
     flops = n_active * 16 * k
     out = {}
-    s_bound = bound(user_bytes + row_bytes + n_users * (L * 4 + 4 + 8) + 4, flops, F32_FLOP_S)
+    s_bound = bound(user_bytes + row_bytes + hist_bytes + n_users * 8 + 4, flops, F32_FLOP_S)
+
+    def sweep_sampled():
+        bk.bpr_sweep_sampled(p, q, delta, cost, padded, counts, key[1], n_items, LR, REG,
+                             n_tries)
+
+    def sweep_pairs():
+        bk.bpr_sweep_pairs(p, q, delta, cost, pos, neg, active, LR, REG)
+
     out["bpr_sweep_sampled"] = dict(
-        ms=median_ms(lambda: bk.bpr_sweep_sampled(p, q, delta, cost, padded, counts, key[1],
-                                                  n_items, LR, REG, n_tries), 50),
+        ms=median_ms(sweep_sampled, 50), queued_ms=queued_ms(sweep_sampled),
         plain_ms=median_ms(lambda: bk.bpr_sweep_sampled_plain(
             p, q, delta, cost, padded, counts, key[1], n_items, LR, REG, n_tries), 5),
         bound_ms=s_bound[0], bound_by=s_bound[1], library_ms=None,
     )
     p_bound = bound(user_bytes + row_bytes + n_users * 12 + 4, flops, F32_FLOP_S)
     out["bpr_sweep_pairs"] = dict(
-        ms=median_ms(lambda: bk.bpr_sweep_pairs(p, q, delta, cost, pos, neg, active, LR, REG),
-                     50),
+        ms=median_ms(sweep_pairs, 50), queued_ms=queued_ms(sweep_pairs),
         plain_ms=median_ms(lambda: bk.bpr_sweep_pairs_plain(
             p, q, delta, cost, pos, neg, active, LR, REG), 5),
         bound_ms=p_bound[0], bound_by=p_bound[1], library_ms=None,
     )
-    q2 = q.clone()
-    f_bound = bound(4 * q.numel() * 4, q.numel(), F32_FLOP_S)
-    out["bpr_fold"] = dict(
-        ms=median_ms(lambda: bk.bpr_fold(q2, delta), 50),
-        plain_ms=median_ms(lambda: bk.bpr_fold_plain(q2, delta), 20),
-        bound_ms=f_bound[0], bound_by=f_bound[1], library_ms=None,
+    # the epoch: n_steps sweeps and folds. Its bound by the rule (each input
+    # read once, each output written once: p and q read and written, the
+    # rows' items, the counts, the keys) and, beside it, with p, q and delta
+    # making a round trip through device memory every step
+    keys = sampling.raw_step_keys(sampling.prng_key(5), n_steps)
+    e_bound = bound(user_bytes + 2 * q.numel() * 4 + hist_bytes + n_steps * 8 + 4,
+                    n_steps * flops, F32_FLOP_S)
+    fold_bytes = 4 * q.numel() * 4  # q and delta read, both written
+    trip_ms = n_steps * bound(user_bytes + row_bytes + hist_bytes + fold_bytes,
+                              flops + q.numel(), F32_FLOP_S)[0]
+    q_epoch = q.clone()  # the epochs below update it in place
+
+    def epoch(ablate=""):
+        return lambda: bk.bpr_epoch_fused(p, q_epoch, padded, counts, keys, n_items, LR, REG,
+                                          mm_dtype=torch.float32, n_tries=n_tries,
+                                          ablate=ablate)
+
+    def plain_epoch():
+        bk.bpr_epoch_plain(p, q_epoch, torch.zeros_like(q), cost, padded, counts, keys,
+                           n_items, LR, REG, n_tries)
+
+    out["bpr_epoch"] = dict(
+        ms=median_ms(epoch(), 20), queued_ms=queued_ms(epoch(), 10),
+        plain_ms=median_ms(plain_epoch, 2),
+        bound_ms=e_bound[0], bound_by=e_bound[1], round_trip_bound_ms=trip_ms,
+        n_steps=n_steps, library_ms=None,
     )
-    log(f"  sweep: {n_active} active users, {touched} item rows touched, the hottest "
-        f"{int(hits.max())} adds of {2 * n_active}")
+    # cost attribution (ablated epochs compute wrong results by design)
+    out["bpr_epoch"]["ablation_ms"] = {v or "full": median_ms(epoch(v), 20) for v in ABLATIONS}
+    top = torch.topk(hits, 5).values.tolist()
+    log(f"  sweep: {n_active} active users, {touched} item rows touched, the hottest five "
+        f"{top} adds of {2 * n_active}; {int(counts.sum())} history entries in "
+        f"{n_users} x {padded.shape[1]} padded rows")
     for name, row in out.items():
         log(f"  time {name}: " + json.dumps(row))
-    del p, q, delta, q2
+    del p, q, delta, q_epoch
     torch.cuda.empty_cache()
     return errors, out
 
 
-def phase_pairs_path(csr, dev) -> int:
+def phase_pairs_path(csr, dev) -> dict:
     """One epoch of explicit-pairs training (the reference's sharded-fused
     step, parallel/sharded.py:224-298, on one card): the counter sampler,
-    then K3's sweep per step. Returns the pairs sweep's launches."""
+    then K3's sweep per step; then one epoch of K2's entry
+    (``bpr_fully_fused_step`` and the fold by the caller). Returns each
+    path's launches of its sweep."""
     import torch
 
     from gorse_tpu_torch.models.bpr import adaptive_neg_tries
@@ -1442,23 +1631,37 @@ def phase_pairs_path(csr, dev) -> int:
         p, q_delta, _ = bk.bpr_fused_step(p, q, pos, neg, counts > 0, LR, REG)
         q.add_(q_delta)
     torch.cuda.synchronize()
-    launches = bk.bpr_sweep_pairs.launches
-    check(launches == n_steps, f"pairs path: {launches} pairs sweeps for {n_steps} steps")
+    launches = {"bpr_sweep_pairs": bk.bpr_sweep_pairs.launches}
+    check(launches["bpr_sweep_pairs"] == n_steps,
+          f"pairs path: {launches} pairs sweeps for {n_steps} steps")
     check(bool(torch.isfinite(p).all() and torch.isfinite(q).all()), "pairs path: finite")
-    log(f"  pairs path: {n_steps} steps, {launches} launches of bpr_sweep (pairs)")
+
+    zero_counts()
+    torch.cuda.synchronize()
+    for step_key in keys:
+        p, q_delta, _, _, _ = bk.bpr_fully_fused_step(p, q, padded, counts, step_key,
+                                                      TRAIN_ITEMS, LR, REG, n_tries=n_tries)
+        q.add_(q_delta)
+    torch.cuda.synchronize()
+    launches["bpr_sweep_sampled"] = bk.bpr_sweep_sampled.launches
+    check(launches["bpr_sweep_sampled"] == n_steps,
+          f"sampled-step path: {launches} sampled sweeps for {n_steps} steps")
+    log(f"  pairs and sampled-step paths: {n_steps} steps each, launches {json.dumps(launches)}")
     return launches
 
 
 # ---------------------------------------------------------------- phase 5
 
 
-def hold_first_epoch(train, csr, dev, n_steps: int) -> float:
-    """The fit's first epoch (its init, its keys) through the kernels
-    against the plain versions on the card. At this shape the Zipf head's
-    rows grow about fourfold a sweep (the reference's dense sweep does the
-    same), and the growth amplifies the atomics' reordered sums: held to
-    5e-3 of each table's largest magnitude (two runs measured 4.3e-5 and
-    2.2e-4). Returns the larger relative error."""
+def hold_first_epoch(train, csr, dev, n_steps: int) -> dict:
+    """The fit's first epoch (its init, its keys) through the kernel against
+    the plain version on the card: every step's pos and neg equal, p and q
+    within 5e-3 of each table's largest magnitude. At this shape the Zipf
+    head's rows grow about fourfold a step (the reference's dense sweep does
+    the same), and the growth amplifies every reordered f32 sum: beside the
+    hold, both are measured against the plain epoch evaluated in f64, which
+    says how far any f32 order lies from the exact sums. Returns the
+    relative errors."""
     import torch
 
     from gorse_tpu_torch.models import BPR, Params
@@ -1474,23 +1677,32 @@ def hold_first_epoch(train, csr, dev, n_steps: int) -> float:
     counts = torch.as_tensor(csr.counts, device=dev)
     _, epoch_key = sampling.split(sampling.prng_key(1))
     keys = sampling.raw_step_keys(epoch_key, n_steps)
-    p_k, q_k, _ = bk.bpr_epoch_fused(init.user_factors, init.item_factors.clone(), padded,
-                                     counts, keys, n_items, LR, REG, mm_dtype=torch.float32,
-                                     n_tries=n_tries)
-    p, q = init.user_factors, init.item_factors.clone()
-    delta, cost = torch.zeros_like(q), torch.zeros((1,), device=dev)
-    for step_key in keys:
-        p, _, _ = bk.bpr_sweep_sampled_plain(p, q, delta, cost, padded, counts, step_key,
-                                             n_items, LR, REG, n_tries)
-        bk.bpr_fold_plain(q, delta)
-    worst = 0.0
-    for name, got, want in (("p", p_k, p), ("q", q_k, q)):
-        rel = float((got - want).abs().max()) / float(want.abs().max())
-        check(rel <= 5e-3, f"first epoch: {name} differs by {rel:.3g} of its largest magnitude")
-        worst = max(worst, rel)
-    log(f"  first epoch equals its plain version on the card: {worst:.3g} of the largest "
-        f"magnitude; max |p| {float(p.abs().max()):.4g}, max |q| {float(q.abs().max()):.4g}")
-    return worst
+    got = {}
+    for side, fn, dt in (("kernel", bk.bpr_epoch, torch.float32),
+                         ("plain", bk.bpr_epoch_plain, torch.float32),
+                         ("f64", bk.bpr_epoch_plain, torch.float64)):
+        q = init.item_factors.to(dt, copy=True)  # the epoch updates q in place
+        pairs = torch.empty((2, n_steps, padded.shape[0]), dtype=torch.int32, device=dev)
+        p = fn(init.user_factors.to(dt), q, torch.zeros_like(q), torch.zeros((1,), dtype=dt,
+               device=dev), padded, counts, keys, n_items, LR, REG, n_tries, pairs=pairs)
+        got[side] = (p.double(), q.double(), pairs)
+    torch.cuda.synchronize()
+    check(torch.equal(got["kernel"][2], got["plain"][2]),
+          "first epoch: every step's pos and neg equal the plain ones")
+    out = {}
+    for a, b in (("kernel", "plain"), ("kernel", "f64"), ("plain", "f64")):
+        for t, name in ((0, "p"), (1, "q")):
+            want = got[b][t]
+            rel = float((got[a][t] - want).abs().max()) / float(want.abs().max())
+            out[f"{a} vs {b}"] = max(out.get(f"{a} vs {b}", 0.0), rel)
+            if b == "plain":
+                check(rel <= 5e-3,
+                      f"first epoch: {name} differs by {rel:.3g} of its largest magnitude")
+    p64, q64, _ = got["f64"]
+    log(f"  first epoch against its plain version on the card, as shares of each table's "
+        f"largest magnitude: {json.dumps(out)}; samples equal; max |p| "
+        f"{float(p64.abs().max()):.4g}, max |q| {float(q64.abs().max()):.4g}")
+    return out
 
 
 def phase_training(train, test, csr, dev) -> dict:
@@ -1511,9 +1723,8 @@ def phase_training(train, test, csr, dev) -> dict:
     torch.cuda.synchronize()
     fit_s = time.perf_counter() - t0
     launches = {n: getattr(bk, n).launches for n in BPR_KERNELS}
-    want = TRAIN_EPOCHS * n_steps
-    check(launches["bpr_sweep_sampled"] == want and launches["bpr_fold"] == want,
-          f"fit: {launches} launches, want {want} sampled sweeps and folds")
+    want = dict(bpr_sweep_sampled=0, bpr_sweep_pairs=0, bpr_epoch=TRAIN_EPOCHS)
+    check(launches == want, f"fit: {launches} launches, want {want} (one bpr_epoch an epoch)")
     check(len(model.epoch_seconds) == TRAIN_EPOCHS, "fit: every epoch ran")
     nnz = train.count_feedback()
     # not a check: at lr 0.05 the dense sweep diverges at this shape, in the
@@ -1524,7 +1735,8 @@ def phase_training(train, test, csr, dev) -> dict:
         epoch_s=model.epoch_seconds,
         examples_per_s=[nnz / s for s in model.epoch_seconds],
         sweep_ms=[s / n_steps * 1e3 for s in model.epoch_seconds],
-        first_epoch_rel_err=first_epoch_err,
+        first_epoch_rel_err=first_epoch_err["kernel vs plain"],
+        first_epoch_f64_rel_err={k_: v for k_, v in first_epoch_err.items() if "f64" in k_},
         finite=bool(torch.isfinite(model.user_factors).all()
                     and torch.isfinite(model.item_factors).all()),
     )
@@ -1637,9 +1849,9 @@ def phase_master(dev) -> dict:
         # ----
         train = loaded.train
         n_steps = max(round(train.count_feedback() / sum(1 for fb in train.user_feedback if fb)), 1)
-        want = MASTER_EPOCHS * n_steps
-        check(launches["bpr_sweep_sampled"] == want and launches["bpr_fold"] == want,
-              f"master: {launches} launches, want {want} sampled sweeps and folds")
+        want = dict(bpr_sweep_sampled=0, bpr_sweep_pairs=0, bpr_epoch=MASTER_EPOCHS)
+        check(launches == want, f"master: {launches} launches, want {want} (one bpr_epoch an "
+              "epoch)")
         fit_s = re.search(r"^\w*master_collaborative_filtering_fit_seconds (\S+)$",
                           master.metrics.render(), re.M)
         model_meta = json.loads(master.meta.get("CF_MODEL_META"))
@@ -2201,8 +2413,10 @@ def main() -> int:
             f"padded width {csr.padded.shape[1]}")
     if "4" in phases:
         log("== phase 4: BPR kernels")
-        out["bpr_errors"], out["bpr_timings"] = phase_bpr_kernels(csr, dev)
-        out["pairs_launches"] = phase_pairs_path(csr, dev)
+        n_active = max(int((csr.counts > 0).sum()), 1)
+        out["bpr_errors"], out["bpr_timings"] = phase_bpr_kernels(
+            csr, dev, max(round(train.count_feedback() / n_active), 1))
+        out["path_launches"] = phase_pairs_path(csr, dev)
     if "5" in phases:
         log("== phase 5: training")
         out["training"] = phase_training(train, test, csr, dev)
@@ -2254,10 +2468,10 @@ def kernel_rows(out: dict) -> list[dict]:
 
     kernels = [row(name, "topk.cu", REPLACES[name], path["launches"][name],
                    out["errors"][name], rows[name]) for name in KERNELS]
-    # the training path's launches (phase 5); the pairs sweep's from its
-    # own path (phase 4). No single PyTorch call computes a sweep or the
-    # fold (q += delta and delta = 0 are two), so library_ms is null.
-    bpr_launches = dict(out["training"]["launches"], bpr_sweep_pairs=out["pairs_launches"])
+    # the training path's launches of bpr_epoch (phase 5); the sweeps' from
+    # their own paths (phase 4). No single PyTorch call computes a sweep or
+    # an epoch, so library_ms is null.
+    bpr_launches = dict(out["training"]["launches"], **out["path_launches"])
     kernels += [row(name, "bpr.cu", BPR_REPLACES[name], bpr_launches[name],
                     out["bpr_errors"][name], out["bpr_timings"][name]) for name in BPR_KERNELS]
     # the SQ kernels: launches from the store path (phase 7b), times at the

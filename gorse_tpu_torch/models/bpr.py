@@ -2,10 +2,11 @@
 
 Each epoch is ``n_steps`` dense-over-users sweeps: every active user draws
 one (positive, negative) pair and takes the pairwise SGD update, items take
-the sum of their updates at the end of the sweep. On the card every sweep is
-the CUDA kernel ``bpr_sweep`` (sampled mode) followed by ``bpr_fold``
-(ops/bpr_kernel.py), whatever the catalog size: its cost scales with the
-active users. On the CPU the same functions run their plain versions.
+the sum of their updates at the end of the sweep. On the card an epoch is
+one launch of the CUDA kernel ``bpr_epoch`` (ops/bpr_kernel.py: each step
+the sampled sweep and the fold of its item deltas), whatever the catalog
+size: its cost scales with the active users. On the CPU the same function
+runs its plain version, a loop of sweeps and folds.
 
 Kept from the reference because they decide the outputs: the history cap
 (:func:`history_cap`), the rejection depth (:func:`adaptive_neg_tries`),

@@ -11,11 +11,14 @@ is the key words ``(0, s)`` and ``jax.random.split(key, n)[i]`` is
 Keys are int64 tensors of two 32-bit words. torch has few uint32 ops, so the
 arithmetic runs in int64 and every add and rotate is masked to 32 bits.
 These are the plain versions; the CUDA sweep (``csrc/bpr.cu``) draws the
-same bits inside its kernel.
+same bits inside its kernel. The key stream (:func:`split`,
+:func:`raw_step_keys`) runs on the host once an epoch, in numpy uint32:
+about a tenth of the time of a torch op per round on a dozen words.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 MASK = 0xFFFFFFFF
@@ -43,6 +46,22 @@ def threefry2x32(k0, k1, x0: torch.Tensor, x1: torch.Tensor):
     return x0, x1
 
 
+def _threefry2x32_np(k0: int, k1: int, x0: np.ndarray, x1: np.ndarray):
+    """:func:`threefry2x32` on uint32 numpy arrays (they wrap at 32 bits):
+    the key stream's few words without a torch op per round on the host."""
+    ks = tuple(np.uint32(k & MASK) for k in (k0, k1, k0 ^ k1 ^ _PARITY))
+    x0, x1 = x0 + ks[0], x1 + ks[1]
+    for d in range(5):
+        for j in range(4):
+            r = _ROT[(d % 2) * 4 + j]
+            x0 = x0 + x1
+            x1 = ((x1 << np.uint32(r)) | (x1 >> np.uint32(32 - r))) ^ x0
+        x0 = x0 + ks[(d + 1) % 3]
+        x1 = x1 + ks[(d + 2) % 3]
+        x1 = x1 + np.uint32(d + 1)
+    return x0, x1
+
+
 def prng_key(seed: int) -> torch.Tensor:
     """``jax.random.PRNGKey(seed)`` as key words: ``[0, seed]``."""
     return torch.tensor([0, seed & MASK], dtype=torch.int64)
@@ -50,10 +69,9 @@ def prng_key(seed: int) -> torch.Tensor:
 
 def split(key: torch.Tensor, n: int = 2) -> torch.Tensor:
     """``jax.random.split(key, n)`` on key words: ``[n, 2]`` int64."""
-    k0, k1 = int(key[0]), int(key[1])
-    count = torch.arange(n, dtype=torch.int64)
-    w0, w1 = threefry2x32(k0, k1, torch.zeros_like(count), count)
-    return torch.stack([w0, w1], dim=1)
+    count = np.arange(n, dtype=np.uint32)
+    w0, w1 = _threefry2x32_np(int(key[0]), int(key[1]), np.zeros_like(count), count)
+    return torch.from_numpy(np.stack([w0, w1], axis=1).astype(np.int64))
 
 
 def raw_step_keys(key: torch.Tensor, n_steps: int) -> list[tuple[int, int]]:

@@ -177,12 +177,26 @@ def test_epoch_matches_sharded_fused_epoch():
 
 
 def test_fold_adds_and_clears():
+    """bpr_epoch's fold phase: q += delta, delta = 0, q in place; after a
+    one-step epoch q is q plus that step's sweep deltas and delta is zero."""
     rng = np.random.default_rng(1)
     q = torch.as_tensor(rng.normal(size=(9, 8)).astype(np.float32))
     delta = torch.as_tensor(rng.normal(size=(9, 8)).astype(np.float32))
     want = q + delta
-    assert port.bpr_fold(q, delta) is q
+    assert port.bpr_fold_plain(q, delta) is q
     assert torch.equal(q, want) and not delta.any()
+
+    padded, counts, n_items = _capped_rows(np.random.default_rng(4))
+    p = torch.as_tensor(rng.normal(size=(padded.shape[0], 8)).astype(np.float32))
+    q = torch.as_tensor(rng.normal(size=(n_items, 8)).astype(np.float32))
+    padded, counts = torch.as_tensor(padded), torch.as_tensor(counts)
+    step = sampling.raw_step_keys(sampling.prng_key(2), 1)
+    _, qd, _, _, _ = port.bpr_fully_fused_step(p, q, padded, counts, step[0], n_items, LR, REG,
+                                               mm_dtype=torch.float32, n_tries=3)
+    q0 = q.clone()
+    delta, cost = torch.zeros_like(q), torch.zeros(1)
+    port.bpr_epoch(p, q, delta, cost, padded, counts, step, n_items, LR, REG, n_tries=3)
+    assert torch.equal(q, q0 + qd) and not delta.any()
 
 
 def test_apply_pairs_matches_the_xla_rule():
@@ -217,4 +231,5 @@ def test_wrappers_take_the_plain_version_only_on_the_cpu():
                                torch.zeros((3, 4), dtype=torch.int32, **meta), i32, (0, 1), 5,
                                LR, REG)
     with pytest.raises(ValueError, match="CUDA"):
-        port.bpr_fold(q, torch.zeros_like(q))
+        port.bpr_epoch(p, q, torch.zeros_like(q), torch.zeros(1, **meta),
+                       torch.zeros((3, 4), dtype=torch.int32, **meta), i32, [(0, 1)], 5, LR, REG)
