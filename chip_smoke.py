@@ -133,6 +133,28 @@ kernel's own block maxima.
    at k = 4,096 and 20,000, each agreeing with the plain version;
    ``merge_topk`` timed at each k.
 
+8. eALS and neighbours: phase 6's ml-1m-shaped feedback, each item with
+   1-3 of 18 genres and a 16-float ``embedding`` label. One eALS epoch
+   (``ALS.epoch``: the user then the item half, 256-row blocks, 16
+   factors) timed by CUDA events, and the card's epochs 1 and 3 held
+   against the port's on the CPU from the same factors (``EALS_TOL`` of
+   each table's largest magnitude). ``Master.train_collaborative_filtering``
+   with ``model = "als"`` (``fit_epoch`` 10): its fit-seconds gauge and
+   NDCG@10 (at least 0.35). The worker serves its whole shard from that
+   eALS index; ``block_max``, ``block_seeds``, ``block_topk`` and
+   ``merge_topk`` each launch. The master's ``update_non_personalized``
+   (``popular``, ``latest``), ``update_item_to_item`` (types users, tags,
+   auto, embedding; one entry a call) and ``update_user_to_user`` (items),
+   each timed on the host clock ending on a synchronise, beside the CUDA-
+   event time of its similarity op (the rest is the host's share). Every
+   cache held against the same update run by a master on the CPU: the
+   non-personalized lists and the digests equal, every entity's neighbour
+   list by ``compare_lists`` on distances (IDF within ``(4 L + 16) 2^-24``,
+   L the most labels in a row; squared Euclidean within ``(4 d + 16) 2^-24
+   (|x_i|^2 + |x_j|^2)``). ``GET /api/recommend/u1`` with the chain
+   item-to-item/users then non-personalized/popular equals those caches'
+   aggregate.
+
 The last three lines of standard output are the kernels' JSON record, the
 card's ``name, power.limit`` as nvidia-smi gives them, and
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
@@ -228,7 +250,18 @@ SQ_KERNELS = ("block_max_sq", "block_topk_sq")
 WIDE_BLOCKS, WIDE_QUERIES, WIDE_K = 65_536, 32, 10
 # phase 7c: top-k above 2048 (merge_topk once sorted at most 2048 keys)
 WIDE_K_ROWS, WIDE_K_QUERIES, WIDE_KS = 100_000, 32, (4096, 20_000)
-PHASES = ("2", "2b", "2c", "3", "4", "5", "6", "7", "7c")
+# phase 8: eALS and the neighbour recommenders at the ml-1m shape (bench.py
+# stage_eals: 16 factors, 256-row solve blocks); 18 genres (ml-1m's), 1-3 an
+# item, and a 16-float embedding per item
+N_GENRES, GENRES_MAX, EMBED_DIM = 18, 3, 16
+EALS_REPS, EALS_HOLD_EPOCHS = 5, (1, 3)
+# the card's eALS epochs against the port's on the CPU from the same
+# factors: each half-epoch solves the same systems with its sums in another
+# order and another Cholesky (cuSOLVER, LAPACK); held to this share of each
+# table's largest magnitude after epochs 1 and 3
+EALS_TOL = 1e-3
+I2I_TYPES = ("users", "tags", "auto", "embedding")
+PHASES = ("2", "2b", "2c", "3", "4", "5", "6", "7", "7c", "8")
 SQ_REPLACES = {
     "block_max_sq": "gorse_tpu/ops/topk.py:361",
     "block_topk_sq": "gorse_tpu/ops/topk.py:442",
@@ -2342,6 +2375,328 @@ def phase_wide_k(dev, seed: int) -> dict:
     return out
 
 
+# ---------------------------------------------------------------- phase 8
+
+
+def neighbor_store(seed: int):
+    """Phase 6's ml-1m-shaped feedback in a MemoryDataStore, its items with
+    1-3 of 18 genres, a 16-float ``embedding`` label, a category and a
+    timestamp, all from ``seed``."""
+    from gorse_tpu_torch.data.loaders import synthetic_cf
+    from gorse_tpu_torch.storage.data import MemoryDataStore
+    from gorse_tpu_torch.storage.types import Feedback, Item, User
+
+    n_users, n_items, rank, density, data_seed = MASTER_SHAPE
+    ds = synthetic_cf(n_users, n_items, rank, density, data_seed)
+    rng = np.random.default_rng(seed)
+    genres = [rng.choice(N_GENRES, size=rng.integers(1, GENRES_MAX + 1), replace=False)
+              for _ in range(n_items)]
+    embeddings = rng.standard_normal((n_items, EMBED_DIM), dtype=np.float32)
+    stamps = rng.integers(0, 1_000_000, size=n_items)
+    data = MemoryDataStore()
+    data.insert_items(
+        Item(f"i{i}", categories=[f"c{i % N_CATEGORIES}"], timestamp=float(stamps[i]),
+             labels={"genre": [f"g{g}" for g in genres[i]], "embedding": embeddings[i].tolist()})
+        for i in range(n_items))
+    data.insert_users(User(f"u{u}") for u in range(n_users))
+    data.insert_feedback(
+        Feedback("like", f"u{u}", f"i{i}", 1.0, ts)
+        for u, (fb, stamps) in enumerate(zip(ds.user_feedback, ds.timestamps))
+        for i, ts in zip(fb, stamps)
+    )
+    return data
+
+
+def hold_eals(train, dev, smi: str) -> dict:
+    """One eALS epoch timed on the card (CUDA events), and the card's
+    epochs 1 and 3 held against the port's on the CPU from the same
+    factors."""
+    import torch
+
+    from gorse_tpu_torch.models import ALS
+
+    card, cpu = ALS(device=dev), ALS(device="cpu")
+    rng = np.random.default_rng(1)
+    p0 = (card.init_stddev * rng.standard_normal((train.count_users(), card.n_factors))
+          ).astype(np.float32)
+    q0 = (card.init_stddev * rng.standard_normal((train.count_items(), card.n_factors))
+          ).astype(np.float32)
+    inputs, cpu_inputs = card.epoch_inputs(train), cpu.epoch_inputs(train)
+    p, q = torch.as_tensor(p0, device=dev), torch.as_tensor(q0, device=dev)
+    ms = median_ms(lambda: card.epoch(p, q, inputs), EALS_REPS)
+    widths = [int(b.shape[1]) for b in inputs[0] + inputs[1]]
+    # the epoch's factor-and-solve calls alone, on systems already formed
+    k = card.n_factors
+    a = torch.eye(k, device=dev) + torch.full((inputs[0][0].shape[0], k, k), 0.01, device=dev)
+    rhs = torch.ones((a.shape[0], k, 1), device=dev)
+    solve_ms = median_ms(lambda: [torch.cholesky_solve(rhs, torch.linalg.cholesky_ex(a)[0])
+                                  for _ in widths], EALS_REPS)
+    p_c, q_c = torch.as_tensor(p0), torch.as_tensor(q0)
+    errors = {}
+    for epoch in range(1, max(EALS_HOLD_EPOCHS) + 1):
+        p, q = card.epoch(p, q, inputs)
+        p_c, q_c = cpu.epoch(p_c, q_c, cpu_inputs)
+        if epoch in EALS_HOLD_EPOCHS:
+            for side, got, want in (("p", p, p_c), ("q", q, q_c)):
+                share = float((got.cpu() - want).abs().max() / want.abs().max())
+                errors[f"epoch{epoch}_{side}"] = share
+                check(share <= EALS_TOL, f"eALS epoch {epoch}: {side} within {EALS_TOL} of its "
+                      f"largest magnitude on the CPU (off by {share:.3g})")
+    log(f"  eALS epoch {ms:.3f} ms on the card, its {len(widths)} blocks' cholesky_ex + "
+        f"cholesky_solve alone {solve_ms:.3f} ms ({smi}); block widths "
+        f"{min(widths)}-{max(widths)}; epochs {EALS_HOLD_EPOCHS} against the CPU, shares of "
+        f"the largest magnitude: {json.dumps(errors)}")
+    return {"epoch_ms": ms, "solve_ms": solve_ms, "hold": errors,
+            "block_widths": [min(widths), max(widths)]}
+
+
+def similarity_call(engine, dev):
+    """The ops/similarity.py call of ``engine.pop_all`` on its pushed items,
+    as a callable, and the most labels (or users, items) in one of its
+    rows."""
+    from gorse_tpu_torch.logics.item_to_item import AutoItemToItem, EmbeddingItemToItem
+    from gorse_tpu_torch.ops import similarity as sim
+
+    k = min(engine.n, len(engine.items) - 1)
+    if isinstance(engine, EmbeddingItemToItem):
+        x = np.stack(engine.vectors)
+        return lambda: sim.embedding_neighbors(x, k, "euclidean", device=dev), 0
+    if isinstance(engine, AutoItemToItem):
+        halves = [(sim.incidence_matrix(e.label_lists, len(e.effective_idf())), e.effective_idf())
+                  for e in (engine.tags, engine.users)]
+        widest = max(int(inc.sum(1).max()) for inc, _ in halves)
+        return lambda: sim.idf_neighbors_avg(*halves[0], *halves[1], k, device=dev), widest
+    idf = engine.effective_idf()
+    inc = sim.incidence_matrix(engine.label_lists, len(idf))
+    return lambda: sim.idf_neighbors(inc, idf, k, device=dev), int(inc.sum(1).max())
+
+
+def neighbor_lists(cache, collection: str, name: str, ids: list[str], index: dict):
+    """Every entity's cached neighbours as (-distance, index) ``[n, k]``
+    tensors (distance = 1 / score - 1), NEG_INF / 0 past a short list."""
+    import torch
+
+    from gorse_tpu_torch.ops.topk import NEG_INF
+    from gorse_tpu_torch.storage.cache import key
+
+    lists = [cache.search_scores(collection, key(name, e)) for e in ids]
+    k = max(len(x) for x in lists)
+    s = torch.full((len(ids), k), NEG_INF, dtype=torch.float64)
+    i = torch.zeros((len(ids), k), dtype=torch.long)
+    for row, scores in enumerate(lists):
+        s[row, : len(scores)] = torch.tensor([1.0 - 1.0 / x.score for x in scores],
+                                             dtype=torch.float64)
+        i[row, : len(scores)] = torch.tensor([index[x.id] for x in scores])
+    return s, i
+
+
+def hold_neighbors(what, card, cpu, collection, name, ids, widest, sq=None) -> float:
+    """The card master's lists of one entry against the CPU master's, by
+    ``compare_lists`` on distances: IDF distances within ``(4 L + 16) 2^-24``
+    (L = ``widest``), squared Euclidean ones within ``(4 d + 16) 2^-24
+    (|x_i|^2 + |x_j|^2)`` (``sq`` = each row's |x|^2)."""
+    import torch
+
+    index = {e: n for n, e in enumerate(ids)}
+    s, i = neighbor_lists(card.cache, collection, name, ids, index)
+    s_p, i_p = neighbor_lists(cpu.cache, collection, name, ids, index)
+    check(s.shape == s_p.shape, f"{what}: list lengths {tuple(s.shape)} and {tuple(s_p.shape)}")
+    u = 2.0**-24
+    if sq is None:
+        tol = tol_p = torch.full(s.shape, (4 * widest + 16) * u, dtype=torch.float64)
+    else:
+        sq = torch.as_tensor(sq, dtype=torch.float64)
+        tol, tol_p = ((4 * EMBED_DIM + 16) * u * (sq[:, None] + sq[j]) for j in (i, i_p))
+    return compare_lists(what, s, i, s_p, i_p, tol, tol_p)
+
+
+def phase_neighbors(dev, smi: str) -> dict:
+    import torch
+
+    from gorse_tpu_torch.logics.item_to_item import ItemToItemConfig, new_item_to_item
+    from gorse_tpu_torch.logics.user_to_user import UserToUser, UserToUserConfig
+    from gorse_tpu_torch.ops import topk
+    from gorse_tpu_torch.serve.master import Master
+    from gorse_tpu_torch.serve.rest import RestServer
+    from gorse_tpu_torch.serve.worker import Worker
+    from gorse_tpu_torch.storage import cache as ck
+    from gorse_tpu_torch.storage.blob import BlobStore
+    from gorse_tpu_torch.storage.cache import MemoryCacheStore, key
+    from gorse_tpu_torch.storage.meta import MetaStore
+    from gorse_tpu_torch.utils.config import (
+        Config,
+        ItemToItemConfigEntry,
+        UserToUserConfigEntry,
+    )
+
+    t0 = time.perf_counter()
+    data = neighbor_store(0)
+    cfg = Config()
+    cfg.recommend.collaborative.type = "mf"
+    cfg.recommend.collaborative.model = "als"
+    cfg.recommend.collaborative.fit_epoch = MASTER_EPOCHS
+    cfg.recommend.ranker.recommenders = ["collaborative"]
+    cfg.recommend.item_to_item = [
+        ItemToItemConfigEntry(name=t, type=t, column="item.Labels.embedding" if t == "embedding"
+                              else "") for t in I2I_TYPES]
+    cfg.recommend.user_to_user = [UserToUserConfigEntry(name="items", type="items")]
+    result = {"card": smi, "data_s": time.perf_counter() - t0}
+    with tempfile.TemporaryDirectory(prefix="gorse_smoke_") as tmp:
+        blobs = BlobStore(Path(tmp) / "blobs")
+        master = Master(cfg, data, MemoryCacheStore(), blobs, MetaStore(), device=dev)
+        t0 = time.perf_counter()
+        loaded = master.load_dataset()
+        result["load_s"] = time.perf_counter() - t0
+        n_users, n_items = loaded.dataset.count_users(), loaded.dataset.count_items()
+
+        # ---- eALS: one epoch timed, epochs held against the CPU, the master's fit
+        result["eals"] = hold_eals(loaded.train, dev, smi)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        master.train_collaborative_filtering(loaded)
+        torch.cuda.synchronize()
+        result["train_s"] = time.perf_counter() - t0
+        fit_s = float(re.search(r"^\w*master_collaborative_filtering_fit_seconds (\S+)$",
+                                master.metrics.render(), re.M).group(1))
+        model_meta = json.loads(master.meta.get("CF_MODEL_META"))
+        check(model_meta["type"] == "als" and type(master.cf_model).__name__ == "ALS",
+              f"master: fitted {model_meta['type']}, want als")
+        check(model_meta["score"] >= QUALITY_NDCG, f"master: eALS NDCG@10 {model_meta['score']}")
+        result.update(fit_s=fit_s, ndcg=model_meta["score"])
+        log(f"  master eALS fit ({MASTER_EPOCHS} epochs) {fit_s:.3f} s (gauge), NDCG@10 "
+            f"{model_meta['score']:.4f} ({smi})")
+
+        # ---- the worker serves its shard from the eALS index (its own counts)
+        meta = master.get_meta()
+        worker = Worker(cfg, data, master.cache, blobs, device=dev)
+        zero_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        refreshed = worker.sync_and_recommend(meta)
+        torch.cuda.synchronize()
+        result["recommend_s"] = time.perf_counter() - t0
+        launches = {n: getattr(topk, n).launches for n in KERNELS}
+        check(refreshed == n_users, f"worker refreshed {refreshed} of {n_users} users")
+        check(torch.equal(worker.cf_index.item_factors, master.cf_index.item_factors),
+              "worker: serves the index of the master's eALS fit")
+        check(all(c > 0 for c in launches.values()),
+              f"worker on the eALS index: launches {launches}, each must be above 0")
+        result["worker_topk_launches"] = launches
+        log(f"  worker on the eALS index: {refreshed} users in {result['recommend_s']:.2f} s, "
+            f"launches {json.dumps(launches)} ({smi})")
+
+        # ---- the master's updates on the card, each timed, and its device share
+        cpu = Master(cfg, data, MemoryCacheStore(), blobs, MetaStore(), device="cpu")
+        times = {}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        master.update_non_personalized(loaded)
+        times["non_personalized"] = {"s": time.perf_counter() - t0, "device_ms": 0.0}
+        cpu.update_non_personalized(loaded)
+        entries = cfg.recommend.item_to_item
+        tag_idf, user_idf = loaded.dataset.item_label_idf(), loaded.dataset.user_idf()
+        widest = {}
+        for entry in entries:
+            cfg.recommend.item_to_item = [entry]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            master.update_item_to_item(loaded)
+            torch.cuda.synchronize()
+            took = time.perf_counter() - t0
+            engine = new_item_to_item(
+                ItemToItemConfig(name=entry.name, type=entry.type, column=entry.column),
+                cfg.recommend.cache_size, tag_idf=tag_idf, user_idf=user_idf,
+                label_index=loaded.dataset.item_label_dict, device=dev)
+            for item in loaded.items:
+                engine.push(item, loaded.dataset.item_feedback[
+                    loaded.dataset.item_dict.to_number(item.item_id)])
+            call, widest[entry.name] = similarity_call(engine, dev)
+            times[f"item_to_item/{entry.name}"] = {"s": took, "device_ms": median_ms(call, 3)}
+            cpu.update_item_to_item(loaded)
+        cfg.recommend.item_to_item = entries
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        master.update_user_to_user(loaded)
+        torch.cuda.synchronize()
+        took = time.perf_counter() - t0
+        users = list(data.get_users())
+        u2u = UserToUser(UserToUserConfig(name="items", type="items"), cfg.recommend.cache_size,
+                         item_idf=loaded.dataset.item_idf(), device=dev)
+        for user in users:
+            u2u.push(user, loaded.dataset.user_feedback[
+                loaded.dataset.user_dict.to_number(user.user_id)])
+        call, widest["u2u"] = similarity_call(u2u._engine, dev)
+        times["user_to_user/items"] = {"s": took, "device_ms": median_ms(call, 3)}
+        cpu.update_user_to_user(loaded)
+        for row in times.values():
+            row["host_share"] = 1.0 - row["device_ms"] / 1e3 / row["s"]
+        result["updates"] = times
+        log(f"  updates on the card, s (similarity op ms by CUDA events, host share) ({smi}): "
+            + json.dumps({k: [round(v["s"], 4), round(v["device_ms"], 3),
+                              round(v["host_share"], 4)] for k, v in times.items()}))
+
+        # ---- each cache held against the same update on the CPU
+        np_names = sorted(master.cache.scan_score_subsets(ck.NON_PERSONALIZED))
+        check(np_names == ["latest", "popular"], f"non-personalized caches {np_names}")
+        for name in np_names:
+            got, want = (m.cache.search_scores(ck.NON_PERSONALIZED, name) for m in (master, cpu))
+            check([(s.id, s.score, s.categories) for s in got]
+                  == [(s.id, s.score, s.categories) for s in want] and len(got) > 0,
+                  f"non-personalized/{name}: the card's cache equals the CPU's")
+        item_ids = [item.item_id for item in loaded.items]
+        sq = np.square(np.stack([item.labels["embedding"] for item in loaded.items])).sum(1)
+        worst = {}
+        for entry in entries:
+            worst[entry.name] = hold_neighbors(
+                f"item-to-item/{entry.name}", master, cpu, ck.ITEM_TO_ITEM, entry.name, item_ids,
+                widest[entry.name], sq if entry.type == "embedding" else None)
+        worst["u2u/items"] = hold_neighbors("user-to-user/items", master, cpu, ck.USER_TO_USER,
+                                            "items", [u.user_id for u in users], widest["u2u"])
+        for k, v in master.cache._kv.items():
+            if "item-to-item" in k or "user-to-user" in k or "non-personalized" in k:
+                check(k in cpu.cache._kv and ("update_time" in k or cpu.cache._kv[k] == v),
+                      f"{k}: the card's digest equals the CPU's")
+        result["hold_worst"] = worst
+        log(f"  caches equal to the CPU run's (ids exact where apart, distances within "
+            f"tolerance; largest |d - d_cpu| / tol): {json.dumps(worst)}")
+
+        # ---- REST: the chain reaches an item-to-item cache, then popular
+        cfg.recommend.ranker.recommenders = ["item-to-item/users"]
+        cfg.recommend.fallback.recommenders = ["non-personalized/popular"]
+        uid = "u1"
+        history = sorted(data.get_user_feedback(uid), key=lambda f: -f.timestamp)
+        seen = {f.item_id for f in history}
+        agg = {}
+        for fb in history[: cfg.recommend.context_size]:
+            for s in master.cache.search_scores(ck.ITEM_TO_ITEM, key("users", fb.item_id), [],
+                                                0, cfg.recommend.cache_size):
+                if s.id not in seen:
+                    agg[s.id] = agg.get(s.id, 0.0) + s.score
+        want = [i for i, _ in sorted(agg.items(), key=lambda kv: -kv[1])][: cfg.recommend.cache_size]
+        popular = [s.id for s in master.cache.search_scores(
+            ck.NON_PERSONALIZED, "popular", [""], 0, cfg.recommend.cache_size)
+            if s.id not in seen and s.id not in want]
+        n = len(want) + min(len(popular), 20)
+        want = (want + popular)[:n]
+        server = RestServer(cfg, data, master.cache)
+        httpd = server.serve("127.0.0.1", 0)
+        try:
+            conn = http.client.HTTPConnection("127.0.0.1", httpd.server_address[1], timeout=30)
+            conn.request("GET", f"/api/recommend/{uid}?n={n}")
+            resp = conn.getresponse()
+            body = json.loads(resp.read())
+            conn.close()
+        finally:
+            server.shutdown()
+        check(resp.status == 200 and body == want and len(popular) > 0,
+              f"GET /api/recommend/{uid}?n={n}: the item-to-item aggregate, then popular")
+        log(f"  GET /api/recommend/{uid}?n={n}: {len(want) - min(len(popular), 20)} from "
+            f"item-to-item/users, {min(len(popular), 20)} from non-personalized/popular")
+    result.update(users=n_users, items=n_items, feedback=loaded.train.count_feedback(),
+                  refreshed=refreshed)
+    return result
+
+
 # ---------------------------------------------------------------- main
 
 
@@ -2435,6 +2790,10 @@ def main() -> int:
     if "7c" in phases:
         log("== phase 7c: top-k above 2048")
         out["wide_k"] = phase_wide_k(dev, args.seed)
+    if "8" in phases:
+        log("== phase 8: eALS and neighbours")
+        out["neighbors"] = phase_neighbors(dev, smi)
+        log("  neighbors: " + json.dumps(out["neighbors"]))
     check("jax" not in sys.modules and "gorse_tpu" not in sys.modules,
           "neither JAX nor gorse_tpu was imported")
     log(f"  total {time.perf_counter() - t_start:.1f} s")

@@ -1,11 +1,12 @@
 """Implicit-feedback dataset for collaborative filtering (copy of
-gorse_tpu/data/dataset.py, the parts the training slice reads).
+gorse_tpu/data/dataset.py, the parts the port reads).
 
 Host-side bookkeeping in numpy: per-user and per-item feedback as ragged
 int32 lists with string dictionaries, the leave-one-out split, sampled
-evaluation negatives, and the padded positives matrix the BPR sweep reads.
-Every random draw is numpy's ``default_rng(seed)`` in the reference's order,
-so both packages build the same splits, padded rows and candidates.
+evaluation negatives, the padded positives matrices the trainers read and
+the IDF weights of the similarity recommenders. Every random draw is
+numpy's ``default_rng(seed)`` in the reference's order, so both packages
+build the same splits, padded rows and candidates.
 """
 
 from __future__ import annotations
@@ -130,6 +131,36 @@ class Dataset:
     def count_feedback(self) -> int:
         return self.num_feedback
 
+    def get_user_feedback(self) -> list[list[int]]:
+        return self.user_feedback
+
+    def get_item_feedback(self) -> list[list[int]]:
+        return self.item_feedback
+
+    # IDF weights for set similarity: log(n / occurrence count), counts
+    # floored at 1 (the dictionaries' frequencies)
+
+    def user_idf(self) -> np.ndarray:
+        """IDF weight per user id, for user-set similarity."""
+        n = max(self.count_items(), 1)
+        freq = np.maximum(self.user_dict.freqs(), 1)
+        return np.log(n / freq).astype(np.float32)
+
+    def item_idf(self) -> np.ndarray:
+        n = max(self.count_users(), 1)
+        freq = np.maximum(self.item_dict.freqs(), 1)
+        return np.log(n / freq).astype(np.float32)
+
+    def item_label_idf(self) -> np.ndarray:
+        n = max(self.count_items(), 1)
+        freq = np.maximum(self.item_label_dict.freqs(), 1)
+        return np.log(n / freq).astype(np.float32)
+
+    def user_label_idf(self) -> np.ndarray:
+        n = max(self.count_users(), 1)
+        freq = np.maximum(self.user_label_dict.freqs(), 1)
+        return np.log(n / freq).astype(np.float32)
+
     # ------------------------------------------------------------ padded rows
 
     @staticmethod
@@ -162,6 +193,12 @@ class Dataset:
     ) -> _PaddedCSR:
         """Padded [U, L] matrix of each user's positive item ids (pad=-1)."""
         return self._pad(self.user_feedback, pad_to, max_len, seed)
+
+    def padded_item_positives(
+        self, pad_to: int | None = None, max_len: int | None = None, seed: int = 0
+    ) -> _PaddedCSR:
+        """Padded [I, L] matrix of each item's positive user ids (pad=-1)."""
+        return self._pad(self.item_feedback, pad_to, max_len, seed)
 
     # ---------------------------------------------------------------- splits
 

@@ -10,6 +10,7 @@ LR = "lr"
 REG = "reg"
 INIT_MEAN = "init_mean"
 INIT_STDDEV = "init_stddev"
+ALPHA = "alpha"
 
 
 class Params(dict):

@@ -7,10 +7,11 @@ from .params import Params
 
 def create_mf_model(name: str, params: Params | dict | None = None, device=None):
     """A new model of type ``name`` on ``device`` (``None``: the card)."""
+    from .als import ALS
     from .bpr import BPR
 
     if name == "bpr":
         return BPR(params, device=device)
     if name == "als":
-        raise NotImplementedError("the eALS model is not ported yet (ROADMAP.md, M8)")
+        return ALS(params, device=device)
     raise KeyError(f"unknown MF model {name!r}")

@@ -1,19 +1,24 @@
-"""Master node: load the dataset and train the CF model (port of the CF
-tasks of gorse_tpu/serve/master.py).
+"""Master node: the dataset, the recommenders' caches and the CF model
+(port of the tasks of gorse_tpu/serve/master.py that precede CTR).
 
 ``load_dataset`` streams users, items and feedback from the data store into
 the training dataset and its leave-one-out split, and records the catalog
 gauges, global-meta keys and time series under the reference's names.
+``update_non_personalized`` fills the ``non-personalized`` caches (the
+built-in ``popular`` and ``latest`` and the configured entries) on the
+host; ``update_item_to_item`` and ``update_user_to_user`` compute every
+configured entry's neighbour lists on the card (logics/item_to_item.py,
+logics/user_to_user.py), each gated by its config and corpus digests.
 ``train_collaborative_filtering`` fits the MF model on the card (BPR by
-default), builds the serving index, saves it to the blob store and records
-its id in the meta store, where ``get_meta`` hands it to workers, and
-upserts the serving item factors into the vector store when one is given
-(``_sync_cf_vectors``).
+default, eALS with ``model = "als"``), builds the serving index, saves it
+to the blob store and records its id in the meta store, where ``get_meta``
+hands it to workers, and upserts the serving item factors into the vector
+store when one is given (``_sync_cf_vectors``).
 
 Not ported yet: the CTR dataset and ranker (``ctr`` stays ``None``), the
-data store's search-column reconcile, the other tasks of
-``run_tasks_once``, hyper-parameter search, and sharded training
-(``training_mesh`` is ``None``).
+data store's search-column reconcile, ``run_tasks_once`` and the task
+loop, hyper-parameter search, and sharded training (``training_mesh`` is
+``None``).
 """
 
 from __future__ import annotations
@@ -25,6 +30,9 @@ import time
 
 from ..data.dataset import Dataset
 from ..logics.cf import MatrixFactorizationIndex
+from ..logics.item_to_item import ItemToItemConfig, _flatten_labels, new_item_to_item
+from ..logics.non_personalized import NonPersonalized, NonPersonalizedConfig
+from ..logics.user_to_user import UserToUser, UserToUserConfig
 from ..models import FitConfig, Params, create_mf_model
 from ..storage import cache as ck
 from ..storage.blob import BlobStore
@@ -33,7 +41,7 @@ from ..storage.data import DataStore
 from ..storage.meta import CLICK_THROUGH_RATE_MODEL, COLLABORATIVE_FILTERING_MODEL, MetaStore
 from ..storage.types import TimeSeriesPoint
 from ..storage.vectors import VectorStore
-from ..utils.config import Config
+from ..utils.config import Config, NonPersonalizedConfigEntry
 from ..utils.expression import match_any
 from .metrics import MetricsRegistry
 from .progress import ProgressTracker
@@ -52,27 +60,6 @@ class LoadedData:
     item_categories: list[list[str]]
     items: list
     timestamp: float = 0.0  # load-start snapshot time
-
-
-def _flatten_labels(labels) -> list[str]:
-    """Free-form JSON labels flattened to strings (copy of
-    gorse_tpu/logics/item_to_item.py _flatten_labels)."""
-    out: list[str] = []
-    if labels is None:
-        return out
-    if isinstance(labels, str):
-        return [labels]
-    if isinstance(labels, list):
-        return [v for v in labels if isinstance(v, str)]
-    if isinstance(labels, dict):
-        for k, v in labels.items():
-            if isinstance(v, str):
-                out.append(f"{k}:{v}")
-            elif isinstance(v, list):
-                out.extend(f"{k}:{x}" for x in v if isinstance(x, str))
-            elif isinstance(v, dict):
-                out.extend(f"{k}:{x}" for x in _flatten_labels(v))
-    return out
 
 
 class Master:
@@ -214,6 +201,139 @@ class Master:
             self._record_ts(ck.NUM_NEG_FEEDBACKS, len(negative_edges))
             return LoadedData(dataset, train, test, None, item_categories, items,
                               timestamp=load_time)
+
+    def update_non_personalized(self, data: LoadedData) -> None:
+        """Refill the ``non-personalized`` cache of each entry, the built-in
+        ``popular`` (``len(feedback)``) and ``latest`` (``item.timestamp``)
+        included, unless its config digest is unchanged and the data did not
+        change; host work only."""
+        entries = list(self.config.recommend.non_personalized)
+        if not any(e.name == "popular" for e in entries):
+            entries.append(NonPersonalizedConfigEntry(name="popular", score="len(feedback)"))
+        if not any(e.name == "latest" for e in entries):
+            entries.append(NonPersonalizedConfigEntry(name="latest", score="item.timestamp"))
+        for entry in entries:
+            cfg = NonPersonalizedConfig(name=entry.name, score=entry.score, filter=entry.filter)
+            digest_key = key(ck.NON_PERSONALIZED_DIGEST, entry.name)
+            if self.cache.get(digest_key) == cfg.digest() and not self._data_changed():
+                continue
+            with self.progress.span(f"non_personalized/{entry.name}"):
+                engine = NonPersonalized(cfg, self.config.recommend.cache_size)
+                for item in data.items:
+                    engine.push(item, self.data.get_item_feedback(item.item_id))
+                self.cache.delete_scores(ck.NON_PERSONALIZED, [entry.name])
+                self.cache.add_scores(ck.NON_PERSONALIZED, entry.name, engine.pop_all())
+                self.cache.set(digest_key, cfg.digest())
+                self.cache.set(key(ck.NON_PERSONALIZED_UPDATE_TIME, entry.name), str(time.time()))
+                # the global update-time stamps that getStats reads
+                if entry.name == "popular":
+                    self.cache.set(
+                        key(ck.GLOBAL_META, ck.LAST_UPDATE_POPULAR_ITEMS_TIME), str(time.time())
+                    )
+                elif entry.name == "latest":
+                    self.cache.set(
+                        key(ck.GLOBAL_META, ck.LAST_UPDATE_LATEST_ITEMS_TIME), str(time.time())
+                    )
+
+    def _data_changed(self) -> bool:
+        return True  # as the reference: no data digest yet
+
+    def _needs_refresh(self, digest_key: str, update_key: str, digest: str) -> bool:
+        """Recompute when the corpus digest (config, entity and feedback
+        counts) changed or the cache's refresh period elapsed: one blocked
+        pass computes every entity's neighbours, so the gate is per entry
+        and corpus, not per entity."""
+        if self.cache.get(digest_key) != digest:
+            return True
+        last = float(self.cache.get(update_key) or 0)
+        period_s = self.config.recommend.cache_expire * 3600.0
+        return (time.time() - last) > period_s
+
+    def update_item_to_item(self, data: LoadedData) -> None:
+        """Each configured item-to-item entry's neighbour lists, on the
+        card, into the ``item-to-item`` cache with per-item digests."""
+        entries = list(self.config.recommend.item_to_item)
+        if not entries:
+            return
+        tag_idf = user_idf = None
+        for entry in entries:
+            cfg = ItemToItemConfig(name=entry.name, type=entry.type, column=entry.column,
+                                   prompt=entry.prompt)
+            corpus_digest = (f"{cfg.digest()}|{data.dataset.count_items()}|"
+                             f"{data.dataset.count_feedback()}")
+            if not self._needs_refresh(
+                key(ck.ITEM_TO_ITEM_DIGEST, entry.name, "_config"),
+                key(ck.ITEM_TO_ITEM_UPDATE_TIME, entry.name),
+                corpus_digest,
+            ):
+                continue
+            if tag_idf is None:
+                tag_idf = data.dataset.item_label_idf()
+                user_idf = data.dataset.user_idf()
+            with self.progress.span(f"item_to_item/{entry.name}"):
+                t0 = time.perf_counter()
+                engine = new_item_to_item(
+                    cfg, self.config.recommend.cache_size, tag_idf=tag_idf, user_idf=user_idf,
+                    label_index=data.dataset.item_label_dict, device=self.device,
+                )
+                item_feedback = data.dataset.item_feedback
+                for item in data.items:
+                    i = data.dataset.item_dict.to_number(item.item_id)
+                    engine.push(item, item_feedback[i] if 0 <= i < len(item_feedback) else [])
+                n_updated = 0
+                for item_id, scores in engine.pop_all():
+                    self.cache.add_scores(ck.ITEM_TO_ITEM, key(entry.name, item_id), scores)
+                    self.cache.set(key(ck.ITEM_TO_ITEM_DIGEST, entry.name, item_id), cfg.digest())
+                    n_updated += 1
+                self.cache.set(key(ck.ITEM_TO_ITEM_DIGEST, entry.name, "_config"), corpus_digest)
+                self.cache.set(key(ck.ITEM_TO_ITEM_UPDATE_TIME, entry.name), str(time.time()))
+                self.metrics.gauge_set(
+                    "master_find_item_neighbors_total_seconds", time.perf_counter() - t0
+                )
+                self.metrics.gauge_set("master_update_item_neighbors_total", n_updated)
+
+    def update_user_to_user(self, data: LoadedData) -> None:
+        """Each configured user-to-user entry's neighbour lists, on the
+        card, into the ``user-to-user`` cache with per-user digests."""
+        entries = list(self.config.recommend.user_to_user)
+        if not entries:
+            return
+        item_idf = tag_idf = users = None
+        for entry in entries:
+            cfg = UserToUserConfig(name=entry.name, type=entry.type, column=entry.column)
+            corpus_digest = (f"{cfg.digest()}|{data.dataset.count_users()}|"
+                             f"{data.dataset.count_feedback()}")
+            if not self._needs_refresh(
+                key(ck.USER_TO_USER_DIGEST, entry.name, "_config"),
+                key(ck.USER_TO_USER_UPDATE_TIME, entry.name),
+                corpus_digest,
+            ):
+                continue
+            if users is None:
+                item_idf = data.dataset.item_idf()
+                tag_idf = data.dataset.user_label_idf()
+                users = list(self.data.get_users())
+            with self.progress.span(f"user_to_user/{entry.name}"):
+                t0 = time.perf_counter()
+                engine = UserToUser(
+                    cfg, self.config.recommend.cache_size, tag_idf=tag_idf, item_idf=item_idf,
+                    label_index=data.dataset.user_label_dict, device=self.device,
+                )
+                user_feedback = data.dataset.user_feedback
+                for user in users:
+                    u = data.dataset.user_dict.to_number(user.user_id)
+                    engine.push(user, user_feedback[u] if 0 <= u < len(user_feedback) else [])
+                n_updated = 0
+                for user_id, scores in engine.pop_all():
+                    self.cache.add_scores(ck.USER_TO_USER, key(entry.name, user_id), scores)
+                    self.cache.set(key(ck.USER_TO_USER_DIGEST, entry.name, user_id), cfg.digest())
+                    n_updated += 1
+                self.cache.set(key(ck.USER_TO_USER_DIGEST, entry.name, "_config"), corpus_digest)
+                self.cache.set(key(ck.USER_TO_USER_UPDATE_TIME, entry.name), str(time.time()))
+                self.metrics.gauge_set(
+                    "master_find_user_neighbors_total_seconds", time.perf_counter() - t0
+                )
+                self.metrics.gauge_set("master_update_user_neighbors_total", n_updated)
 
     def train_collaborative_filtering(self, data: LoadedData) -> None:
         """Fit the CF model (the searched one when it scored better), build

@@ -201,8 +201,8 @@ def test_init_takes_numpy_factors_and_checks_their_shape():
 
 
 def test_what_is_not_ported_raises():
-    with pytest.raises(NotImplementedError, match="M8"):
-        create_mf_model("als", device="cpu")
+    with pytest.raises(NotImplementedError, match="M14"):
+        FitConfig(shard_table=True)
     with pytest.raises(NotImplementedError, match="M14"):
         FitConfig(mesh=object())
     with pytest.raises(NotImplementedError, match="M14"):

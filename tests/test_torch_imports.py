@@ -25,10 +25,12 @@ def _port_modules() -> list[str]:
 def test_port_imports_no_jax_and_no_reference():
     modules = _port_modules()
     assert "gorse_tpu_torch.ops.topk" in modules and "gorse_tpu_torch.serve.rest" in modules
-    for name in ("data.dataset", "data.loaders", "models.base", "models.bpr", "models.params",
-                 "models.registry", "ops.bpr_kernel", "ops.metrics", "ops.sampling",
-                 "serve.master", "storage.meta", "storage.vectors", "storage.none",
-                 "utils.config"):
+    for name in ("data.dataset", "data.loaders", "models.als", "models.base", "models.bpr",
+                 "models.params", "models.registry", "ops.bpr_kernel", "ops.metrics",
+                 "ops.sampling", "ops.similarity", "logics.item_to_item",
+                 "logics.user_to_user", "logics.non_personalized", "serve.master",
+                 "storage.meta", "storage.vectors", "storage.none", "utils.config",
+                 "utils.safe_expr"):
         assert f"gorse_tpu_torch.{name}" in modules
     code = (
         "import importlib, json, sys\n"
@@ -48,8 +50,10 @@ def _entry_points():
     import numpy as np
 
     from gorse_tpu_torch.logics.cf import MatrixFactorizationIndex
-    from gorse_tpu_torch.models import BPR, Params, create_mf_model
-    from gorse_tpu_torch.ops import topk
+    from gorse_tpu_torch.logics.item_to_item import ItemToItemConfig, new_item_to_item
+    from gorse_tpu_torch.logics.user_to_user import UserToUser, UserToUserConfig
+    from gorse_tpu_torch.models import ALS, BPR, Params, create_mf_model
+    from gorse_tpu_torch.ops import similarity, topk
     from gorse_tpu_torch.storage import vectors
 
     q = np.ones((2, 4), np.float32)
@@ -77,13 +81,30 @@ def _entry_points():
                                                row, 3, 2, 4, device=device),
         "vector_store": lambda device: vectors.MemoryVectorStore(device=device),
         "open_vector_store": lambda device: vectors.open_vector_store("sqlite://", device=device),
+        "als": lambda device: ALS(Params(n_factors=4), device=device),
+        "create_als": lambda device: create_mf_model("als", device=device),
+        "idf_neighbors": lambda device: similarity.idf_neighbors(codes, row[:4], 3, device=device),
+        "idf_neighbors_avg": lambda device: similarity.idf_neighbors_avg(
+            codes, row[:4], codes, row[:4], 3, device=device),
+        "idf_distance_matrix": lambda device: similarity.idf_distance_matrix(codes, row[:4],
+                                                                             device=device),
+        "embedding_neighbors": lambda device: similarity.embedding_neighbors(items, 3,
+                                                                             device=device),
+        "embedding_query": lambda device: similarity.embedding_query(q, items, 3, device=device),
+        "item_to_item": lambda device: new_item_to_item(ItemToItemConfig("t", "users"), 3,
+                                                        device=device),
+        "user_to_user": lambda device: UserToUser(UserToUserConfig("u", "items"), 3,
+                                                  device=device),
     }
 
 
 @pytest.mark.parametrize("name", ["resolve_device", "prepare_items", "dot_topk",
                                   "dot_topk_xla", "topk_excluding", "index", "bpr",
                                   "create_mf_model", "prepare_sq_items", "sq_topk", "pq_topk",
-                                  "rq_topk", "vector_store", "open_vector_store"])
+                                  "rq_topk", "vector_store", "open_vector_store", "als",
+                                  "create_als", "idf_neighbors", "idf_neighbors_avg",
+                                  "idf_distance_matrix", "embedding_neighbors",
+                                  "embedding_query", "item_to_item", "user_to_user"])
 def test_entry_points_default_to_cuda(name, monkeypatch):
     """``device=None`` means the card: without CUDA it raises; an explicit
     ``device="cpu"`` runs the plain versions."""
