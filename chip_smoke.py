@@ -155,6 +155,31 @@ kernel's own block maxima.
    item-to-item/users then non-personalized/popular equals those caches'
    aggregate.
 
+9. CTR ranker and the master's cycle. The AFM at ``bench.py``
+   ``stage_afm``'s shape (``synthetic_ctr`` of 2,000 users and items,
+   131,072 samples: 4,050 features, 4 slots; 8 factors, batch 1024, 128
+   steps an epoch): its first epoch on the card held against the same epoch
+   on the CPU from the same init (``AFM_TOL`` of each table's largest
+   magnitude, and the loss), then epochs timed by CUDA events and by the
+   host clock ending on a synchronise (padded examples/s, ms a step), the
+   kernels of an epoch and their device time from a ``torch.profiler``
+   trace; ``tests/test_fm.py``'s accuracy gate on the card (AUC > 0.75).
+   Then phase 8's ml-1m data without the embedding label, each user with a
+   gender (2), an age (7) and an occupation (21) from the seed;
+   ``ranker.type = "fm"`` over the ``collaborative`` candidates, the AFM's
+   ``fit_epoch`` cut to 3. One ``Master.run_tasks_once`` on the card: each
+   load step's gauge, the CTR dataset's size, the CTR fit's gauge and AUC,
+   the memory accounting's seconds, ``collect_garbage`` leaving only the
+   two live blobs; one epoch of the master's AFM by CUDA events; a card
+   master's one-epoch CTR fit held against a CPU master's on the same rows
+   (``AFM_TOL``). ``Worker.sync_and_recommend`` re-ranks the whole shard on
+   the card (``block_max``, ``block_seeds``, ``block_topk`` and
+   ``merge_topk`` each launch in the CF recall); the ranking step's seconds
+   beside its ``batch_predict`` time by CUDA events (the rest is the
+   host's share); 16 users' ``recommend`` caches held tie-aware against a
+   CPU worker's ranking of the same candidates by the same saved model
+   (``RANK_TOL``); ``GET /api/recommend/u1`` equals the cache.
+
 The last three lines of standard output are the kernels' JSON record, the
 card's ``name, power.limit`` as nvidia-smi gives them, and
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
@@ -261,7 +286,25 @@ EALS_REPS, EALS_HOLD_EPOCHS = 5, (1, 3)
 # table's largest magnitude after epochs 1 and 3
 EALS_TOL = 1e-3
 I2I_TYPES = ("users", "tags", "auto", "embedding")
-PHASES = ("2", "2b", "2c", "3", "4", "5", "6", "7", "7c", "8")
+# phase 9: the AFM at bench.py stage_afm's shape (synthetic_ctr of 2,000
+# users and items, 131,072 samples; 8 factors, batch 1024: 128 steps an
+# epoch), tests/test_fm.py's accuracy gate, then the master's cycle at the
+# ml-1m shape with ml-1m's user fields (gender 2, age 7, occupation 21) and
+# the fm ranker over the CF candidates, its CTR fit cut to 3 epochs
+AFM_SHAPE = {"n_users": 2000, "n_items": 2000, "n_samples": 131_072, "seed": 0}
+AFM_K, AFM_BATCH, AFM_REPS = 8, 1024, 5
+AFM_GATE_AUC = 0.75
+USER_FIELDS = (("gender", 2), ("age", 7), ("occupation", 21))
+CTR_EPOCHS = 3
+# the card's AFM epoch against the port's on the CPU from the same init
+# (drawn on the host): the gather's backward adds by atomics and the sums
+# run in another order, and Adam divides each step's rounding by the root
+# of the second moment; held to this share of each table's largest magnitude
+AFM_TOL = 1e-3
+# the worker's fm scores against a CPU batch_predict: a logit sums at most
+# 8 x 8 products in another order
+RANK_TOL = 2.0**-14
+PHASES = ("2", "2b", "2c", "3", "4", "5", "6", "7", "7c", "8", "9")
 SQ_REPLACES = {
     "block_max_sq": "gorse_tpu/ops/topk.py:361",
     "block_topk_sq": "gorse_tpu/ops/topk.py:442",
@@ -2378,10 +2421,11 @@ def phase_wide_k(dev, seed: int) -> dict:
 # ---------------------------------------------------------------- phase 8
 
 
-def neighbor_store(seed: int):
+def neighbor_store(seed: int, embedding: bool = True, user_fields=()):
     """Phase 6's ml-1m-shaped feedback in a MemoryDataStore, its items with
-    1-3 of 18 genres, a 16-float ``embedding`` label, a category and a
-    timestamp, all from ``seed``."""
+    1-3 of 18 genres, a 16-float ``embedding`` label (with ``embedding``),
+    a category and a timestamp, its users with one value of each of
+    ``user_fields`` ((name, size) pairs), all from ``seed``."""
     from gorse_tpu_torch.data.loaders import synthetic_cf
     from gorse_tpu_torch.storage.data import MemoryDataStore
     from gorse_tpu_torch.storage.types import Feedback, Item, User
@@ -2393,12 +2437,15 @@ def neighbor_store(seed: int):
               for _ in range(n_items)]
     embeddings = rng.standard_normal((n_items, EMBED_DIM), dtype=np.float32)
     stamps = rng.integers(0, 1_000_000, size=n_items)
+    fields = [(name, rng.integers(size, size=n_users)) for name, size in user_fields]
     data = MemoryDataStore()
     data.insert_items(
         Item(f"i{i}", categories=[f"c{i % N_CATEGORIES}"], timestamp=float(stamps[i]),
-             labels={"genre": [f"g{g}" for g in genres[i]], "embedding": embeddings[i].tolist()})
+             labels={"genre": [f"g{g}" for g in genres[i]],
+                     **({"embedding": embeddings[i].tolist()} if embedding else {})})
         for i in range(n_items))
-    data.insert_users(User(f"u{u}") for u in range(n_users))
+    data.insert_users(User(f"u{u}", labels={name: str(v[u]) for name, v in fields})
+                      for u in range(n_users))
     data.insert_feedback(
         Feedback("like", f"u{u}", f"i{i}", 1.0, ts)
         for u, (fb, stamps) in enumerate(zip(ds.user_feedback, ds.timestamps))
@@ -2697,6 +2744,283 @@ def phase_neighbors(dev, smi: str) -> dict:
     return result
 
 
+# ---------------------------------------------------------------- phase 9
+
+
+def table_shares(got, want) -> dict:
+    """Each AFM table's largest difference as a share of its largest
+    magnitude (``got`` on any device, ``want`` on the CPU)."""
+    a, b = got.to_numpy(), want.to_numpy()
+    return {k: float(np.abs(a[k] - b[k]).max() / max(np.abs(b[k]).max(), 1e-30)) for k in b}
+
+
+def step_launches(fn) -> tuple[int | None, float | None]:
+    """CUDA kernels launched by ``fn`` and their summed device ms, from a
+    ``torch.profiler`` trace; (None, None) when it recorded no device
+    events."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not kernels:
+        return None, None
+    return len(kernels), sum(e.device_time for e in kernels) / 1e3
+
+
+def hold_afm(dev, smi: str) -> dict:
+    """The AFM at stage_afm's shape: its first epoch on the card held
+    against the same epoch on the CPU, epochs timed (CUDA events, and the
+    host clock ending on a synchronise), kernels a step; then the accuracy
+    gate of tests/test_fm.py on the card."""
+    import torch
+
+    from gorse_tpu_torch.data.ctr import synthetic_ctr
+    from gorse_tpu_torch.models.fm import AFM, make_optimizer, train_epoch
+    from gorse_tpu_torch.models.params import FitConfig, Params
+
+    t0 = time.perf_counter()
+    data = synthetic_ctr(**AFM_SHAPE)
+    data_s = time.perf_counter() - t0
+    hp = Params(n_factors=AFM_K, batch_size=AFM_BATCH)
+    card, cpu = AFM(hp, device=dev), AFM(hp, device="cpu")
+    pad = data.padded(data.max_dimension())
+    batches, cpu_batches = card._batch(pad, AFM_BATCH), cpu._batch(pad, AFM_BATCH)
+    n_steps, n_padded = batches[0].shape[0], batches[0].shape[0] * AFM_BATCH
+    params = card._init_params(data.num_features(), [], 0)
+    cpu_params = cpu._init_params(data.num_features(), [], 0)
+    opt = make_optimizer(card.optimizer_name, params.parameters(), card.lr, card.reg)
+    cpu_opt = make_optimizer(cpu.optimizer_name, cpu_params.parameters(), cpu.lr, cpu.reg)
+    cost = float(train_epoch(params, opt, batches))
+    cpu_cost = float(train_epoch(cpu_params, cpu_opt, cpu_batches))
+    shares = table_shares(params, cpu_params)
+    for name, share in shares.items():
+        check(share <= AFM_TOL, f"AFM first epoch: {name} within {AFM_TOL} of its largest "
+              f"magnitude on the CPU (off by {share:.3g})")
+    check(abs(cost - cpu_cost) <= AFM_TOL * abs(cpu_cost),
+          f"AFM first epoch: loss {cost} against the CPU's {cpu_cost}")
+    epoch_ms = median_ms(lambda: train_epoch(params, opt, batches), AFM_REPS)
+    host = []
+    for _ in range(AFM_REPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        train_epoch(params, opt, batches)
+        torch.cuda.synchronize()
+        host.append(time.perf_counter() - t0)
+    host_s = statistics.median(host)
+    n_kernels, device_ms = step_launches(lambda: train_epoch(params, opt, batches))
+    result = {
+        "card": smi, "data_s": data_s, "features": data.num_features(),
+        "slots": int(pad.indices.shape[1]), "steps": n_steps, "padded_examples": n_padded,
+        "first_epoch_shares": shares, "epoch_ms": epoch_ms, "epoch_host_s": host_s,
+        "examples_per_s": n_padded / host_s, "ms_per_step": epoch_ms / n_steps,
+        "kernels_per_step": None if n_kernels is None else n_kernels / n_steps,
+        "device_busy_share": None if device_ms is None else device_ms / epoch_ms,
+    }
+    log(f"  AFM epoch at stage_afm's shape ({data.num_features()} features, "
+        f"{pad.indices.shape[1]} slots, k = {AFM_K}, {n_steps} steps of {AFM_BATCH}): "
+        f"{epoch_ms:.2f} ms by CUDA events, {1e3 * host_s:.2f} ms on the host clock, "
+        f"{n_padded / host_s:,.0f} padded examples/s, {epoch_ms / n_steps:.3f} ms a step, "
+        f"kernels a step {result['kernels_per_step']}, device busy share "
+        f"{result['device_busy_share']} ({smi}); first epoch against the CPU, shares of the "
+        f"largest magnitude: {json.dumps(shares)}")
+
+    gate = synthetic_ctr(n_samples=4000, seed=0)
+    train, test = gate.split(0.2, seed=1)
+    model = AFM(Params(n_factors=8, n_epochs=60, lr=0.01, reg=1e-4, batch_size=512), device=dev)
+    t0 = time.perf_counter()
+    score = model.fit(train, test, FitConfig(verbose=20))
+    result["gate"] = {"auc": score.auc, "fit_s": time.perf_counter() - t0}
+    check(score.auc > AFM_GATE_AUC, f"test_fm's gate on the card: AUC {score.auc}")
+    log(f"  tests/test_fm.py's gate on the card: AUC {score.auc:.4f} (> {AFM_GATE_AUC}) in "
+        f"{result['gate']['fit_s']:.2f} s ({smi})")
+    return result
+
+
+def gauge(registry, name: str, labels: str = "") -> float:
+    """A gauge's value from the registry's text rendering."""
+    found = re.search(rf"^\w*{name}{re.escape(labels)} (\S+)$", registry.render(), re.M)
+    check(found is not None, f"gauge {name}{labels} was set")
+    return float(found.group(1))
+
+
+def phase_ctr(dev, smi: str) -> dict:
+    import torch
+
+    from gorse_tpu_torch.models.fm import AFM, afm_params_from_numpy, make_optimizer, train_epoch
+    from gorse_tpu_torch.ops import topk
+    from gorse_tpu_torch.serve.master import Master
+    from gorse_tpu_torch.serve.rest import RestServer
+    from gorse_tpu_torch.serve.worker import Worker
+    from gorse_tpu_torch.storage import cache as ck
+    from gorse_tpu_torch.storage.blob import BlobStore
+    from gorse_tpu_torch.storage.cache import MemoryCacheStore
+    from gorse_tpu_torch.storage.meta import CLICK_THROUGH_RATE_MODEL, MetaStore
+    from gorse_tpu_torch.storage.types import Score
+    from gorse_tpu_torch.utils.config import Config
+
+    result = {"afm": hold_afm(dev, smi)}
+    t0 = time.perf_counter()
+    data = neighbor_store(0, embedding=False, user_fields=USER_FIELDS)
+    result["data_s"] = time.perf_counter() - t0
+    cfg = Config()
+    cfg.recommend.collaborative.type = "mf"
+    cfg.recommend.collaborative.fit_epoch = MASTER_EPOCHS
+    cfg.recommend.ranker.type = "fm"
+    cfg.recommend.ranker.recommenders = ["collaborative"]
+    cfg.recommend.ranker.fit_epoch = CTR_EPOCHS
+    with tempfile.TemporaryDirectory(prefix="gorse_smoke_") as tmp:
+        blobs = BlobStore(Path(tmp) / "blobs")
+        master = Master(cfg, data, MemoryCacheStore(), blobs, MetaStore(), device=dev)
+        # ---- the master's whole cycle on the card
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loaded = master.run_tasks_once()
+        torch.cuda.synchronize()
+        cycle_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        while master._sizeof_busy and time.perf_counter() - t0 < 300:
+            time.sleep(0.1)
+        check(not master._sizeof_busy, "the master's memory accounting finished")
+        accounting_s = time.perf_counter() - t0
+        ctr = loaded.ctr
+        steps = {step: gauge(master.metrics, "master_load_dataset_step_seconds",
+                             f'{{step="{step}"}}')
+                 for step in ("load_items", "load_users", "load_positive_feedback",
+                              "split_ranking_dataset", "create_ranking_dataset")}
+        fit_s = gauge(master.metrics, "master_ranking_fit_seconds")
+        auc = gauge(master.metrics, "master_ranking_model_auc")
+        ctr_id, cf_id = master.meta.get(CLICK_THROUGH_RATE_MODEL), master.get_meta()["cf_model_id"]
+        check(blobs.list() == sorted([cf_id, ctr_id]),
+              f"collect_garbage left the two live blobs: {blobs.list()}")
+        check(master.ctr_model.n_epochs == CTR_EPOCHS and 0.5 < auc <= 1.0,
+              f"master: the AFM fit {CTR_EPOCHS} epochs, AUC {auc}")
+        memory = {k: gauge(master.metrics, "master_memory_inuse_bytes", f'{{data="{k}"}}')
+                  for k in ("dataset", "cf_index", "ctr_model")}
+        result.update(
+            cycle_s=cycle_s, load_steps=steps, ctr_rows=len(ctr),
+            ctr_features=ctr.num_features(), ctr_slots=ctr.max_dimension(),
+            ctr_positive=ctr.count_positive(), ranking_fit_s=fit_s, ranking_auc=auc,
+            cf_fit_s=gauge(master.metrics, "master_collaborative_filtering_fit_seconds"),
+            accounting_s=accounting_s, memory_inuse_bytes=memory, blobs=blobs.list())
+        log(f"  master cycle on the card {cycle_s:.2f} s ({smi}): load steps "
+            f"{json.dumps({k: round(v, 3) for k, v in steps.items()})}; CTR dataset "
+            f"{len(ctr)} rows ({ctr.count_positive()} positive), {ctr.num_features()} features, "
+            f"at most {ctr.max_dimension()} slots; CTR fit ({CTR_EPOCHS} epochs) {fit_s:.2f} s "
+            f"(gauge), AUC {auc:.4f}; BPR fit {result['cf_fit_s']:.3f} s; memory accounting "
+            f"{accounting_s:.1f} s after the cycle; blobs {blobs.list()}")
+
+        # ---- one epoch of the master's AFM by CUDA events, and the first
+        # epoch of a card master's fit against a CPU master's
+        model = master.ctr_model
+        train, test = ctr.split(0.2, seed=0)
+        batches = model._batch(train.padded(model.num_dimension), model.batch_size)
+        params = afm_params_from_numpy(model.model_params.to_numpy(), dev)
+        opt = make_optimizer(model.optimizer_name, params.parameters(), model.lr, model.reg)
+        result["ctr_epoch_ms"] = median_ms(lambda: train_epoch(params, opt, batches), 1)
+        result["ctr_steps"] = int(batches[0].shape[0])
+        del batches, params, opt
+        cfg.recommend.ranker.fit_epoch = 1
+        fits = {}
+        for device in (dev, "cpu"):
+            m = Master(cfg, data, MemoryCacheStore(), BlobStore(Path(tmp) / f"hold_{device}"),
+                       MetaStore(), device=device)
+            m.train_click_through_rate(loaded)
+            fits[str(device)] = m.ctr_model
+        cfg.recommend.ranker.fit_epoch = CTR_EPOCHS
+        card_fit, cpu_fit = fits[str(dev)], fits["cpu"]
+        shares = table_shares(card_fit.model_params, cpu_fit.model_params)
+        for name, share in shares.items():
+            check(share <= AFM_TOL, f"master's CTR fit, one epoch: {name} within {AFM_TOL} of its "
+                  f"largest magnitude on the CPU master's (off by {share:.3g})")
+        result["ctr_hold_shares"] = shares
+        log(f"  the master's AFM epoch {result['ctr_epoch_ms']:.1f} ms by CUDA events "
+            f"({result['ctr_steps']} steps, {result['ctr_epoch_ms'] / result['ctr_steps']:.3f} "
+            f"ms a step) ({smi}); one-epoch fit against a CPU master's, shares of the largest "
+            f"magnitude: {json.dumps(shares)}")
+        del fits, card_fit, cpu_fit
+
+        # ---- the worker re-ranks its shard with the AFM (its own counts)
+        worker = Worker(cfg, data, master.cache, blobs, device=dev)
+        predict_ms = []
+
+        def timed_predict(*args, _inner=None, **kwargs):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = _inner(*args, **kwargs)
+            end.record()
+            end.synchronize()
+            predict_ms.append(start.elapsed_time(end))
+            return out
+
+        zero_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        worker.pull_models(cf_id, ctr_id)
+        inner = worker.ctr_model.predict_padded
+        worker.ctr_model.predict_padded = lambda *a, **k: timed_predict(*a, _inner=inner, **k)
+        refreshed = worker.sync_and_recommend(master.get_meta())
+        torch.cuda.synchronize()
+        recommend_s = time.perf_counter() - t0
+        launches = {n: getattr(topk, n).launches for n in KERNELS}
+        n_users = loaded.dataset.count_users()
+        check(refreshed == n_users, f"worker refreshed {refreshed} of {n_users} users")
+        check(worker.ctr_model_id == ctr_id and worker.ctr_model.device == dev,
+              "worker: pulled the master's AFM onto the card")
+        check(all(c > 0 for c in launches.values()),
+              f"worker's CF recall: launches {launches}, each must be above 0")
+        ranking_s = gauge(worker.metrics, "worker_offline_recommend_step_seconds",
+                          '{step="ranking"}')
+        device_s = sum(predict_ms) / 1e3
+        result.update(recommend_s=recommend_s, worker_topk_launches=launches,
+                      ranking_s=ranking_s, batch_predict_ms=sum(predict_ms),
+                      ranking_host_share=1.0 - device_s / ranking_s, refreshed=refreshed)
+        log(f"  worker with the fm ranker: {refreshed} users in {recommend_s:.2f} s; ranking "
+            f"step {ranking_s:.3f} s, its batch_predict {sum(predict_ms):.1f} ms by CUDA events "
+            f"(host share {result['ranking_host_share']:.4f}); CF recall launches "
+            f"{json.dumps(launches)} ({smi})")
+
+        # ---- a sample of caches against a CPU batch_predict of the same
+        # candidates by the same saved model, tie-aware
+        cpu_worker = Worker(cfg, data, MemoryCacheStore(), blobs, device="cpu")
+        cpu_worker.pull_models("", ctr_id)
+        rng = np.random.default_rng(3)
+        users = [f"u{u}" for u in sorted(rng.choice(n_users, MASTER_SAMPLE_USERS, replace=False))]
+        worst = 0.0
+        for uid in users:
+            got = master.cache.search_scores(ck.RECOMMEND, uid)
+            check(len(got) == cfg.recommend.cache_size, f"{uid}: {len(got)} ranked candidates")
+            want = cpu_worker._rank({uid: [Score(s.id, 0.0, s.categories) for s in got]})[uid]
+            s = torch.tensor([[x.score for x in got]], dtype=torch.float64)
+            s_p = torch.tensor([[x.score for x in want]], dtype=torch.float64)
+            index = {x.id: n for n, x in enumerate(want)}
+            i = torch.tensor([[index[x.id] for x in got]])
+            i_p = torch.arange(len(want))[None, :]
+            tol = RANK_TOL * (1.0 + s_p.abs())
+            worst = max(worst, compare_lists(f"{uid}: fm ranking", s, i, s_p, i_p,
+                                             RANK_TOL * (1.0 + s.abs()), tol))
+        result["rank_hold_worst"] = worst
+        log(f"  {len(users)} users' recommend caches equal a CPU batch_predict of the same "
+            f"candidates (tie-aware; largest |s - s_cpu| / tol {worst:.3g})")
+
+        server = RestServer(cfg, data, master.cache)
+        httpd = server.serve("127.0.0.1", 0)
+        try:
+            conn = http.client.HTTPConnection("127.0.0.1", httpd.server_address[1], timeout=30)
+            conn.request("GET", "/api/recommend/u1")
+            resp = conn.getresponse()
+            body = json.loads(resp.read())
+            conn.close()
+        finally:
+            server.shutdown()
+        want = [s.id for s in master.cache.search_scores(ck.RECOMMEND, "u1")]
+        check(resp.status == 200 and body == want[: cfg.server.default_n] and body,
+              "GET /api/recommend/u1 equals the recommend cache")
+    return result
+
+
 # ---------------------------------------------------------------- main
 
 
@@ -2794,6 +3118,10 @@ def main() -> int:
         log("== phase 8: eALS and neighbours")
         out["neighbors"] = phase_neighbors(dev, smi)
         log("  neighbors: " + json.dumps(out["neighbors"]))
+    if "9" in phases:
+        log("== phase 9: CTR ranker and the master's cycle")
+        out["ctr"] = phase_ctr(dev, smi)
+        log("  ctr: " + json.dumps(out["ctr"]))
     check("jax" not in sys.modules and "gorse_tpu" not in sys.modules,
           "neither JAX nor gorse_tpu was imported")
     log(f"  total {time.perf_counter() - t_start:.1f} s")
@@ -2825,7 +3153,9 @@ def kernel_rows(out: dict) -> list[dict]:
                 **{key: timing[key] for key in ("ms", "plain_ms", "bound_ms", "bound_by",
                                                 "library_ms")}}
 
-    kernels = [row(name, "topk.cu", REPLACES[name], path["launches"][name],
+    # the serving path's launches (phase 3) with the fm worker's recall (phase 9)
+    kernels = [row(name, "topk.cu", REPLACES[name],
+                   path["launches"][name] + out["ctr"]["worker_topk_launches"][name],
                    out["errors"][name], rows[name]) for name in KERNELS]
     # the training path's launches of bpr_epoch (phase 5); the sweeps' from
     # their own paths (phase 4). No single PyTorch call computes a sweep or

@@ -11,6 +11,12 @@ REG = "reg"
 INIT_MEAN = "init_mean"
 INIT_STDDEV = "init_stddev"
 ALPHA = "alpha"
+BATCH_SIZE = "batch_size"
+OPTIMIZER = "optimizer"
+AUTO_SCALE = "auto_scale"
+
+SGD = "sgd"
+ADAM = "adam"
 
 
 class Params(dict):
@@ -21,6 +27,12 @@ class Params(dict):
 
     def get_float(self, name: str, default: float) -> float:
         return float(self.get(name, default))
+
+    def get_bool(self, name: str, default: bool) -> bool:
+        return bool(self.get(name, default))
+
+    def get_string(self, name: str, default: str) -> str:
+        return str(self.get(name, default))
 
     def merged(self, overrides: "Params | dict") -> "Params":
         out = Params(self)

@@ -1,24 +1,31 @@
-"""Master node: the dataset, the recommenders' caches and the CF model
-(port of the tasks of gorse_tpu/serve/master.py that precede CTR).
+"""Master node: the dataset, the recommenders' caches, the CF model and
+the CTR ranker, and the task cycle that runs them (port of
+gorse_tpu/serve/master.py).
 
 ``load_dataset`` streams users, items and feedback from the data store into
-the training dataset and its leave-one-out split, and records the catalog
-gauges, global-meta keys and time series under the reference's names.
-``update_non_personalized`` fills the ``non-personalized`` caches (the
-built-in ``popular`` and ``latest`` and the configured entries) on the
-host; ``update_item_to_item`` and ``update_user_to_user`` compute every
-configured entry's neighbour lists on the card (logics/item_to_item.py,
-logics/user_to_user.py), each gated by its config and corpus digests.
-``train_collaborative_filtering`` fits the MF model on the card (BPR by
-default, eALS with ``model = "als"``), builds the serving index, saves it
-to the blob store and records its id in the meta store, where ``get_meta``
-hands it to workers, and upserts the serving item factors into the vector
-store when one is given (``_sync_cf_vectors``).
+the training dataset and its leave-one-out split, builds the CTR dataset
+(positive and negative edges, balancing negatives sampled from
+``default_rng(0)``), and records the catalog gauges, global-meta keys and
+time series under the reference's names. ``update_non_personalized`` fills
+the ``non-personalized`` caches (the built-in ``popular`` and ``latest``
+and the configured entries) on the host; ``update_item_to_item`` and
+``update_user_to_user`` compute every configured entry's neighbour lists on
+the card (logics/item_to_item.py, logics/user_to_user.py), each gated by its
+config and corpus digests. ``train_collaborative_filtering`` fits the MF
+model on the card (BPR by default, eALS with ``model = "als"``), builds the
+serving index, saves it to the blob store and records its id in the meta
+store, where ``get_meta`` hands it to workers, and upserts the serving item
+factors into the vector store when one is given (``_sync_cf_vectors``).
+``train_click_through_rate`` fits the AFM (models/fm.py) on the card with
+``ranker.type = "fm"`` and publishes it the same way. ``run_tasks_once``
+runs these in the reference's order, then ``collect_garbage``; the task
+loop repeats it every ``collaborative.fit_period`` minutes or on
+``trigger``.
 
-Not ported yet: the CTR dataset and ranker (``ctr`` stays ``None``), the
-data store's search-column reconcile, ``run_tasks_once`` and the task
-loop, hyper-parameter search, and sharded training (``training_mesh`` is
-``None``).
+Not ported yet: hyper-parameter search (``search=True`` or a due
+``optimize_period`` raises, ROADMAP.md M12), the data store's search-column
+reconcile thread (M17), the tracer flush at shutdown (M21), and sharded
+training (``training_mesh`` is ``None``, M14).
 """
 
 from __future__ import annotations
@@ -26,14 +33,20 @@ from __future__ import annotations
 import dataclasses
 import json
 import logging
+import threading
 import time
 
+import numpy as np
+
+from ..data.ctr import CTRDataset
 from ..data.dataset import Dataset
+from ..data.unified_index import UnifiedIndex
 from ..logics.cf import MatrixFactorizationIndex
 from ..logics.item_to_item import ItemToItemConfig, _flatten_labels, new_item_to_item
 from ..logics.non_personalized import NonPersonalized, NonPersonalizedConfig
 from ..logics.user_to_user import UserToUser, UserToUserConfig
 from ..models import FitConfig, Params, create_mf_model
+from ..models.fm import AFM
 from ..storage import cache as ck
 from ..storage.blob import BlobStore
 from ..storage.cache import CacheStore, key
@@ -43,6 +56,8 @@ from ..storage.types import TimeSeriesPoint
 from ..storage.vectors import VectorStore
 from ..utils.config import Config, NonPersonalizedConfigEntry
 from ..utils.expression import match_any
+from ..utils.gcpause import gc_paused
+from ..utils.sizeof import deep_size
 from .metrics import MetricsRegistry
 from .progress import ProgressTracker
 
@@ -56,7 +71,7 @@ class LoadedData:
     dataset: Dataset
     train: Dataset
     test: Dataset
-    ctr: None  # the CTR dataset is not ported yet
+    ctr: CTRDataset | None
     item_categories: list[list[str]]
     items: list
     timestamp: float = 0.0  # load-start snapshot time
@@ -84,6 +99,14 @@ class Master:
         self.metrics = MetricsRegistry(namespace="gorse")
         self.cf_model = None
         self.cf_index: MatrixFactorizationIndex | None = None
+        self.ctr_model: AFM | None = None
+        self._stop = threading.Event()
+        self._trigger = threading.Event()
+        self._thread: threading.Thread | None = None
+        self._last_optimize: dict[str, float] = {}
+        self._sizeof_ts = -1e9
+        self._sizeof_busy = False
+        self.memory_inuse: dict[str, int] = {}
         self._load_models_from_meta()
 
     def training_mesh(self):
@@ -104,7 +127,7 @@ class Master:
         }
 
     def _load_models_from_meta(self) -> None:
-        """Resume the last trained CF index after a restart."""
+        """Resume the last trained CF index and CTR model after a restart."""
         cf_id = self.meta.get(COLLABORATIVE_FILTERING_MODEL)
         if cf_id and self.blob.exists(cf_id):
             try:
@@ -114,14 +137,21 @@ class Master:
                 logger.info("resumed CF index %s", cf_id)
             except Exception as e:  # noqa: BLE001 - a bad artifact must not block startup
                 logger.warning("failed to resume CF model %s: %s", cf_id, e)
+        ctr_id = self.meta.get(CLICK_THROUGH_RATE_MODEL)
+        if ctr_id and self.blob.exists(ctr_id):
+            try:
+                self.ctr_model = AFM.load(self.blob.open(ctr_id), device=self.device)
+                logger.info("resumed CTR model %s", ctr_id)
+            except Exception as e:  # noqa: BLE001 - a bad artifact must not block startup
+                logger.warning("failed to resume CTR model %s: %s", ctr_id, e)
 
     # ----------------------------------------------------------------- tasks
 
     def load_dataset(self) -> LoadedData:
-        """Users, items and positive feedback from the data store into the
-        training dataset (positive feedback deduplicated per (user, item),
-        within the positive TTL), then the leave-one-out split."""
-        with self.progress.span("load_dataset"):
+        """Users, items and feedback from the data store into the training
+        dataset (positive feedback deduplicated per (user, item), within the
+        positive TTL), its leave-one-out split and the CTR dataset."""
+        with self.progress.span("load_dataset"), gc_paused():
             cfg = self.config.recommend
             t_task = time.perf_counter()
             load_time = time.time()
@@ -170,6 +200,10 @@ class Master:
             train, test = dataset.split_cf(seed=0)
             step_seconds("master_load_dataset_step_seconds", time.perf_counter() - t0,
                          labels={"step": "split_ranking_dataset"})
+            t0 = time.perf_counter()
+            ctr = self._build_ctr_dataset(dataset, positive_edges, negative_edges)
+            step_seconds("master_load_dataset_step_seconds", time.perf_counter() - t0,
+                         labels={"step": "create_ranking_dataset"})
             step_seconds("master_load_dataset_total_seconds", time.perf_counter() - t_task)
             g = self.metrics.gauge_set
             g("master_users_total", dataset.count_users())
@@ -199,8 +233,57 @@ class Master:
             self._record_ts(ck.NUM_FEEDBACK, dataset.count_feedback() + len(negative_edges))
             self._record_ts(ck.NUM_POS_FEEDBACKS, dataset.count_feedback())
             self._record_ts(ck.NUM_NEG_FEEDBACKS, len(negative_edges))
-            return LoadedData(dataset, train, test, None, item_categories, items,
+            return LoadedData(dataset, train, test, ctr, item_categories, items,
                               timestamp=load_time)
+
+    def _build_ctr_dataset(self, dataset: Dataset, positive_edges, negative_edges) -> CTRDataset:
+        """CTR rows: each positive edge (target 1), each negative edge (0),
+        then, while positives outnumber negatives, negatives sampled from
+        ``default_rng(0)`` (a user of a positive edge, any item, kept unless
+        it is a positive edge). A row is the user, the item, the user's
+        labels and the item's labels in the unified index. Rows follow the
+        iteration order of ``positive_edges`` (a set), as the reference's."""
+        index = UnifiedIndex(
+            users=dataset.user_dict,
+            items=dataset.item_dict,
+            user_labels=dataset.user_label_dict,
+            item_labels=dataset.item_label_dict,
+        )
+        ctr = CTRDataset(index)
+        u_num = dataset.user_dict.to_number
+        i_num = dataset.item_dict.to_number
+        item_off = index.item_offset
+        ul_off, il_off = index.user_label_offset, index.item_label_offset
+        user_labels, item_labels = dataset.user_labels, dataset.item_labels
+        n_ul, n_il = len(user_labels), len(item_labels)
+
+        def add_row(user_id: str, item_id: str, target: float) -> None:
+            u = u_num(user_id)
+            i = i_num(item_id)
+            if u < 0 or i < 0:
+                return
+            idx = [u, item_off + i]
+            if u < n_ul:
+                idx += [ul_off + label for label in user_labels[u]]
+            if i < n_il:
+                idx += [il_off + label for label in item_labels[i]]
+            ctr.add(idx, [1.0] * len(idx), target, user=u)
+
+        for user_id, item_id in positive_edges:
+            add_row(user_id, item_id, 1.0)
+        for user_id, item_id in negative_edges:
+            add_row(user_id, item_id, 0.0)
+        n_missing = len(positive_edges) - len(negative_edges)
+        if n_missing > 0 and dataset.count_items() > 1:
+            rng = np.random.default_rng(0)
+            users = list({u for u, _ in positive_edges})
+            n_items = dataset.count_items()
+            for _ in range(n_missing):
+                user_id = users[int(rng.integers(len(users)))]
+                item_id = dataset.item_dict.to_name(int(rng.integers(n_items)))
+                if (user_id, item_id) not in positive_edges:
+                    add_row(user_id, item_id, 0.0)
+        return ctr
 
     def update_non_personalized(self, data: LoadedData) -> None:
         """Refill the ``non-personalized`` cache of each entry, the built-in
@@ -447,6 +530,44 @@ class Master:
         ids, serving = self.cf_index.serving_items()
         self.vectors.add(self.CF_COLLECTION, ids, serving)
 
+    def train_click_through_rate(self, data: LoadedData) -> None:
+        """With ``ranker.type = "fm"``: fit the AFM on the card on a 0.2
+        split (seed 0) of the CTR dataset, record its gauges and time
+        series, save it to the blob store and record its id."""
+        if self.config.recommend.ranker.type != "fm" or data.ctr is None or len(data.ctr) == 0:
+            return
+        if data.ctr.count_positive() == 0 or data.ctr.count_negative() == 0:
+            logger.info("skip CTR training: single-class data")
+            return
+        ranker_cfg = self.config.recommend.ranker
+        with self.progress.span("fit_ctr_model"):
+            train, test = data.ctr.split(0.2, seed=0)
+            params = Params(self.meta_model_params("ctr"))
+            if ranker_cfg.fit_epoch > 0:
+                params = Params({"n_epochs": ranker_cfg.fit_epoch}).merged(params)
+            model = AFM(params, device=self.device)
+            t0 = time.perf_counter()
+            score = model.fit(
+                train, test,
+                FitConfig(verbose=10, patience=ranker_cfg.early_stopping.patience,
+                          mesh=self.training_mesh()),
+            )
+            g = self.metrics.gauge_set
+            g("master_ranking_fit_seconds", time.perf_counter() - t0)
+            g("master_ranking_model_auc", score.auc)
+            g("master_ranking_model_precision", score.precision)
+            g("master_ranking_model_recall", score.recall)
+            self._record_ts(ck.CTR_AUC, score.auc)
+            self._record_ts(ck.CTR_PRECISION, score.precision)
+            self._record_ts(ck.CTR_RECALL, score.recall)
+        self.ctr_model = model
+        model_id = self.blob.new_model_id()
+        model.save(self.blob.create(model_id))
+        self.blob.flush(model_id)
+        self.meta.put(CLICK_THROUGH_RATE_MODEL, model_id)
+        self.cache.set(ck.LAST_FIT_RANKING_MODEL_TIME, str(time.time()))
+        logger.info("CTR model %s trained: AUC=%.4f", model_id, score.auc)
+
     def meta_model_params(self, kind: str) -> dict:
         """Best params from a past hyper-parameter search, if recorded."""
         raw = self.meta.get(f"BEST_PARAMS_{kind.upper()}")
@@ -456,3 +577,162 @@ class Master:
         self.cache.add_time_series_points(
             [TimeSeriesPoint(name=name, timestamp=time.time(), value=float(value))]
         )
+
+    def search_model(self, data: LoadedData, kind: str = "cf", n_trials: int | None = None):
+        """Hyper-parameter search is not ported yet."""
+        raise NotImplementedError(
+            f"{kind} model search: hyper-parameter search is not ported yet (ROADMAP.md, M12)"
+        )
+
+    def collect_garbage(self, data: LoadedData | None = None) -> None:
+        """Drop every model blob but the live CF index and CTR model; with
+        ``data``, prune score collections whose subset names a removed
+        recommender entry or an entity missing from the dataset (their
+        digest keys too), keeping rows written after the dataset's snapshot
+        time."""
+        keep = {
+            self.meta.get(COLLABORATIVE_FILTERING_MODEL),
+            self.meta.get(CLICK_THROUGH_RATE_MODEL),
+        }
+        for name in self.blob.list():
+            if name not in keep:
+                self.blob.remove(name)
+        if data is None:
+            return
+        t0 = time.perf_counter()
+        cfg = self.config.recommend
+        np_names = {e.name for e in cfg.non_personalized} | {"popular", "latest"}
+        i2i_names = {e.name for e in cfg.item_to_item}
+        u2u_names = {e.name for e in cfg.user_to_user}
+        dataset = data.dataset
+        before = data.timestamp or time.time()
+        scanned = reclaimed = 0
+        for collection in (ck.NON_PERSONALIZED, ck.ITEM_TO_ITEM, ck.USER_TO_USER,
+                           ck.COLLABORATIVE):
+            subsets = set(self.cache.scan_score_subsets(collection))
+            scanned += len(subsets)
+            stale: list[str] = []
+            stale_digest_keys: list[str] = []
+            for subset in subsets:
+                if collection == ck.NON_PERSONALIZED:
+                    if subset not in np_names:
+                        stale.append(subset)
+                elif collection == ck.ITEM_TO_ITEM:
+                    name, _, item_id = subset.partition("/")
+                    if name not in i2i_names or dataset.item_dict.to_number(item_id) < 0:
+                        stale.append(subset)
+                        stale_digest_keys.append(key(ck.ITEM_TO_ITEM_DIGEST, name, item_id))
+                elif collection == ck.USER_TO_USER:
+                    name, _, user_id = subset.partition("/")
+                    if name not in u2u_names or dataset.user_dict.to_number(user_id) < 0:
+                        stale.append(subset)
+                        stale_digest_keys.append(key(ck.USER_TO_USER_DIGEST, name, user_id))
+                elif dataset.user_dict.to_number(subset) < 0:  # CF: the subset is a user
+                    stale.append(subset)
+                    stale_digest_keys.append(key(ck.COLLABORATIVE_DIGEST, subset))
+            if stale:
+                # rows of removed non-personalized entries go whatever their
+                # time; entity rows written after the snapshot stay
+                self.cache.delete_scores(
+                    collection, stale,
+                    before=None if collection == ck.NON_PERSONALIZED else before,
+                )
+                for k in stale_digest_keys:
+                    self.cache.delete(k)
+                reclaimed += len(stale)
+        g = self.metrics.gauge_set
+        g("master_cache_scanned_total", scanned)
+        g("master_cache_reclaimed_total", reclaimed)
+        g("master_cache_scanned_seconds", time.perf_counter() - t0)
+
+    # ------------------------------------------------------------- main loop
+
+    def run_tasks_once(self, search: bool = False) -> LoadedData:
+        """One pass of the task sequence, in the reference's order: load,
+        non-personalized, item-to-item, user-to-user, CF, CTR, garbage
+        collection, then (at most once a minute, on a thread) the memory
+        accounting gauges. ``search``, or an ``optimize_period`` that has
+        come due, raises: model search is not ported yet (M12)."""
+        data = self.load_dataset()
+        self.update_non_personalized(data)
+        self.update_item_to_item(data)
+        self.update_user_to_user(data)
+        self.train_collaborative_filtering(data)
+        self.train_click_through_rate(data)
+        now = time.time()
+        if search:
+            self._last_optimize["cf"] = now
+            self.search_model(data, "cf")
+        cf_cfg = self.config.recommend.collaborative
+        if (
+            cf_cfg.optimize_period > 0
+            and cf_cfg.type != "none"
+            and now - self._last_optimize.get("cf", 0.0) >= cf_cfg.optimize_period * 60.0
+            and data.train.count_feedback() > 0
+        ):
+            self._last_optimize["cf"] = now
+            self.search_model(data, "cf")
+        ranker_cfg = self.config.recommend.ranker
+        if (
+            ranker_cfg.optimize_period > 0
+            and ranker_cfg.type == "fm"
+            and now - self._last_optimize.get("ctr", 0.0) >= ranker_cfg.optimize_period * 60.0
+            and data.ctr is not None
+            and len(data.ctr) > 0
+        ):
+            self._last_optimize["ctr"] = now
+            self.search_model(data, "ctr")
+        self.collect_garbage(data)
+        # the deep walk is O(rows) in Python: at most once a minute
+        now_ts = time.perf_counter()
+        if now_ts - self._sizeof_ts > 60.0 and not self._sizeof_busy:
+            self._sizeof_ts = now_ts
+            self._sizeof_busy = True
+            threading.Thread(target=self._account_memory, args=(data,),
+                             name="memory-accounting", daemon=True).start()
+        return data
+
+    def _account_memory(self, data: LoadedData) -> None:
+        """``master_memory_inuse_bytes`` for the dataset, the CF index and
+        the CTR model."""
+        try:
+            sizes = {
+                "dataset": deep_size(data),
+                "cf_index": deep_size(self.cf_index),
+                "ctr_model": deep_size(self.ctr_model),
+            }
+            self.memory_inuse = sizes
+            for component, nbytes in sizes.items():
+                self.metrics.gauge_set("master_memory_inuse_bytes", nbytes,
+                                       labels={"data": component})
+        except Exception:  # noqa: BLE001 - a mutation mid-walk costs this sample only
+            logger.debug("memory accounting walk aborted", exc_info=True)
+        finally:
+            self._sizeof_busy = False
+
+    def trigger(self) -> None:
+        """Run the task cycle now (the dashboard's 'train now')."""
+        self._trigger.set()
+
+    def run_tasks_loop(self) -> None:
+        """Run the task cycle until ``shutdown``, every
+        ``collaborative.fit_period`` minutes or on ``trigger``; a failed
+        cycle is logged and the loop goes on."""
+        period = self.config.recommend.collaborative.fit_period * 60.0
+        while not self._stop.is_set():
+            try:
+                self.run_tasks_once()
+            except Exception:  # noqa: BLE001 - keep the loop alive
+                logger.exception("task loop iteration failed")
+            self._trigger.wait(timeout=period)
+            self._trigger.clear()
+
+    def serve_background(self) -> None:
+        self._thread = threading.Thread(target=self.run_tasks_loop, daemon=True)
+        self._thread.start()
+
+    def shutdown(self) -> None:
+        self._stop.set()
+        self._trigger.set()
+        if self._thread:
+            self._thread.join(timeout=5.0)

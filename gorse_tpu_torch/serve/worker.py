@@ -2,12 +2,14 @@
 gorse_tpu/serve/worker.py).
 
 Each worker owns a shard of users (rendezvous hashing over the live worker
-set), pulls the CF index from the blob store by id, and materializes the
-``collaborative`` and ``recommend`` cache collections per user, with
-staleness checks and replacement. The collaborative top-k of the whole
-shard goes through ``MatrixFactorizationIndex.search_users`` in 256-user
-chunks on the card. Ranking ports only ``ranker.type = "none"`` (the
-default): ``fm`` and ``llm`` raise.
+set), pulls the CF index and the CTR model from the blob store by id, and
+materializes the ``collaborative`` and ``recommend`` cache collections per
+user, with staleness checks and replacement. The collaborative top-k of the
+whole shard goes through ``MatrixFactorizationIndex.search_users`` in
+256-user chunks on the card. Ranking: ``ranker.type = "none"`` sorts the
+candidates by score; ``fm`` scores every (user, candidate) row of the shard
+with the AFM in one ``batch_predict`` on the card (sorted by score when no
+model is fitted yet); ``llm`` raises (ROADMAP.md, M21).
 """
 
 from __future__ import annotations
@@ -17,7 +19,9 @@ import logging
 import time
 
 from ..logics.cf import MatrixFactorizationIndex
+from ..logics.item_to_item import _flatten_labels
 from ..logics.recommend import Recommender
+from ..models.fm import AFM
 from ..storage import cache as ck
 from ..storage.blob import BlobStore
 from ..storage.cache import CacheStore, key
@@ -25,6 +29,7 @@ from ..storage.data import DataStore
 from ..storage.types import Score
 from ..utils.config import Config
 from ..utils.expression import match_any
+from ..utils.gcpause import gc_paused
 from ..utils.sizeof import deep_size
 from .item_cache import ItemCache
 from .metrics import MetricsRegistry
@@ -64,6 +69,8 @@ class Worker:
         self._step_labels: set[str] = set()  # step gauges written so far
         self.cf_index: MatrixFactorizationIndex | None = None
         self.cf_model_id = ""
+        self.ctr_model: AFM | None = None
+        self.ctr_model_id = ""
         self.items = ItemCache(data_store)
 
     # ------------------------------------------------------------- syncing
@@ -76,11 +83,10 @@ class Worker:
             )
             self.cf_model_id = cf_model_id
             logger.info("pulled CF model %s", cf_model_id)
-        if ctr_model_id:
-            raise NotImplementedError(
-                f"CTR model {ctr_model_id!r}: the AFM ranker is not ported yet "
-                "(ROADMAP.md, M10)"
-            )
+        if ctr_model_id and ctr_model_id != self.ctr_model_id and self.blob.exists(ctr_model_id):
+            self.ctr_model = AFM.load(self.blob.open(ctr_model_id), device=self.device)
+            self.ctr_model_id = ctr_model_id
+            logger.info("pulled CTR model %s", ctr_model_id)
 
     def pull_users(self, peers: list[str]) -> list[str]:
         """My shard of users."""
@@ -276,14 +282,63 @@ class Worker:
         return out
 
     def _rank(self, candidates: dict[str, list[Score]]) -> dict[str, list[Score]]:
-        """``ranker.type = "none"``: candidates sorted by score."""
-        ranker = self.config.recommend.ranker.type
-        if ranker != "none":
+        """Rank each user's candidates, best first (a stable sort). ``fm``
+        with a fitted model: every (user, candidate) row of the shard in one
+        ``batch_predict`` on the model's device, each row the user, the
+        user's labels, the item and the item's labels in the model's index;
+        otherwise the candidates' own scores."""
+        cfg = self.config.recommend
+        if cfg.ranker.type == "llm":
             raise NotImplementedError(
-                f"ranker.type {ranker!r}: the fm and llm rankers are not ported yet "
-                "(ROADMAP.md, M10)"
+                "ranker.type 'llm': the LLM reranker is not ported yet (ROADMAP.md, M21)"
             )
-        return {u: sorted(s, key=lambda x: -x.score) for u, s in candidates.items()}
+        if cfg.ranker.type != "fm" or self.ctr_model is None or not self.ctr_model.is_fitted():
+            return {u: sorted(s, key=lambda x: -x.score) for u, s in candidates.items()}
+        with gc_paused():
+            return self._rank_fm(candidates)
+
+    def _rank_fm(self, candidates: dict[str, list[Score]]) -> dict[str, list[Score]]:
+        rows = []
+        owners = []
+        index = self.ctr_model.index
+        # one metadata fetch for the whole shard's candidates
+        self.items.prefetch([s.id for scores in candidates.values() for s in scores])
+        # an item's features are the same wherever it appears, and candidates
+        # repeat across a shard's users: encode each once a pass, and each
+        # user's features once, outside the candidate loop
+        item_feats: dict[str, tuple[list[int], list[float]]] = {}
+        for user_id, scores in candidates.items():
+            user = self.data.get_user(user_id)
+            u_idx: list[int] = []
+            u_enc = index.encode_user(user_id)
+            if u_enc >= 0:
+                u_idx.append(u_enc)
+            if user is not None:
+                u_idx += [enc for label in _flatten_labels(user.labels)
+                          if (enc := index.encode_user_label(label)) >= 0]
+            u_val = [1.0] * len(u_idx)
+            for s in scores:
+                feat = item_feats.get(s.id)
+                if feat is None:
+                    f_idx: list[int] = []
+                    i_enc = index.encode_item(s.id)
+                    if i_enc >= 0:
+                        f_idx.append(i_enc)
+                    item = self.items.get(s.id)
+                    if item is not None:
+                        f_idx += [enc for label in _flatten_labels(item.labels)
+                                  if (enc := index.encode_item_label(label)) >= 0]
+                    feat = (f_idx, [1.0] * len(f_idx))
+                    item_feats[s.id] = feat
+                rows.append((u_idx + feat[0], u_val + feat[1]))
+                owners.append((user_id, s))
+        if not rows:
+            return candidates
+        preds = self.ctr_model.batch_predict(rows)
+        ranked: dict[str, list[Score]] = {u: [] for u in candidates}
+        for (user_id, s), p in zip(owners, preds.tolist()):
+            ranked[user_id].append(Score(s.id, p, s.categories, s.timestamp))
+        return {u: sorted(s, key=lambda x: -x.score) for u, s in ranked.items()}
 
     # ------------------------------------------------------------ main loop
 

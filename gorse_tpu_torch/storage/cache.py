@@ -54,6 +54,9 @@ NUM_VALID_NEG_FEEDBACKS = "num_valid_neg_feedbacks"
 CF_NDCG = "cf_ndcg"
 CF_PRECISION = "cf_precision"
 CF_RECALL = "cf_recall"
+CTR_PRECISION = "ctr_precision"
+CTR_RECALL = "ctr_recall"
+CTR_AUC = "ctr_auc"
 
 
 def key(*parts: str) -> str:

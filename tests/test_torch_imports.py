@@ -30,7 +30,8 @@ def test_port_imports_no_jax_and_no_reference():
                  "ops.sampling", "ops.similarity", "logics.item_to_item",
                  "logics.user_to_user", "logics.non_personalized", "serve.master",
                  "storage.meta", "storage.vectors", "storage.none", "utils.config",
-                 "utils.safe_expr"):
+                 "utils.safe_expr", "data.ctr", "data.unified_index", "models.scaler",
+                 "models.fm", "serve.worker"):
         assert f"gorse_tpu_torch.{name}" in modules
     code = (
         "import importlib, json, sys\n"
@@ -53,6 +54,7 @@ def _entry_points():
     from gorse_tpu_torch.logics.item_to_item import ItemToItemConfig, new_item_to_item
     from gorse_tpu_torch.logics.user_to_user import UserToUser, UserToUserConfig
     from gorse_tpu_torch.models import ALS, BPR, Params, create_mf_model
+    from gorse_tpu_torch.models.fm import AFM, afm_params_from_numpy
     from gorse_tpu_torch.ops import similarity, topk
     from gorse_tpu_torch.storage import vectors
 
@@ -95,6 +97,9 @@ def _entry_points():
                                                         device=device),
         "user_to_user": lambda device: UserToUser(UserToUserConfig("u", "items"), 3,
                                                   device=device),
+        "afm": lambda device: AFM(Params(n_factors=4), device=device),
+        "afm_params_from_numpy": lambda device: afm_params_from_numpy(
+            {"b": row[0], "v": items, "w": items[:, :1]}, device=device),
     }
 
 
@@ -104,7 +109,8 @@ def _entry_points():
                                   "rq_topk", "vector_store", "open_vector_store", "als",
                                   "create_als", "idf_neighbors", "idf_neighbors_avg",
                                   "idf_distance_matrix", "embedding_neighbors",
-                                  "embedding_query", "item_to_item", "user_to_user"])
+                                  "embedding_query", "item_to_item", "user_to_user", "afm",
+                                  "afm_params_from_numpy"])
 def test_entry_points_default_to_cuda(name, monkeypatch):
     """``device=None`` means the card: without CUDA it raises; an explicit
     ``device="cpu"`` runs the plain versions."""

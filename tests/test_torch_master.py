@@ -50,7 +50,11 @@ from gorse_tpu_torch.storage import types
 from gorse_tpu_torch.storage.blob import BlobStore
 from gorse_tpu_torch.storage.cache import MemoryCacheStore
 from gorse_tpu_torch.storage.data import MemoryDataStore
-from gorse_tpu_torch.storage.meta import COLLABORATIVE_FILTERING_MODEL, MetaStore
+from gorse_tpu_torch.storage.meta import (
+    CLICK_THROUGH_RATE_MODEL,
+    COLLABORATIVE_FILTERING_MODEL,
+    MetaStore,
+)
 from gorse_tpu_torch.storage.vectors import MemoryVectorStore
 from gorse_tpu_torch.utils.config import Config
 
@@ -134,7 +138,17 @@ def test_load_dataset_is_the_reference(masters):
         assert a.item_label_dict.to_dict() == b.item_label_dict.to_dict()
         assert a.user_feedback == b.user_feedback and a.timestamps == b.timestamps
     assert loaded.item_categories == ref_loaded.item_categories
-    assert loaded.ctr is None
+    # the CTR rows (the positive edges' set order, then the sampled
+    # negatives): equal in one process from the same insertion order
+    assert loaded.ctr.index.to_dict() == ref_loaded.ctr.index.to_dict()
+    assert loaded.ctr.features == ref_loaded.ctr.features
+    assert loaded.ctr.targets == ref_loaded.ctr.targets
+    assert loaded.ctr.users == ref_loaded.ctr.users
+    assert 0 < loaded.ctr.count_negative() <= loaded.ctr.count_positive()
+    assert max(len(f[0]) for f in loaded.ctr.features) == 4  # user, item, a label each
+    step = re.search(r'^\w+_master_load_dataset_step_seconds\{step="create_ranking_dataset"\} (\S+)$',
+                     port.metrics.render(), re.M)
+    assert step and float(step.group(1)) > 0
     assert _gauges(port.metrics) == _gauges(ref.metrics)
     for name in META_KEYS:
         k = ck.key(ck.GLOBAL_META, name)
@@ -290,3 +304,235 @@ def test_sync_cf_vectors_recreates_on_config_changes(tmp_path):
     assert (info["dimension"], info["quantization"]) == (VEC_DIM, "")
     # the same collection (upserted) when unchanged, recreated at each change
     assert [a is b for a, b in zip(seen, seen[1:])] == [True, False, False, True, False]
+
+
+# ------------------------------------------------ the CTR ranker and the cycle
+
+CTR_EPOCHS = 3
+STALE_BLOB = "1"  # an old model's blob, older than any new model id
+
+
+def _meta_keys(store) -> set:
+    return {k for (k,) in store._conn.execute("SELECT k FROM kv").fetchall()}
+
+
+def _cycle_config(cfg, mod):
+    """The cycle with every task on: CF, an item-to-item and a
+    user-to-user entry, and the fm ranker over the CF candidates."""
+    _configure(cfg)
+    cfg.recommend.ranker.type = "fm"
+    cfg.recommend.ranker.fit_epoch = CTR_EPOCHS
+    cfg.recommend.item_to_item = [mod.ItemToItemConfigEntry("similar", type="users")]
+    cfg.recommend.user_to_user = [mod.UserToUserConfigEntry("neighbors", type="items")]
+    return cfg
+
+
+def _stale_entries(cache, blob, ck_mod, t):
+    """What the cycle's garbage collection must remove: a non-personalized
+    entry no longer configured, an item-to-item list of a removed entry and
+    one of an unknown item, a CF list of an unknown user (each with its
+    digest), and an old model blob; and a CF list of a known user, which
+    stays."""
+    old = [t.Score("i1", 1.0, [], 1.0)]
+    cache.add_scores(ck_mod.NON_PERSONALIZED, "retired", old)
+    cache.add_scores(ck_mod.ITEM_TO_ITEM, ck_mod.key("gone", "i1"), old)
+    cache.add_scores(ck_mod.ITEM_TO_ITEM, ck_mod.key("similar", "nope"), old)
+    cache.set(ck_mod.key(ck_mod.ITEM_TO_ITEM_DIGEST, "similar", "nope"), "x")
+    cache.add_scores(ck_mod.COLLABORATIVE, "ghost", old)
+    cache.set(ck_mod.key(ck_mod.COLLABORATIVE_DIGEST, "ghost"), "x")
+    cache.add_scores(ck_mod.COLLABORATIVE, "u3", old)
+    (blob.create(STALE_BLOB) / "x").write_text("old")
+
+
+@pytest.fixture(scope="module")
+def cycles(tmp_path_factory):
+    """Both masters' ``run_tasks_once`` on the same rows, the port's BPR
+    and AFM from the reference's inits."""
+    from gorse_tpu.models.fm import AFM as RefAFM
+    from gorse_tpu.utils import config as ref_config
+    from gorse_tpu_torch.models import fm as port_fm
+    from gorse_tpu_torch.utils import config as port_config
+
+    tmp = tmp_path_factory.mktemp("cycles")
+    ref_data, ref_cache = RefData(), RefCache()
+    _fill(ref_data, ref_types)
+    ref_blob = RefBlobStore(tmp / "ref_blobs")
+    _stale_entries(ref_cache, ref_blob, ref_ck, ref_types)
+    ref = RefMaster(_cycle_config(RefConfig(), ref_config), ref_data, ref_cache, ref_blob,
+                    RefMeta())
+    ref_loaded = ref.run_tasks_once()
+    ref_init = RefBPR({})
+    ref_init.init(ref_loaded.train, seed=0)
+    factors = (np.asarray(ref_init.user_factors), np.asarray(ref_init.item_factors))
+
+    def afm_init(self, n_features, dims, seed):
+        tree = RefAFM(dict(self.params))._init_params(n_features, dims, seed)
+        flat = {k: np.asarray(tree[k]) for k in ("b", "v", "w")}
+        return port_fm.afm_params_from_numpy(flat, self.device)
+
+    data, cache = MemoryDataStore(), MemoryCacheStore()
+    _fill(data, types)
+    blob = BlobStore(tmp / "blobs")
+    _stale_entries(cache, blob, ck, types)
+    port = Master(_cycle_config(Config(), port_config), data, cache, blob, MetaStore(),
+                  device="cpu")
+    mp = pytest.MonkeyPatch()
+    init = port_bpr.BPR.init
+    mp.setattr(port_bpr.BPR, "init",
+               lambda self, train, seed=0, factors_=None: init(self, train, seed, factors))
+    mp.setattr(port_fm.AFM, "_init_params", afm_init)
+    loaded = port.run_tasks_once()
+    mp.undo()
+    return ref, ref_loaded, port, loaded
+
+
+def test_ctr_model_is_the_reference(cycles):
+    """train_click_through_rate from the reference's init (the reference
+    on its 8-device mesh, the port on the CPU): the same model within the
+    fit tolerance of tests/test_torch_fm.py, its gauges, series and keys."""
+    from test_torch_fm import AUC_TOL, FIT_TOL, _table_share
+
+    ref, _, port, loaded = cycles
+    assert port.ctr_model.n_epochs == CTR_EPOCHS and port.ctr_model.is_fitted()
+    for name in ("v", "w"):
+        share = _table_share(getattr(port.ctr_model.model_params, name),
+                             ref.ctr_model.model_params[name])
+        assert share <= FIT_TOL, (name, share)
+    assert port.ctr_model.index.to_dict() == ref.ctr_model.index.to_dict()
+    assert port.ctr_model.num_dimension == ref.ctr_model.num_dimension == 4
+    text, ref_text = port.metrics.render(), ref.metrics.render()
+    for gauge in ("auc", "precision", "recall"):
+        got, want = (float(re.search(rf"^\w+_master_ranking_model_{gauge} (\S+)$", t, re.M)
+                           .group(1)) for t in (text, ref_text))
+        assert abs(got - want) <= AUC_TOL, gauge
+        (p,), (r,) = (c.get_time_series_points(f"ctr_{gauge}", 0, 1e12)
+                      for c in (port.cache, ref.cache))
+        assert p.value == got and abs(p.value - r.value) <= AUC_TOL
+    assert float(re.search(r"^\w+_master_ranking_fit_seconds (\S+)$", text, re.M).group(1)) > 0
+    ctr_id = port.meta.get(CLICK_THROUGH_RATE_MODEL)
+    assert ctr_id and port.blob.exists(ctr_id)
+    assert port.cache.get(ck.LAST_FIT_RANKING_MODEL_TIME)
+
+
+def test_cycle_fills_the_reference_caches_and_keys(cycles):
+    ref, _, port, _ = cycles
+    assert _meta_keys(port.meta) == _meta_keys(ref.meta)
+    assert {k for k in port.cache._kv if "update_time" not in k and "last_" not in k} == \
+           {k for k in ref.cache._kv if "update_time" not in k and "last_" not in k}
+    for name in ("popular", "latest"):
+        got, want = (c.search_scores(ck.NON_PERSONALIZED, name) for c in (port.cache, ref.cache))
+        assert [(s.id, s.score) for s in got] == [(s.id, s.score) for s in want] and got
+    for collection in (ck.ITEM_TO_ITEM, ck.USER_TO_USER, ck.COLLABORATIVE):
+        subsets = sorted(port.cache.scan_score_subsets(collection))
+        assert subsets == sorted(ref.cache.scan_score_subsets(collection)), collection
+        if collection == ck.COLLABORATIVE:
+            continue
+        for subset in subsets:
+            got, want = (c.search_scores(collection, subset) for c in (port.cache, ref.cache))
+            assert [s.id for s in got] == [s.id for s in want], subset
+            np.testing.assert_allclose([s.score for s in got], [s.score for s in want],
+                                       rtol=1e-6)
+    meta, ref_meta = (json.loads(m.meta.get("CF_MODEL_META")) for m in (port, ref))
+    assert (meta["type"], meta["params"]) == (ref_meta["type"], ref_meta["params"])
+
+
+def test_cycle_collects_the_reference_garbage(cycles):
+    ref, _, port, _ = cycles
+    live = [port.meta.get(COLLABORATIVE_FILTERING_MODEL), port.meta.get(CLICK_THROUGH_RATE_MODEL)]
+    assert port.blob.list() == sorted(live) and len(ref.blob.list()) == 2
+    assert STALE_BLOB not in port.blob.list() + ref.blob.list()
+    for m, mod in ((port, ck), (ref, ref_ck)):
+        def listed(collection):  # subsets with scores left (a pruned subset may stay empty)
+            return {x for x in m.cache.scan_score_subsets(collection)
+                    if m.cache.search_scores(collection, x)}
+
+        assert "retired" not in listed(mod.NON_PERSONALIZED)
+        assert not {"gone/i1", "similar/nope"} & listed(mod.ITEM_TO_ITEM)
+        assert m.cache.get(mod.key(mod.ITEM_TO_ITEM_DIGEST, "similar", "nope")) is None
+        assert listed(mod.COLLABORATIVE) == {"u3"}
+        assert m.cache.get(mod.key(mod.COLLABORATIVE_DIGEST, "ghost")) is None
+    for gauge in ("master_cache_scanned_total", "master_cache_reclaimed_total"):
+        got, want = (float(re.search(rf"^\w+_{gauge} (\S+)$", m.metrics.render(), re.M).group(1))
+                     for m in (port, ref))
+        assert got == want, gauge
+
+
+def test_cycle_accounts_memory(cycles):
+    import time
+
+    _, _, port, _ = cycles
+    deadline = time.time() + 60
+    while port._sizeof_busy and time.time() < deadline:
+        time.sleep(0.05)
+    assert not port._sizeof_busy
+    text = port.metrics.render()
+    for component in ("dataset", "cf_index", "ctr_model"):
+        got = re.search(rf'^\w+_master_memory_inuse_bytes\{{data="{component}"\}} (\S+)$',
+                        text, re.M)
+        assert got and float(got.group(1)) > 0, component
+
+
+def test_master_resumes_the_ctr_model_from_meta(cycles):
+    _, _, port, _ = cycles
+    again = Master(port.config, port.data, port.cache, port.blob, port.meta, device="cpu")
+    assert again.ctr_model is not None
+    assert torch_equal(again.ctr_model.model_params.v, port.ctr_model.model_params.v)
+
+
+def torch_equal(a, b) -> bool:
+    import torch
+
+    return bool(torch.equal(a.detach(), b.detach()))
+
+
+def _tiny_master(tmp_path, **ranker):
+    data = MemoryDataStore()
+    data.insert_items(types.Item(f"i{i}") for i in range(4))
+    data.insert_users(types.User(f"u{u}") for u in range(3))
+    data.insert_feedback(types.Feedback("like", f"u{u}", f"i{(u + j) % 4}", 1.0, 1.0)
+                         for u in range(3) for j in range(2))
+    cfg = Config()
+    cfg.recommend.ranker.fit_epoch = 1
+    for k, v in ranker.items():
+        setattr(cfg.recommend.ranker, k, v)
+    return Master(cfg, data, MemoryCacheStore(), BlobStore(tmp_path), MetaStore(), device="cpu")
+
+
+@pytest.mark.parametrize("how", ["search", "cf_period", "ctr_period"])
+def test_model_search_raises_m12(tmp_path, how):
+    """Hyper-parameter search is not ported: asked for, or come due, it
+    raises naming ROADMAP's M12, after the cycle's tasks."""
+    master = _tiny_master(tmp_path, type="fm", optimize_period=5.0 if how == "ctr_period" else 0)
+    if how == "cf_period":
+        master.config.recommend.collaborative.type = "mf"
+        master.config.recommend.collaborative.fit_epoch = 1
+        master.config.recommend.collaborative.optimize_period = 5.0
+    with pytest.raises(NotImplementedError, match="M12"):
+        master.run_tasks_once(search=how == "search")
+    assert master.meta.get(CLICK_THROUGH_RATE_MODEL)
+
+
+def test_task_loop_runs_until_shutdown(tmp_path, monkeypatch):
+    """serve_background runs a cycle, trigger runs another, a failed
+    cycle does not end the loop, shutdown stops the thread."""
+    import threading
+
+    master = _tiny_master(tmp_path)
+    calls = []
+    ran = threading.Semaphore(0)
+
+    def once(search=False):
+        calls.append(search)
+        ran.release()
+        if len(calls) == 2:
+            raise RuntimeError("a failed cycle")
+
+    monkeypatch.setattr(master, "run_tasks_once", once)
+    master.serve_background()
+    assert ran.acquire(timeout=10)
+    master.trigger()
+    assert ran.acquire(timeout=10)
+    master.trigger()
+    assert ran.acquire(timeout=10)
+    master.shutdown()
+    assert not master._thread.is_alive() and len(calls) >= 3

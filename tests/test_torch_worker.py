@@ -210,7 +210,7 @@ def test_config_defaults_and_digest_match_reference(variant):
     assert port_cfg.recommend.hash() == ref_cfg.recommend.hash()
 
 
-@pytest.mark.parametrize("part", ["fm_ranker", "llm_ranker", "ctr_model", "external_source"])
+@pytest.mark.parametrize("part", ["llm_ranker", "external_source"])
 def test_unported_parts_raise(part, tmp_path):
     """What the slice does not port yet raises NotImplementedError naming its
     ROADMAP item, instead of serving something else."""
@@ -220,10 +220,152 @@ def test_unported_parts_raise(part, tmp_path):
     data, cache = MemoryDataStore(), MemoryCacheStore()
     worker = Worker(cfg, data, cache, BlobStore(tmp_path), device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        if part == "ctr_model":
-            worker.pull_models("", "2000")
-        elif part == "external_source":
+        if part == "external_source":
             Recommender(cfg.recommend, cache, data, online=True, user_id="u0").parse("external/x")
         else:
             cfg.recommend.ranker.type = part.split("_")[0]
             worker._rank({"u0": []})
+
+
+# ------------------------------------------------------------ the fm ranker
+
+FM_MODEL_ID = "2000"
+FM_TOL = 1e-5  # logits of |x| < 10 summed in another order
+
+
+def _save_ref_afm(blob_root, users, items, user_labels, item_labels, num_dimension, seed=0):
+    """A reference AFM over these ids (random parameters, wide enough to
+    spread the logits), saved as blob FM_MODEL_ID."""
+    from gorse_tpu.data.dict import Index as RefIndex_
+    from gorse_tpu.data.unified_index import UnifiedIndex as RefUnified
+    from gorse_tpu.models.fm import AFM as RefAFM
+
+    dicts = []
+    for names in (users, items, user_labels, item_labels):
+        d = RefIndex_()
+        for name in names:
+            d.add(name)
+        dicts.append(d)
+    model = RefAFM({"n_factors": 4, "init_stddev": 0.7})
+    model.index = RefUnified(*dicts)
+    model.num_dimension = num_dimension
+    model.model_params = model._init_params(len(model.index), [], seed)
+    model.save(RefBlobStore(blob_root).create(FM_MODEL_ID))
+
+
+def _assert_ranked(got: list, want: list, what: str):
+    """Tie-aware: the same candidates and scores within FM_TOL; ids equal
+    wherever the reference's neighbouring scores are more than 2 FM_TOL
+    apart."""
+    assert sorted(s.id for s in got) == sorted(s.id for s in want), what
+    ws = np.array([s.score for s in want])
+    by_id = {s.id: s.score for s in got}
+    np.testing.assert_allclose([by_id[s.id] for s in want], ws, rtol=0, atol=FM_TOL)
+    assert all(a.score >= b.score for a, b in zip(got, got[1:])), what
+    gap = np.full(len(ws), np.inf)
+    if len(ws) > 1:
+        d = np.abs(np.diff(ws))
+        gap[:-1] = d
+        gap[1:] = np.minimum(gap[1:], d)
+    for pos in np.flatnonzero(gap > 2 * FM_TOL):
+        assert got[pos].id == want[pos].id, (what, pos)
+
+
+def _labelled_stores(t):
+    """Users with 0-2 labels (one unknown to the model), items with 1-3
+    labels in two fields, from a seed; either package's types."""
+    rng = np.random.default_rng(5)
+    data = RefData() if t is ref_types else MemoryDataStore()
+    data.insert_users(t.User(f"u{u}", labels=[f"g{g}" for g in range(u % 3)] + (["new"] if u == 4
+                                                                                 else []))
+                      for u in range(40))
+    data.insert_items(t.Item(f"i{i}", categories=[f"c{i % 3}"],
+                             labels={"tag": [f"t{x}" for x in rng.choice(6, 1 + i % 2, False)],
+                                     "genre": [f"x{i % 4}"] if i % 3 == 0 else []})
+                      for i in range(120))
+    return data
+
+
+def test_fm_ranking_is_the_reference(tmp_path):
+    """``_rank`` with ``ranker.type = "fm"`` on the same saved model and
+    candidates: every user's ranking, tie-aware. Some users, items and
+    labels are unknown to the model, and some rows exceed its
+    ``num_dimension`` (6 features against 5): they are cut as the
+    reference cuts them."""
+    from gorse_tpu_torch.logics.item_to_item import _flatten_labels
+
+    blobs = tmp_path / "blobs"
+    stores = {}
+    for t in (types, ref_types):
+        stores[t] = _labelled_stores(t)
+    port_data = stores[types]
+    item_labels = sorted({label for item in port_data.get_items()
+                          for label in _flatten_labels(item.labels)})
+    _save_ref_afm(blobs, [f"u{u}" for u in range(36)], [f"i{i}" for i in range(110)],
+                  ["g0", "g1"], item_labels, num_dimension=5)
+    rng = np.random.default_rng(9)
+    picks = {f"u{u}": rng.choice(130, size=int(rng.integers(0, 50)), replace=False)
+             for u in list(range(40)) + [77]}
+    ranked = []
+    for t, worker_cls, cache_cls, blob_cls, cfg in (
+        (types, Worker, MemoryCacheStore, BlobStore, Config()),
+        (ref_types, RefWorker, RefCache, RefBlobStore, RefConfig()),
+    ):
+        cfg.recommend.ranker.type = "fm"
+        kw = {"device": "cpu"} if t is types else {}
+        worker = worker_cls(cfg, stores[t], cache_cls(), blob_cls(blobs), **kw)
+        worker.pull_models("", FM_MODEL_ID)
+        assert worker.ctr_model_id == FM_MODEL_ID and worker.ctr_model.is_fitted()
+        candidates = {u: [t.Score(f"i{j}", float(j % 7), [f"c{j % 3}"], 5.0) for j in js]
+                      for u, js in picks.items()}
+        ranked.append(worker._rank(candidates))
+    got, want = ranked
+    assert list(got) == list(want)
+    for user in want:
+        _assert_ranked(got[user], want[user], user)
+        assert all(s.timestamp == 5.0 and s.categories == [f"c{int(s.id[1:]) % 3}"]
+                   for s in got[user])
+    assert sum(len(v) for v in got.values()) > 500
+
+
+def test_fm_without_a_model_sorts_the_candidates(tmp_path):
+    cfg = _configure(Config())
+    cfg.recommend.ranker.type = "fm"
+    worker = Worker(cfg, MemoryDataStore(), MemoryCacheStore(), BlobStore(tmp_path), device="cpu")
+    worker.pull_models("", "missing")  # no such blob: nothing pulled
+    assert worker.ctr_model is None
+    scores = [types.Score(f"i{j}", s) for j, s in enumerate([0.5, 2.0, -1.0, 2.0])]
+    assert [s.id for s in worker._rank({"u0": scores})["u0"]] == ["i1", "i3", "i0", "i2"]
+
+
+def test_fm_recommend_caches_match_reference(stacks, tmp_path):
+    """The whole worker pass with the fm ranker over the CF candidates (the
+    slice as a whole): every user's ``recommend`` cache, tie-aware."""
+    (ref_cfg, ref_data, ref_cache, ref_worker), (cfg, data, cache, worker), users = stacks
+    _save_ref_afm(tmp_path / "blobs", [f"u{u}" for u in range(N_USERS)],
+                  [f"i{i}" for i in range(N_ITEMS)], [], [], num_dimension=2, seed=3)
+    for c, w in ((ref_cfg, ref_worker), (cfg, worker)):
+        c.recommend.ranker.type = "fm"
+        w.blob = (RefBlobStore if w is ref_worker else BlobStore)(tmp_path / "blobs")
+        w.pull_models("", FM_MODEL_ID)
+        assert w.recommend(users, force=True) == len(users)
+    for uid in users:
+        got, want = (c.search_scores(ck.RECOMMEND, uid) for c in (cache, ref_cache))
+        _assert_ranked(got, want, uid)
+    assert worker.ctr_model.device.type == "cpu"
+
+
+def test_gc_paused_restores_the_collector():
+    import gc
+
+    from gorse_tpu_torch.utils.gcpause import gc_paused
+
+    assert gc.isenabled()
+    with pytest.raises(RuntimeError):
+        with gc_paused():
+            assert not gc.isenabled()
+            with gc_paused():
+                assert not gc.isenabled()
+            assert not gc.isenabled()  # the inner block leaves it paused
+            raise RuntimeError
+    assert gc.isenabled()
