@@ -105,7 +105,7 @@ kernel's own block maxima.
    ``train_collaborative_filtering`` (fit_epoch cut to 10: ten launches of
    ``bpr_epoch``) on the card;
    the index saved to a blob store; ``Worker.sync_and_recommend`` of the
-   master's meta fills every user's cache; a sample of fetched lists agrees
+   master fills every user's cache; a sample of fetched lists agrees
    with the plain top-k, the caches equal them after the exclusions, and
    ``GET /api/recommend`` equals the cache; each chunk's launches are those
    of the route ``kernel_route`` gives its fetch (the group gate on this
@@ -164,8 +164,10 @@ kernel's own block maxima.
    host clock ending on a synchronise (padded examples/s, ms a step), the
    kernels of an epoch and their device time from a ``torch.profiler``
    trace; ``tests/test_fm.py``'s accuracy gate on the card (AUC > 0.75).
-   Then phase 8's ml-1m data without the embedding label, each user with a
-   gender (2), an age (7) and an occupation (21) from the seed;
+   Then phase 8's ml-1m data without the embedding label, its first 2,000
+   users (``CTR_USERS``; phase 10 runs the cycle at full width) and their
+   rows, each user with a gender (2), an age (7) and an occupation (21)
+   from the seed;
    ``ranker.type = "fm"`` over the ``collaborative`` candidates, the AFM's
    ``fit_epoch`` cut to 3. One ``Master.run_tasks_once`` on the card: each
    load step's gauge, the CTR dataset's size, the CTR fit's gauge and AUC,
@@ -179,6 +181,28 @@ kernel's own block maxima.
    host's share); 16 users' ``recommend`` caches held tie-aware against a
    CPU worker's ranking of the same candidates by the same saved model
    (``RANK_TOL``); ``GET /api/recommend/u1`` equals the cache.
+
+10. The in-one node from ``config.toml.example``. Phase 9's ml-1m rows
+   for all 6,040 users (each feedback a star, a like or a read of value
+   3-5, the example's positive types, from the seed) through ``SQLiteDataStore`` into a
+   temporary directory, its counts read back from a fresh ``sqlite://``
+   store. A copy of the example with its four stores and blob directory
+   there and only the cuts of ``IN_ONE_CUTS`` (the loaded config equal to
+   the example's in every other value). ``InOneNode`` on the card and one
+   ``run_once``: the master's whole cycle, the CF search (10 trials) and
+   the CTR search that the example's ``optimize_period`` makes due, the
+   worker's shard; ``bpr_epoch``, ``block_max``, ``block_seeds``,
+   ``block_topk`` and ``merge_topk`` each launch. Held: ``meta.sqlite``
+   names both models and their blobs exist; the search keys and gauges;
+   every user's list in ``cache.sqlite`` only catalog ids, none the user
+   likes, at most ``cache_size``; 16 users' REST answers equal the cache and
+   their lists a CPU worker's ranking (``RANK_TOL``); a second node on the
+   same files resumes both models and its worker writes the same lists;
+   ``python -m gorse_tpu_torch.serve.in_one`` as a subprocess answers
+   ``/api/health/ready`` and ``/api/recommend/u1`` and ends on SIGINT with
+   exit code 0. Printed: the insert's seconds and each file's size, the
+   load steps beside phase 9's memory store, each task's seconds, both
+   searches, the BPR fit, the worker's steps, REST p50/p99 beside phase 3's.
 
 The last three lines of standard output are the kernels' JSON record, the
 card's ``name, power.limit`` as nvidia-smi gives them, and
@@ -296,6 +320,10 @@ AFM_K, AFM_BATCH, AFM_REPS = 8, 1024, 5
 AFM_GATE_AUC = 0.75
 USER_FIELDS = (("gender", 2), ("age", 7), ("occupation", 21))
 CTR_EPOCHS = 3
+# phase 9's cycle keeps the first 2,000 of ml-1m's 6,040 users and their
+# rows (time: phase 10 runs the same cycle at full width through the in-one
+# node)
+CTR_USERS = 2000
 # the card's AFM epoch against the port's on the CPU from the same init
 # (drawn on the host): the gather's backward adds by atomics and the sums
 # run in another order, and Adam divides each step's rounding by the root
@@ -304,7 +332,20 @@ AFM_TOL = 1e-3
 # the worker's fm scores against a CPU batch_predict: a logit sums at most
 # 8 x 8 products in another order
 RANK_TOL = 2.0**-14
-PHASES = ("2", "2b", "2c", "3", "4", "5", "6", "7", "7c", "8", "9")
+# phase 10: the in-one node from a copy of config.toml.example, its stores
+# in a temporary directory; only these values are cut (section, key,
+# value, why)
+IN_ONE_CUTS = (
+    ("recommend.ranker", "fit_epoch", "3", "time: an AFM epoch at ml-1m takes 5-7 s"),
+    ("recommend.ranker", "optimize_trials", "1", "time: each AFM search trial is a fit"),
+    ("recommend.collaborative", "model_search_epoch", "2",
+     "time: the epochs of every CF and every AFM search trial"),
+)
+# the example's positive types: "read" rows carry a value of at least 3
+IN_ONE_TYPES = ("star", "like", "read")
+IN_ONE_START_S = 300  # the entry point's subprocess answers within this
+IN_ONE_STOP_S = 60  # and ends on SIGINT within this
+PHASES = ("2", "2b", "2c", "3", "4", "5", "6", "7", "7c", "8", "9", "10")
 SQ_REPLACES = {
     "block_max_sq": "gorse_tpu/ops/topk.py:361",
     "block_topk_sq": "gorse_tpu/ops/topk.py:442",
@@ -1967,7 +2008,7 @@ def phase_master(dev) -> dict:
         zero_counts()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        refreshed = worker.sync_and_recommend(meta)
+        refreshed = worker.sync_and_recommend(master)
         torch.cuda.synchronize()
         result["recommend_s"] = time.perf_counter() - t0
         topk_launches = {n: getattr(topk, n).launches for n in KERNELS}
@@ -2421,15 +2462,20 @@ def phase_wide_k(dev, seed: int) -> dict:
 # ---------------------------------------------------------------- phase 8
 
 
-def neighbor_store(seed: int, embedding: bool = True, user_fields=()):
-    """Phase 6's ml-1m-shaped feedback in a MemoryDataStore, its items with
-    1-3 of 18 genres, a 16-float ``embedding`` label (with ``embedding``),
-    a category and a timestamp, its users with one value of each of
-    ``user_fields`` ((name, size) pairs), all from ``seed``."""
+def neighbor_store(seed: int, embedding: bool = True, user_fields=(), data=None,
+                   feedback_type=None, n_users=None):
+    """Phase 6's ml-1m-shaped feedback in ``data`` (a new MemoryDataStore by
+    default), its items with 1-3 of 18 genres, a 16-float ``embedding``
+    label (with ``embedding``), a category and a timestamp, its users with
+    one value of each of ``user_fields`` ((name, size) pairs), all from
+    ``seed``. Each row is a ``like`` of value 1, or with ``feedback_type``
+    the (type, value) it gives the row's number. With ``n_users``, only the
+    first that many users and their rows."""
     from gorse_tpu_torch.data.loaders import synthetic_cf
     from gorse_tpu_torch.storage.data import MemoryDataStore
     from gorse_tpu_torch.storage.types import Feedback, Item, User
 
+    keep_users = n_users
     n_users, n_items, rank, density, data_seed = MASTER_SHAPE
     ds = synthetic_cf(n_users, n_items, rank, density, data_seed)
     rng = np.random.default_rng(seed)
@@ -2438,19 +2484,22 @@ def neighbor_store(seed: int, embedding: bool = True, user_fields=()):
     embeddings = rng.standard_normal((n_items, EMBED_DIM), dtype=np.float32)
     stamps = rng.integers(0, 1_000_000, size=n_items)
     fields = [(name, rng.integers(size, size=n_users)) for name, size in user_fields]
-    data = MemoryDataStore()
+    data = MemoryDataStore() if data is None else data
+    feedback_type = feedback_type or (lambda n: ("like", 1.0))
     data.insert_items(
         Item(f"i{i}", categories=[f"c{i % N_CATEGORIES}"], timestamp=float(stamps[i]),
              labels={"genre": [f"g{g}" for g in genres[i]],
                      **({"embedding": embeddings[i].tolist()} if embedding else {})})
         for i in range(n_items))
+    kept = n_users if keep_users is None else keep_users
     data.insert_users(User(f"u{u}", labels={name: str(v[u]) for name, v in fields})
-                      for u in range(n_users))
-    data.insert_feedback(
-        Feedback("like", f"u{u}", f"i{i}", 1.0, ts)
-        for u, (fb, stamps) in enumerate(zip(ds.user_feedback, ds.timestamps))
-        for i, ts in zip(fb, stamps)
-    )
+                      for u in range(kept))
+    rows = ((f"u{u}", f"i{i}", ts)
+            for u, (fb, stamps) in enumerate(zip(ds.user_feedback[:kept], ds.timestamps[:kept]))
+            for i, ts in zip(fb, stamps))
+    data.insert_feedback(Feedback(t, user, item, value, ts)
+                         for n, (user, item, ts) in enumerate(rows)
+                         for t, value in (feedback_type(n),))
     return data
 
 
@@ -2619,7 +2668,7 @@ def phase_neighbors(dev, smi: str) -> dict:
         zero_counts()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        refreshed = worker.sync_and_recommend(meta)
+        refreshed = worker.sync_and_recommend(master)
         torch.cuda.synchronize()
         result["recommend_s"] = time.perf_counter() - t0
         launches = {n: getattr(topk, n).launches for n in KERNELS}
@@ -2846,6 +2895,36 @@ def gauge(registry, name: str, labels: str = "") -> float:
     return float(found.group(1))
 
 
+def same_ranking(what: str, got, want) -> float:
+    """Two ranked lists of Scores held tie-aware within ``RANK_TOL`` by
+    ``compare_lists`` (ids by position in ``want``); the largest
+    |s - s_want| / tol."""
+    import torch
+
+    s = torch.tensor([[x.score for x in got]], dtype=torch.float64)
+    s_p = torch.tensor([[x.score for x in want]], dtype=torch.float64)
+    index = {x.id: n for n, x in enumerate(want)}
+    check(len(got) == len(want) and set(index) == {x.id for x in got},
+          f"{what}: the same {len(want)} ids")
+    i = torch.tensor([[index[x.id] for x in got]])
+    i_p = torch.arange(len(want))[None, :]
+    return compare_lists(what, s, i, s_p, i_p, RANK_TOL * (1.0 + s.abs()),
+                         RANK_TOL * (1.0 + s_p.abs()))
+
+
+def hold_ranking(lists: dict, cpu_worker) -> float:
+    """Each user's ranked list from the card (``lists``: user -> Scores)
+    against ``cpu_worker``'s ranking of the same candidates by the same
+    saved model, tie-aware; the largest |s - s_cpu| / tol."""
+    from gorse_tpu_torch.storage.types import Score
+
+    worst = 0.0
+    for uid, got in lists.items():
+        want = cpu_worker._rank({uid: [Score(s.id, 0.0, s.categories) for s in got]})[uid]
+        worst = max(worst, same_ranking(f"{uid}: fm ranking", got, want))
+    return worst
+
+
 def phase_ctr(dev, smi: str) -> dict:
     import torch
 
@@ -2858,12 +2937,11 @@ def phase_ctr(dev, smi: str) -> dict:
     from gorse_tpu_torch.storage.blob import BlobStore
     from gorse_tpu_torch.storage.cache import MemoryCacheStore
     from gorse_tpu_torch.storage.meta import CLICK_THROUGH_RATE_MODEL, MetaStore
-    from gorse_tpu_torch.storage.types import Score
     from gorse_tpu_torch.utils.config import Config
 
     result = {"afm": hold_afm(dev, smi)}
     t0 = time.perf_counter()
-    data = neighbor_store(0, embedding=False, user_fields=USER_FIELDS)
+    data = neighbor_store(0, embedding=False, user_fields=USER_FIELDS, n_users=CTR_USERS)
     result["data_s"] = time.perf_counter() - t0
     cfg = Config()
     cfg.recommend.collaborative.type = "mf"
@@ -2961,7 +3039,7 @@ def phase_ctr(dev, smi: str) -> dict:
         worker.pull_models(cf_id, ctr_id)
         inner = worker.ctr_model.predict_padded
         worker.ctr_model.predict_padded = lambda *a, **k: timed_predict(*a, _inner=inner, **k)
-        refreshed = worker.sync_and_recommend(master.get_meta())
+        refreshed = worker.sync_and_recommend(master)
         torch.cuda.synchronize()
         recommend_s = time.perf_counter() - t0
         launches = {n: getattr(topk, n).launches for n in KERNELS}
@@ -2988,19 +3066,10 @@ def phase_ctr(dev, smi: str) -> dict:
         cpu_worker.pull_models("", ctr_id)
         rng = np.random.default_rng(3)
         users = [f"u{u}" for u in sorted(rng.choice(n_users, MASTER_SAMPLE_USERS, replace=False))]
-        worst = 0.0
-        for uid in users:
-            got = master.cache.search_scores(ck.RECOMMEND, uid)
+        lists = {uid: master.cache.search_scores(ck.RECOMMEND, uid) for uid in users}
+        for uid, got in lists.items():
             check(len(got) == cfg.recommend.cache_size, f"{uid}: {len(got)} ranked candidates")
-            want = cpu_worker._rank({uid: [Score(s.id, 0.0, s.categories) for s in got]})[uid]
-            s = torch.tensor([[x.score for x in got]], dtype=torch.float64)
-            s_p = torch.tensor([[x.score for x in want]], dtype=torch.float64)
-            index = {x.id: n for n, x in enumerate(want)}
-            i = torch.tensor([[index[x.id] for x in got]])
-            i_p = torch.arange(len(want))[None, :]
-            tol = RANK_TOL * (1.0 + s_p.abs())
-            worst = max(worst, compare_lists(f"{uid}: fm ranking", s, i, s_p, i_p,
-                                             RANK_TOL * (1.0 + s.abs()), tol))
+        worst = hold_ranking(lists, cpu_worker)
         result["rank_hold_worst"] = worst
         log(f"  {len(users)} users' recommend caches equal a CPU batch_predict of the same "
             f"candidates (tie-aware; largest |s - s_cpu| / tol {worst:.3g})")
@@ -3018,6 +3087,355 @@ def phase_ctr(dev, smi: str) -> dict:
         want = [s.id for s in master.cache.search_scores(ck.RECOMMEND, "u1")]
         check(resp.status == 200 and body == want[: cfg.server.default_n] and body,
               "GET /api/recommend/u1 equals the recommend cache")
+    return result
+
+
+# ---------------------------------------------------------------- phase 10
+
+
+def toml_set(text: str, section: str, key: str, value: str) -> str:
+    """``key = value`` in ``[section]`` of a TOML text: the existing line
+    replaced, or a new line after the header."""
+    lines = text.split("\n")
+    start = lines.index(f"[{section}]")
+    end = next((n for n in range(start + 1, len(lines)) if lines[n].startswith("[")), len(lines))
+    for n in range(start + 1, end):
+        if re.match(rf"{re.escape(key)}\s*=", lines[n]):
+            lines[n] = f"{key} = {value}"
+            return "\n".join(lines)
+    lines.insert(start + 1, f"{key} = {value}")
+    return "\n".join(lines)
+
+
+def in_one_config(tmp: Path) -> tuple[Path, dict]:
+    """A copy of config.toml.example in ``tmp``: the four stores and the
+    blob directory in ``tmp`` (absolute paths) and ``IN_ONE_CUTS``; the
+    changes made, as (section, key) -> value."""
+    text = (ROOT / "config.toml.example").read_text()
+    changes = {("database", "data_store"): f'"sqlite://{tmp}/data.sqlite"',
+               ("database", "cache_store"): f'"sqlite://{tmp}/cache.sqlite"',
+               ("database", "vector_store"): f'"sqlite://{tmp}/vector.sqlite"',
+               ("database", "meta_store"): f'"{tmp}/meta.sqlite"',
+               ("blob", "uri"): f'"{tmp}/blob"'}
+    changes.update({(section, k): v for section, k, v, _ in IN_ONE_CUTS})
+    for (section, k), v in changes.items():
+        text = toml_set(text, section, k, v)
+    path = tmp / "config.toml"
+    path.write_text(text)
+    return path, changes
+
+
+def hold_config(cfg, changes: dict) -> None:
+    """The loaded copy equals the example, loaded the same way, in every
+    value but the changed ones."""
+    import dataclasses
+    import tomllib
+
+    from gorse_tpu_torch.utils.config import load_config
+
+    want = dataclasses.asdict(load_config(ROOT / "config.toml.example"))
+    got = dataclasses.asdict(cfg)
+    for (section, k), v in changes.items():
+        node_got, node_want = got, want
+        for part in section.split("."):
+            node_got, node_want = node_got[part], node_want[part]
+        check(node_got[k] == tomllib.loads(f"v = {v}")["v"], f"config: {section}.{k} = {v}")
+        node_want[k] = node_got[k]
+    check(got == want, "config: every other value is the example's")
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def get_json(port: int, path: str, timeout: float = 30) -> tuple[int, object]:
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=timeout)
+    try:
+        conn.request("GET", path)
+        resp = conn.getresponse()
+        return resp.status, json.loads(resp.read())
+    finally:
+        conn.close()
+
+
+def phase_entry_point(config: Path, workdir: Path, catalog: set, log_path: Path) -> dict:
+    """``python -m gorse_tpu_torch.serve.in_one --config ...`` as a
+    subprocess: ready and a recommendation of catalog ids within
+    ``IN_ONE_START_S``, then SIGINT ends it with exit code 0."""
+    import signal
+
+    port = free_port()
+    cmd = [sys.executable, "-m", "gorse_tpu_torch.serve.in_one", "--config", str(config),
+           "--port", str(port), "--workdir", str(workdir)]
+    t0 = time.perf_counter()
+    with open(log_path, "w") as out:
+        proc = subprocess.Popen(cmd, cwd=ROOT, stdout=out, stderr=subprocess.STDOUT)
+        try:
+            ready_s = None
+            while time.perf_counter() - t0 < IN_ONE_START_S and proc.poll() is None:
+                try:
+                    if get_json(port, "/api/health/ready", timeout=5)[0] == 200:
+                        ready_s = time.perf_counter() - t0
+                        break
+                except OSError:
+                    pass
+                time.sleep(0.5)
+            check(ready_s is not None, f"the entry point answered /api/health/ready within "
+                  f"{IN_ONE_START_S} s (exit code {proc.poll()})")
+            status, body = get_json(port, "/api/recommend/u1")
+            answer_s = time.perf_counter() - t0
+            check(status == 200 and bool(body) and set(body) <= catalog,
+                  f"the entry point's /api/recommend/u1 gives catalog ids: {status} {body}")
+            proc.send_signal(signal.SIGINT)
+            t1 = time.perf_counter()
+            code = proc.wait(timeout=IN_ONE_STOP_S)
+            stop_s = time.perf_counter() - t1
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    if proc.returncode != 0:
+        log(log_path.read_text()[-4000:])
+    check(code == 0, f"the entry point ends on SIGINT with exit code 0, not {code}")
+    return {"ready_s": ready_s, "answer_s": answer_s, "stop_s": stop_s, "u1": body}
+
+
+class CommitClock:
+    """Stands in for a SQLite store's connection: counts its commits and
+    their seconds on the host clock, and passes every other call on."""
+
+    def __init__(self, conn) -> None:
+        self._conn, self.commits, self.seconds = conn, 0, 0.0
+
+    def commit(self) -> None:
+        t0 = time.perf_counter()
+        self._conn.commit()
+        self.seconds += time.perf_counter() - t0
+        self.commits += 1
+
+    def __getattr__(self, name):
+        return getattr(self._conn, name)
+
+
+def phase_in_one(dev, smi: str, seed: int, earlier: dict) -> dict:
+    """The in-one node from a copy of config.toml.example on the card: phase
+    9's ml-1m data into data.sqlite, one ``run_once`` (the master's whole
+    cycle with both searches due, the worker's shard), REST, a second node
+    resuming from the files, and the entry point as a subprocess."""
+    import torch
+
+    from gorse_tpu_torch.ops import bpr_kernel, topk
+    from gorse_tpu_torch.serve.in_one import InOneNode
+    from gorse_tpu_torch.serve.worker import Worker
+    from gorse_tpu_torch.storage import cache as ck
+    from gorse_tpu_torch.storage.cache import MemoryCacheStore, open_cache_store
+    from gorse_tpu_torch.storage.data import SQLiteDataStore, open_data_store
+    from gorse_tpu_torch.storage.meta import (
+        CLICK_THROUGH_RATE_MODEL,
+        COLLABORATIVE_FILTERING_MODEL,
+        MetaStore,
+    )
+    from gorse_tpu_torch.utils.config import load_config
+
+    result = {"card": smi}
+    with tempfile.TemporaryDirectory(prefix="gorse_in_one_") as tmp_name:
+        tmp = Path(tmp_name)
+        # ---- the data through the port's SQLite store
+        rng = np.random.default_rng(seed + 10)
+        picks = rng.integers(len(IN_ONE_TYPES), size=1 << 21)
+        reads = rng.integers(3, 6, size=1 << 21)
+
+        def feedback_type(n):
+            t = IN_ONE_TYPES[picks[n]]
+            return t, float(reads[n]) if t == "read" else 1.0
+
+        t0 = time.perf_counter()
+        store = SQLiteDataStore(str(tmp / "data.sqlite"))
+        neighbor_store(0, embedding=False, user_fields=USER_FIELDS, data=store,
+                       feedback_type=feedback_type)
+        insert_s = time.perf_counter() - t0
+        written = (store.count_users(), store.count_items(), store.count_feedback())
+        catalog = {i.item_id for i in store.get_items()}
+        liked: dict[str, set] = {}
+        for fb in store.get_feedback():
+            liked.setdefault(fb.user_id, set()).add(fb.item_id)
+        store.close()
+        check(written[2] < len(picks), "the types cover every feedback row")
+        fresh = open_data_store(f"sqlite://{tmp / 'data.sqlite'}")
+        read_back = (fresh.count_users(), fresh.count_items(), fresh.count_feedback())
+        fresh.close()
+        check(read_back == written, f"data.sqlite read back {read_back}, written {written}")
+        result.update(insert_s=insert_s, users=written[0], items=written[1], feedback=written[2])
+        log(f"  {written[2]:,} feedback rows ({'/'.join(IN_ONE_TYPES)}), {written[0]} users, "
+            f"{written[1]} items inserted through SQLiteDataStore in {insert_s:.1f} s; a fresh "
+            f"sqlite:// store reads the same counts")
+
+        # ---- the config: the example with the stores in tmp and the cuts
+        config_path, changes = in_one_config(tmp)
+        cfg = load_config(config_path)
+        hold_config(cfg, changes)
+        for section, k, v, why in IN_ONE_CUTS:
+            log(f"  cut: [{section}] {k} = {v} ({why})")
+
+        # ---- one cycle through the node, every launch count at 0 before
+        node = InOneNode(cfg, workdir=str(tmp))
+        check(node.device == dev, f"the in-one node runs on {node.device}")
+        clocks = {"cache": CommitClock(node.cache._conn), "data": CommitClock(node.data._conn)}
+        node.cache._conn, node.data._conn = clocks["cache"], clocks["data"]
+        zero_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        summary = node.run_once()
+        torch.cuda.synchronize()
+        cycle_s = time.perf_counter() - t0
+        launches = {n: getattr(topk, n).launches for n in KERNELS}
+        launches["bpr_epoch"] = bpr_kernel.bpr_epoch.launches
+        commits = {k: {"commits": c.commits, "seconds": c.seconds} for k, c in clocks.items()}
+        master, worker = node.master, node.worker
+        t0 = time.perf_counter()
+        while master._sizeof_busy and time.perf_counter() - t0 < 300:
+            time.sleep(0.1)
+        check(not master._sizeof_busy, "the master's memory accounting finished")
+        accounting_s = time.perf_counter() - t0
+        check(all(c > 0 for c in launches.values()),
+              f"the in-one cycle launches {launches}, each must be above 0")
+        spans = {}
+        for span in master.progress.list():
+            if span.get("FinishTime"):
+                spans[span["Name"]] = span["FinishTime"] - span["StartTime"]
+        steps = {step: gauge(master.metrics, "master_load_dataset_step_seconds",
+                             f'{{step="{step}"}}')
+                 for step in ("load_items", "load_users", "load_positive_feedback",
+                              "split_ranking_dataset", "create_ranking_dataset")}
+        searches = {
+            "cf_s": gauge(master.metrics, "master_collaborative_filtering_search_seconds"),
+            "cf_ndcg": gauge(master.metrics, "master_collaborative_filtering_search_precision_10"),
+            "ctr_s": gauge(master.metrics, "master_ranking_search_seconds"),
+            "ctr_auc": gauge(master.metrics, "master_ranking_search_precision"),
+        }
+        check(all(v > 0 for v in searches.values()), f"search gauges {searches}")
+        worker_steps = {step: float(v) for step, v in re.findall(
+            r'^\w*worker_offline_recommend_step_seconds\{step="([^"]+)"\} (\S+)$',
+            worker.metrics.render(), re.M)}
+        check({"collaborative_recommend", "ranking"} <= set(worker_steps),
+              f"worker step gauges {worker_steps}")
+        n_users = written[0]
+        check(summary["users_refreshed"] == n_users,
+              f"the worker refreshed {summary['users_refreshed']} of {n_users} users")
+        result.update(
+            cycle_s=cycle_s, launches=launches, commits=commits, accounting_s=accounting_s,
+            spans=spans,
+            load_steps=steps, searches=searches, worker_steps=worker_steps,
+            cf_fit_s=gauge(master.metrics, "master_collaborative_filtering_fit_seconds"),
+            ctr_fit_s=gauge(master.metrics, "master_ranking_fit_seconds"),
+            ctr_auc=gauge(master.metrics, "master_ranking_model_auc"),
+            sizes_bytes={p.name: p.stat().st_size for p in sorted(tmp.glob("*.sqlite"))})
+        phase9 = earlier.get("load_steps")
+        log(f"  run_once {cycle_s:.1f} s ({smi}); memory accounting {accounting_s:.1f} s after "
+            f"it; launches {json.dumps(launches)}; SQLite commits in the cycle "
+            f"{json.dumps(commits)}")
+        log(f"  load steps (s), SQLite: {json.dumps({k: round(v, 3) for k, v in steps.items()})}"
+            + (f"; phase 9's memory store: {json.dumps({k: round(v, 3) for k, v in phase9.items()})}"
+               if phase9 else ""))
+        log(f"  tasks (s): {json.dumps({k: round(v, 3) for k, v in spans.items()})}")
+        log(f"  CF search {searches['cf_s']:.2f} s, best NDCG@10 {searches['cf_ndcg']:.4f}; CTR "
+            f"search {searches['ctr_s']:.2f} s, best AUC {searches['ctr_auc']:.4f}; BPR fit "
+            f"{result['cf_fit_s']:.3f} s; CTR fit {result['ctr_fit_s']:.2f} s, AUC "
+            f"{result['ctr_auc']:.4f}; worker steps (s) {json.dumps(worker_steps)}")
+        log(f"  SQLite files (bytes): {json.dumps(result['sizes_bytes'])}")
+
+        # ---- the files as a fresh process would read them
+        meta = MetaStore(str(tmp / "meta.sqlite"))
+        cf_id, ctr_id = meta.get(COLLABORATIVE_FILTERING_MODEL), meta.get(CLICK_THROUGH_RATE_MODEL)
+        for name in ("BEST_PARAMS_CF", "CF_SEARCH_TARGET", "BEST_PARAMS_CTR"):
+            check(bool(meta.get(name)), f"meta.sqlite holds {name}")
+        result["search_meta"] = {n: json.loads(meta.get(n)) for n in
+                                 ("BEST_PARAMS_CF", "CF_SEARCH_TARGET", "BEST_PARAMS_CTR")}
+        meta.close()
+        check(bool(cf_id and ctr_id) and (tmp / "blob" / cf_id).is_dir()
+              and (tmp / "blob" / ctr_id).is_dir(),
+              f"meta.sqlite names a CF model {cf_id} and a CTR model {ctr_id} with blobs")
+        cache = open_cache_store(f"sqlite://{tmp / 'cache.sqlite'}")
+        lists: dict[str, list] = {}
+        for subset, score in cache.scan_scores(ck.RECOMMEND):
+            lists.setdefault(subset, []).append(score)
+        check(len(lists) == n_users, f"cache.sqlite holds {len(lists)} users' lists of {n_users}")
+        for uid, scores in lists.items():
+            ids = [x.id for x in scores]
+            check(0 < len(ids) <= cfg.recommend.cache_size and set(ids) <= catalog
+                  and not set(ids) & liked.get(uid, set()),
+                  f"{uid}: {len(ids)} catalog ids, none liked")
+        rng = np.random.default_rng(3)
+        users = [f"u{u}" for u in sorted(rng.choice(n_users, MASTER_SAMPLE_USERS, replace=False))]
+        sample = {uid: cache.search_scores(ck.RECOMMEND, uid) for uid in users}
+
+        # ---- REST from the SQLite cache
+        httpd = node.serve("127.0.0.1", 0, background_loop=False)
+        port = httpd.server_address[1]
+        try:
+            for uid in users:
+                status, body = get_json(port, f"/api/recommend/{uid}")
+                want = [x.id for x in sample[uid]][: cfg.server.default_n]
+                check(status == 200 and body == want, f"GET /api/recommend/{uid} equals the cache")
+            conn = http.client.HTTPConnection("127.0.0.1", port, timeout=30)
+            lat = []
+            for r in range(REST_REQUESTS):
+                t0 = time.perf_counter()
+                conn.request("GET", f"/api/recommend/u{r % n_users}")
+                resp = conn.getresponse()
+                resp.read()
+                lat.append((time.perf_counter() - t0) * 1e3)
+                check(resp.status == 200, "GET /api/recommend answers 200")
+            conn.close()
+        finally:
+            node.shutdown()
+        lat.sort()
+        result.update(rest_p50_ms=lat[len(lat) // 2], rest_p99_ms=lat[int(len(lat) * 0.99) - 1])
+        phase3 = earlier.get("path", {})
+        log(f"  REST from cache.sqlite: p50 {result['rest_p50_ms']:.3f} ms, p99 "
+            f"{result['rest_p99_ms']:.3f} ms over {REST_REQUESTS} requests"
+            + (f" (phase 3, memory store: p50 {phase3['rest_p50_ms']:.3f}, p99 "
+               f"{phase3['rest_p99_ms']:.3f})" if phase3 else ""))
+
+        # ---- the sample against a CPU worker's ranking by the saved models
+        cpu_worker = Worker(cfg, node.data, MemoryCacheStore(), node.blob, device="cpu")
+        cpu_worker.pull_models("", ctr_id)
+        result["rank_hold_worst"] = hold_ranking(sample, cpu_worker)
+        log(f"  {len(users)} users' lists equal a CPU ranking of their candidates (tie-aware; "
+            f"largest |s - s_cpu| / tol {result['rank_hold_worst']:.3g})")
+        del cpu_worker
+
+        # ---- a second node on the same files resumes both models
+        again = InOneNode(load_config(config_path), workdir=str(tmp))
+        check(again.master.cf_index is not None and again.master.ctr_model is not None,
+              "the second node resumed the CF index and the CTR model from meta.sqlite")
+        meta2 = again.master.get_meta()
+        check((meta2["cf_model_id"], meta2["ctr_model_id"]) == (cf_id, ctr_id),
+              "the second node serves the first node's models")
+        again.worker.pull_models(meta2["cf_model_id"], meta2["ctr_model_id"])
+        check(again.worker.recommend(users, force=True) == len(users),
+              "the resumed worker refreshed the sample")
+        worst = 0.0
+        for uid in users:
+            worst = max(worst, same_ranking(f"{uid}: resumed node", again.cache.search_scores(
+                ck.RECOMMEND, uid), sample[uid]))
+        result["resume_worst"] = worst
+        log(f"  a second node resumed {cf_id} and {ctr_id}; its worker wrote the same lists "
+            f"(tie-aware; largest |s - s_first| / tol {worst:.3g})")
+        del again, node, master, worker
+        cache.close()
+        torch.cuda.empty_cache()
+
+        # ---- the entry point itself
+        result["entry_point"] = phase_entry_point(config_path, tmp, catalog, tmp / "in_one.log")
+        log(f"  python -m gorse_tpu_torch.serve.in_one: ready in "
+            f"{result['entry_point']['ready_s']:.1f} s, /api/recommend/u1 at "
+            f"{result['entry_point']['answer_s']:.1f} s, ended on SIGINT with exit code 0 in "
+            f"{result['entry_point']['stop_s']:.1f} s")
     return result
 
 
@@ -3122,6 +3540,12 @@ def main() -> int:
         log("== phase 9: CTR ranker and the master's cycle")
         out["ctr"] = phase_ctr(dev, smi)
         log("  ctr: " + json.dumps(out["ctr"]))
+    if "10" in phases:
+        log("== phase 10: the in-one node from config.toml.example")
+        out["in_one"] = phase_in_one(dev, smi, args.seed,
+                                     {"load_steps": out.get("ctr", {}).get("load_steps"),
+                                      "path": out.get("path")})
+        log("  in_one: " + json.dumps(out["in_one"], default=str))
     check("jax" not in sys.modules and "gorse_tpu" not in sys.modules,
           "neither JAX nor gorse_tpu was imported")
     log(f"  total {time.perf_counter() - t_start:.1f} s")
@@ -3153,14 +3577,18 @@ def kernel_rows(out: dict) -> list[dict]:
                 **{key: timing[key] for key in ("ms", "plain_ms", "bound_ms", "bound_by",
                                                 "library_ms")}}
 
-    # the serving path's launches (phase 3) with the fm worker's recall (phase 9)
+    # the serving path's launches (phase 3) with the fm worker's recall
+    # (phase 9) and the in-one node's cycle (phase 10)
+    in_one = out["in_one"]["launches"]
     kernels = [row(name, "topk.cu", REPLACES[name],
-                   path["launches"][name] + out["ctr"]["worker_topk_launches"][name],
-                   out["errors"][name], rows[name]) for name in KERNELS]
-    # the training path's launches of bpr_epoch (phase 5); the sweeps' from
-    # their own paths (phase 4). No single PyTorch call computes a sweep or
-    # an epoch, so library_ms is null.
+                   path["launches"][name] + out["ctr"]["worker_topk_launches"][name]
+                   + in_one[name], out["errors"][name], rows[name]) for name in KERNELS]
+    # the training path's launches of bpr_epoch (phase 5) with the in-one
+    # node's fit and BPR search trials (phase 10); the sweeps' from their
+    # own paths (phase 4). No single PyTorch call computes a sweep or an
+    # epoch, so library_ms is null.
     bpr_launches = dict(out["training"]["launches"], **out["path_launches"])
+    bpr_launches["bpr_epoch"] += in_one["bpr_epoch"]
     kernels += [row(name, "bpr.cu", BPR_REPLACES[name], bpr_launches[name],
                     out["bpr_errors"][name], out["bpr_timings"][name]) for name in BPR_KERNELS]
     # the SQ kernels: launches from the store path (phase 7b), times at the

@@ -17,14 +17,17 @@ serving index, saves it to the blob store and records its id in the meta
 store, where ``get_meta`` hands it to workers, and upserts the serving item
 factors into the vector store when one is given (``_sync_cf_vectors``).
 ``train_click_through_rate`` fits the AFM (models/fm.py) on the card with
-``ranker.type = "fm"`` and publishes it the same way. ``run_tasks_once``
-runs these in the reference's order, then ``collect_garbage``; the task
-loop repeats it every ``collaborative.fit_period`` minutes or on
-``trigger``.
+``ranker.type = "fm"`` and publishes it the same way. ``search_model`` runs
+the hyper-parameter search (models/optimize.py): over the model type and
+its parameters for CF, over the AFM's parameters for CTR, each trial a fit
+on the card; the best parameters go to the meta store for the next fit.
+``run_tasks_once`` runs these in the reference's order (a search with
+``search=True`` or when its ``optimize_period`` has come due), then
+``collect_garbage``; the task loop repeats it every
+``collaborative.fit_period`` minutes or on ``trigger``. ``load_dataset``
+starts the data store's search-column reconcile on a thread.
 
-Not ported yet: hyper-parameter search (``search=True`` or a due
-``optimize_period`` raises, ROADMAP.md M12), the data store's search-column
-reconcile thread (M17), the tracer flush at shutdown (M21), and sharded
+Not ported yet: the tracer flush at shutdown (ROADMAP.md M21) and sharded
 training (``training_mesh`` is ``None``, M14).
 """
 
@@ -47,6 +50,7 @@ from ..logics.non_personalized import NonPersonalized, NonPersonalizedConfig
 from ..logics.user_to_user import UserToUser, UserToUserConfig
 from ..models import FitConfig, Params, create_mf_model
 from ..models.fm import AFM
+from ..models.optimize import AFM_SPACE, ALS_SPACE, BPR_SPACE, model_search, model_type_search
 from ..storage import cache as ck
 from ..storage.blob import BlobStore
 from ..storage.cache import CacheStore, key
@@ -106,6 +110,7 @@ class Master:
         self._last_optimize: dict[str, float] = {}
         self._sizeof_ts = -1e9
         self._sizeof_busy = False
+        self._reconciling = False
         self.memory_inuse: dict[str, int] = {}
         self._load_models_from_meta()
 
@@ -153,6 +158,11 @@ class Master:
         positive TTL), its leave-one-out split and the CTR dataset."""
         with self.progress.span("load_dataset"), gc_paused():
             cfg = self.config.recommend
+            # the search-column maintenance runs beside the load, one at a time
+            if not self._reconciling:
+                self._reconciling = True
+                threading.Thread(target=self._reconcile, args=(list(cfg.search.columns),),
+                                 name="reconcile", daemon=True).start()
             t_task = time.perf_counter()
             load_time = time.time()
             step_seconds = self.metrics.gauge_set
@@ -235,6 +245,16 @@ class Master:
             self._record_ts(ck.NUM_NEG_FEEDBACKS, len(negative_edges))
             return LoadedData(dataset, train, test, ctr, item_categories, items,
                               timestamp=load_time)
+
+    def _reconcile(self, columns: list[str]) -> None:
+        """The data store's full-text search state for ``columns``; a
+        failure is logged, as the reference does."""
+        try:
+            self.data.reconcile(columns)
+        except Exception:  # noqa: BLE001 - the load goes on without the index
+            logger.exception("failed to reconcile data store")
+        finally:
+            self._reconciling = False
 
     def _build_ctr_dataset(self, dataset: Dataset, positive_edges, negative_edges) -> CTRDataset:
         """CTR rows: each positive edge (target 1), each negative edge (0),
@@ -578,11 +598,59 @@ class Master:
             [TimeSeriesPoint(name=name, timestamp=time.time(), value=float(value))]
         )
 
-    def search_model(self, data: LoadedData, kind: str = "cf", n_trials: int | None = None):
-        """Hyper-parameter search is not ported yet."""
-        raise NotImplementedError(
-            f"{kind} model search: hyper-parameter search is not ported yet (ROADMAP.md, M12)"
+    def search_model(self, data: LoadedData, kind: str = "cf", n_trials: int | None = None) -> dict:
+        """Hyper-parameter search on the card. ``cf``: the model type (BPR or
+        eALS) and its parameters by ``model_type_search``, each trial a fit
+        of ``model_search_epoch`` epochs scored by NDCG@10, the best into
+        ``CF_SEARCH_TARGET``. ``ctr``: the AFM's parameters by
+        ``model_search`` on a 0.2 split (seed 0) of the CTR dataset, scored
+        by AUC. Both record ``BEST_PARAMS_<KIND>`` and the search gauges."""
+        cfg = self.config.recommend.collaborative
+        ranker_cfg = self.config.recommend.ranker
+        n_trials = n_trials or (
+            cfg.optimize_trials if kind == "cf" else ranker_cfg.optimize_trials
         )
+        with self.progress.span(f"search_{kind}_model"):
+            t0 = time.perf_counter()
+            if kind == "cf":
+                patience = cfg.early_stopping.patience
+
+                def objective(mtype: str, p: Params) -> float:
+                    model = create_mf_model(
+                        mtype, Params(n_epochs=cfg.model_search_epoch).merged(p),
+                        device=self.device,
+                    )
+                    return model.fit(
+                        data.train, data.test,
+                        FitConfig(verbose=cfg.model_search_epoch, patience=patience),
+                    ).ndcg
+
+                best_type, best, value, _ = model_type_search(
+                    {"bpr": BPR_SPACE, "als": ALS_SPACE}, objective, n_trials=n_trials
+                )
+                self.meta.put(
+                    "CF_SEARCH_TARGET",
+                    json.dumps({"type": best_type, "params": dict(best), "score": value}),
+                )
+            else:
+                train, test = data.ctr.split(0.2, seed=0)
+
+                def objective(p: Params) -> float:
+                    model = AFM(Params(n_epochs=cfg.model_search_epoch).merged(p),
+                                device=self.device)
+                    return model.fit(train, test, FitConfig(verbose=cfg.model_search_epoch)).auc
+
+                best, value, _ = model_search(objective, AFM_SPACE, n_trials=n_trials)
+            g = self.metrics.gauge_set
+            if kind == "cf":
+                g("master_collaborative_filtering_search_seconds", time.perf_counter() - t0)
+                g("master_collaborative_filtering_search_precision_10", value)
+            else:
+                g("master_ranking_search_seconds", time.perf_counter() - t0)
+                g("master_ranking_search_precision", value)
+            self.meta.put(f"BEST_PARAMS_{kind.upper()}", json.dumps(dict(best)))
+            logger.info("model search %s: best=%.4f params=%s", kind, value, dict(best))
+            return dict(best)
 
     def collect_garbage(self, data: LoadedData | None = None) -> None:
         """Drop every model blob but the live CF index and CTR model; with
@@ -651,8 +719,9 @@ class Master:
         """One pass of the task sequence, in the reference's order: load,
         non-personalized, item-to-item, user-to-user, CF, CTR, garbage
         collection, then (at most once a minute, on a thread) the memory
-        accounting gauges. ``search``, or an ``optimize_period`` that has
-        come due, raises: model search is not ported yet (M12)."""
+        accounting gauges. With ``search``, the CF search runs after the
+        fits; each search also runs when its ``optimize_period`` has come
+        due (at most once a period; the first cycle finds both due)."""
         data = self.load_dataset()
         self.update_non_personalized(data)
         self.update_item_to_item(data)

@@ -342,10 +342,14 @@ class Worker:
 
     # ------------------------------------------------------------ main loop
 
-    def sync_and_recommend(self, meta: dict) -> int:
-        """One worker cycle against a master's meta dict (``cf_model_id``,
-        ``ctr_model_id``, ``workers``)."""
-        self.pull_models(meta["cf_model_id"], meta.get("ctr_model_id", ""))
-        peers = meta.get("workers") or [self.node_id]
+    def sync_and_recommend(self, master) -> int:
+        """One worker cycle against an in-process master: its meta (model
+        ids, the live workers), the models, my shard's users, then my
+        progress pushed to the master. Returns the users refreshed."""
+        meta = master.get_meta()
+        self.pull_models(meta["cf_model_id"], meta["ctr_model_id"])
+        peers = meta["workers"] or [self.node_id]
         users = self.pull_users(peers)
-        return self.recommend(users)
+        n = self.recommend(users)
+        master.progress.push_remote(self.node_id, self.progress.list())
+        return n

@@ -1,14 +1,21 @@
 """Cache store: KV, queues, scored document collections, time series
-(the abstract store and the in-memory one of gorse_tpu/storage/cache.py).
+(port of gorse_tpu/storage/cache.py: the abstract store, the in-memory one
+and the SQLite one).
 
 Precomputed recommendations live here as scored document collections with
 subset/category/time conditions, beside a string KV space (digests, update
-times), FIFO queues and time-series points. Key and collection names are
-the reference's, so both packages read each other's entries.
+times), FIFO queues and time-series points. Key and collection names and
+the SQLite schema are the reference's, so both packages read each other's
+entries and ``cache.sqlite``. As in the reference, each write of the SQLite
+store commits. ``open_cache_store`` opens ``memory://``, ``sqlite://`` and
+``none://``; Redis, the SQL wire stores, Mongo and the proxy are not ported
+(ROADMAP.md, M21).
 """
 
 from __future__ import annotations
 
+import json
+import sqlite3
 import threading
 from typing import Iterator
 
@@ -265,3 +272,226 @@ class MemoryCacheStore(CacheStore):
             self._scores.clear()
             self._hidden.clear()
             self._ts.clear()
+
+
+class SQLiteCacheStore(CacheStore):
+    """SQLite-backed cache store, the reference's schema and statements: one
+    connection (``check_same_thread=False``) behind an ``RLock``, a commit
+    a write."""
+
+    def __init__(self, path: str = ":memory:") -> None:
+        self._conn = sqlite3.connect(path, check_same_thread=False)
+        self._lock = threading.RLock()
+        with self._lock:
+            cur = self._conn.cursor()
+            cur.execute("CREATE TABLE IF NOT EXISTS kv (k TEXT PRIMARY KEY, v TEXT)")
+            cur.execute(
+                "CREATE TABLE IF NOT EXISTS queues (name TEXT, seq INTEGER PRIMARY KEY AUTOINCREMENT, value TEXT)"
+            )
+            cur.execute(
+                "CREATE TABLE IF NOT EXISTS scores ("
+                "collection TEXT, subset TEXT, id TEXT, score REAL, categories TEXT, timestamp REAL, is_hidden INTEGER DEFAULT 0,"
+                "PRIMARY KEY (collection, subset, id))"
+            )
+            cur.execute(
+                "CREATE TABLE IF NOT EXISTS timeseries (name TEXT, timestamp REAL, value REAL)"
+            )
+            self._conn.commit()
+
+    def set(self, k, v) -> None:
+        with self._lock:
+            self._conn.execute("INSERT OR REPLACE INTO kv VALUES (?, ?)", (k, v))
+            self._conn.commit()
+
+    def get(self, k):
+        with self._lock:
+            row = self._conn.execute("SELECT v FROM kv WHERE k = ?", (k,)).fetchone()
+        return row[0] if row else None
+
+    def delete(self, k) -> None:
+        with self._lock:
+            self._conn.execute("DELETE FROM kv WHERE k = ?", (k,))
+            self._conn.commit()
+
+    def push(self, name, value) -> None:
+        with self._lock:
+            exists = self._conn.execute(
+                "SELECT 1 FROM queues WHERE name = ? AND value = ?", (name, value)
+            ).fetchone()
+            if not exists:
+                self._conn.execute(
+                    "INSERT INTO queues (name, value) VALUES (?, ?)", (name, value)
+                )
+                self._conn.commit()
+
+    def pop(self, name):
+        with self._lock:
+            row = self._conn.execute(
+                "SELECT seq, value FROM queues WHERE name = ? ORDER BY seq LIMIT 1", (name,)
+            ).fetchone()
+            if row is None:
+                return None
+            self._conn.execute("DELETE FROM queues WHERE seq = ?", (row[0],))
+            self._conn.commit()
+            return row[1]
+
+    def remain(self, name) -> int:
+        with self._lock:
+            return self._conn.execute(
+                "SELECT COUNT(*) FROM queues WHERE name = ?", (name,)
+            ).fetchone()[0]
+
+    def add_scores(self, collection, subset, scores) -> None:
+        with self._lock:
+            self._conn.executemany(
+                "INSERT OR REPLACE INTO scores (collection, subset, id, score, categories, timestamp) VALUES (?, ?, ?, ?, ?, ?)",
+                [
+                    (collection, subset, s.id, s.score, json.dumps(s.categories), s.timestamp)
+                    for s in scores
+                ],
+            )
+            self._conn.commit()
+
+    def search_scores(self, collection, subset, categories=None, begin=0, end=-1):
+        with self._lock:
+            rows = self._conn.execute(
+                "SELECT id, score, categories, timestamp FROM scores "
+                "WHERE collection = ? AND subset = ? AND is_hidden = 0 ORDER BY score DESC",
+                (collection, subset),
+            ).fetchall()
+        matched = [
+            Score(id=r[0], score=r[1], categories=json.loads(r[2] or "[]"), timestamp=r[3])
+            for r in rows
+        ]
+        matched = [s for s in matched if _match_categories(s.categories, categories)]
+        if end < 0:
+            end = len(matched)
+        return matched[begin:end]
+
+    def delete_scores(self, collection, subsets=None, before=None) -> None:
+        with self._lock:
+            if subsets is None:
+                if before is None:
+                    self._conn.execute("DELETE FROM scores WHERE collection = ?", (collection,))
+                else:
+                    self._conn.execute(
+                        "DELETE FROM scores WHERE collection = ? AND timestamp < ?",
+                        (collection, before),
+                    )
+            else:
+                for subset in subsets:
+                    if before is None:
+                        self._conn.execute(
+                            "DELETE FROM scores WHERE collection = ? AND subset = ?",
+                            (collection, subset),
+                        )
+                    else:
+                        self._conn.execute(
+                            "DELETE FROM scores WHERE collection = ? AND subset = ? AND timestamp < ?",
+                            (collection, subset, before),
+                        )
+            self._conn.commit()
+
+    def update_scores(self, collections, subset, item_id, categories=None, is_hidden=None) -> None:
+        with self._lock:
+            for collection in collections:
+                where, args = "collection = ? AND id = ?", [collection, item_id]
+                if subset is not None:
+                    where += " AND subset = ?"
+                    args.append(subset)
+                if is_hidden is not None:
+                    self._conn.execute(
+                        f"UPDATE scores SET is_hidden = ? WHERE {where}",
+                        (int(is_hidden), *args),
+                    )
+                if categories is not None:
+                    self._conn.execute(
+                        f"UPDATE scores SET categories = ? WHERE {where}",
+                        (json.dumps(categories), *args),
+                    )
+            self._conn.commit()
+
+    def scan_scores(self, collection):
+        with self._lock:
+            rows = self._conn.execute(
+                "SELECT subset, id, score, categories, timestamp FROM scores WHERE collection = ?",
+                (collection,),
+            ).fetchall()
+        for r in rows:
+            yield r[0], Score(id=r[1], score=r[2], categories=json.loads(r[3] or "[]"), timestamp=r[4])
+
+    def scan_score_subsets(self, collection):
+        with self._lock:
+            rows = self._conn.execute(
+                "SELECT DISTINCT subset FROM scores WHERE collection = ?",
+                (collection,),
+            ).fetchall()
+        return [r[0] for r in rows]
+
+    def add_time_series_points(self, points) -> None:
+        with self._lock:
+            self._conn.executemany(
+                "INSERT INTO timeseries VALUES (?, ?, ?)",
+                [(p.name, p.timestamp, p.value) for p in points],
+            )
+            self._conn.commit()
+
+    def get_time_series_points(self, name, begin, end):
+        with self._lock:
+            rows = self._conn.execute(
+                "SELECT name, timestamp, value FROM timeseries WHERE name = ? AND timestamp BETWEEN ? AND ? ORDER BY timestamp",
+                (name, begin, end),
+            ).fetchall()
+        return [TimeSeriesPoint(*r) for r in rows]
+
+    def purge(self) -> None:
+        with self._lock:
+            for t in ("kv", "queues", "scores", "timeseries"):
+                self._conn.execute(f"DELETE FROM {t}")
+            self._conn.commit()
+
+    def close(self) -> None:
+        self._conn.close()
+
+
+# schemes the reference opens that the port has not ported
+_NOT_PORTED = ("proxy", "redis", "redis+cluster", "postgres", "postgresql", "mysql", "mongodb")
+
+
+def open_cache_store(
+    url: str,
+    table_prefix: str = "",
+    client_name: str = "",
+    max_search_results: int = 0,
+) -> CacheStore:
+    """Open a cache store by URL: ``memory://``, ``sqlite://<path>``
+    (``sqlite://`` alone is an in-memory database) and ``none://``.
+    ``table_prefix``, ``client_name`` and ``max_search_results`` are the
+    knobs of the Redis, server-SQL and MongoDB backends, which are not
+    ported: their schemes and ``proxy://`` raise ``NotImplementedError``."""
+    if url.startswith("memory://") or url == "memory":
+        return MemoryCacheStore()
+    if url.startswith("sqlite://"):
+        path = url[len("sqlite://"):] or ":memory:"
+        return SQLiteCacheStore(path)
+    if url.split("://", 1)[0] in _NOT_PORTED:
+        raise NotImplementedError(
+            f"cache store {url.split('://', 1)[0]!r} is not ported yet: ROADMAP.md M21 "
+            "(the Redis, SQL, Mongo and proxy stores)"
+        )
+    if url.startswith("none://") or url in ("", "none"):
+        from .none import NoCacheStore
+
+        return NoCacheStore()
+    raise ValueError(f"unsupported cache store URL {url!r}")
+
+
+def open_cache_store_from_config(db_cfg) -> CacheStore:
+    """Open the cache store a DatabaseConfig names (with its
+    cache_table_prefix or table_prefix and the Redis client options)."""
+    return open_cache_store(
+        db_cfg.cache_store,
+        table_prefix=db_cfg.effective_cache_prefix(),
+        client_name=db_cfg.cache_client_name,
+        max_search_results=db_cfg.redis.max_search_results,
+    )

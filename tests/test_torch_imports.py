@@ -31,7 +31,8 @@ def test_port_imports_no_jax_and_no_reference():
                  "logics.user_to_user", "logics.non_personalized", "serve.master",
                  "storage.meta", "storage.vectors", "storage.none", "utils.config",
                  "utils.safe_expr", "data.ctr", "data.unified_index", "models.scaler",
-                 "models.fm", "serve.worker"):
+                 "models.fm", "serve.worker", "storage.data", "storage.cache",
+                 "storage.search", "storage.object", "models.optimize", "serve.in_one"):
         assert f"gorse_tpu_torch.{name}" in modules
     code = (
         "import importlib, json, sys\n"
@@ -100,7 +101,18 @@ def _entry_points():
         "afm": lambda device: AFM(Params(n_factors=4), device=device),
         "afm_params_from_numpy": lambda device: afm_params_from_numpy(
             {"b": row[0], "v": items, "w": items[:, :1]}, device=device),
+        "in_one": _in_one,
     }
+
+
+def _in_one(device):
+    import tempfile
+
+    from gorse_tpu_torch.serve.in_one import InOneNode
+
+    with tempfile.TemporaryDirectory() as workdir:
+        node = InOneNode(workdir=workdir, device=device)
+        assert node.master.device == node.worker.device == node.device
 
 
 @pytest.mark.parametrize("name", ["resolve_device", "prepare_items", "dot_topk",
@@ -110,7 +122,7 @@ def _entry_points():
                                   "create_als", "idf_neighbors", "idf_neighbors_avg",
                                   "idf_distance_matrix", "embedding_neighbors",
                                   "embedding_query", "item_to_item", "user_to_user", "afm",
-                                  "afm_params_from_numpy"])
+                                  "afm_params_from_numpy", "in_one"])
 def test_entry_points_default_to_cuda(name, monkeypatch):
     """``device=None`` means the card: without CUDA it raises; an explicit
     ``device="cpu"`` runs the plain versions."""

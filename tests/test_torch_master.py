@@ -190,8 +190,11 @@ def test_worker_serves_the_trained_index(masters):
     assert set(meta) == {"config", "cf_model_id", "ctr_model_id", "servers", "workers"}
     assert json.loads(meta["config"])["recommend"]["collaborative"]["fit_epoch"] == EPOCHS
     worker = Worker(port.config, port.data, port.cache, port.blob, device="cpu")
-    assert worker.sync_and_recommend(meta) == N_USERS + 2
+    assert worker.sync_and_recommend(port) == N_USERS + 2
     assert worker.cf_model_id == meta["cf_model_id"]
+    # the worker pushed its progress to the master, as the reference's does
+    pushed = [s for s in port.progress.list() if s.get("Node") == worker.node_id]
+    assert [s["Name"] for s in pushed] == ["recommend"] and pushed[0]["Status"] == "complete"
 
     ref_index = RefIndex.load(port.blob.open(meta["cf_model_id"]))
     users = [f"u{u}" for u in range(N_USERS + 2)]
@@ -487,10 +490,7 @@ def torch_equal(a, b) -> bool:
 
 def _tiny_master(tmp_path, **ranker):
     data = MemoryDataStore()
-    data.insert_items(types.Item(f"i{i}") for i in range(4))
-    data.insert_users(types.User(f"u{u}") for u in range(3))
-    data.insert_feedback(types.Feedback("like", f"u{u}", f"i{(u + j) % 4}", 1.0, 1.0)
-                         for u in range(3) for j in range(2))
+    _tiny_rows(data, types)
     cfg = Config()
     cfg.recommend.ranker.fit_epoch = 1
     for k, v in ranker.items():
@@ -498,18 +498,74 @@ def _tiny_master(tmp_path, **ranker):
     return Master(cfg, data, MemoryCacheStore(), BlobStore(tmp_path), MetaStore(), device="cpu")
 
 
+def _tiny_rows(data, t):
+    data.insert_items(t.Item(f"i{i}") for i in range(4))
+    data.insert_users(t.User(f"u{u}") for u in range(3))
+    data.insert_feedback(t.Feedback("like", f"u{u}", f"i{(u + j) % 4}", 1.0, 1.0)
+                         for u in range(3) for j in range(2))
+
+
+def _injected(mtype, params) -> float:
+    """A search objective that fits nothing: both packages' searches get
+    the same values for the same trials."""
+    import math
+
+    return sum(math.sin(7.0 * math.log(v)) for v in params.values()) + (
+        0.25 if mtype == "als" else 0.0)
+
+
 @pytest.mark.parametrize("how", ["search", "cf_period", "ctr_period"])
-def test_model_search_raises_m12(tmp_path, how):
-    """Hyper-parameter search is not ported: asked for, or come due, it
-    raises naming ROADMAP's M12, after the cycle's tasks."""
+def test_model_search_raises_m12(tmp_path, how, monkeypatch):
+    """Hyper-parameter search, asked for (``search=True``) or come due (an
+    ``optimize_period`` never run before), runs after the cycle's fits on
+    the port's models: it records the best in the meta store
+    (``CF_SEARCH_TARGET`` and ``BEST_PARAMS_CF``, or ``BEST_PARAMS_CTR``)
+    and sets its gauges. With the same objective injected into both
+    packages' ``search_model``, the port records the reference's best."""
+    import gorse_tpu.serve.master as ref_master_mod
+    import gorse_tpu_torch.serve.master as port_master_mod
+
     master = _tiny_master(tmp_path, type="fm", optimize_period=5.0 if how == "ctr_period" else 0)
+    cf = master.config.recommend.collaborative
+    cf.optimize_trials, cf.model_search_epoch = 4, 2
+    master.config.recommend.ranker.optimize_trials = 3
     if how == "cf_period":
-        master.config.recommend.collaborative.type = "mf"
-        master.config.recommend.collaborative.fit_epoch = 1
-        master.config.recommend.collaborative.optimize_period = 5.0
-    with pytest.raises(NotImplementedError, match="M12"):
-        master.run_tasks_once(search=how == "search")
+        cf.type, cf.fit_epoch, cf.optimize_period = "mf", 1, 5.0
+    loaded = master.run_tasks_once(search=how == "search")
     assert master.meta.get(CLICK_THROUGH_RATE_MODEL)
+    kind = "ctr" if how == "ctr_period" else "cf"
+    other = "cf" if kind == "ctr" else "ctr"
+    assert master.meta.get(f"BEST_PARAMS_{kind.upper()}")
+    assert master.meta.get(f"BEST_PARAMS_{other.upper()}") is None
+    assert bool(master.meta.get("CF_SEARCH_TARGET")) == (kind == "cf")
+    text = master.metrics.render()
+    prefix = ("master_collaborative_filtering_search" if kind == "cf"
+              else "master_ranking_search")
+    seconds = re.search(rf"^\w+_{prefix}_seconds (\S+)$", text, re.M)
+    score = re.search(rf"^\w+_{prefix}_precision(_10)? (\S+)$", text, re.M)
+    assert seconds and float(seconds.group(1)) > 0 and score
+    if kind == "cf":
+        target = json.loads(master.meta.get("CF_SEARCH_TARGET"))
+        assert target["type"] in ("bpr", "als") and target["score"] == float(score.group(2))
+        assert json.loads(master.meta.get("BEST_PARAMS_CF")) == target["params"]
+    assert [s["Name"] for s in master.progress.list()
+            if s["Name"].startswith("search_")] == [f"search_{kind}_model"]
+
+    ref_data = RefData()
+    _tiny_rows(ref_data, ref_types)
+    ref = RefMaster(RefConfig(), ref_data, RefCache(), RefBlobStore(tmp_path / "ref"), RefMeta())
+    ref_loaded = ref.load_dataset()
+    for mod in (port_master_mod, ref_master_mod):
+        real_type, real = mod.model_type_search, mod.model_search
+        monkeypatch.setattr(mod, "model_type_search", lambda spaces, objective, n_trials, r=real_type:
+                            r(spaces, _injected, n_trials=n_trials))
+        monkeypatch.setattr(mod, "model_search", lambda objective, space, n_trials, r=real:
+                            r(lambda p: _injected("afm", p), space, n_trials=n_trials))
+    got = master.search_model(loaded, kind, n_trials=12)
+    want = ref.search_model(ref_loaded, kind, n_trials=12)
+    assert got == want
+    for name in (f"BEST_PARAMS_{kind.upper()}", "CF_SEARCH_TARGET"):
+        assert master.meta.get(name) == ref.meta.get(name)
 
 
 def test_task_loop_runs_until_shutdown(tmp_path, monkeypatch):
