@@ -68,7 +68,9 @@ kernel's own block maxima.
    kernel launched and the f32 route unused; a sample of users' fetched
    lists held against the plain version, and their caches equal to those
    lists after the exclusions; ``GET /api/recommend/...`` through
-   ``RestServer`` on 127.0.0.1, equal to the cache.
+   ``RestServer`` on 127.0.0.1, equal to the cache; REST p50/p99 under each
+   front end in turn on the same requests (async, threaded, threaded,
+   async).
 4. BPR kernels: ``bpr_sweep`` in both modes (sampled, explicit pairs) and
    ``bpr_epoch`` (K1: a whole epoch in one cooperative launch) held against
    their plain PyTorch versions on the card, on small tie-heavy inputs
@@ -204,6 +206,38 @@ kernel's own block maxima.
    load steps beside phase 9's memory store, each task's seconds, both
    searches, the BPR fit, the worker's steps, REST p50/p99 beside phase 3's.
 
+11. The master, server and worker as processes on the card
+   (``python -m gorse_tpu_torch.cmd._spawn master|server|worker``, their
+   logs in one file whose tail is printed on a failure). Phase 10's rows
+   for the first ``CLUSTER_USERS`` users and all items, less the rows of
+   ``CLUSTER_HELD`` users, in ``data.sqlite``; tests/test_integration_
+   cluster.py's config (BPR, no ranker over the collaborative lists, the
+   ``latest`` fallback) with CF switched on, phase 10's positive types and
+   the master's admin key. The held-back users and their rows go in through
+   the server (``POST /api/users``, then ``PUT /api/feedback`` by the
+   port's ``GorseClient`` in batches of ``CLUSTER_BATCH``, each timed).
+   Held, in order: the master's admin routes answer 401 without the key;
+   the server returns every row sent for ``CLUSTER_READBACK`` held-back
+   users (``GET /api/user/{id}/feedback``: the same type, user, item and
+   value); after ``POST /api/dashboard/schedule``
+   the meta names a new CF model whose blob exists; the worker, started
+   then (a worker refreshes a list only when it is stale, never for a new
+   model, so a worker started earlier would keep the first model's lists),
+   registers beside the server (``/api/dashboard/cluster``) and its span
+   for every user reaches the master; every list in ``cache.sqlite`` holds
+   only catalog ids, at most ``cache_size``, none of the user's items; 16
+   users (8 held back) get the cache from the server; a ``Worker`` here on
+   the card, over a copy of ``cache.sqlite`` and the model the meta names,
+   recomputes them equal to the worker process's lists (``same_ranking``,
+   ``RANK_TOL``) with ``block_max``, ``block_seeds``, ``block_topk`` and
+   ``merge_topk`` launched, and a CPU ``Worker`` too; a cold user gets
+   ``latest``; the worker's health and ``/metrics``; the logs of the master
+   and the worker name the card; SIGTERM ends each process within
+   ``CLUSTER_STOP_S``. Printed: the ingest's rows/s and batch p50/p99, the
+   seconds from schedule to the model and to the sample served, the
+   master's fit gauge and the worker's step gauges, REST p50/p99 on the
+   server process beside phase 10's, ``nvidia-smi --query-compute-apps``.
+
 The last three lines of standard output are the kernels' JSON record, the
 card's ``name, power.limit`` as nvidia-smi gives them, and
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
@@ -216,6 +250,7 @@ from __future__ import annotations
 import argparse
 import http.client
 import json
+import os
 import re
 import statistics
 import subprocess
@@ -223,6 +258,7 @@ import sys
 import tempfile
 import time
 from pathlib import Path
+from types import SimpleNamespace
 
 import numpy as np
 
@@ -345,7 +381,21 @@ IN_ONE_CUTS = (
 IN_ONE_TYPES = ("star", "like", "read")
 IN_ONE_START_S = 300  # the entry point's subprocess answers within this
 IN_ONE_STOP_S = 60  # and ends on SIGINT within this
-PHASES = ("2", "2b", "2c", "3", "4", "5", "6", "7", "7c", "8", "9", "10")
+# phase 11: the master, server and worker as processes on the card over
+# phase 10's rows for the first CLUSTER_USERS users, CLUSTER_HELD of them
+# held back and sent through the server's REST API in batches of
+# CLUSTER_BATCH. Cut from 2,000 and 200 users (time: at that width the
+# REST ingest took 86 s and the phase 230 s of its 150 s)
+CLUSTER_USERS, CLUSTER_HELD, CLUSTER_BATCH, CLUSTER_SAMPLE = 1000, 100, 1000, 16
+CLUSTER_READBACK = 8  # held-back users whose rows are read back from the server
+CLUSTER_ADMIN_KEY = "chip-smoke-admin"
+CLUSTER_START_S = 120  # each process answers /api/health/live within this
+CLUSTER_CYCLE_S = 300  # from schedule: the model named, the worker's span arrived
+CLUSTER_STOP_S = 10  # SIGTERM ends each process within this
+# how a node process is started (a CPU rehearsal swaps in a prelude that
+# maps the device to the CPU)
+SPAWN = [sys.executable, "-m", "gorse_tpu_torch.cmd._spawn"]
+PHASES = ("2", "2b", "2c", "3", "4", "5", "6", "7", "7c", "8", "9", "10", "11")
 SQ_REPLACES = {
     "block_max_sq": "gorse_tpu/ops/topk.py:361",
     "block_topk_sq": "gorse_tpu/ops/topk.py:442",
@@ -1342,17 +1392,23 @@ def phase_path(user_factors, item_factors, histories, dev, seed: int) -> dict:
                 want = [s.id for s in cache.search_scores(ck.COLLABORATIVE, u, ["c3"])][:n]
                 check(status == 200 and body == want, f"GET /api/recommend/{u}/c3 equals the cache")
             check(get("/api/health/ready") == (200, {"status": "ready"}), "ready")
-            lat = []
-            for r in range(REST_REQUESTS):
-                t0 = time.perf_counter()
-                status, _ = get(f"/api/recommend/{shard[r % SHARD]}")
-                lat.append((time.perf_counter() - t0) * 1e3)
-                check(status == 200, "GET /api/recommend answers 200")
             conn.close()
         finally:
             server.shutdown()
-        lat.sort()
-        result.update(rest_p50_ms=lat[len(lat) // 2], rest_p99_ms=lat[int(len(lat) * 0.99) - 1])
+        # ---- REST latency: both front ends on the same requests, in turn
+        rounds: dict[str, list] = {"async": [], "threaded": []}
+        for backend in ("async", "threaded", "threaded", "async"):
+            httpd = server.serve("127.0.0.1", 0, backend=backend)
+            try:
+                rounds[backend].append(rest_latency(
+                    httpd.server_address[1], lambda r: f"/api/recommend/{shard[r % SHARD]}"))
+            finally:
+                server.shutdown()
+        result["rest_p50_ms"], result["rest_p99_ms"] = rounds["async"][0]
+        result["rest_by_backend"] = rounds
+        log("  REST p50 / p99 ms, the front ends in turn (async, threaded, threaded, async): "
+            + "; ".join(f"{b} " + ", ".join(f"{p50:.3f} / {p99:.3f}" for p50, p99 in v)
+                        for b, v in rounds.items()))
     return result
 
 
@@ -3381,20 +3437,10 @@ def phase_in_one(dev, smi: str, seed: int, earlier: dict) -> dict:
                 status, body = get_json(port, f"/api/recommend/{uid}")
                 want = [x.id for x in sample[uid]][: cfg.server.default_n]
                 check(status == 200 and body == want, f"GET /api/recommend/{uid} equals the cache")
-            conn = http.client.HTTPConnection("127.0.0.1", port, timeout=30)
-            lat = []
-            for r in range(REST_REQUESTS):
-                t0 = time.perf_counter()
-                conn.request("GET", f"/api/recommend/u{r % n_users}")
-                resp = conn.getresponse()
-                resp.read()
-                lat.append((time.perf_counter() - t0) * 1e3)
-                check(resp.status == 200, "GET /api/recommend answers 200")
-            conn.close()
+            result["rest_p50_ms"], result["rest_p99_ms"] = rest_latency(
+                port, lambda r: f"/api/recommend/u{r % n_users}")
         finally:
             node.shutdown()
-        lat.sort()
-        result.update(rest_p50_ms=lat[len(lat) // 2], rest_p99_ms=lat[int(len(lat) * 0.99) - 1])
         phase3 = earlier.get("path", {})
         log(f"  REST from cache.sqlite: p50 {result['rest_p50_ms']:.3f} ms, p99 "
             f"{result['rest_p99_ms']:.3f} ms over {REST_REQUESTS} requests"
@@ -3437,6 +3483,423 @@ def phase_in_one(dev, smi: str, seed: int, earlier: dict) -> dict:
             f"{result['entry_point']['answer_s']:.1f} s, ended on SIGINT with exit code 0 in "
             f"{result['entry_point']['stop_s']:.1f} s")
     return result
+
+
+def cluster_config(tmp: Path, http_port: int) -> Path:
+    """tests/test_integration_cluster.py's config: BPR, no ranker over the
+    collaborative lists, the ``latest`` fallback, the four stores and the
+    blobs in ``tmp``; with CF switched on (``type = "mf"``; it is opt-in),
+    phase 10's positive feedback types and the master's admin key."""
+    path = tmp / "config.toml"
+    path.write_text(f"""
+[database]
+data_store = "sqlite://{tmp}/data.sqlite"
+cache_store = "sqlite://{tmp}/cache.sqlite"
+blob_store = "{tmp}/blobs"
+meta_store = "sqlite://{tmp}/meta.sqlite"
+
+[master]
+host = "127.0.0.1"
+port = {free_port()}
+http_host = "127.0.0.1"
+http_port = {http_port}
+admin_api_key = "{CLUSTER_ADMIN_KEY}"
+
+[recommend.data_source]
+positive_feedback_types = ["star", "like", "read>=3"]
+
+[recommend.collaborative]
+type = "mf"
+model = "bpr"
+
+[recommend.ranker]
+type = "none"
+recommenders = ["collaborative"]
+
+[recommend.fallback]
+recommenders = ["latest"]
+""")
+    return path
+
+
+def http_json(port: int, method: str, path: str, body=None, key: str = "",
+              timeout: float = 60) -> tuple[int, object]:
+    """One request to 127.0.0.1:``port``; (status, decoded JSON)."""
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=timeout)
+    try:
+        headers = {"Content-Type": "application/json"}
+        if key:
+            headers["X-API-Key"] = key
+        conn.request(method, path, None if body is None else json.dumps(body), headers)
+        resp = conn.getresponse()
+        raw = resp.read()
+        ctype = resp.getheader("Content-Type") or ""
+        return resp.status, json.loads(raw) if "json" in ctype else raw.decode()
+    finally:
+        conn.close()
+
+
+def rest_latency(port: int, path_of) -> tuple[float, float]:
+    """p50 and p99 ms of ``REST_REQUESTS`` keep-alive ``GET path_of(r)`` on
+    127.0.0.1:``port``, each answered 200."""
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=30)
+    lat = []
+    try:
+        for r in range(REST_REQUESTS):
+            t0 = time.perf_counter()
+            conn.request("GET", path_of(r))
+            resp = conn.getresponse()
+            resp.read()
+            lat.append((time.perf_counter() - t0) * 1e3)
+            check(resp.status == 200, f"GET {path_of(r)} answers 200")
+    finally:
+        conn.close()
+    lat.sort()
+    return lat[len(lat) // 2], lat[int(len(lat) * 0.99) - 1]
+
+
+def poll(what: str, fn, deadline: float, every: float = 0.5):
+    """``fn()`` until it returns something true, before ``deadline``
+    (perf_counter seconds); the first true value."""
+    while time.perf_counter() < deadline:
+        try:
+            value = fn()
+        except (OSError, http.client.HTTPException):
+            value = None
+        if value:
+            return value
+        time.sleep(every)
+    raise RuntimeError(f"check failed: {what} before the deadline")
+
+
+def sqlite_copy(src: Path, dst: Path) -> None:
+    """A consistent copy of a SQLite file another process has open."""
+    import sqlite3
+
+    with sqlite3.connect(src) as a, sqlite3.connect(dst) as b:
+        a.backup(b)
+
+
+def phase_cluster(dev, smi: str, seed: int, earlier: dict) -> dict:
+    """The master, server and worker as processes on the card: phase 10's
+    rows for the first ``CLUSTER_USERS`` users in data.sqlite less
+    ``CLUSTER_HELD`` users, who come in through the server's REST API; a
+    scheduled cycle on the master; the worker's shard; the holds of the
+    module docstring; every process ended by SIGTERM."""
+    import signal
+
+    import torch
+
+    from gorse_tpu_torch.storage.data import SQLiteDataStore
+
+    t_phase = time.perf_counter()
+    result = {"card": smi}
+    key = CLUSTER_ADMIN_KEY
+    with tempfile.TemporaryDirectory(prefix="gorse_cluster_") as tmp_name:
+        tmp = Path(tmp_name)
+        # ---- phase 10's rows for the first CLUSTER_USERS users, less the held
+        rng = np.random.default_rng(seed + 10)
+        picks = rng.integers(len(IN_ONE_TYPES), size=1 << 21)
+        reads = rng.integers(3, 6, size=1 << 21)
+
+        def feedback_type(n):
+            t = IN_ONE_TYPES[picks[n]]
+            return t, float(reads[n]) if t == "read" else 1.0
+
+        mem = neighbor_store(0, embedding=False, user_fields=USER_FIELDS,
+                             feedback_type=feedback_type, n_users=CLUSTER_USERS)
+        users, items, rows = list(mem.get_users()), list(mem.get_items()), list(mem.get_feedback())
+        del mem
+        held = {f"u{u}" for u in np.random.default_rng(seed + 11).choice(
+            CLUSTER_USERS, CLUSTER_HELD, replace=False)}
+        held_rows = [fb for fb in rows if fb.user_id in held]
+        t0 = time.perf_counter()
+        store = SQLiteDataStore(str(tmp / "data.sqlite"))
+        store.insert_items(items)
+        store.insert_users(u for u in users if u.user_id not in held)
+        store.insert_feedback(fb for fb in rows if fb.user_id not in held)
+        store.close()
+        insert_s = time.perf_counter() - t0
+        catalog = {i.item_id for i in items}
+        seen: dict[str, set] = {}
+        for fb in rows:
+            seen.setdefault(fb.user_id, set()).add(fb.item_id)
+        log(f"  {len(rows) - len(held_rows):,} feedback rows of {len(users) - len(held)} users "
+            f"and {len(items)} items into data.sqlite in {insert_s:.1f} s; {len(held_rows):,} "
+            f"rows of {len(held)} users held back for the REST ingest")
+        result.update(users=len(users), items=len(items), rows=len(rows),
+                      held_rows=len(held_rows), insert_s=insert_s)
+
+        ports = {role: free_port() for role in ("master", "server", "worker")}
+        config_path = cluster_config(tmp, ports["master"])
+        log_path = tmp / "cluster.log"
+        procs: dict[str, subprocess.Popen] = {}
+        t_start = time.perf_counter()
+        with open(log_path, "wb") as log_file:
+            def spawn(role: str, *args) -> None:
+                t0 = time.perf_counter()
+                procs[role] = subprocess.Popen(
+                    SPAWN + [role, *args], cwd=ROOT, stdout=log_file,
+                    stderr=subprocess.STDOUT, start_new_session=True)
+                live = poll(f"the {role} answers /api/health/live", lambda: http_json(
+                    ports[role], "GET", "/api/health/live", timeout=5)[0] == 200
+                    and time.perf_counter(), t0 + CLUSTER_START_S)
+                result.setdefault("live_s", {})[role] = live - t0
+
+            try:
+                master_url = f"http://127.0.0.1:{ports['master']}"
+                spawn("master", "--config", str(config_path))
+                spawn("server", "--master", master_url, "--api-key", key,
+                      "--port", str(ports["server"]))
+                run = SimpleNamespace(tmp=tmp, ports=ports, spawn=spawn, procs=procs, held=held,
+                                      held_rows=held_rows, users=users, catalog=catalog,
+                                      seen=seen, key=key)
+                result.update(_cluster_run(dev, run, earlier))
+                # ---- SIGTERM ends each process
+                stop = {}
+                for role, proc in procs.items():
+                    t0 = time.perf_counter()
+                    os.killpg(proc.pid, signal.SIGTERM)
+                    try:
+                        proc.wait(timeout=CLUSTER_STOP_S)
+                    except subprocess.TimeoutExpired:
+                        raise RuntimeError(f"check failed: SIGTERM ended the {role} within "
+                                           f"{CLUSTER_STOP_S} s")
+                    stop[role] = time.perf_counter() - t0
+                result["stop_s"] = stop
+                log(f"  SIGTERM ended each process (s): {json.dumps(stop)}")
+            except Exception:
+                log_file.flush()
+                log("  the cluster's log, its tail:\n" + log_path.read_text()[-6000:])
+                raise
+            finally:
+                for proc in procs.values():
+                    if proc.poll() is None:
+                        os.killpg(proc.pid, signal.SIGKILL)
+                        proc.wait()
+        result["cluster_s"] = time.perf_counter() - t_start
+        log(f"  each process live after (s): {json.dumps(result['live_s'])}; the processes ran "
+            f"{result['cluster_s']:.1f} s")
+        text = log_path.read_text()
+        # ---- the nodes name the card they resolved
+        check(f"master on device {dev}" in text, f"the master's log names {dev}")
+        check(re.search(rf"worker \S+ on device {re.escape(str(dev))}", text) is not None,
+              f"the worker's log names {dev}")
+        result["locked"] = text.count("database is locked")
+        log(f"  the logs name {dev} for the master and the worker; 'database is locked' "
+            f"{result['locked']} times")
+        torch.cuda.empty_cache()
+    result["phase_s"] = time.perf_counter() - t_phase
+    log(f"  phase 11 took {result['phase_s']:.1f} s ({smi})")
+    return result
+
+
+def _cluster_run(dev, run, earlier: dict) -> dict:
+    """Phase 11 once the master and the server answer: the ingest, the
+    holds in order, the timings. ``run``: what the phase set up (``tmp``,
+    ``ports``, ``spawn``, ``procs``, ``held``, ``held_rows``, ``users``,
+    ``catalog``, ``seen``, ``key``)."""
+    import torch
+
+    from gorse_tpu_torch.client import GorseClient
+    from gorse_tpu_torch.ops import topk
+    from gorse_tpu_torch.serve.worker import Worker
+    from gorse_tpu_torch.storage import cache as ck
+    from gorse_tpu_torch.storage.blob import BlobStore
+    from gorse_tpu_torch.storage.cache import open_cache_store
+    from gorse_tpu_torch.storage.data import open_data_store
+    from gorse_tpu_torch.utils.config import Config
+
+    out = {}
+    master, server, worker = run.ports["master"], run.ports["server"], run.ports["worker"]
+    master_url = f"http://127.0.0.1:{master}"
+    client = GorseClient(f"http://127.0.0.1:{server}", timeout=60)
+    # ---- ingest: the held-back users (POST /api/users, which the client
+    # does not wrap) and their rows (PUT /api/feedback) through the server
+    t0 = time.perf_counter()
+    status, body = http_json(server, "POST", "/api/users",
+                             [u.to_dict() for u in run.users if u.user_id in run.held])
+    check(status == 200 and body == {"RowAffected": len(run.held)}, f"POST /api/users: {body}")
+    users_s = time.perf_counter() - t0
+    lat = []
+    for n in range(0, len(run.held_rows), CLUSTER_BATCH):
+        batch = run.held_rows[n:n + CLUSTER_BATCH]
+        t0 = time.perf_counter()
+        body = client.insert_feedback(batch, overwrite=True)
+        lat.append(time.perf_counter() - t0)
+        check(body == {"RowAffected": len(batch)}, f"PUT /api/feedback: {body}")
+    ingest_s = sum(lat)
+    lat.sort()
+    out["ingest"] = {"users_s": users_s, "batches": len(lat), "seconds": ingest_s,
+                     "rows_per_s": len(run.held_rows) / ingest_s,
+                     "batch_p50_ms": 1e3 * lat[len(lat) // 2],
+                     "batch_p99_ms": 1e3 * lat[max(int(len(lat) * 0.99) - 1, 0)]}
+    log(f"  ingest through the server: {len(run.held)} users in {users_s:.2f} s; "
+        f"{len(run.held_rows):,} rows in {len(lat)} batches of {CLUSTER_BATCH} in "
+        f"{ingest_s:.1f} s = {out['ingest']['rows_per_s']:.0f} rows/s, a batch p50 "
+        f"{out['ingest']['batch_p50_ms']:.0f} ms, p99 {out['ingest']['batch_p99_ms']:.0f} ms")
+
+    # ---- hold 1: the admin gate
+    status, _ = http_json(master, "POST", "/api/admin/meta", {})
+    check(status == 401, f"POST /api/admin/meta without the key gives 401, not {status}")
+
+    # ---- hold 2: the server reads every sent row back
+    readback = sorted(str(u) for u in np.random.default_rng(2).choice(
+        sorted(run.held), CLUSTER_READBACK, replace=False))
+    for uid in readback:
+        sent = {fb.key(): fb.value for fb in run.held_rows if fb.user_id == uid}
+        got = {fb.key(): fb.value for fb in client.get_user_feedback(uid)}
+        check(got == sent, f"GET /api/user/{uid}/feedback returns the {len(sent)} rows sent "
+              f"({len(got)} back, {len(sent.keys() - got.keys())} missing)")
+    log(f"  the master's admin routes answer 401 without the key; the server returns every "
+        f"row sent for {len(readback)} held-back users")
+
+    def meta():
+        status, body = http_json(master, "POST", "/api/admin/meta", {}, run.key)
+        check(status == 200, f"POST /api/admin/meta with the key: {status}")
+        return body
+
+    # ---- hold 3: the scheduled cycle names a new CF model with its blob
+    first = poll("the master's first cycle names a CF model", lambda: meta()["cf_model_id"],
+                 time.perf_counter() + CLUSTER_CYCLE_S)
+    t_sched = time.perf_counter()
+    check(http_json(master, "POST", "/api/dashboard/schedule", {}, run.key)
+          == (200, {"status": "scheduled"}), "POST /api/dashboard/schedule")
+    deadline = t_sched + CLUSTER_CYCLE_S
+    cf_id = poll("the scheduled cycle names a new CF model",
+                 lambda: (m := meta()["cf_model_id"]) != first and m, deadline)
+    out["schedule_to_model_s"] = time.perf_counter() - t_sched
+    check((run.tmp / "blobs" / cf_id).is_dir(), f"the model {cf_id} has its blob")
+    log(f"  schedule -> {cf_id} in the meta: {out['schedule_to_model_s']:.1f} s (the first "
+        f"cycle's model: {first})")
+    # the worker starts now: its lists come from the model that saw the
+    # ingested rows (a worker refreshes a user only when the user's list is
+    # stale, never for a new model, as the reference's does)
+    run.spawn("worker", "--master", master_url, "--api-key", run.key, "--meta-timeout", "1",
+          "--http-port", str(worker))
+    nodes = poll("/api/dashboard/cluster lists one server and one worker", lambda: (
+        body := http_json(master, "GET", "/api/dashboard/cluster", None, run.key)[1],
+        sorted(n["Type"] for n in body) == ["server", "worker"] and body)[1],
+        time.perf_counter() + CLUSTER_START_S)
+    worker_id = next(n["UUID"] for n in nodes if n["Type"] == "worker")
+
+    steps = {}
+
+    def span_arrived():
+        # the worker's step gauges hold for about a second after its cycle
+        _, text = http_json(worker, "GET", "/metrics")
+        if re.search(rf"^\w*worker_update_user_recommend_total {len(run.users)}\.0$", text, re.M):
+            steps.update({k: float(v) for k, v in re.findall(
+                r'^\w*worker_offline_recommend_step_seconds\{step="([^"]+)"\} (\S+)$', text,
+                re.M)})
+            steps["total"] = float(re.search(
+                r"^\w*worker_offline_recommend_total_seconds (\S+)$", text, re.M).group(1))
+        status, tasks = http_json(master, "GET", "/api/dashboard/tasks", None, run.key)
+        return status == 200 and next(
+            (t for t in tasks if t.get("Node") == worker_id and t["Name"] == "recommend"
+             and t["Status"] == "complete" and t["Count"] == len(run.users)), None)
+
+    span = poll(f"the worker's span for {len(run.users)} users at the master", span_arrived,
+                deadline, every=0.25)
+    out["worker_span_s"] = span["FinishTime"] - span["StartTime"]
+    out["worker_steps"] = steps or "not measured"
+    log(f"  worker {worker_id}: its span for {len(run.users)} users arrived "
+        f"{time.perf_counter() - t_sched:.1f} s after schedule; the cycle "
+        f"{out['worker_span_s']:.1f} s; its steps (s): {json.dumps(steps) or 'not caught'}")
+
+    # ---- hold 4: every list in cache.sqlite
+    cache = open_cache_store(f"sqlite://{run.tmp / 'cache.sqlite'}")
+    lists: dict[str, list] = {}
+    for subset, score in cache.scan_scores(ck.RECOMMEND):
+        lists.setdefault(subset, []).append(score)
+    cfg = Config.from_json(meta()["config"])
+    check(len(lists) == len(run.users),
+          f"cache.sqlite holds {len(lists)} lists of {len(run.users)}")
+    for uid, scores in lists.items():
+        ids = [x.id for x in scores]
+        check(0 < len(ids) <= cfg.recommend.cache_size and set(ids) <= run.catalog
+              and not set(ids) & run.seen.get(uid, set()),
+              f"{uid}: {len(ids)} catalog ids, none of the user's items")
+    # ---- hold 5: the server answers from the cache
+    rng = np.random.default_rng(5)
+    others = sorted(u.user_id for u in run.users if u.user_id not in run.held)
+    sample = ([str(u) for u in rng.choice(sorted(run.held), CLUSTER_SAMPLE // 2, replace=False)]
+              + [str(u) for u in rng.choice(others, CLUSTER_SAMPLE // 2, replace=False)])
+    want = {uid: cache.search_scores(ck.RECOMMEND, uid) for uid in sample}
+    for uid in sample:
+        status, body = http_json(server, "GET", f"/api/recommend/{uid}")
+        check(status == 200 and body == [x.id for x in want[uid]][: cfg.server.default_n],
+              f"GET /api/recommend/{uid} on the server equals the cache")
+    out["schedule_to_served_s"] = time.perf_counter() - t_sched
+    cache.close()
+    log(f"  every list in cache.sqlite: catalog ids, at most {cfg.recommend.cache_size}, none of "
+        f"the user's items; {len(sample)} users ({CLUSTER_SAMPLE // 2} held back) served equal "
+        f"to the cache, {out['schedule_to_served_s']:.1f} s after schedule")
+
+    # ---- holds 6 and 7: a worker here, on the card and on the CPU
+    m = meta()
+    cfg = Config.from_json(m["config"])
+    lists_out = {}
+    for where, device in (("card", dev), ("cpu", "cpu")):
+        copy = run.tmp / f"check_{where}.sqlite"
+        sqlite_copy(run.tmp / "cache.sqlite", copy)
+        check_worker = Worker(cfg, open_data_store(cfg.database.data_store),
+                              open_cache_store(f"sqlite://{copy}"),
+                              BlobStore(cfg.database.blob_store), node_id=f"check-{where}",
+                              device=device)
+        check_worker.pull_models(m["cf_model_id"], m["ctr_model_id"])
+        check(check_worker.cf_model_id == cf_id, f"the {where} worker pulled {cf_id}")
+        if where == "card":
+            zero_counts()
+        check(check_worker.recommend(sample, force=True) == len(sample),
+              f"the {where} worker refreshed the sample")
+        if where == "card":
+            torch.cuda.synchronize()
+            out["launches"] = {n: getattr(topk, n).launches for n in KERNELS}
+            check(all(v > 0 for v in out["launches"].values()),
+                  f"the card worker's recall launches {out['launches']}")
+        worst = 0.0
+        for uid in sample:
+            worst = max(worst, same_ranking(f"{uid}: the {where} worker", [
+                x for x in check_worker.cache.search_scores(ck.RECOMMEND, uid)], want[uid]))
+        lists_out[where] = worst
+        del check_worker
+    out["hold_worst"] = lists_out
+    log(f"  a card worker here on {cf_id} gives the worker process's lists (tie-aware, largest "
+        f"|s - s_process| / tol {lists_out['card']:.3g}; launches {json.dumps(out['launches'])});"
+        f" a CPU worker too ({lists_out['cpu']:.3g})")
+
+    # ---- hold 8: a cold user gets latest
+    status, cold = http_json(server, "GET", "/api/recommend/brand-new-user?n=3")
+    _, latest = http_json(server, "GET", "/api/latest?n=3")
+    check(status == 200 and cold == [x["Id"] for x in latest] and len(cold) == 3,
+          f"a cold user gets latest: {cold} against {latest}")
+    # ---- hold 9: the worker's health and metrics
+    status, body = http_json(worker, "GET", "/api/health/ready")
+    check(status == 200 and body == {"status": "ready"}, f"the worker is ready: {body}")
+    _, text = http_json(worker, "GET", "/metrics")
+    check("gorse_worker_update_user_recommend_total" in text, "the worker's /metrics")
+    _, text = http_json(master, "GET", "/metrics")
+    fit = re.search(r"^\w*master_collaborative_filtering_fit_seconds (\S+)$", text, re.M)
+    check(fit is not None, "the master's fit gauge")
+    out["master_fit_s"] = float(fit.group(1))
+    log(f"  a cold user gets latest; the worker is ready; the master's "
+        f"master_collaborative_filtering_fit_seconds {out['master_fit_s']:.3f}")
+
+    # ---- REST latency on the server process (the async front end)
+    out["rest_p50_ms"], out["rest_p99_ms"] = rest_latency(
+        server, lambda r: f"/api/recommend/u{r % len(run.users)}")
+    phase10 = earlier.get("in_one") or {}
+    log(f"  REST on the server process: p50 {out['rest_p50_ms']:.3f} ms, p99 "
+        f"{out['rest_p99_ms']:.3f} ms over {REST_REQUESTS} keep-alive requests"
+        + (f" (phase 10, in-process: p50 {phase10['rest_p50_ms']:.3f}, p99 "
+           f"{phase10['rest_p99_ms']:.3f})" if phase10 else ""))
+    apps = subprocess.run(["nvidia-smi", "--query-compute-apps=pid,used_memory",
+                           "--format=csv"], capture_output=True, text=True)
+    out["compute_apps"] = apps.stdout.strip() or apps.stderr.strip()
+    log(f"  nvidia-smi --query-compute-apps (pids: "
+        f"{json.dumps({r: p.pid for r, p in run.procs.items()})}):\n{out['compute_apps']}")
+    return out
 
 
 # ---------------------------------------------------------------- main
@@ -3546,6 +4009,10 @@ def main() -> int:
                                      {"load_steps": out.get("ctr", {}).get("load_steps"),
                                       "path": out.get("path")})
         log("  in_one: " + json.dumps(out["in_one"], default=str))
+    if "11" in phases:
+        log("== phase 11: the master, server and worker as processes on the card")
+        out["cluster"] = phase_cluster(dev, smi, args.seed, {"in_one": out.get("in_one")})
+        log("  cluster: " + json.dumps(out["cluster"], default=str))
     check("jax" not in sys.modules and "gorse_tpu" not in sys.modules,
           "neither JAX nor gorse_tpu was imported")
     log(f"  total {time.perf_counter() - t_start:.1f} s")
@@ -3578,11 +4045,14 @@ def kernel_rows(out: dict) -> list[dict]:
                                                 "library_ms")}}
 
     # the serving path's launches (phase 3) with the fm worker's recall
-    # (phase 9) and the in-one node's cycle (phase 10)
+    # (phase 9), the in-one node's cycle (phase 10) and the card worker that
+    # phase 11 runs beside the worker process
     in_one = out["in_one"]["launches"]
+    cluster = out["cluster"]["launches"]
     kernels = [row(name, "topk.cu", REPLACES[name],
                    path["launches"][name] + out["ctr"]["worker_topk_launches"][name]
-                   + in_one[name], out["errors"][name], rows[name]) for name in KERNELS]
+                   + in_one[name] + cluster[name], out["errors"][name], rows[name])
+               for name in KERNELS]
     # the training path's launches of bpr_epoch (phase 5) with the in-one
     # node's fit and BPR search trials (phase 10); the sweeps' from their
     # own paths (phase 4). No single PyTorch call computes a sweep or an

@@ -12,11 +12,10 @@ model searches that have come due included, then the worker refreshes its
 shard; ``serve`` answers REST requests and repeats the cycle every
 ``collaborative.fit_period`` minutes on a thread.
 
-The REST surface is the port's ``RestServer``: the health and recommend
-routes. The reference serves its dashboard (``MasterRestServer``,
-serve/dashboard.py: ROADMAP.md M21) with the other routes (M16); the port
-has neither yet. Tracing is not ported either: ``tracing.enable = true``
-raises (M21).
+The REST surface is the master's, ``MasterRestServer`` (serve/dashboard.py):
+the public API with the dashboard, admin and node-sync routes, as the
+reference's in-one node serves it. Tracing is not ported:
+``tracing.enable = true`` raises (ROADMAP.md M21).
 """
 
 from __future__ import annotations
@@ -34,8 +33,8 @@ from ..storage.meta import MetaStore
 from ..storage.object import open_blob_store_from_config
 from ..storage.vectors import open_vector_store
 from ..utils.config import Config, default_config, load_config
+from .dashboard import MasterRestServer
 from .master import Master
-from .rest import RestServer
 from .worker import Worker
 
 logger = logging.getLogger(__name__)
@@ -63,8 +62,7 @@ class InOneNode:
                              device=self.device, vector_store=self.vectors)
         self.worker = Worker(self.config, self.data, self.cache, self.blob, node_id="in-one",
                              device=self.device)
-        self.rest = RestServer(self.config, self.data, self.cache,
-                               api_key=self.config.server.api_key)
+        self.rest = MasterRestServer(self.master, api_key=self.config.server.api_key)
         self._httpd = None
         self._stop = threading.Event()
         self._loop_thread: threading.Thread | None = None

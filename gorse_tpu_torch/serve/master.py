@@ -55,7 +55,12 @@ from ..storage import cache as ck
 from ..storage.blob import BlobStore
 from ..storage.cache import CacheStore, key
 from ..storage.data import DataStore
-from ..storage.meta import CLICK_THROUGH_RATE_MODEL, COLLABORATIVE_FILTERING_MODEL, MetaStore
+from ..storage.meta import (
+    CLICK_THROUGH_RATE_MODEL,
+    COLLABORATIVE_FILTERING_MODEL,
+    RECOMMEND_CONFIG,
+    MetaStore,
+)
 from ..storage.types import TimeSeriesPoint
 from ..storage.vectors import VectorStore
 from ..utils.config import Config, NonPersonalizedConfigEntry
@@ -132,7 +137,23 @@ class Master:
         }
 
     def _load_models_from_meta(self) -> None:
-        """Resume the last trained CF index and CTR model after a restart."""
+        """Resume the last trained CF index and CTR model after a restart,
+        after applying the recommend-config override that the dashboard's
+        ``POST /api/dashboard/config`` persisted in the meta store (merged
+        into ``recommend`` and validated; an invalid one is logged and
+        ignored)."""
+        raw_override = self.meta.get(RECOMMEND_CONFIG)
+        if raw_override:
+            try:
+                override = json.loads(raw_override)
+                merged = json.loads(self.config.to_json())
+                merged["recommend"].update(override.get("recommend", override))
+                new_cfg = Config.from_json(json.dumps(merged))
+                new_cfg.validate()
+                self.config.recommend = new_cfg.recommend
+                logger.info("applied persisted recommend-config override")
+            except Exception as e:  # noqa: BLE001 - a bad override must not block startup
+                logger.warning("ignoring invalid RECOMMEND_CONFIG override: %s", e)
         cf_id = self.meta.get(COLLABORATIVE_FILTERING_MODEL)
         if cf_id and self.blob.exists(cf_id):
             try:

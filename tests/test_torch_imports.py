@@ -32,7 +32,10 @@ def test_port_imports_no_jax_and_no_reference():
                  "storage.meta", "storage.vectors", "storage.none", "utils.config",
                  "utils.safe_expr", "data.ctr", "data.unified_index", "models.scaler",
                  "models.fm", "serve.worker", "storage.data", "storage.cache",
-                 "storage.search", "storage.object", "models.optimize", "serve.in_one"):
+                 "storage.search", "storage.object", "models.optimize", "serve.in_one",
+                 "serve.rest", "serve.asynchttp", "serve.metrics", "serve.oidc",
+                 "serve.dashboard", "serve.nodes", "client", "cmd", "cmd.nodes_main",
+                 "cmd._spawn"):
         assert f"gorse_tpu_torch.{name}" in modules
     code = (
         "import importlib, json, sys\n"
@@ -102,6 +105,8 @@ def _entry_points():
         "afm_params_from_numpy": lambda device: afm_params_from_numpy(
             {"b": row[0], "v": items, "w": items[:, :1]}, device=device),
         "in_one": _in_one,
+        "worker_node": _worker_node,
+        "master_main": _master_main,
     }
 
 
@@ -115,6 +120,30 @@ def _in_one(device):
         assert node.master.device == node.worker.device == node.device
 
 
+def _worker_node(device):
+    """``WorkerNode`` resolves its device when it is built and hands it to
+    its pipeline's ``Worker`` (the master URL is not reached before its
+    first sync)."""
+    from gorse_tpu_torch.serve.nodes import WorkerNode
+
+    node = WorkerNode("http://127.0.0.1:9", device=device)
+    assert node.device.type == "cpu"
+
+
+def _master_main(device):
+    """The master that ``master_main`` builds from a config's stores."""
+    import tempfile
+
+    from gorse_tpu_torch.cmd.nodes_main import build_master
+    from gorse_tpu_torch.utils.config import Config
+
+    with tempfile.TemporaryDirectory() as tmp:
+        config = Config()
+        config.database.blob_store = f"{tmp}/blobs"
+        master = build_master(config, device=device)
+        assert master.device.type == "cpu"
+
+
 @pytest.mark.parametrize("name", ["resolve_device", "prepare_items", "dot_topk",
                                   "dot_topk_xla", "topk_excluding", "index", "bpr",
                                   "create_mf_model", "prepare_sq_items", "sq_topk", "pq_topk",
@@ -122,7 +151,8 @@ def _in_one(device):
                                   "create_als", "idf_neighbors", "idf_neighbors_avg",
                                   "idf_distance_matrix", "embedding_neighbors",
                                   "embedding_query", "item_to_item", "user_to_user", "afm",
-                                  "afm_params_from_numpy", "in_one"])
+                                  "afm_params_from_numpy", "in_one", "worker_node",
+                                  "master_main"])
 def test_entry_points_default_to_cuda(name, monkeypatch):
     """``device=None`` means the card: without CUDA it raises; an explicit
     ``device="cpu"`` runs the plain versions."""

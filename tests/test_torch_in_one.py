@@ -277,6 +277,27 @@ def test_serves_the_sqlite_cache(nodes):
         assert node.shutdown()
 
 
+def test_serves_the_master_routes(nodes):
+    """The node serves ``MasterRestServer``, as the reference's in-one does:
+    the node-sync and dashboard routes answer from its master, equal to the
+    reference node's on the same rows."""
+    from gorse_tpu.serve.dashboard import MasterRestServer as RefMasterRestServer
+    from gorse_tpu_torch.serve.dashboard import MasterRestServer
+
+    node, ref = nodes["port"][0], nodes["ref"][0]
+    assert isinstance(node.rest, MasterRestServer)
+    assert isinstance(ref.rest, RefMasterRestServer)
+    status, meta = node.rest.dispatch("POST", "/api/admin/meta", {}, {}, {})
+    assert status == 200 and meta["cf_model_id"] == node.meta.get(COLLABORATIVE_FILTERING_MODEL)
+    assert meta["config"] == node.config.to_json()
+    status, stats = node.rest.dispatch("GET", "/api/dashboard/stats", {}, None, {})
+    _, want = ref.rest.dispatch("GET", "/api/dashboard/stats", {}, None, {})
+    assert status == 200 and stats["CFModel"] == meta["cf_model_id"]
+    for name in ("NumUsers", "NumItems", "NumTotalPosFeedback", "NumValidPosFeedback",
+                 "NumValidNegFeedback", "NumUserLabels", "NumItemLabels", "NumTotalPos"):
+        assert stats[name] == want[name], name
+
+
 def test_reconcile_builds_the_search_index(tmp_path):
     """``[recommend.search] columns`` reaches the data store through the
     master's reconcile thread: the SQLite store's FTS5 index answers."""

@@ -592,3 +592,32 @@ def test_task_loop_runs_until_shutdown(tmp_path, monkeypatch):
     assert ran.acquire(timeout=10)
     master.shutdown()
     assert not master._thread.is_alive() and len(calls) >= 3
+
+
+@pytest.mark.parametrize("override,cache_size", [
+    ({"recommend": {"cache_size": 7}}, 7),
+    ({"cache_size": 9, "context_size": 30}, 9),
+    ({"recommend": {"collaborative": {"type": "bogus"}}}, 20),
+])
+def test_masters_apply_the_persisted_recommend_override(tmp_path, override, cache_size):
+    """A ``meta.sqlite`` holding the dashboard's ``RECOMMEND_CONFIG``
+    override (``POST /api/dashboard/config``): both masters started on it
+    serve the same ``recommend`` section, the override merged in and
+    validated; an invalid override is ignored by both."""
+    import dataclasses
+
+    from gorse_tpu.storage.meta import RECOMMEND_CONFIG as REF_RECOMMEND_CONFIG
+
+    path = str(tmp_path / "meta.sqlite")
+    writer = RefMeta(path)
+    writer.put(REF_RECOMMEND_CONFIG, json.dumps(override))
+    writer.close()
+    ref_cfg, cfg = RefConfig(), Config()
+    _configure(ref_cfg)
+    _configure(cfg)
+    ref = RefMaster(ref_cfg, RefData(), RefCache(), RefBlobStore(tmp_path / "rb"), RefMeta(path))
+    master = Master(cfg, MemoryDataStore(), MemoryCacheStore(), BlobStore(tmp_path / "b"),
+                    MetaStore(path), device="cpu")
+    assert master.config.recommend.cache_size == ref.config.recommend.cache_size == cache_size
+    assert dataclasses.asdict(master.config.recommend) == dataclasses.asdict(ref.config.recommend)
+    assert master.config.recommend.hash() == ref.config.recommend.hash()
