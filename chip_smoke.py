@@ -185,7 +185,7 @@ kernel's own block maxima.
    (``RANK_TOL``); ``GET /api/recommend/u1`` equals the cache.
 
 10. The in-one node from ``config.toml.example``. Phase 9's ml-1m rows
-   for all 6,040 users (each feedback a star, a like or a read of value
+   for its first ``IN_ONE_USERS`` users (each feedback a star, a like or a read of value
    3-5, the example's positive types, from the seed) through ``SQLiteDataStore`` into a
    temporary directory, its counts read back from a fresh ``sqlite://``
    store. A copy of the example with its four stores and blob directory
@@ -237,6 +237,32 @@ kernel's own block maxima.
    seconds from schedule to the model and to the sample served, the
    master's fit gauge and the worker's step gauges, REST p50/p99 on the
    server process beside phase 10's, ``nvidia-smi --query-compute-apps``.
+
+12. Sharded training (``gorse_tpu_torch/parallel/``) on a mesh of
+   ``SHARDS`` shards of the card. The user-sharded BPR epoch on phase 5's
+   data from its first epoch's init and key: every step's pairs equal the
+   single-card ``bpr_epoch``'s ``pairs``, ``bpr_sweep_pairs`` (K3)
+   launched n_steps x shards times; two timed epochs (host clock ending on
+   a synchronise, the psums by CUDA events), examples/s beside phase 5's.
+   At ``HOLD_INITS`` inits and keys (``--hold-inits``): p and q within
+   ``SHARDED_EPOCH_TOL`` of ``bpr_epoch``'s factors, ``sync_every = 4``
+   through K3 within ``SYNC4_TOL`` of the same epoch through
+   ``bpr_sweep_pairs_plain``, ``bpr_epoch``'s own spread from run to run
+   logged beside them. The catalog-sharded epoch: its drops equal to
+   those the recorded pairs give (each owner's requests past the cap),
+   its factors within ``FIRST_EPOCH_TOL`` of the user-sharded epoch's. The
+   sharded top-k (``SHARDED_TOPK``: 1M x 64 in the shards, 256 queries, k =
+   100) equal to ``dot_topk`` on the whole table, tie order included. The
+   master with the mesh patched into ``training_mesh``, phase 9's setup on
+   its 2,000 users (fits cut to ``SHARDED_MASTER_EPOCHS`` BPR epochs and
+   one AFM epoch): ``run_tasks_once`` (BPR through K3, the data-parallel
+   AFM), a single-card master's fits of the same loaded data, then both
+   fit eALS; BPR within ``FIRST_EPOCH_TOL``, eALS within ``EALS_TOL``, the
+   AFM within ``AFM_TOL``, NDCG and AUC within 0.01; each fit's gauge beside
+   the single card's. ``init_multihost`` at world size 1 over NCCL and the
+   epoch on its ``global_mesh``. With more than one card visible, the
+   epoch and the master again on the mesh over every card (the master's
+   own ``training_mesh``), and one process a card over NCCL against it.
 
 The last three lines of standard output are the kernels' JSON record, the
 card's ``name, power.limit`` as nvidia-smi gives them, and
@@ -310,6 +336,10 @@ BPR_REPLACES = {
 # a payload near a rounding boundary may round the other way)
 EPOCH_TOL = {"float32": 1e-4, "bfloat16": 2.0**-8}
 EPOCH_STEPS = (1, 3, 5)
+# a whole epoch at the 138k x 27k shape, the kernel against a plain f32
+# order: the Zipf head's rows grow about fourfold a step, which amplifies
+# every reordered sum (phase 5)
+FIRST_EPOCH_TOL = 5e-3
 # the sweep's candidates drawn ahead of the scan (csrc/bpr.cu MAXC); more
 # tries are drawn one at a time, so the dense case asks for more
 SAMPLE_AHEAD = 8
@@ -357,8 +387,7 @@ AFM_GATE_AUC = 0.75
 USER_FIELDS = (("gender", 2), ("age", 7), ("occupation", 21))
 CTR_EPOCHS = 3
 # phase 9's cycle keeps the first 2,000 of ml-1m's 6,040 users and their
-# rows (time: phase 10 runs the same cycle at full width through the in-one
-# node)
+# rows (time)
 CTR_USERS = 2000
 # the card's AFM epoch against the port's on the CPU from the same init
 # (drawn on the host): the gather's backward adds by atomics and the sums
@@ -377,6 +406,10 @@ IN_ONE_CUTS = (
     ("recommend.collaborative", "model_search_epoch", "2",
      "time: the epochs of every CF and every AFM search trial"),
 )
+# phase 10 keeps the first 2,000 of ml-1m's 6,040 users and their rows
+# (time: at 6,040 its run_once took 281-409 s, the worker's refresh and the
+# neighbours per user, and the whole run must end within 1,200 s)
+IN_ONE_USERS = 2000
 # the example's positive types: "read" rows carry a value of at least 3
 IN_ONE_TYPES = ("star", "like", "read")
 IN_ONE_START_S = 300  # the entry point's subprocess answers within this
@@ -395,7 +428,31 @@ CLUSTER_STOP_S = 10  # SIGTERM ends each process within this
 # how a node process is started (a CPU rehearsal swaps in a prelude that
 # maps the device to the CPU)
 SPAWN = [sys.executable, "-m", "gorse_tpu_torch.cmd._spawn"]
-PHASES = ("2", "2b", "2c", "3", "4", "5", "6", "7", "7c", "8", "9", "10", "11")
+# phase 12: sharded training on SHARDS shards of one card (a mesh of every
+# card as well when more than one is visible); the sharded top-k at the
+# serving shape (items, dim, queries, k); the master's fits cut to this
+# many epochs (time: a sharded epoch at ml-1m takes about 150 steps, each
+# SHARDS samplings and K3 launches)
+SHARDS = 4
+SHARDED_TOPK = (1_000_000, 64, 256, 100)
+SHARDED_MASTER_EPOCHS = 2
+# the user-sharded epoch is held at this many inits and keys (seed 0 is
+# phase 5's first epoch); --hold-inits sets it
+HOLD_INITS = 4
+# the user-sharded epoch against bpr_epoch, one epoch at phase 5's shape,
+# as a share of each table's largest magnitude: both sum each step's item
+# deltas by atomics, in an order that changes from run to run, and the Zipf
+# head amplifies a reordered sum step by step (bpr_epoch against itself
+# reads up to 3.6e-4 in p). Two runs over inits 0-23 on 4 shards of one
+# card read p 3.1e-5 to 1.02e-3 (inits 0-3 at most 1.3e-4), q 9.1e-6 to
+# 3.2e-5; p gets phase 5's whole-epoch limit, five times its largest
+# reading, q six times its largest
+SHARDED_EPOCH_TOL = {"p": FIRST_EPOCH_TOL, "q": 2e-4}
+# sync_every = 4 through K3 against the same pairs through the plain sweep
+# (one sweep's rounding a step, no atomics between the two): the same two
+# runs read at most 1.6e-6, twelve times under this limit
+SYNC4_TOL = 2e-5
+PHASES = ("2", "2b", "2c", "3", "4", "5", "6", "7", "7c", "8", "9", "10", "11", "12")
 SQ_REPLACES = {
     "block_max_sq": "gorse_tpu/ops/topk.py:361",
     "block_topk_sq": "gorse_tpu/ops/topk.py:442",
@@ -1869,7 +1926,7 @@ def hold_first_epoch(train, csr, dev, n_steps: int) -> dict:
             rel = float((got[a][t] - want).abs().max()) / float(want.abs().max())
             out[f"{a} vs {b}"] = max(out.get(f"{a} vs {b}", 0.0), rel)
             if b == "plain":
-                check(rel <= 5e-3,
+                check(rel <= FIRST_EPOCH_TOL,
                       f"first epoch: {name} differs by {rel:.3g} of its largest magnitude")
     p64, q64, _ = got["f64"]
     log(f"  first epoch against its plain version on the card, as shares of each table's "
@@ -3312,7 +3369,7 @@ def phase_in_one(dev, smi: str, seed: int, earlier: dict) -> dict:
         t0 = time.perf_counter()
         store = SQLiteDataStore(str(tmp / "data.sqlite"))
         neighbor_store(0, embedding=False, user_fields=USER_FIELDS, data=store,
-                       feedback_type=feedback_type)
+                       feedback_type=feedback_type, n_users=IN_ONE_USERS)
         insert_s = time.perf_counter() - t0
         written = (store.count_users(), store.count_items(), store.count_feedback())
         catalog = {i.item_id for i in store.get_items()}
@@ -3905,12 +3962,495 @@ def _cluster_run(dev, run, earlier: dict) -> dict:
 # ---------------------------------------------------------------- main
 
 
+# ---------------------------------------------------------------- phase 12
+
+
+def share(got, want) -> float:
+    """The largest difference as a share of ``want``'s largest magnitude."""
+    return float((got.double() - want.double()).abs().max()) / max(
+        float(want.double().abs().max()), 1e-30)
+
+
+class PsumClock:
+    """Times each ``mesh.psum`` by CUDA events while installed: the
+    collective's span on the stream (the gather, the ordered sum, the
+    copies)."""
+
+    def __init__(self, mesh) -> None:
+        self.mesh, self.spans = mesh, []
+
+    def __enter__(self):
+        import torch
+
+        inner = self.mesh.psum
+
+        def timed(parts):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = inner(parts)
+            end.record()
+            self.spans.append((start, end))
+            return out
+
+        self.mesh.psum = timed
+        return self
+
+    def __exit__(self, *exc):
+        del self.mesh.psum  # the class's method again
+        return False
+
+    def ms(self) -> float:
+        return sum(s.elapsed_time(e) for s, e in self.spans)
+
+
+def sharded_inputs(train, csr, dev, seed: int = 0):
+    """An epoch at phase 5's shape: its init and key (seed 0: phase 5's
+    first epoch), its steps and tries."""
+    from gorse_tpu_torch.models import BPR, Params
+    from gorse_tpu_torch.models.bpr import adaptive_neg_tries
+    from gorse_tpu_torch.ops import sampling
+
+    n_items = train.count_items()
+    init = BPR(Params(n_factors=TRAIN_DIM), device=dev)
+    init.init(train, seed=seed)
+    _, epoch_key = sampling.split(sampling.prng_key(1 + seed))
+    n_active = max(int((csr.counts > 0).sum()), 1)
+    n_steps = max(round(train.count_feedback() / n_active), 1)
+    return init, epoch_key, n_steps, adaptive_neg_tries(float(np.mean(csr.counts)) / n_items)
+
+
+def hold_sharded_epoch(train, csr, dev, mesh, smi: str, phase5: dict | None,
+                       n_inits: int) -> dict:
+    """The user-sharded epoch on ``mesh`` against the single-card
+    ``bpr_epoch`` from the same init and key: every step's pairs equal, K3
+    launched n_steps x shards times; then timed (host clock ending on a
+    synchronise; the psums by CUDA events). At ``n_inits`` inits and
+    keys: p and q within ``SHARDED_EPOCH_TOL`` of each table's largest
+    magnitude from ``bpr_epoch``'s, ``bpr_epoch`` run twice (its own spread,
+    logged), ``sync_every = 4`` through K3 against the same epoch through
+    ``bpr_sweep_pairs_plain`` within ``SYNC4_TOL``; every reading is logged
+    before any is checked. The catalog-sharded epoch: its drops equal to
+    those the recorded pairs give by counting each owner's requests past
+    the cap, its factors within ``FIRST_EPOCH_TOL`` of the user-sharded
+    epoch's (plain ops against K3)."""
+    import torch
+
+    from gorse_tpu_torch.ops import bpr_kernel as bk
+    from gorse_tpu_torch.ops import sampling
+    from gorse_tpu_torch.parallel.catalog import (
+        make_catalog_sharded_bpr_epoch,
+        request_cap,
+        shard_catalog_bpr_inputs,
+        unpack_catalog,
+    )
+    from gorse_tpu_torch.parallel.sharded import make_sharded_bpr_epoch, shard_bpr_inputs
+
+    init, key, n_steps, n_tries = sharded_inputs(train, csr, dev)
+    n_items, n_users, d = train.count_items(), train.count_users(), mesh.size
+    padded = torch.as_tensor(csr.padded, device=dev)
+    counts = torch.as_tensor(csr.counts, device=dev)
+
+    def single(init, key, pairs=None):
+        q1 = init.item_factors.clone()
+        p1 = bk.bpr_epoch(init.user_factors, q1, torch.zeros_like(q1),
+                          torch.zeros((1,), device=dev), padded, counts,
+                          sampling.raw_step_keys(key, n_steps), n_items, LR, REG, n_tries,
+                          pairs=pairs)
+        return p1, q1
+
+    def place(init):
+        return shard_bpr_inputs(mesh, init.user_factors, init.item_factors, csr.padded, csr.counts)
+
+    def dense(p, q):
+        return mesh.all_gather(p)[0][:n_users].to(dev), q[0].to(dev)
+
+    def shares(a, b):
+        return {"p": share(a[0], b[0]), "q": share(a[1], b[1])}
+
+    pairs1 = torch.empty((2, n_steps, n_users), dtype=torch.int32, device=dev)
+    p1, q1 = single(init, key, pairs1)
+    epoch = make_sharded_bpr_epoch(mesh, n_steps, n_items, LR, REG, n_tries)
+    p, q, pp, pc, uids, _ = place(init)
+    pairs = [torch.empty((2, n_steps, t.shape[0]), dtype=torch.int32, device=t.device) for t in p]
+    zero_counts()
+    for device in mesh.devices:
+        torch.cuda.synchronize(device)
+    p, q, cost = epoch(p, q, pp, pc, uids, key, pairs=pairs)
+    for device in mesh.devices:
+        torch.cuda.synchronize(device)
+    launches = bk.bpr_sweep_pairs.launches
+    check(launches == n_steps * d, f"sharded epoch: {launches} K3 launches, want {n_steps} x {d}")
+    got_pairs = torch.cat([t.to(dev) for t in pairs], dim=2)[:, :, :n_users]
+    check(torch.equal(got_pairs, pairs1), "sharded epoch: every step's pairs equal bpr_epoch's")
+    p_s, q_s = dense(p, q)
+
+    times, psum_ms = [], []
+    for _ in range(2):
+        args = place(init)
+        for device in mesh.devices:
+            torch.cuda.synchronize(device)
+        with PsumClock(mesh) as clock:
+            t0 = time.perf_counter()
+            epoch(*args[:5], key)
+            for device in mesh.devices:
+                torch.cuda.synchronize(device)
+            times.append((time.perf_counter() - t0) * 1e3)
+        psum_ms.append(clock.ms())
+    nnz = train.count_feedback()
+    result = dict(shards=d, n_steps=n_steps, k3_launches_per_epoch=launches,
+                  epoch_ms=times, psum_ms=psum_ms,
+                  psum_share=[a / b for a, b in zip(psum_ms, times)],
+                  examples_per_s=[nnz / (t / 1e3) for t in times])
+    single_rate = (phase5 or {}).get("examples_per_s")
+    log(f"  user-sharded epoch on {d} shards ({[str(x) for x in mesh.devices]}): {n_steps} steps, "
+        f"K3 launched {launches} times; pairs equal bpr_epoch's; epoch {times} ms, examples/s "
+        f"{result['examples_per_s']} (phase 5's single-card fit: {single_rate}); psums "
+        f"{psum_ms} ms by CUDA events ({smi})")
+
+    # the holds at n_inits inits and keys, sync_every = 4 (K3 against its
+    # plain version on the same pairs) among them
+    steps4 = -(-n_steps // 4) * 4
+    readings = {"sharded_vs_bpr_epoch": [], "bpr_epoch_rerun": [], "sync4_vs_plain": []}
+    for seed in range(n_inits):
+        if seed == 0:
+            s_init, s_key, one_card, sharded = init, key, (p1, q1), (p_s, q_s)
+        else:
+            s_init, s_key, _, _ = sharded_inputs(train, csr, dev, seed)
+            one_card = single(s_init, s_key)
+            sharded = dense(*epoch(*place(s_init)[:5], s_key)[:2])
+        readings["sharded_vs_bpr_epoch"].append(shares(sharded, one_card))
+        readings["bpr_epoch_rerun"].append(shares(single(s_init, s_key), one_card))
+        got = {}
+        for name, sweep in (("kernel", bk.bpr_sweep_pairs), ("plain", bk.bpr_sweep_pairs_plain)):
+            p4, q4, _ = make_sharded_bpr_epoch(mesh, steps4, n_items, LR, REG, n_tries, 4,
+                                               sweep)(*place(s_init)[:5], s_key)
+            got[name] = dense(p4, q4)
+        readings["sync4_vs_plain"].append(shares(got["kernel"], got["plain"]))
+    most = {name: max(max(r.values()) for r in rs) for name, rs in readings.items()}
+    result.update(inits=n_inits, hold_readings=readings, hold_most=most)
+    log(f"  at {n_inits} inits and keys, shares of each table's largest magnitude: "
+        f"{json.dumps(readings)}; the largest {json.dumps(most)} (limits: sharded "
+        f"{json.dumps(SHARDED_EPOCH_TOL)}, sync_every 4 {SYNC4_TOL}; bpr_epoch's own spread "
+        f"logged) ({smi})")
+    for seed, r in enumerate(readings["sharded_vs_bpr_epoch"]):
+        for name, s in r.items():
+            check(s <= SHARDED_EPOCH_TOL[name], f"sharded epoch, seed {seed}: {name} off by "
+                  f"{s:.3g} of its largest magnitude from bpr_epoch's (SHARDED_EPOCH_TOL "
+                  f"{SHARDED_EPOCH_TOL[name]})")
+    for seed, r in enumerate(readings["sync4_vs_plain"]):
+        for name, s in r.items():
+            check(s <= SYNC4_TOL, f"sync_every 4, seed {seed}: {name} off by {s:.3g} from the "
+                  f"plain sweep's (SYNC4_TOL {SYNC4_TOL})")
+
+    # the catalog-sharded epoch: drops from the recorded pairs, factors
+    cat = make_catalog_sharded_bpr_epoch(mesh, n_steps, n_items, LR, REG, n_tries)
+    cp, cq, cpp, cpc, cuids, _, _ = shard_catalog_bpr_inputs(
+        mesh, init.user_factors, init.item_factors, csr.padded, csr.counts)
+    for device in mesh.devices:
+        torch.cuda.synchronize(device)
+    t0 = time.perf_counter()
+    cp, cq, stats = cat(cp, cq, cpp, cpc, cuids, key)
+    for device in mesh.devices:
+        torch.cuda.synchronize(device)
+    cat_ms = (time.perf_counter() - t0) * 1e3
+    cap = request_cap(2 * pp[0].shape[0], d)
+    want_drops = 0
+    for j, t in enumerate(pairs):
+        active = (pc[j] > 0).to(t.device)
+        for s in range(n_steps):
+            ids = torch.cat([t[0, s][active], t[1, s][active]]).long()
+            per_owner = torch.bincount(ids % d, minlength=d)
+            want_drops += int((per_owner - cap).clamp(min=0).sum())
+    drops = int(stats[1])
+    check(drops == want_drops, f"catalog epoch: {drops} drops, the pairs give {want_drops}")
+    cat_p = mesh.all_gather(cp)[0][:n_users].to(dev)
+    cat_q = torch.from_numpy(unpack_catalog(mesh.all_gather(cq)[0], n_items, d)).to(dev)
+    result["catalog"] = dict(drops=drops, cap=cap, epoch_ms=cat_ms,
+                             shares={"p": share(cat_p, p_s), "q": share(cat_q, q_s)},
+                             cost=float(stats[0]), sharded_cost=float(cost))
+    for name, s in result["catalog"]["shares"].items():
+        check(s <= FIRST_EPOCH_TOL, f"catalog epoch: {name} off by {s:.3g} from the "
+              f"user-sharded epoch's")
+    log(f"  catalog epoch {cat_ms:.1f} ms, {drops} drops (the pairs give {want_drops}, cap {cap}), "
+        f"against the user-sharded epoch {json.dumps(result['catalog']['shares'])} ({smi})")
+    return result
+
+
+def hold_sharded_topk(dev, mesh, seed: int, smi: str) -> dict:
+    """``make_sharded_topk`` over SHARDED_TOPK's items in the mesh's shards
+    against ``dot_topk`` on the whole table: ids and scores equal, tie order
+    included (the same bf16 operands and tensor-core scores in each shard)."""
+    import torch
+
+    from gorse_tpu_torch.ops import topk
+    from gorse_tpu_torch.parallel.sharded import make_sharded_topk, shard_items
+
+    n, dim, b, k = SHARDED_TOPK
+    gen = torch.Generator(device=dev).manual_seed(seed + 12)
+    items = torch.randn((n, dim), generator=gen, device=dev)
+    queries = torch.randn((b, dim), generator=gen, device=dev)
+    whole = topk.prepare_items(items, device=dev)
+    shards = shard_items(mesh, items)
+    run = make_sharded_topk(mesh, k)
+    zero_counts()
+    s, i = run(queries, shards)
+    torch.cuda.synchronize()
+    launches = {name: getattr(topk, name).launches for name in KERNELS}
+    ds, di = topk.dot_topk(queries, whole, k, device=dev)
+    torch.cuda.synchronize()
+    check(torch.equal(i, di.to(i.device)) and torch.equal(s, ds.to(s.device)),
+          "sharded top-k: ids and scores equal dot_topk on the whole table")
+    check(all(launches[name] >= mesh.size for name in KERNELS)
+          and launches["merge_topk"] >= mesh.size + 1,
+          f"sharded top-k: {launches}: each shard's chain and the merge across shards")
+    result = dict(items=n, shards=mesh.size, queries=b, k=k, launches=launches,
+                  ms=median_ms(lambda: run(queries, shards), 5),
+                  whole_ms=median_ms(lambda: topk.dot_topk(queries, whole, k, device=dev), 5))
+    log(f"  sharded top-k {n} x {dim} in {mesh.size} shards, {b} queries, k = {k}: equal to "
+        f"dot_topk; {result['ms']:.3f} ms against {result['whole_ms']:.3f} ms whole; launches "
+        f"{json.dumps(launches)} ({smi})")
+    return result
+
+
+def hold_sharded_master(dev, mesh, smi: str, patch: bool) -> dict:
+    """Phase 9's setup on its CTR_USERS users, the fits' epochs cut to
+    SHARDED_MASTER_EPOCHS: a master on ``mesh`` (patched into
+    ``training_mesh``, or its own when ``patch`` is false) runs
+    ``run_tasks_once`` (BPR, the fm ranker), a single-card master fits the
+    same loaded data; then both fit eALS. Held: BPR and eALS factors within
+    ``FIRST_EPOCH_TOL`` and ``EALS_TOL`` of each table's largest magnitude,
+    NDCG and AUC within 0.01, the AFM's tables within ``AFM_TOL`` (one
+    epoch). Printed: each fit's gauge beside the single card's."""
+    import torch
+
+    from gorse_tpu_torch.ops import bpr_kernel as bk
+    from gorse_tpu_torch.serve.master import Master
+    from gorse_tpu_torch.storage.blob import BlobStore
+    from gorse_tpu_torch.storage.cache import MemoryCacheStore
+    from gorse_tpu_torch.storage.meta import MetaStore
+    from gorse_tpu_torch.utils.config import Config
+
+    data = neighbor_store(0, embedding=False, user_fields=USER_FIELDS, n_users=CTR_USERS)
+    cfg = Config()
+    cfg.recommend.collaborative.type = "mf"
+    cfg.recommend.collaborative.fit_epoch = SHARDED_MASTER_EPOCHS
+    cfg.recommend.ranker.type = "fm"
+    cfg.recommend.ranker.recommenders = ["collaborative"]
+    cfg.recommend.ranker.fit_epoch = 1
+    result = {}
+    with tempfile.TemporaryDirectory(prefix="gorse_smoke_") as tmp:
+        def master(name, model="bpr"):
+            cfg.recommend.collaborative.model = model
+            m = Master(cfg, data, MemoryCacheStore(), BlobStore(Path(tmp) / name), MetaStore(),
+                       device=dev)
+            if name.startswith("single"):
+                m.training_mesh = lambda: None
+            elif patch:
+                m.training_mesh = lambda: mesh
+            return m
+
+        sharded = master("sharded")
+        check(sharded.training_mesh() is mesh or not patch, "the patched training_mesh")
+        used = sharded.training_mesh()
+        check(used is not None and used.size == mesh.size,
+              f"the master shards over {mesh.size}: {used}")
+        sharded._sizeof_ts = time.perf_counter()  # no memory accounting thread here
+        zero_counts()
+        loaded = sharded.run_tasks_once()
+        for device in used.devices:
+            torch.cuda.synchronize(device)
+        launches = bk.bpr_sweep_pairs.launches
+        check(launches > 0 and bk.bpr_epoch.launches == 0,
+              f"sharded master: K3 launched {launches}, bpr_epoch {bk.bpr_epoch.launches}")
+        single = master("single")
+        single.train_collaborative_filtering(loaded)
+        single.train_click_through_rate(loaded)
+        gauges = {}
+        for who, m in (("sharded", sharded), ("single", single)):
+            gauges[who] = {g: gauge(m.metrics, g) for g in (
+                "master_collaborative_filtering_fit_seconds", "master_collaborative_filtering_ndcg_10",
+                "master_ranking_fit_seconds", "master_ranking_model_auc")}
+        shares = {"bpr_p": share(sharded.cf_model.user_factors, single.cf_model.user_factors),
+                  "bpr_q": share(sharded.cf_model.item_factors, single.cf_model.item_factors),
+                  **{f"afm_{k}": v for k, v in table_shares(sharded.ctr_model.model_params,
+                                                            single.ctr_model.model_params).items()}}
+        for name, s in shares.items():
+            tol = FIRST_EPOCH_TOL if name.startswith("bpr") else AFM_TOL
+            check(s <= tol, f"sharded master: {name} off by {s:.3g} of the single card's")
+        for g in ("master_collaborative_filtering_ndcg_10", "master_ranking_model_auc"):
+            check(abs(gauges["sharded"][g] - gauges["single"][g]) <= 0.01,
+                  f"sharded master: {g} {gauges['sharded'][g]} vs {gauges['single'][g]}")
+
+        als = {}
+        for name in ("sharded_als", "single_als"):
+            m = master(name, "als")
+            m.train_collaborative_filtering(loaded)
+            check(type(m.cf_model).__name__ == "ALS", f"{name}: an eALS fit")
+            als[name] = (m, gauge(m.metrics, "master_collaborative_filtering_fit_seconds"),
+                         gauge(m.metrics, "master_collaborative_filtering_ndcg_10"))
+        (ma, fa, na), (mb, fb, nb) = als["sharded_als"], als["single_als"]
+        for name, s in (("als_p", share(ma.cf_model.user_factors, mb.cf_model.user_factors)),
+                        ("als_q", share(ma.cf_model.item_factors, mb.cf_model.item_factors))):
+            shares[name] = s
+            check(s <= EALS_TOL, f"sharded master: {name} off by {s:.3g} of the single card's")
+        check(abs(na - nb) <= 0.01, f"sharded master: eALS NDCG {na} vs {nb}")
+        gauges["sharded"]["als_fit_seconds"], gauges["single"]["als_fit_seconds"] = fa, fb
+        gauges["sharded"]["als_ndcg_10"], gauges["single"]["als_ndcg_10"] = na, nb
+    result.update(shards=used.size, k3_launches=launches, shares=shares, gauges=gauges,
+                  epochs=SHARDED_MASTER_EPOCHS)
+    log(f"  master on {used.size} shards ({[str(x) for x in used.devices]}): K3 launched "
+        f"{launches}; against the single card, shares {json.dumps(shares)}; gauges sharded "
+        f"{json.dumps(gauges['sharded'])}, single {json.dumps(gauges['single'])} ({smi})")
+    return result
+
+
+def hold_multihost(train, csr, dev) -> dict:
+    """``init_multihost`` at world size 1 over NCCL, then the user-sharded
+    epoch on ``global_mesh`` (SHARDS shards of this card) against the same
+    epoch on a mesh of no process group: its collectives cross NCCL."""
+    import torch
+    import torch.distributed as dist
+
+    from gorse_tpu_torch.parallel.mesh import make_mesh
+    from gorse_tpu_torch.parallel.multihost import global_mesh, init_multihost
+    from gorse_tpu_torch.parallel.sharded import make_sharded_bpr_epoch, shard_bpr_inputs
+
+    info = init_multihost(f"127.0.0.1:{free_port()}", 1, 0, devices=[dev])
+    try:
+        check(dist.get_backend() == "nccl" and info["process_count"] == 1,
+              f"init_multihost over NCCL: {info}, backend {dist.get_backend()}")
+        init, key, n_steps, n_tries = sharded_inputs(train, csr, dev)
+        out = {}
+        for name, mesh in (("group", global_mesh(devices=[dev] * SHARDS)),
+                           ("local", make_mesh(SHARDS, devices=[dev]))):
+            p, q, pp, pc, uids, n_users = shard_bpr_inputs(
+                mesh, init.user_factors, init.item_factors, csr.padded, csr.counts)
+            p, q, cost = make_sharded_bpr_epoch(mesh, n_steps, train.count_items(), LR, REG,
+                                                n_tries)(p, q, pp, pc, uids, key)
+            out[name] = (mesh.all_gather(p)[0], q[0])
+        torch.cuda.synchronize()
+    finally:
+        dist.destroy_process_group()
+    shares = {"p": share(out["group"][0], out["local"][0]),
+              "q": share(out["group"][1], out["local"][1])}
+    for name, s in shares.items():
+        check(s <= SHARDED_EPOCH_TOL[name], f"NCCL mesh: {name} off by {s:.3g}")
+    log(f"  init_multihost {json.dumps(info)} over NCCL; the epoch on its mesh against a local "
+        f"mesh: {json.dumps(shares)}")
+    return dict(info=info, shares=shares)
+
+
+MULTIPROCESS_CHILD = """
+import sys
+import numpy as np
+import torch
+import torch.distributed as dist
+
+sys.path.insert(0, sys.argv[5])
+import chip_smoke as cs
+from gorse_tpu_torch.parallel.multihost import global_mesh, init_multihost
+from gorse_tpu_torch.parallel.sharded import make_sharded_bpr_epoch, shard_bpr_inputs
+
+address, world, rank, out = sys.argv[1], int(sys.argv[2]), int(sys.argv[3]), sys.argv[4]
+dev = torch.device("cuda", rank)
+info = init_multihost(address, world, rank, devices=[dev])
+mesh = global_mesh(devices=[dev])
+train, _, csr = cs.make_training_data()
+init, key, n_steps, n_tries = cs.sharded_inputs(train, csr, dev)
+p, q, pp, pc, uids, n_users = shard_bpr_inputs(mesh, init.user_factors, init.item_factors,
+                                               csr.padded, csr.counts)
+p, q, cost = make_sharded_bpr_epoch(mesh, n_steps, train.count_items(), cs.LR, cs.REG,
+                                    n_tries)(p, q, pp, pc, uids, key)
+p = mesh.all_gather(p)[0][:n_users]
+torch.cuda.synchronize(dev)
+if rank == 0:
+    np.savez(out, p=p.cpu().numpy(), q=q[0].cpu().numpy(), info=np.array(list(info.values())))
+dist.destroy_process_group()
+print("child done", rank, info, flush=True)
+"""
+
+
+def hold_multiprocess(train, csr, dev, cards) -> dict:
+    """With several cards: one process a card joined by ``init_multihost``
+    over NCCL, the user-sharded epoch on their ``global_mesh``, against the
+    same epoch in this process on the mesh over all the cards (within
+    ``EPOCH_TOL``: K3's item sums are atomics)."""
+    import torch
+
+    from gorse_tpu_torch.parallel.sharded import make_sharded_bpr_epoch, shard_bpr_inputs
+
+    n = cards.size
+    address = f"127.0.0.1:{free_port()}"
+    with tempfile.TemporaryDirectory(prefix="gorse_smoke_") as tmp:
+        out = Path(tmp) / "rank0.npz"
+        procs = [subprocess.Popen([sys.executable, "-c", MULTIPROCESS_CHILD, address, str(n),
+                                   str(r), str(out), str(ROOT)], cwd=ROOT,
+                                  stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+                 for r in range(n)]
+        try:
+            logs = [p.communicate(timeout=300)[0].decode() for p in procs]
+        finally:
+            for p in procs:
+                p.kill()
+                p.wait()
+        for r, (p, text) in enumerate(zip(procs, logs)):
+            check(p.returncode == 0, f"process {r} of {n}: exit {p.returncode}\n{text[-3000:]}")
+        got = dict(np.load(out))
+    init, key, n_steps, n_tries = sharded_inputs(train, csr, dev)
+    p, q, pp, pc, uids, n_users = shard_bpr_inputs(cards, init.user_factors, init.item_factors,
+                                                   csr.padded, csr.counts)
+    p, q, _ = make_sharded_bpr_epoch(cards, n_steps, train.count_items(), LR, REG,
+                                     n_tries)(p, q, pp, pc, uids, key)
+    want_p = cards.all_gather(p)[0][:n_users].cpu()
+    shares = {"p": share(torch.from_numpy(got["p"]), want_p),
+              "q": share(torch.from_numpy(got["q"]), q[0].cpu())}
+    for name, s in shares.items():
+        check(s <= SHARDED_EPOCH_TOL[name], f"{n} NCCL processes: {name} off by {s:.3g} from "
+              f"one process over the {n} cards")
+    log(f"  {n} processes over NCCL, a card each, against one process over the {n} cards: "
+        f"{json.dumps(shares)}")
+    return {"processes": n, "shares": shares}
+
+
+def phase_sharded(train, test, csr, dev, smi: str, seed: int, phase5: dict | None,
+                  n_inits: int = HOLD_INITS) -> dict:
+    """Phase 12: sharded training on a SHARDS-shard mesh of this card, and
+    on a mesh of every card when more than one is visible."""
+    import torch
+
+    from gorse_tpu_torch.parallel.mesh import make_mesh
+    from gorse_tpu_torch.serve.master import Master
+
+    mesh = make_mesh(SHARDS, devices=[dev])
+    result = {"epoch": hold_sharded_epoch(train, csr, dev, mesh, smi, phase5, n_inits)}
+    torch.cuda.empty_cache()
+    result["topk"] = hold_sharded_topk(dev, mesh, seed, smi)
+    torch.cuda.empty_cache()
+    result["master"] = hold_sharded_master(dev, mesh, smi, patch=True)
+    result["multihost"] = hold_multihost(train, csr, dev)
+    n_cards = torch.cuda.device_count()
+    if n_cards > 1:
+        cards = make_mesh()
+        check(cards.size == n_cards, f"make_mesh spans the {n_cards} cards")
+        result["cards"] = {"epoch": hold_sharded_epoch(train, csr, dev, cards, smi, phase5,
+                                                       n_inits),
+                           "master": hold_sharded_master(dev, cards, smi, patch=False),
+                           "processes": hold_multiprocess(train, csr, dev, cards)}
+    else:
+        log("  one card visible: the mesh over several cards is not run")
+    result["launches"] = {"bpr_sweep_pairs": result["epoch"]["k3_launches_per_epoch"]
+                          + result["master"]["k3_launches"]}
+    return result
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--phases", default=",".join(PHASES),
                         help="comma-separated phases to run after phase 1 (default: all); "
                              "a partial run prints its numbers and no result line")
+    parser.add_argument("--hold-inits", type=int, default=HOLD_INITS,
+                        help="inits and keys at which phase 12 holds the user-sharded epoch")
     args = parser.parse_args()
     phases = args.phases.split(",")
     if any(x not in PHASES for x in phases):
@@ -3965,7 +4505,7 @@ def main() -> int:
         del user_factors, item_factors, histories
         torch.cuda.empty_cache()
 
-    if "4" in phases or "5" in phases:
+    if "4" in phases or "5" in phases or "12" in phases:
         t0 = time.perf_counter()
         train, test, csr = make_training_data()
         log(f"  training data made in {time.perf_counter() - t0:.1f} s: {train.count_users()} "
@@ -3981,8 +4521,6 @@ def main() -> int:
         log("== phase 5: training")
         out["training"] = phase_training(train, test, csr, dev)
         log("  training: " + json.dumps(out["training"]))
-    if "4" in phases or "5" in phases:
-        del train, test, csr
 
     if "6" in phases:
         log("== phase 6: master")
@@ -4013,6 +4551,13 @@ def main() -> int:
         log("== phase 11: the master, server and worker as processes on the card")
         out["cluster"] = phase_cluster(dev, smi, args.seed, {"in_one": out.get("in_one")})
         log("  cluster: " + json.dumps(out["cluster"], default=str))
+    if "12" in phases:
+        log(f"== phase 12: sharded training on {SHARDS} shards of the card")
+        out["sharded"] = phase_sharded(train, test, csr, dev, smi, args.seed, out.get("training"),
+                                       args.hold_inits)
+        log("  sharded: " + json.dumps(out["sharded"], default=str))
+    if "4" in phases or "5" in phases or "12" in phases:
+        del train, test, csr
     check("jax" not in sys.modules and "gorse_tpu" not in sys.modules,
           "neither JAX nor gorse_tpu was imported")
     log(f"  total {time.perf_counter() - t_start:.1f} s")
@@ -4055,10 +4600,12 @@ def kernel_rows(out: dict) -> list[dict]:
                for name in KERNELS]
     # the training path's launches of bpr_epoch (phase 5) with the in-one
     # node's fit and BPR search trials (phase 10); the sweeps' from their
-    # own paths (phase 4). No single PyTorch call computes a sweep or an
+    # own paths (phase 4), K3's with the sharded fits (phase 12). No single PyTorch call computes a sweep or an
     # epoch, so library_ms is null.
     bpr_launches = dict(out["training"]["launches"], **out["path_launches"])
     bpr_launches["bpr_epoch"] += in_one["bpr_epoch"]
+    # K3 on the sharded path: phase 12's epoch and the sharded master's fit
+    bpr_launches["bpr_sweep_pairs"] += out["sharded"]["launches"]["bpr_sweep_pairs"]
     kernels += [row(name, "bpr.cu", BPR_REPLACES[name], bpr_launches[name],
                     out["bpr_errors"][name], out["bpr_timings"][name]) for name in BPR_KERNELS]
     # the SQ kernels: launches from the store path (phase 7b), times at the

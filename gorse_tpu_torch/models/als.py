@@ -18,6 +18,10 @@ Layout: each block is padded (-1) to its own widest row, where the
 reference pads every row to the widest of the whole side. Pad entries are
 masked to zero either way, so the arithmetic is the same; the gather of a
 block holds ``block x w x k`` floats for that block's ``w`` only.
+
+With a mesh of more than one shard (``FitConfig.mesh``) the epoch is
+parallel/sharded.py's (each shard solves its rows, then one tiled
+all-gather a half-epoch), or with ``shard_table`` parallel/catalog.py's.
 """
 
 from __future__ import annotations
@@ -142,16 +146,16 @@ class ALS(MatrixFactorization):
         config = config or FitConfig()
         self.init(train, seed=config.seed)
         eval_cands = build_eval_candidates(test, train, config.candidates)
-        inputs = self.epoch_inputs(train)
         p, q = self.user_factors, self.item_factors
         metrics = evaluate_mf(p, q, *eval_cands, config.top_k)
         history = [(0, metrics["NDCG"])]
         logger.info("fit als 0/%d NDCG@%d=%.4f", self.n_epochs, config.top_k, metrics["NDCG"])
+        run, p, q, dense = self._epochs(config, train)
         for epoch in range(1, self.n_epochs + 1):
             t0 = time.perf_counter()
-            p, q = self.epoch(p, q, inputs)
+            p, q = run(p, q)
             if (config.verbose and epoch % config.verbose == 0) or epoch == self.n_epochs:
-                metrics = evaluate_mf(p, q, *eval_cands, config.top_k)
+                metrics = evaluate_mf(*dense(p, q), *eval_cands, config.top_k)
                 history.append((epoch, metrics["NDCG"]))
                 logger.info(
                     "fit als %d/%d fit=%.2fs NDCG@%d=%.4f P@%d=%.4f R@%d=%.4f",
@@ -164,6 +168,37 @@ class ALS(MatrixFactorization):
                     if best_epoch <= epoch - config.patience:
                         logger.info("early stopping at epoch %d (best %d)", epoch, best_epoch)
                         break
+        p, q = dense(p, q)
         self.user_factors, self.item_factors = p, q
         metrics = evaluate_mf(p, q, *eval_cands, config.top_k)
         return Score(ndcg=metrics["NDCG"], precision=metrics["Precision"], recall=metrics["Recall"])
+
+    def _epochs(self, config: FitConfig, train: Dataset):
+        """The fit's epoch and its state: ``(run, p, q, dense)``, ``run(p, q)
+        -> (p, q)`` one epoch, ``dense(p, q)`` the tables on the model's
+        device. A mesh of more than one shard takes the sharded epoch (each
+        shard solves its rows, a tiled all-gather a half-epoch), with
+        ``shard_table`` the catalog-sharded one (both tables stay sharded);
+        otherwise :meth:`epoch` on the model's device."""
+        mesh, dev = config.mesh, self.device
+        p, q = self.user_factors, self.item_factors
+        if mesh is None or mesh.size == 1:
+            inputs = self.epoch_inputs(train)
+            return (lambda p, q: self.epoch(p, q, inputs)), p, q, lambda p, q: (p, q)
+        n_users, n_items = train.count_users(), train.count_items()
+        block = min(self.block, max(n_users, 1), max(n_items, 1))
+        if config.shard_table:
+            from ..parallel.catalog import make_catalog_sharded_als_epoch, shard_catalog_als_inputs
+
+            p, q, *inputs, _, _ = shard_catalog_als_inputs(
+                mesh, p, q, train.user_feedback, train.item_feedback, block)
+            epoch = make_catalog_sharded_als_epoch(mesh, block, self.alpha, self.reg)
+            return (lambda p, q: epoch(p, q, *inputs)), p, q, lambda p, q: (
+                mesh.all_gather(p)[0][:n_users].to(dev), mesh.all_gather(q)[0][:n_items].to(dev))
+        from ..parallel.sharded import make_sharded_als_epoch, shard_als_inputs
+
+        q, *inputs, _, _ = shard_als_inputs(mesh, q, train.user_feedback, train.item_feedback,
+                                            block)
+        epoch = make_sharded_als_epoch(mesh, block, self.alpha, self.reg)
+        return (lambda p, q: epoch(q, *inputs)), mesh.replicate(p), q, lambda p, q: (
+            p[0][:n_users].to(dev), q[0][:n_items].to(dev))

@@ -6,7 +6,11 @@ the sum of their updates at the end of the sweep. On the card an epoch is
 one launch of the CUDA kernel ``bpr_epoch`` (ops/bpr_kernel.py: each step
 the sampled sweep and the fold of its item deltas), whatever the catalog
 size: its cost scales with the active users. On the CPU the same function
-runs its plain version, a loop of sweeps and folds.
+runs its plain version, a loop of sweeps and folds. With a mesh of more
+than one shard (``FitConfig.mesh``) an epoch is the user-sharded epoch of
+parallel/sharded.py (the explicit-pairs sweep, K3, once a shard and step),
+or with ``shard_table`` the catalog-sharded one of parallel/catalog.py, as
+the reference's fit branches.
 
 Kept from the reference because they decide the outputs: the history cap
 (:func:`history_cap`), the rejection depth (:func:`adaptive_neg_tries`),
@@ -102,11 +106,8 @@ class BPR(MatrixFactorization):
     def fit(self, train: Dataset, test: Dataset, config: FitConfig | None = None) -> Score:
         config = config or FitConfig()
         self.init(train, seed=config.seed)
-        dev = self.device
         cap, _ = history_cap(train)
         csr = train.padded_user_positives(max_len=cap, seed=config.seed)
-        padded_pos = torch.as_tensor(csr.padded, device=dev)
-        pos_counts = torch.as_tensor(csr.counts, device=dev)
         n_items = train.count_items()
         n_active = max(int(np.sum(csr.counts > 0)), 1)
         # each step visits every user once: nnz pairwise updates per epoch
@@ -119,26 +120,25 @@ class BPR(MatrixFactorization):
         history = [(0, metrics["NDCG"])]
         logger.info("fit bpr 0/%d NDCG@%d=%.4f", self.n_epochs, config.top_k, metrics["NDCG"])
 
-        p, q = self.user_factors, self.item_factors
+        run, p, q, rows, dense, devices = self._epochs(config, csr, n_steps, n_items, n_tries)
         self.epoch_seconds = []
         for epoch in range(1, self.n_epochs + 1):
             t0 = time.perf_counter()
             key, epoch_key = sampling.split(key)
-            p, q, cost = bpr_epoch_fused(
-                p, q, padded_pos, pos_counts, sampling.raw_step_keys(epoch_key, n_steps),
-                n_items, self.lr, self.reg, mm_dtype=torch.float32, n_tries=n_tries,
-            )
-            _synchronize(dev)
+            p, q, cost = run(p, q, *rows, epoch_key)
+            for d in devices:
+                _synchronize(d)
             self.epoch_seconds.append(time.perf_counter() - t0)
             if (config.verbose and epoch % config.verbose == 0) or epoch == self.n_epochs:
                 cost = float(cost)
-                metrics = evaluate_mf(p, q, *eval_cands, config.top_k)
+                p_eval, q_eval = dense(p, q)
+                metrics = evaluate_mf(p_eval, q_eval, *eval_cands, config.top_k)
                 history.append((epoch, metrics["NDCG"]))
                 if config.checkpoint_dir:
                     np.savez(
                         f"{config.checkpoint_dir}/bpr_epoch_{epoch}.npz",
-                        user_factors=p.cpu().numpy(),
-                        item_factors=q.cpu().numpy(),
+                        user_factors=p_eval.cpu().numpy(),
+                        item_factors=q_eval.cpu().numpy(),
                         epoch=epoch,
                         ndcg=metrics["NDCG"],
                     )
@@ -153,6 +153,62 @@ class BPR(MatrixFactorization):
                     if best_epoch <= epoch - config.patience:
                         logger.info("early stopping at epoch %d (best %d)", epoch, best_epoch)
                         break
+        p, q = dense(p, q)
         self.user_factors, self.item_factors = p, q
         metrics = evaluate_mf(p, q, *eval_cands, config.top_k)
         return Score(ndcg=metrics["NDCG"], precision=metrics["Precision"], recall=metrics["Recall"])
+
+    def _epochs(self, config: FitConfig, csr, n_steps: int, n_items: int, n_tries: int):
+        """The fit's epoch and its state: ``(run, p, q, rows, dense,
+        devices)``, ``run(p, q, *rows, epoch_key) -> (p, q, cost)``,
+        ``dense(p, q)`` the factor tables on the model's device, ``devices``
+        the ones an epoch runs on. A mesh of more than one shard takes the
+        user-sharded epoch (K3 a shard and step), with ``shard_table`` the
+        catalog-sharded one (its drops in ``catalog_drop_count``); otherwise
+        one ``bpr_epoch`` launch (K1) an epoch on the model's device."""
+        dev, mesh = self.device, config.mesh
+        p, q = self.user_factors, self.item_factors
+        n_users = p.shape[0]
+        self.catalog_drop_count = None
+        if mesh is None or mesh.size == 1:
+            def run(p, q, padded_pos, pos_counts, epoch_key):
+                return bpr_epoch_fused(
+                    p, q, padded_pos, pos_counts, sampling.raw_step_keys(epoch_key, n_steps),
+                    n_items, self.lr, self.reg, mm_dtype=torch.float32, n_tries=n_tries)
+
+            rows = (torch.as_tensor(csr.padded, device=dev), torch.as_tensor(csr.counts, device=dev))
+            return run, p, q, rows, lambda p, q: (p, q), [dev]
+
+        def users(p):
+            return mesh.all_gather(p)[0][:n_users].to(dev)
+
+        devices = list(dict.fromkeys([dev, *mesh.devices]))
+        if config.shard_table:
+            from ..parallel.catalog import (
+                make_catalog_sharded_bpr_epoch,
+                shard_catalog_bpr_inputs,
+                unpack_catalog,
+            )
+
+            catalog_epoch = make_catalog_sharded_bpr_epoch(
+                mesh, n_steps, n_items, self.lr, self.reg, n_tries)
+
+            def run(*args):
+                p, q, stats = catalog_epoch(*args)
+                self.catalog_drop_count = stats[1]
+                return p, q, stats[0]
+
+            p, q, *rows, _, _ = shard_catalog_bpr_inputs(mesh, p, q, csr.padded, csr.counts)
+            return run, p, q, rows, lambda p, q: (users(p), torch.from_numpy(unpack_catalog(
+                mesh.all_gather(q)[0], n_items, mesh.size)).to(dev)), devices
+
+        from ..parallel.sharded import make_sharded_bpr_epoch, shard_bpr_inputs
+
+        # bounded staleness: the item deltas summed every sync_every steps,
+        # n_steps rounded up to a multiple of it
+        sync_every = max(int(config.sync_every), 1)
+        n_steps = -(-n_steps // sync_every) * sync_every
+        run = make_sharded_bpr_epoch(mesh, n_steps, n_items, self.lr, self.reg, n_tries,
+                                     sync_every)
+        p, q, *rows, _ = shard_bpr_inputs(mesh, p, q, csr.padded, csr.counts)
+        return run, p, q, rows, lambda p, q: (users(p), q[0].to(dev)), devices

@@ -24,7 +24,11 @@ Kept from the reference because they decide the model:
   step, since their moments decay); ``sgd`` is ``torch.optim.SGD`` with
   ``weight_decay=reg`` and no momentum;
 - the evaluation cadence, the divergence break and early stopping; the
-  epoch's loss stays on the card and is read only on evaluated epochs.
+  epoch's loss stays on the card and is read only on evaluated epochs;
+- with a mesh of more than one shard, the data-parallel epoch of
+  parallel/sharded.py, its batch rounded up to a multiple of the shard
+  count, or with ``shard_table`` the table-sharded epoch of
+  parallel/catalog.py.
 
 The init draws ``init_mean + init_stddev * N(0, 1)`` from a CPU
 ``torch.Generator`` seeded with ``seed`` (``jax.random.normal`` cannot be
@@ -160,11 +164,16 @@ def afm_forward(params: AFMParams, indices: torch.Tensor, values: torch.Tensor,
     return afm_forward_rows(params, params.v[indices], params.w[indices], values, embeddings)
 
 
+def bce_terms(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+    """Each logit's binary cross-entropy, in the stable form."""
+    return torch.clamp(logits, min=0.0) - logits * targets + torch.log1p(torch.exp(-logits.abs()))
+
+
 def bce_with_logits(logits: torch.Tensor, targets: torch.Tensor,
                     sample_weight: torch.Tensor) -> torch.Tensor:
-    """Weighted mean binary cross-entropy on logits, in the stable form."""
-    loss = torch.clamp(logits, min=0.0) - logits * targets + torch.log1p(torch.exp(-logits.abs()))
-    return (loss * sample_weight).sum() / torch.clamp(sample_weight.sum(), min=1.0)
+    """Weighted mean binary cross-entropy on logits."""
+    return (bce_terms(logits, targets) * sample_weight).sum() / torch.clamp(
+        sample_weight.sum(), min=1.0)
 
 
 def make_optimizer(name: str, params, lr: float, reg: float) -> torch.optim.Optimizer:
@@ -295,16 +304,22 @@ class AFM:
             test_pad.values = apply_scalers(
                 test_pad.indices, test_pad.values, self.scalers, test_pad.valid
             )
-        batches = self._batch(train_pad, self.batch_size)
+        mesh = config.mesh
+        batch_size = self.batch_size
+        if mesh is not None and mesh.size > 1:
+            # data-parallel: the batch rounded up to a multiple of the shards
+            batch_size = -(-batch_size // mesh.size) * mesh.size
+        batches = self._batch(train_pad, batch_size)
         test_pad = self._on_device(test_pad)
-        optimizer = self._make_optimizer()
         score = self._evaluate(test_pad)  # epoch 0, on the init
+        run, to_dense = self._epochs(config, batches, n_features)
         history = [(0, score.auc)]
         logger.info("fit afm 0/%d AUC=%.4f", self.n_epochs, score.auc)
         for epoch in range(1, self.n_epochs + 1):
             t0 = time.time()
-            cost = train_epoch(self.model_params, optimizer, batches)
+            cost = run()
             if (config.verbose and epoch % config.verbose == 0) or epoch == self.n_epochs:
+                to_dense()
                 score = self._evaluate(test_pad)
                 history.append((epoch, score.auc))
                 cost = float(cost)
@@ -320,7 +335,44 @@ class AFM:
                     if best_epoch <= epoch - config.patience:
                         logger.info("early stopping at epoch %d (best %d)", epoch, best_epoch)
                         break
+        to_dense()
         return self._evaluate(test_pad)
+
+    def _epochs(self, config: FitConfig, batches, n_features: int):
+        """The fit's epoch: ``(run, to_dense)``, ``run()`` one epoch (its
+        summed loss), ``to_dense()`` brings the parameters back into
+        ``model_params``. A mesh of more than one shard takes the
+        data-parallel epoch (the batch sharded, the gradients summed over
+        the shards, one optimizer step), with ``shard_table`` the
+        table-sharded one (its drops in ``table_drop_count``); otherwise
+        :func:`train_epoch` on the model's device."""
+        mesh = config.mesh
+        if mesh is None or mesh.size == 1:
+            optimizer = self._make_optimizer()
+            return (lambda: train_epoch(self.model_params, optimizer, batches)), lambda: None
+        from ..parallel.sharded import make_data_parallel_afm_epoch, shard_afm_batches
+
+        shards = shard_afm_batches(mesh, batches)
+        if not config.shard_table:
+            optimizer = self._make_optimizer()
+            epoch = make_data_parallel_afm_epoch(mesh)
+            return (lambda: epoch(self.model_params, optimizer, *shards)), lambda: None
+        from ..parallel.catalog import make_sharded_afm_epoch, shard_afm_params, unshard_afm_params
+
+        sharded = shard_afm_params(mesh, self.model_params)
+        optimizer = make_optimizer(self.optimizer_name, sharded.leaves(), self.lr, self.reg)
+        epoch = make_sharded_afm_epoch(mesh)
+        self.table_drop_count = None
+
+        def run():
+            loss, self.table_drop_count = epoch(sharded, optimizer, *shards)
+            return loss
+
+        def to_dense():
+            self.model_params = unshard_afm_params(mesh, sharded, n_features, self.n_factors,
+                                                   self.device)
+
+        return run, to_dense
 
     def _evaluate(self, test_pad: PaddedCTR) -> CTRScore:
         logits = self.predict_padded(test_pad.indices, test_pad.values, test_pad.embeddings)

@@ -1,6 +1,5 @@
 """Typed hyper-parameter map and training-loop knobs (copy of
-gorse_tpu/models/params.py). Sharded training is not ported: a mesh or
-``sync_every > 1`` raises."""
+gorse_tpu/models/params.py)."""
 
 from __future__ import annotations
 
@@ -56,11 +55,6 @@ class FitConfig:
         shard_table: bool = False,
         sync_every: int = 1,
     ) -> None:
-        if mesh is not None or shard_table or sync_every > 1:
-            raise NotImplementedError(
-                "sharded training (mesh, shard_table, sync_every) is not ported yet "
-                "(ROADMAP.md, M14)"
-            )
         self.verbose = verbose
         self.patience = patience
         self.top_k = top_k
@@ -68,6 +62,16 @@ class FitConfig:
         self.batch_size = batch_size
         self.seed = seed
         self.checkpoint_dir = checkpoint_dir
+        # a parallel.Mesh: train sharded over its shards (users for BPR and
+        # eALS, the batch for the AFM); None or one shard trains on the
+        # model's device
+        self.mesh = mesh
+        # with a mesh: also row-shard the item table (BPR, eALS) or the
+        # feature table (AFM) over the shards (parallel/catalog.py)
+        self.shard_table = shard_table
+        # with a mesh: sum the BPR item deltas every this many steps
+        # (bounded staleness, the reference's variant)
+        self.sync_every = sync_every
 
     def __repr__(self) -> str:
         return (

@@ -272,13 +272,14 @@ def bpr_sweep_sampled(p, q, delta, cost, padded_pos, pos_counts, step_key, n_ite
     p_new = torch.empty_like(p)
     pos = torch.empty((n_users,), dtype=torch.int32, device=p.device)
     neg = torch.empty((n_users,), dtype=torch.int32, device=p.device)
-    rc = _lib().gt_bpr_sweep(
-        1, int(mm_dtype == torch.bfloat16), p.data_ptr(), p_new.data_ptr(), q.data_ptr(),
-        delta.data_ptr(), cost.data_ptr(), n_users, p.shape[1], padded_pos.data_ptr(),
-        pos_counts.data_ptr(), padded_pos.shape[1], int(step_key[0]), int(step_key[1]),
-        n_items, n_tries, pos.data_ptr(), neg.data_ptr(), None, None, None,
-        lr, reg, *_head(padded_pos, q.shape[0]), _stream(p),
-    )
+    with torch.cuda.device(p.device):  # the tensors' card
+        rc = _lib().gt_bpr_sweep(
+            1, int(mm_dtype == torch.bfloat16), p.data_ptr(), p_new.data_ptr(), q.data_ptr(),
+            delta.data_ptr(), cost.data_ptr(), n_users, p.shape[1], padded_pos.data_ptr(),
+            pos_counts.data_ptr(), padded_pos.shape[1], int(step_key[0]), int(step_key[1]),
+            n_items, n_tries, pos.data_ptr(), neg.data_ptr(), None, None, None,
+            lr, reg, *_head(padded_pos, q.shape[0]), _stream(p),
+        )
     _raise_on(rc, "bpr_sweep (sampled)")
     bpr_sweep_sampled.launches += 1
     return p_new, pos, neg
@@ -298,12 +299,13 @@ def bpr_sweep_pairs(p, q, delta, cost, pos, neg, active, lr: float, reg: float,
     if pos.shape != (n_users,) or neg.shape != (n_users,) or active.shape != (n_users,):
         raise ValueError("pos, neg and active must be [U]")
     p_new = torch.empty_like(p)
-    rc = _lib().gt_bpr_sweep(
-        0, int(mm_dtype == torch.bfloat16), p.data_ptr(), p_new.data_ptr(), q.data_ptr(),
-        delta.data_ptr(), cost.data_ptr(), n_users, p.shape[1], None, None, 0, 0, 0,
-        q.shape[0], 0, None, None, pos.data_ptr(), neg.data_ptr(), active.data_ptr(),
-        lr, reg, None, None, 0, _stream(p),
-    )
+    with torch.cuda.device(p.device):  # the tensors' card
+        rc = _lib().gt_bpr_sweep(
+            0, int(mm_dtype == torch.bfloat16), p.data_ptr(), p_new.data_ptr(), q.data_ptr(),
+            delta.data_ptr(), cost.data_ptr(), n_users, p.shape[1], None, None, 0, 0, 0,
+            q.shape[0], 0, None, None, pos.data_ptr(), neg.data_ptr(), active.data_ptr(),
+            lr, reg, None, None, 0, _stream(p),
+        )
     _raise_on(rc, "bpr_sweep (pairs)")
     bpr_sweep_pairs.launches += 1
     return p_new
@@ -335,14 +337,15 @@ def bpr_epoch(p, q, delta, cost, padded_pos, pos_counts, step_keys, n_items: int
     if n_steps == 0:
         return p.clone()
     p_new = torch.empty_like(p)
-    rc = _lib().gt_bpr_epoch(
-        int(mm_dtype == torch.bfloat16), p.data_ptr(), p_new.data_ptr(), q.data_ptr(),
-        delta.data_ptr(), cost.data_ptr(), n_users, p.shape[1], q.shape[0],
-        padded_pos.data_ptr(), pos_counts.data_ptr(), padded_pos.shape[1], keys.data_ptr(),
-        n_steps, n_items, n_tries, None if pairs is None else pairs[0].data_ptr(),
-        None if pairs is None else pairs[1].data_ptr(), lr, reg, code,
-        *_head(padded_pos, q.shape[0]), _stream(p),
-    )
+    with torch.cuda.device(p.device):  # the tensors' card
+        rc = _lib().gt_bpr_epoch(
+            int(mm_dtype == torch.bfloat16), p.data_ptr(), p_new.data_ptr(), q.data_ptr(),
+            delta.data_ptr(), cost.data_ptr(), n_users, p.shape[1], q.shape[0],
+            padded_pos.data_ptr(), pos_counts.data_ptr(), padded_pos.shape[1], keys.data_ptr(),
+            n_steps, n_items, n_tries, None if pairs is None else pairs[0].data_ptr(),
+            None if pairs is None else pairs[1].data_ptr(), lr, reg, code,
+            *_head(padded_pos, q.shape[0]), _stream(p),
+        )
     _raise_on(rc, "bpr_epoch")
     bpr_epoch.launches += 1
     return p_new

@@ -85,16 +85,63 @@ def bits_to_uniform(bits: torch.Tensor) -> torch.Tensor:
     return ((bits >> 9) | 0x3F800000).to(torch.int32).view(torch.float32) - 1.0
 
 
-def per_user_uniforms(step_key: tuple[int, int], uids: torch.Tensor, n: int) -> torch.Tensor:
+def per_user_uniforms(step_key, uids: torch.Tensor, n: int) -> torch.Tensor:
     """``[U, n]`` uniforms keyed by (step key, global user id, column): one
     threefry block per (user, column pair), its two words columns 2j and
-    2j + 1."""
+    2j + 1. ``step_key`` may also be an ``[S, 2]`` tensor of key words,
+    and then the result is ``[S, U, n]``, row s that of key s."""
     n_pairs = (n + 1) // 2
     x0 = uids.to(torch.int64)[:, None].expand(-1, n_pairs)
     x1 = torch.arange(n_pairs, dtype=torch.int64, device=uids.device)[None, :].expand_as(x0)
-    w0, w1 = threefry2x32(step_key[0], step_key[1], x0, x1)
-    bits = torch.stack([w0, w1], dim=-1).reshape(uids.shape[0], 2 * n_pairs)[:, :n]
-    return bits_to_uniform(bits)
+    if isinstance(step_key, torch.Tensor) and step_key.dim() == 2:
+        k0, k1 = step_key[:, 0, None, None], step_key[:, 1, None, None]
+    else:
+        k0, k1 = step_key
+    w0, w1 = threefry2x32(k0, k1, x0, x1)
+    bits = torch.stack([w0, w1], dim=-1)
+    return bits_to_uniform(bits.reshape(*bits.shape[:-2], 2 * n_pairs)[..., :n])
+
+
+# elements of the candidates-against-row comparison that sample_pairs
+# holds at once (bools: 256 MiB); more steps are drawn in chunks
+_COMPARE_ELEMENTS = 1 << 28
+
+
+def sample_pairs(
+    padded_pos: torch.Tensor,  # [U, L] int32, pad -1
+    pos_counts: torch.Tensor,  # [U] int32
+    uids: torch.Tensor,  # [U] global user ids
+    step_keys,  # S step keys
+    n_items: int,
+    n_tries: int = 4,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """:func:`sample_pair` under each of ``step_keys`` at once: ``[S, U]``
+    pos and neg, row s bit-equal to ``sample_pair(..., step_keys[s], ...)``
+    (the same element-wise arithmetic). The pairs depend on no parameter,
+    so an epoch's can be drawn before its sweeps: a few hundred small ops a
+    chunk of steps rather than a step."""
+    n_users, max_len = padded_pos.shape
+    if isinstance(step_keys, torch.Tensor):
+        keys = step_keys.to(torch.int64).reshape(-1, 2)
+    else:
+        keys = torch.tensor([[int(k0), int(k1)] for k0, k1 in step_keys], dtype=torch.int64)
+    keys = keys.to(uids.device)
+    chunk = max(_COMPARE_ELEMENTS // max(n_users * n_tries * max_len, 1), 1)
+    counts = torch.clamp(pos_counts, min=1).to(torch.float32)
+    out_pos, out_neg = [], []
+    for start in range(0, keys.shape[0], chunk):
+        rand = per_user_uniforms(keys[start:start + chunk], uids, 1 + n_tries)  # [S, U, 1 + K]
+        slot = (rand[..., 0] * counts).to(torch.int64)
+        rows = padded_pos.expand(slot.shape[0], -1, -1)
+        picked = torch.gather(rows, 2, torch.clamp(slot, max=max_len - 1)[..., None])[..., 0]
+        out_pos.append(torch.where(slot < max_len, torch.clamp(picked, min=0), 0))
+        cand = (rand[..., 1:] * float(n_items)).to(torch.int32)  # [S, U, K]
+        free = ~(padded_pos[None, :, None, :] == cand[..., None]).any(dim=3)  # [S, U, K]
+        first_free = torch.argmax(free.to(torch.int8), dim=2)
+        out_neg.append(torch.where(free.any(dim=2),
+                                   torch.gather(cand, 2, first_free[..., None])[..., 0],
+                                   cand[..., 0]))
+    return torch.cat(out_pos).to(torch.int32), torch.cat(out_neg).to(torch.int32)
 
 
 def sample_pair(
@@ -110,15 +157,5 @@ def sample_pair(
     positives); the negative is the first of ``n_tries`` candidates
     ``int(u_t * n_items)`` that is not in the user's padded row, else the
     first candidate. Both products are single f32 multiplies."""
-    rand = per_user_uniforms(step_key, uids, 1 + n_tries)
-    n_users, max_len = padded_pos.shape
-    counts = torch.clamp(pos_counts, min=1).to(torch.float32)
-    slot = (rand[:, 0] * counts).to(torch.int64)
-    picked = torch.gather(padded_pos, 1, torch.clamp(slot, max=max_len - 1)[:, None])[:, 0]
-    pos = torch.where(slot < max_len, torch.clamp(picked, min=0), 0)
-    cand = (rand[:, 1:] * float(n_items)).to(torch.int32)  # [U, K]
-    collides = (padded_pos[:, None, :] == cand[:, :, None]).any(dim=2)  # [U, K]
-    free = ~collides
-    first_free = torch.argmax(free.to(torch.int8), dim=1)
-    neg = torch.where(free.any(dim=1), torch.gather(cand, 1, first_free[:, None])[:, 0], cand[:, 0])
-    return pos.to(torch.int32), neg.to(torch.int32)
+    pos, neg = sample_pairs(padded_pos, pos_counts, uids, [step_key], n_items, n_tries)
+    return pos[0], neg[0]

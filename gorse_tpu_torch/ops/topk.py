@@ -378,10 +378,11 @@ def block_max(qp: torch.Tensor, table: torch.Tensor, n_items: int, groups: bool 
     _check_operands(qp, table)
     b_pad, d_pad = qp.shape
     bmax, gmax = _maxima_out(qp, table, groups)
-    rc = _lib().gt_block_max(
-        qp.data_ptr(), table.data_ptr(), bmax.data_ptr(), gmax.data_ptr() if groups else None,
-        b_pad, d_pad, n_items, bmax.shape[1], _stream(qp),
-    )
+    with torch.cuda.device(qp.device):  # the tensors' card
+        rc = _lib().gt_block_max(
+            qp.data_ptr(), table.data_ptr(), bmax.data_ptr(), gmax.data_ptr() if groups else None,
+            b_pad, d_pad, n_items, bmax.shape[1], _stream(qp),
+        )
     _raise_on(rc, "block_max")
     block_max.launches += 1
     return (bmax, gmax) if groups else bmax
@@ -397,11 +398,12 @@ def block_max_sq(qp: torch.Tensor, table: torch.Tensor, aff: Affine, n_items: in
     _check_affine(aff, qp, table)
     b_pad, d_pad = qp.shape
     bmax, gmax = _maxima_out(qp, table, groups)
-    rc = _lib().gt_block_max_sq(
-        qp.data_ptr(), table.data_ptr(), aff.affine.data_ptr(), aff.qstats.data_ptr(),
-        bmax.data_ptr(), gmax.data_ptr() if groups else None, b_pad, d_pad, n_items,
-        bmax.shape[1], int(aff.euclidean), _stream(qp),
-    )
+    with torch.cuda.device(qp.device):  # the tensors' card
+        rc = _lib().gt_block_max_sq(
+            qp.data_ptr(), table.data_ptr(), aff.affine.data_ptr(), aff.qstats.data_ptr(),
+            bmax.data_ptr(), gmax.data_ptr() if groups else None, b_pad, d_pad, n_items,
+            bmax.shape[1], int(aff.euclidean), _stream(qp),
+        )
     _raise_on(rc, "block_max_sq")
     block_max_sq.launches += 1
     return (bmax, gmax) if groups else bmax
@@ -425,9 +427,10 @@ def block_seeds(bmax: torch.Tensor, b: int, k: int) -> Gate:
     nb = bmax.shape[1]
     seeds = torch.empty((b,), dtype=torch.float32, device=bmax.device)
     fired = torch.empty((b,), dtype=torch.int32, device=bmax.device)
-    rc = _lib().gt_block_seeds(
-        bmax.data_ptr(), seeds.data_ptr(), fired.data_ptr(), b, nb, k, _stream(bmax)
-    )
+    with torch.cuda.device(bmax.device):  # the tensors' card
+        rc = _lib().gt_block_seeds(
+            bmax.data_ptr(), seeds.data_ptr(), fired.data_ptr(), b, nb, k, _stream(bmax)
+        )
     _raise_on(rc, "block_seeds")
     block_seeds.launches += 1
     return Gate(bmax, seeds, fired)
@@ -472,10 +475,11 @@ def block_topk(qp, table, gate: Gate | None, b: int, n_items: int, k: int):
     cap = _candidate_cap(gate, nb, k)
     cand = torch.empty((b_pad, cap), dtype=torch.int64, device=qp.device)
     count = torch.zeros((b_pad,), dtype=torch.int32, device=qp.device)
-    rc = _lib().gt_block_topk(
-        qp.data_ptr(), table.data_ptr(), bmax_ptr, seeds_ptr,
-        cand.data_ptr(), count.data_ptr(), b, b_pad, d_pad, n_items, nb, k, cap, _stream(qp),
-    )
+    with torch.cuda.device(qp.device):  # the tensors' card
+        rc = _lib().gt_block_topk(
+            qp.data_ptr(), table.data_ptr(), bmax_ptr, seeds_ptr,
+            cand.data_ptr(), count.data_ptr(), b, b_pad, d_pad, n_items, nb, k, cap, _stream(qp),
+        )
     _raise_on(rc, "block_topk")
     block_topk.launches += 1
     return cand, count
@@ -495,11 +499,12 @@ def block_topk_sq(qp, table, aff: Affine, gate: Gate | None, b: int, n_items: in
     cap = _candidate_cap(gate, nb, k)
     cand = torch.empty((b_pad, cap), dtype=torch.int64, device=qp.device)
     count = torch.zeros((b_pad,), dtype=torch.int32, device=qp.device)
-    rc = _lib().gt_block_topk_sq(
-        qp.data_ptr(), table.data_ptr(), aff.affine.data_ptr(), aff.qstats.data_ptr(),
-        bmax_ptr, seeds_ptr, cand.data_ptr(), count.data_ptr(), b, b_pad, d_pad, n_items, nb,
-        k, cap, int(aff.euclidean), _stream(qp),
-    )
+    with torch.cuda.device(qp.device):  # the tensors' card
+        rc = _lib().gt_block_topk_sq(
+            qp.data_ptr(), table.data_ptr(), aff.affine.data_ptr(), aff.qstats.data_ptr(),
+            bmax_ptr, seeds_ptr, cand.data_ptr(), count.data_ptr(), b, b_pad, d_pad, n_items, nb,
+            k, cap, int(aff.euclidean), _stream(qp),
+        )
     _raise_on(rc, "block_topk_sq")
     block_topk_sq.launches += 1
     return cand, count
@@ -537,10 +542,11 @@ def merge_topk(cand: torch.Tensor, count: torch.Tensor, b: int, k: int):
     out_s = torch.empty((b, k), dtype=torch.float32, device=cand.device)
     out_i = torch.empty((b, k), dtype=torch.int32, device=cand.device)
     slice_ = merge_slice(b, k, _sm_count(cand.device.index))
-    rc = _lib().gt_merge_topk(
-        cand.data_ptr(), count.data_ptr(), out_s.data_ptr(), out_i.data_ptr(),
-        b, k, cand.shape[1], slice_, _stream(cand),
-    )
+    with torch.cuda.device(cand.device):  # the tensors' card
+        rc = _lib().gt_merge_topk(
+            cand.data_ptr(), count.data_ptr(), out_s.data_ptr(), out_i.data_ptr(),
+            b, k, cand.shape[1], slice_, _stream(cand),
+        )
     _raise_on(rc, "merge_topk")
     merge_topk.launches += 1
     return out_s, out_i

@@ -27,8 +27,9 @@ on the card; the best parameters go to the meta store for the next fit.
 ``collaborative.fit_period`` minutes or on ``trigger``. ``load_dataset``
 starts the data store's search-column reconcile on a thread.
 
-Not ported yet: the tracer flush at shutdown (ROADMAP.md M21) and sharded
-training (``training_mesh`` is ``None``, M14).
+With more than one card (or a joined process group) the CF, eALS and CTR
+fits shard over ``training_mesh`` (parallel/). Not ported yet: the tracer
+flush at shutdown (ROADMAP.md M21).
 """
 
 from __future__ import annotations
@@ -40,6 +41,7 @@ import threading
 import time
 
 import numpy as np
+import torch
 
 from ..data.ctr import CTRDataset
 from ..data.dataset import Dataset
@@ -117,11 +119,29 @@ class Master:
         self._sizeof_busy = False
         self._reconciling = False
         self.memory_inuse: dict[str, int] = {}
+        self._mesh = None
+        self._mesh_built = False
         self._load_models_from_meta()
 
     def training_mesh(self):
-        """Sharded training is not ported yet: always one device."""
-        return None
+        """The mesh the fits shard over: with a joined process group
+        (``parallel.multihost.init_multihost``) every process's cards, else
+        every visible card when the master runs on a card and more than one
+        is visible; ``None`` (one device) otherwise. Built once."""
+        if not self._mesh_built:
+            self._mesh_built = True
+            import torch.distributed as dist
+
+            on_card = self.device is None or torch.device(self.device).type == "cuda"
+            if on_card and dist.is_available() and dist.is_initialized():
+                from ..parallel.multihost import global_mesh
+
+                self._mesh = global_mesh()
+            elif on_card and torch.cuda.device_count() > 1:
+                from ..parallel.mesh import make_mesh
+
+                self._mesh = make_mesh()
+        return self._mesh
 
     # ------------------------------------------------------------------ meta
 

@@ -201,12 +201,6 @@ def test_init_takes_numpy_factors_and_checks_their_shape():
 
 
 def test_what_is_not_ported_raises():
-    with pytest.raises(NotImplementedError, match="M14"):
-        FitConfig(shard_table=True)
-    with pytest.raises(NotImplementedError, match="M14"):
-        FitConfig(mesh=object())
-    with pytest.raises(NotImplementedError, match="M14"):
-        FitConfig(sync_every=2)
     with pytest.raises(KeyError):
         create_mf_model("nope", device="cpu")
     with pytest.raises(NotImplementedError):

@@ -35,7 +35,8 @@ def test_port_imports_no_jax_and_no_reference():
                  "storage.search", "storage.object", "models.optimize", "serve.in_one",
                  "serve.rest", "serve.asynchttp", "serve.metrics", "serve.oidc",
                  "serve.dashboard", "serve.nodes", "client", "cmd", "cmd.nodes_main",
-                 "cmd._spawn"):
+                 "cmd._spawn", "parallel", "parallel.mesh", "parallel.sharded",
+                 "parallel.catalog", "parallel.multihost"):
         assert f"gorse_tpu_torch.{name}" in modules
     code = (
         "import importlib, json, sys\n"

@@ -621,3 +621,147 @@ def test_masters_apply_the_persisted_recommend_override(tmp_path, override, cach
     assert master.config.recommend.cache_size == ref.config.recommend.cache_size == cache_size
     assert dataclasses.asdict(master.config.recommend) == dataclasses.asdict(ref.config.recommend)
     assert master.config.recommend.hash() == ref.config.recommend.hash()
+
+
+@pytest.fixture(scope="module")
+def sharded_cycle(cycles, tmp_path_factory):
+    """The port's ``run_tasks_once`` with an 8-shard CPU mesh patched into
+    ``training_mesh`` (the reference's master in ``cycles`` trains on its
+    8-device mesh), from the reference's inits; then each package's eALS
+    fit, the port's on that mesh too. Records which sharded epochs ran."""
+    from gorse_tpu.models.als import ALS as RefALS
+    from gorse_tpu.models.fm import AFM as RefAFM
+    from gorse_tpu.utils import config as ref_config
+    from gorse_tpu_torch.models import als as port_als
+    from gorse_tpu_torch.models import fm as port_fm
+    from gorse_tpu_torch.parallel import sharded
+    from gorse_tpu_torch.parallel.mesh import make_mesh
+    from gorse_tpu_torch.utils import config as port_config
+
+    ref, ref_loaded, _, _ = cycles
+    tmp = tmp_path_factory.mktemp("sharded_cycle")
+    mesh = make_mesh(8, devices=["cpu"])
+    mp = pytest.MonkeyPatch()
+    used = []
+    for name in ("make_sharded_bpr_epoch", "make_data_parallel_afm_epoch",
+                 "make_sharded_als_epoch"):
+        made = getattr(sharded, name)
+        mp.setattr(sharded, name, lambda *a, _made=made, _name=name, **k:
+                   used.append(_name) or _made(*a, **k))
+    ref_init = RefBPR({})
+    ref_init.init(ref_loaded.train, seed=0)
+    factors = (np.asarray(ref_init.user_factors), np.asarray(ref_init.item_factors))
+    init = port_bpr.BPR.init
+    mp.setattr(port_bpr.BPR, "init",
+               lambda self, train, seed=0, factors_=None: init(self, train, seed, factors))
+
+    def afm_init(self, n_features, dims, seed):
+        tree = RefAFM(dict(self.params))._init_params(n_features, dims, seed)
+        flat = {k: np.asarray(tree[k]) for k in ("b", "v", "w")}
+        return port_fm.afm_params_from_numpy(flat, self.device)
+
+    mp.setattr(port_fm.AFM, "_init_params", afm_init)
+    data, cache = MemoryDataStore(), MemoryCacheStore()
+    _fill(data, types)
+    blob = BlobStore(tmp / "blobs")
+    _stale_entries(cache, blob, ck, types)
+    port = Master(_cycle_config(Config(), port_config), data, cache, blob, MetaStore(),
+                  device="cpu")
+    mp.setattr(port, "training_mesh", lambda: mesh)
+    loaded = port.run_tasks_once()
+
+    # eALS: the reference's master on its mesh, the port's on the 8 shards
+    als_masters = []
+    for cls, cfg, d, c, b, m, mod in (
+            (RefMaster, RefConfig(), RefData(), RefCache(), RefBlobStore(tmp / "ref_als"),
+             RefMeta(), ref_config),
+            (Master, Config(), MemoryDataStore(), MemoryCacheStore(), BlobStore(tmp / "als"),
+             MetaStore(), port_config)):
+        _fill(d, ref_types if cls is RefMaster else types)
+        cfg = _cycle_config(cfg, mod)
+        cfg.recommend.collaborative.model = "als"
+        kw = {} if cls is RefMaster else {"device": "cpu"}
+        als_masters.append((cls(cfg, d, c, b, m, **kw), d))
+    (ref_als, _), (port_als_master, _) = als_masters
+    mp.setattr(port_als_master, "training_mesh", lambda: mesh)
+    r_als_loaded = ref_als.load_dataset()
+    ref_als.train_collaborative_filtering(r_als_loaded)
+    als0 = RefALS({})
+    als0.init(r_als_loaded.train, seed=0)
+    als_factors = (np.asarray(als0.user_factors), np.asarray(als0.item_factors))
+    als_init = port_als.ALS.init
+    mp.setattr(port_als.ALS, "init",
+               lambda self, train, seed=0, factors_=None: als_init(self, train, seed, als_factors))
+    port_als_master.train_collaborative_filtering(port_als_master.load_dataset())
+    mp.undo()
+    return ref, port, loaded, ref_als, port_als_master, used
+
+
+def test_sharded_master_fills_the_reference_caches(sharded_cycle):
+    """``training_mesh`` -> an 8-shard mesh: the master's BPR (user-sharded,
+    K3's plain version here), AFM (data-parallel) and eALS (sharded) fits
+    take their sharded epochs and match the reference's master on its
+    8-device mesh: the same caches and keys, factors as
+    test_trained_model_is_the_reference holds them, the AFM and eALS as
+    tests/test_torch_fm.py and tests/test_torch_als.py do."""
+    from test_torch_fm import AUC_TOL, FIT_TOL, _table_share
+
+    ref, port, loaded, ref_als, port_als_master, used = sharded_cycle
+    assert used == ["make_sharded_bpr_epoch", "make_data_parallel_afm_epoch",
+                    "make_sharded_als_epoch"]
+    assert _meta_keys(port.meta) == _meta_keys(ref.meta)
+    assert {k for k in port.cache._kv if "update_time" not in k and "last_" not in k} == \
+           {k for k in ref.cache._kv if "update_time" not in k and "last_" not in k}
+    for name in ("popular", "latest"):
+        got, want = (c.search_scores(ck.NON_PERSONALIZED, name) for c in (port.cache, ref.cache))
+        assert [(s.id, s.score) for s in got] == [(s.id, s.score) for s in want] and got
+    for collection in (ck.ITEM_TO_ITEM, ck.USER_TO_USER):
+        for subset in sorted(ref.cache.scan_score_subsets(collection)):
+            got, want = (c.search_scores(collection, subset) for c in (port.cache, ref.cache))
+            assert [s.id for s in got] == [s.id for s in want], subset
+    np.testing.assert_allclose(port.cf_index.user_factors.numpy(),
+                               np.asarray(ref.cf_index.user_factors), rtol=1e-4, atol=1e-6)
+    np.testing.assert_allclose(port.cf_index.item_factors.numpy(),
+                               np.asarray(ref.cf_index.item_factors), rtol=1e-4, atol=1e-6)
+    meta, ref_meta = (json.loads(m.meta.get("CF_MODEL_META")) for m in (port, ref))
+    assert (meta["type"], meta["params"]) == (ref_meta["type"], ref_meta["params"])
+    assert abs(meta["score"] - ref_meta["score"]) <= 1e-3
+    for name in ("v", "w"):
+        share = _table_share(getattr(port.ctr_model.model_params, name),
+                             ref.ctr_model.model_params[name])
+        assert share <= FIT_TOL, (name, share)
+    text, ref_text = port.metrics.render(), ref.metrics.render()
+    got, want = (float(re.search(r"^\w+_master_ranking_model_auc (\S+)$", t, re.M).group(1))
+                 for t in (text, ref_text))
+    assert abs(got - want) <= AUC_TOL
+    assert port.blob.list() == sorted([port.meta.get(COLLABORATIVE_FILTERING_MODEL),
+                                       port.meta.get(CLICK_THROUGH_RATE_MODEL)])
+
+    assert type(port_als_master.cf_model).__name__ == "ALS"
+    for got, want in ((port_als_master.cf_index.user_factors, ref_als.cf_index.user_factors),
+                      (port_als_master.cf_index.item_factors, ref_als.cf_index.item_factors)):
+        want = np.asarray(want)
+        np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=2e-4 * np.abs(want).max())
+    meta, ref_meta = (json.loads(m.meta.get("CF_MODEL_META"))
+                      for m in (port_als_master, ref_als))
+    assert meta["type"] == ref_meta["type"] == "als"
+    assert abs(meta["score"] - ref_meta["score"]) <= 1e-3
+
+
+def test_training_mesh_spans_the_visible_cards(tmp_path, monkeypatch):
+    """The reference's rule: a mesh over every visible card when more than
+    one is visible, else None; None for a master on the CPU."""
+    import torch
+
+    def master(device):
+        return Master(Config(), MemoryDataStore(), MemoryCacheStore(), BlobStore(tmp_path),
+                      MetaStore(), device=device)
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 4)
+    mesh = master("cuda:0").training_mesh()
+    assert mesh.size == 4 and mesh.devices == [torch.device("cuda", i) for i in range(4)]
+    assert mesh.group is None
+    assert master("cpu").training_mesh() is None
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    assert master("cuda:0").training_mesh() is None
