@@ -263,6 +263,33 @@ kernel's own block maxima.
    epoch on its ``global_mesh``. With more than one card visible, the
    epoch and the master again on the mesh over every card (the master's
    own ``training_mesh``), and one process a card over NCCL against it.
+13. The approximate tier, external sources, the bench and the CLI. (a) On
+   phase 3's 1M x 64 bf16 table and 256 of its users, at k = 10 and the
+   worker's fetch, at recall targets 0.9, 0.95 and 0.99: ``bin_max`` held
+   against ``bin_max_plain`` (``hold_bins``: the same bins empty; where the
+   two pick the same item the scores within ``score_tol``; where they pick
+   different items a tie within 2 T), ``merge_topk`` on its keys equal to
+   the plain merge, the lists tie-aware against the plain route, the entry
+   point ``dot_topk_approx`` equal to the kernels' lists, mean recall@k
+   against the exact ``dot_topk`` at or above the target; at 0.99 the
+   times (median and queued), the bound (one table stream plus the keys),
+   the plain time, the extra device memory (no ``[B, N]`` matrix), the
+   route's time beside the exact chain's on the same chunk. The same for
+   ``bin_max_sq`` on the table's codes at k = 10 (dot at each target,
+   euclidean at 0.99), and ``sq_topk_approx``'s launches from 0. (b) Phase
+   3's shard through the worker at ``index_recall = 0.99``: only
+   ``bin_max`` and ``merge_topk`` launched, once a chunk; users/s beside
+   phase 3's; every list catalog ids only, none of the user's, at most
+   ``cache_size``; its recall against the exact route's lists. (c) A js
+   source (with ``fetch``) and an http source, served from 127.0.0.1, in a
+   card worker's chain: the lists equal the sources' ids less the user's;
+   ``/api/dashboard/external`` on a card master answers the same. (d) The
+   bench: ``cf`` (bpr with ``bpr_epoch`` launched, then als) and ``ctr`` on
+   the card within ``BENCH_NDCG_TOL`` / ``BENCH_AUC_TOL`` of the same
+   command on the CPU, ``retrieval`` at 1M through K4-K6 beside the
+   library route, ``embedding`` against the mock server, ``reranker``
+   naming M21; the CLI's ``health``, ``get user``, ``pipeline show`` and
+   ``recommend`` against an in-one node on the card.
 
 The last three lines of standard output are the kernels' JSON record, the
 card's ``name, power.limit`` as nvidia-smi gives them, and
@@ -452,7 +479,22 @@ SHARDED_EPOCH_TOL = {"p": FIRST_EPOCH_TOL, "q": 2e-4}
 # (one sweep's rounding a step, no atomics between the two): the same two
 # runs read at most 1.6e-6, twelve times under this limit
 SYNC4_TOL = 2e-5
-PHASES = ("2", "2b", "2c", "3", "4", "5", "6", "7", "7c", "8", "9", "10", "11", "12")
+PHASES = ("2", "2b", "2c", "3", "4", "5", "6", "7", "7c", "8", "9", "10", "11", "12", "13")
+# phase 13: the approximate tier on phase 3's table, external sources, bench and CLI
+APPROX_KERNELS = ("bin_max", "bin_max_sq")
+APPROX_REPLACES = {  # jax.lax.approx_max_k inside these functions; no pallas_call
+    "bin_max": "gorse_tpu/ops/topk.py:860",
+    "bin_max_sq": "gorse_tpu/ops/topk.py:903",
+}
+APPROX_TARGETS = (0.9, 0.95, 0.99)
+APPROX_RECALL = 0.99  # the worker's index_recall; the kernel rows are timed at it
+APPROX_QUERIES = 256  # one serving chunk
+EXTERNAL_USERS = 16
+BENCH_BATCHES = 32  # the bench's default chain
+# the same bench command on the card and on the CPU: the same initial values
+# and samples (CPU generators), sums in another order on the card
+BENCH_NDCG_TOL = 0.05
+BENCH_AUC_TOL = 0.05
 SQ_REPLACES = {
     "block_max_sq": "gorse_tpu/ops/topk.py:361",
     "block_topk_sq": "gorse_tpu/ops/topk.py:442",
@@ -1476,7 +1518,7 @@ def zero_counts() -> list:
     """Every kernel wrapper, its launch count set to 0."""
     from gorse_tpu_torch.ops import bpr_kernel, topk
 
-    wrappers = [getattr(topk, n) for n in KERNELS + SQ_KERNELS]
+    wrappers = [getattr(topk, n) for n in KERNELS + SQ_KERNELS + APPROX_KERNELS]
     wrappers += [getattr(bpr_kernel, n) for n in BPR_KERNELS]
     for w in wrappers:
         w.launches = 0
@@ -4443,6 +4485,499 @@ def phase_sharded(train, test, csr, dev, smi: str, seed: int, phase5: dict | Non
     return result
 
 
+# ---------------------------------------------------------------- phase 13
+#
+# The approximate serving tier, the external sources, the bench and the
+# CLI. bin_max's hold: where kernel and plain version pick the same item
+# of a bin, the scores within the score tolerance; where they pick
+# different items, both lie in that bin and the kernel's item's plain
+# score is within 2 T of the plain maximum (a tie within the summation
+# order). The final lists are then held, tie-aware, against the plain
+# route (bin_max_plain and merge_topk_plain) with those tied bins resolved
+# to the kernel's item.
+
+
+def hold_bins(what: str, keys, keys_p, scores_p, tol, b: int, n_bins: int):
+    """``bin_max`` keys ``[b_pad, L]`` against the plain version's on the
+    first ``b`` queries. Returns (the plain keys with tied bins resolved to
+    the kernel's item, largest |score difference|, tied bins)."""
+    import torch
+
+    from gorse_tpu_torch.ops import topk
+
+    keys, keys_p = keys[:b], keys_p[:b]
+    empty, empty_p = keys == topk._INT64_MIN, keys_p == topk._INT64_MIN
+    check(torch.equal(empty, empty_p), f"{what}: the same bins are empty")
+    live = ~empty
+    s, i = topk._decode(keys)
+    s_p, i_p = topk._decode(keys_p)
+    i, i_p = torch.where(live, i, 0).long(), torch.where(live, i_p, 0).long()
+    bins = torch.arange(n_bins, device=keys.device)[None, :]
+    check(bool(((i % n_bins == bins) & (i < scores_p.shape[1]))[live].all()),
+          f"{what}: every kernel key's item lies in its bin and in the catalog")
+    t = torch.maximum(tol[:b].gather(1, i), tol[:b].gather(1, i_p))
+    own_p = scores_p[:b].gather(1, i)
+    check(bool(((s - own_p).abs() <= tol[:b].gather(1, i))[live].all()),
+          f"{what}: each bin's kernel score within tolerance of its plain score")
+    check(bool(((s - s_p).abs() <= t)[live].all()), f"{what}: bin maxima within tolerance")
+    tied = live & (i != i_p)
+    check(bool((own_p >= s_p - 2 * t)[tied].all()),
+          f"{what}: where the picks differ, the kernel's item ties the plain maximum")
+    resolved = torch.where(tied, topk._keys(own_p.contiguous(), i), keys_p)
+    err = float((s - s_p).abs()[live].max()) if bool(live.any()) else 0.0
+    return resolved, err, int(tied.sum())
+
+
+def approx_recall(got, want) -> float:
+    """Mean share of each exact list's ids that the approximate list holds."""
+    g, w = got.cpu().numpy(), want.cpu().numpy()
+    return float(np.mean([len(set(a) & set(e)) / len(e) for a, e in zip(g, w)]))
+
+
+def hold_approx(name: str, queries, table, n: int, k: int, target: float, operands, exact_fn,
+                approx_fn, scores_p, tol, time_it: bool) -> dict:
+    """One (k, recall target) of the approximate tier on one query chunk:
+    ``bin_max`` (``_sq``) held against its plain version, the final lists
+    against the plain route, the entry point against the kernels' merge,
+    mean recall@k against the exact chain at or above the target; with
+    ``time_it`` the times, bound and extra memory."""
+    import torch
+
+    from gorse_tpu_torch.ops import topk
+
+    b = queries.shape[0]
+    n_bins = topk.approx_bins(topk._round_up(max(n, topk.REF_LANES), topk.REF_LANES), k, target)
+    qp, aff = operands(queries, topk._round_up(b, topk.QUERY_TILE))
+
+    def bins():
+        if aff is None:
+            return topk.bin_max(qp, table, n, n_bins)
+        return topk.bin_max_sq(qp, table, aff, n, n_bins)
+
+    keys = bins()
+    keys_p = topk.bin_max_plain(qp, table, n, n_bins, aff)
+    resolved, err, tied = hold_bins(f"{name} k={k} L={n_bins}", keys, keys_p, scores_p, tol, b,
+                                    n_bins)
+    count = torch.full((qp.shape[0],), n_bins, dtype=torch.int32, device=qp.device)
+    s, i = topk.merge_topk(keys, count, b, k)
+    s_m, i_m = topk.merge_topk_plain(keys, count, b, k)
+    check(torch.equal(s, s_m) and torch.equal(i, i_m),
+          f"{name} k={k}: merge_topk equals its plain version on the bins' keys")
+    hold_lists(f"{name} k={k} target {target}: lists against the plain route", (s, i),
+               topk.merge_topk_plain(resolved, count[:b], b, k), qp, table, aff)
+    s_e, i_e = approx_fn(queries, k, target)
+    check(torch.equal(s_e, s) and torch.equal(i_e, i),
+          f"{name} k={k}: the entry point returns the kernels' lists")
+    exact = exact_fn(queries, k)
+    recall = approx_recall(i, exact[1])
+    check(recall >= target, f"{name} k={k}: mean recall@k {recall:.4f} >= target {target}")
+    row = {"k": k, "target": target, "bins": n_bins, "recall": recall, "tied_bins": tied,
+           "max_abs_err": err}
+    if time_it:
+        b_pad = qp.shape[0]
+        q_bytes = qp.numel() * 2 + (0 if aff is None else aff.qstats.numel() * 4)
+        t_bytes = n * table.shape[1] * table.element_size()
+        if aff is not None:
+            t_bytes += n * (12 if aff.euclidean else 8)
+        bms, by = bound(t_bytes + q_bytes + b_pad * n_bins * 8, 2.0 * b * n * (table.shape[1]))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        approx_fn(queries, k, target)
+        torch.cuda.synchronize()
+        extra = torch.cuda.max_memory_allocated() - base
+        check(extra < b_pad * table.shape[0] * 4 // 4,
+              f"{name} k={k}: no [B, N] score matrix ({extra} bytes above the inputs)")
+        row.update(
+            ms=median_ms(bins, 20), queued_ms=queued_ms(bins),
+            plain_ms=median_ms(lambda: topk.bin_max_plain(qp, table, n, n_bins, aff), 3),
+            bound_ms=bms, bound_by=by, library_ms=None, extra_bytes=extra,
+            keys_bytes=b_pad * n_bins * 8,
+            merge=merge_timing(keys, count, b, k),
+            route_ms=median_ms(lambda: approx_fn(queries, k, target), 10),
+            route_queued_ms=queued_ms(lambda: approx_fn(queries, k, target)),
+            exact_ms=median_ms(lambda: exact_fn(queries, k), 10),
+            exact_queued_ms=queued_ms(lambda: exact_fn(queries, k)),
+        )
+    log(f"  {name}: " + json.dumps(row))
+    del keys, keys_p, resolved
+    return row
+
+
+def phase_approx_tier(user_factors, item_factors, histories, dev) -> dict:
+    """13a: bin_max on phase 3's 1M x 64 bf16 table and bin_max_sq on its
+    codes, 256 queries, every recall target at k = 10 and the worker's
+    fetch (bf16) or k = 10 and a euclidean case (sq)."""
+    import torch
+
+    from gorse_tpu_torch.ops import topk
+
+    out = {"bf16": [], "sq": []}
+    chunk = torch.as_tensor(user_factors[:APPROX_QUERIES], device=dev)
+    fetch = min(100 + max(len(h) for h in histories[:APPROX_QUERIES]), N_ITEMS)
+    prep = topk.prepare_items(torch.as_tensor(item_factors, device=dev), device=dev)
+    qp = topk._pad_queries(chunk, prep, topk._round_up(APPROX_QUERIES, topk.QUERY_TILE))
+    scores_p = topk._scores_plain(qp, prep.table)[:, :N_ITEMS]
+    tol = score_tol(qp, prep.table)[:, :N_ITEMS]
+    for k in (10, fetch):
+        for target in APPROX_TARGETS:
+            out["bf16"].append(hold_approx(
+                "bin_max", chunk, prep.table, N_ITEMS, k, target,
+                lambda q, b_pad: (topk._pad_queries(q, prep, b_pad), None),
+                lambda q, k_: topk.dot_topk(q, prep, k_, device=dev),
+                lambda q, k_, t: topk.dot_topk_approx(q, prep, k_, t, device=dev),
+                scores_p, tol, time_it=target == APPROX_RECALL))
+    out["fetch"] = fetch
+    del scores_p, tol, prep, qp
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    codes, scale, lo, norms2 = sq_table(item_factors)
+    log(f"  {N_ITEMS} x {DIM} items quantized in {time.perf_counter() - t0:.1f} s")
+    sq = topk.prepare_sq_items(codes, scale, lo, norms2, device=dev)
+    for metric, targets in (("dot", APPROX_TARGETS), ("euclidean", (APPROX_RECALL,))):
+        qp, aff = topk._sq_operands(chunk, sq, topk._round_up(APPROX_QUERIES, topk.QUERY_TILE),
+                                    metric)
+        scores_p = topk._scores_plain(qp, sq.table, aff)[:, :N_ITEMS]
+        tol = score_tol(qp, sq.table, aff)[:, :N_ITEMS]
+        for target in targets:
+            out["sq"].append(dict(metric=metric, **hold_approx(
+                f"bin_max_sq {metric}", chunk, sq.table, N_ITEMS, 10, target,
+                lambda q, b_pad, m=metric: topk._sq_operands(q, sq, b_pad, m),
+                lambda q, k_, m=metric: topk.sq_topk(q, sq, k_top=k_, metric=m, device=dev),
+                lambda q, k_, t, m=metric: topk.sq_topk_approx(q, sq, k_, t, metric=m,
+                                                               device=dev),
+                scores_p, tol, time_it=metric == "dot" and target == APPROX_RECALL)))
+        del scores_p, tol, qp, aff
+        torch.cuda.empty_cache()
+    # the launches of sq_topk_approx, its entry point, from 0
+    wrappers = zero_counts()
+    topk.sq_topk_approx(chunk, sq, 10, APPROX_RECALL, device=dev)
+    torch.cuda.synchronize()
+    out["sq_launches"] = {w.__name__: w.launches for w in wrappers if w.launches}
+    check(out["sq_launches"] == {"bin_max_sq": 1, "merge_topk": 1},
+          f"sq_topk_approx launched bin_max_sq and merge_topk once: {out['sq_launches']}")
+    del sq
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_approx_worker(user_factors, item_factors, histories, dev, exact_users_s) -> dict:
+    """13b: phase 3's shard through the worker at index_recall =
+    APPROX_RECALL: bin_max and merge_topk launched once a chunk and no
+    other kernel; users/s beside phase 3's; the lists' ids and their
+    recall against the exact route's lists."""
+    import torch
+
+    from gorse_tpu_torch.logics.cf import MatrixFactorizationIndex
+    from gorse_tpu_torch.ops import topk
+    from gorse_tpu_torch.serve.worker import Worker
+    from gorse_tpu_torch.storage import cache as ck
+    from gorse_tpu_torch.storage.blob import BlobStore
+    from gorse_tpu_torch.storage.cache import MemoryCacheStore
+    from gorse_tpu_torch.storage.data import MemoryDataStore
+    from gorse_tpu_torch.storage.types import Feedback, User
+    from gorse_tpu_torch.utils.config import Config
+
+    item_names = [f"i{i}" for i in range(N_ITEMS)]
+    user_names = [f"u{u}" for u in range(N_USERS)]
+    shard = user_names[:SHARD]
+    data, cache = MemoryDataStore(), MemoryCacheStore()
+    data.insert_users(User(u) for u in shard)
+    now = time.time()
+    data.insert_feedback(
+        Feedback("like" if j % 2 else "read", u, item_names[j], 1.0, now - 3600.0)
+        for u, hist in zip(shard, histories) for j in hist.tolist()
+    )
+    cfg = Config()
+    cfg.recommend.collaborative.type = "mf"
+    cfg.recommend.collaborative.index_recall = APPROX_RECALL
+    cfg.recommend.ranker.recommenders = ["collaborative"]
+    with tempfile.TemporaryDirectory(prefix="gorse_smoke_") as tmp:
+        worker = Worker(cfg, data, cache, BlobStore(Path(tmp) / "blobs"))
+        worker.cf_index = MatrixFactorizationIndex.from_numpy(
+            user_factors, item_factors,
+            {"names": user_names, "freqs": [1] * N_USERS},
+            {"names": item_names, "freqs": [1] * N_ITEMS},
+            [[f"c{i % N_CATEGORIES}"] for i in range(N_ITEMS)], timestamp=1.0, device=dev)
+        worker.cf_model_id = "approx"
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        # ---- the main path, with every launch count set to 0 just before
+        wrappers = zero_counts()
+        topk.dot_topk_xla.uses = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        refreshed = worker.recommend(shard)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {w.__name__: w.launches for w in wrappers if w.launches}
+        # ----
+        extra = torch.cuda.max_memory_allocated() - base
+    chunks = -(-SHARD // MatrixFactorizationIndex._SEARCH_CHUNK)
+    log("  approximate worker launches:", json.dumps(launches))
+    check(refreshed == SHARD, f"recommend refreshed {refreshed} of {SHARD} users")
+    check(launches == {"bin_max": chunks, "merge_topk": chunks},
+          f"bin_max and merge_topk once per chunk ({chunks}) and nothing else")
+    check(topk.dot_topk_xla.uses == 0, "the shard stayed off the f32 route")
+    check(extra < APPROX_QUERIES * topk._round_up(N_ITEMS, topk.BLOCK_N) * 4 // 4,
+          f"no [B, N] score matrix on the path ({extra} bytes above the index)")
+    catalog, size = set(item_names), cfg.recommend.cache_size
+    exclude = [[fb.item_id for fb in data.get_user_feedback(u)] for u in shard]
+    exact = []
+    for lo in range(0, SHARD, MatrixFactorizationIndex._SEARCH_CHUNK):
+        exact += worker.cf_index.search_users(shard[lo:lo + 256], size, exclude[lo:lo + 256])
+    recalls = []
+    for u, ex, want in zip(shard, exclude, exact):
+        got = [s.id for s in cache.search_scores(ck.COLLABORATIVE, u)]
+        check(0 < len(got) <= size and set(got) <= catalog and not set(got) & set(ex),
+              f"{u}: catalog ids only, none of the user's, at most cache_size")
+        recalls.append(len(set(got) & {s.id for s in want}) / len(want))
+    recall = float(np.mean(recalls))
+    check(recall >= APPROX_RECALL, f"worker recall {recall:.4f} >= {APPROX_RECALL}")
+    result = dict(users=SHARD, chunks=chunks, recommend_s=wall, users_per_s=SHARD / wall,
+                  exact_users_per_s=exact_users_s, launches=launches, recall=recall,
+                  extra_bytes=extra)
+    log("  approximate worker: " + json.dumps(result))
+    return result
+
+
+def serve_ids(state: dict):
+    """A stdlib HTTP server on 127.0.0.1: ``/recs`` answers an object of
+    scored items, ``/ids`` a bare array of ids; returns (server, base URL)."""
+    import threading
+    from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+
+    class Handler(BaseHTTPRequestHandler):
+        def do_GET(self):
+            state["requests"] += 1
+            body = json.dumps(EXTERNAL_IDS if self.path.startswith("/ids") else {
+                "items": [{"id": i, "score": float(s)} for s, i in EXTERNAL_SCORED]}).encode()
+            self.send_response(200)
+            self.send_header("Content-Type", "application/json")
+            self.send_header("Content-Length", str(len(body)))
+            self.end_headers()
+            self.wfile.write(body)
+
+        def log_message(self, *args):
+            pass
+
+    server = ThreadingHTTPServer(("127.0.0.1", 0), Handler)
+    threading.Thread(target=server.serve_forever, daemon=True).start()
+    return server, f"http://127.0.0.1:{server.server_address[1]}"
+
+
+EXTERNAL_IDS = ["i3", "i1", "i4", "i0", "i9"]
+EXTERNAL_SCORED = ((1.0, "i2"), (9.0, "i7"), (4.0, "i5"), (7.0, "i1"))
+EXTERNAL_JS = ("var r = fetch('{url}/recs?user_id=' + encodeURIComponent(user_id));"
+               "var items = JSON.parse(r.body).items;"
+               "items.sort((a, b) => b.score - a.score);"
+               "JSON.stringify(items.map(it => it.id))")
+
+
+def phase_external(dev) -> dict:
+    """13c: a js source (with fetch) and an http source in a card worker's
+    chain; its lists equal the sources' ids less the user's; the master's
+    /api/dashboard/external preview on the card answers the same."""
+    import base64
+
+    from gorse_tpu_torch.serve.dashboard import MasterRestServer
+    from gorse_tpu_torch.serve.master import Master
+    from gorse_tpu_torch.serve.worker import Worker
+    from gorse_tpu_torch.storage import cache as ck
+    from gorse_tpu_torch.storage.blob import BlobStore
+    from gorse_tpu_torch.storage.cache import MemoryCacheStore
+    from gorse_tpu_torch.storage.data import MemoryDataStore
+    from gorse_tpu_torch.storage.meta import MetaStore
+    from gorse_tpu_torch.storage.types import Feedback, Item, User
+    from gorse_tpu_torch.utils.config import Config, ExternalConfigEntry
+
+    state = {"requests": 0}
+    server, url = serve_ids(state)
+    try:
+        with tempfile.TemporaryDirectory(prefix="gorse_smoke_") as tmp:
+            data, cache = MemoryDataStore(), MemoryCacheStore()
+            data.insert_items(Item(f"i{k}", timestamp=float(k)) for k in range(10))
+            users = [f"u{u}" for u in range(EXTERNAL_USERS)]
+            data.insert_users(User(u) for u in users)
+            data.insert_feedback(Feedback("like", u, f"i{n % 10}", 1.0, 1.0)
+                                 for n, u in enumerate(users))
+            cfg = Config()
+            cfg.recommend.cache_size = 10
+            cfg.recommend.collaborative.type = "none"
+            cfg.recommend.ranker.type = "none"
+            cfg.recommend.external = [
+                ExternalConfigEntry(name="js", script=EXTERNAL_JS.format(url=url)),
+                ExternalConfigEntry(name="ids", type="http", url=f"{url}/ids"),
+            ]
+            cfg.recommend.ranker.recommenders = ["external/js", "external/ids"]
+            worker = Worker(cfg, data, cache, BlobStore(Path(tmp) / "blobs"), device=dev)
+            t0 = time.perf_counter()
+            check(worker.recommend(users, force=True) == len(users), "every user refreshed")
+            wall = time.perf_counter() - t0
+            js_ids = [i for _, i in sorted(EXTERNAL_SCORED, key=lambda x: -x[0])]
+            for n, u in enumerate(users):
+                mine = {f"i{n % 10}"}
+                want = [i for i in dict.fromkeys(js_ids + EXTERNAL_IDS) if i not in mine]
+                got = [s.id for s in cache.search_scores(ck.RECOMMEND, u)]
+                check(got == want[: cfg.recommend.cache_size],
+                      f"{u}: the sources' ids less the user's ({got} vs {want})")
+            master = Master(cfg, data, cache, BlobStore(Path(tmp) / "master"), MetaStore(),
+                            device=dev)
+            rest = MasterRestServer(master)
+            answers = {}
+            for label, spec, user in (("js", EXTERNAL_JS.format(url=url), "u1"),
+                                      ("url", f"{url}/ids", "u2"), ("none", "", "u1")):
+                query = {"user-id": user}
+                if spec:
+                    query["script"] = base64.b64encode(spec.encode()).decode()
+                answers[label] = rest.dispatch("GET", "/api/dashboard/external", query, None, {})
+            check(answers["js"] == (200, js_ids), f"preview of the js source: {answers['js']}")
+            check(answers["url"] == (200, EXTERNAL_IDS), f"preview of a URL: {answers['url']}")
+            check(answers["none"][0] == 400, "preview without a script: 400")
+    finally:
+        server.shutdown()
+    result = {"users": len(users), "recommend_s": wall, "requests": state["requests"]}
+    log("  external: " + json.dumps(result))
+    return result
+
+
+def run_main(main_fn, argv: list[str]) -> str:
+    """Run a command's ``main(argv)`` and return what it printed."""
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        check(main_fn(argv) == 0, f"{' '.join(argv)}: exit code 0")
+    return buf.getvalue()
+
+
+def last_json(text: str) -> dict:
+    return json.loads(text.strip().splitlines()[-1])
+
+
+def phase_bench_cli(dev, smi: str) -> dict:
+    """13d: the bench's cf (bpr, then als) and ctr on the card against the
+    same command on the CPU, retrieval at 1M through the kernels beside the
+    library route, embedding against the mock server; the CLI against an
+    in-one node on the card."""
+    import torch
+
+    from gorse_tpu_torch.cmd import bench, cli
+    from gorse_tpu_torch.ops import topk
+
+    out = {}
+    for model in ("bpr", "als"):
+        wrappers = zero_counts()
+        t0 = time.perf_counter()
+        card = last_json(run_main(bench.main, ["cf", "--model", model]))
+        card_s = time.perf_counter() - t0
+        launches = {w.__name__: w.launches for w in wrappers if w.launches}
+        cpu = last_json(run_main(bench.main, ["cf", "--model", model, "--device", "cpu"]))
+        check(card["device"].startswith("cuda") and cpu["device"] == "cpu", "bench cf devices")
+        if model == "bpr":
+            check(launches.get("bpr_epoch", 0) >= 1, f"bench cf bpr launched bpr_epoch: {launches}")
+        check(abs(card["NDCG@10"] - cpu["NDCG@10"]) <= BENCH_NDCG_TOL,
+              f"bench cf {model}: NDCG@10 {card['NDCG@10']} within {BENCH_NDCG_TOL} of the "
+              f"CPU's {cpu['NDCG@10']}")
+        out[f"cf_{model}"] = dict(card=card, cpu=cpu, seconds=card_s, launches=launches)
+    card = last_json(run_main(bench.main, ["ctr"]))
+    cpu = last_json(run_main(bench.main, ["ctr", "--device", "cpu"]))
+    check(abs(card["AUC"] - cpu["AUC"]) <= BENCH_AUC_TOL,
+          f"bench ctr: AUC {card['AUC']} within {BENCH_AUC_TOL} of the CPU's {cpu['AUC']}")
+    out["ctr"] = dict(card=card, cpu=cpu)
+    retrieval = ["retrieval", "--items", str(N_ITEMS), "--dim", str(DIM), "--batch", "256",
+                 "--k", "10", "--batches", str(BENCH_BATCHES)]
+    for kernel in ("pallas", "xla"):
+        wrappers = zero_counts()
+        topk.dot_topk_xla.uses = 0
+        row = last_json(run_main(bench.main, retrieval + ["--kernel", kernel]))
+        launches = {w.__name__: w.launches for w in wrappers if w.launches}
+        if kernel == "pallas":
+            want = {name: 2 * BENCH_BATCHES for name in KERNELS}  # warm-up chain + timed chain
+            check(launches == want, f"bench retrieval --kernel pallas launched K4-K6: {launches}")
+        else:
+            check(not launches and topk.dot_topk_xla.uses == 2 * BENCH_BATCHES,
+                  "bench retrieval --kernel xla took the library route only")
+        check(row["timer"] == "cuda_events" and row["device"] == torch.cuda.get_device_name(0),
+              "bench retrieval timed on the card")
+        out[f"retrieval_{kernel}"] = dict(row, launches=launches)
+    emb = last_json(run_main(bench.main, ["embedding"]))
+    check(emb["device"].startswith("cuda") and 0.0 <= emb["recall_vs_coconsumption"] <= 1.0,
+          "bench embedding on the card")
+    out["embedding"] = emb
+    try:
+        bench.main(["reranker"])
+        check(False, "bench reranker raises")
+    except NotImplementedError as e:
+        check("M21" in str(e), "bench reranker names M21")
+    out["cli"] = cli_on_in_one(cli)
+    log("  bench and CLI: " + json.dumps(out) + " | " + smi)
+    return out
+
+
+def cli_on_in_one(cli) -> dict:
+    """The CLI's health, get and pipeline show against an in-one node on the
+    card (a few users, one cycle)."""
+    from gorse_tpu_torch.serve.in_one import InOneNode
+    from gorse_tpu_torch.storage.types import Feedback, Item
+    from gorse_tpu_torch.utils.config import Config
+
+    config = Config()
+    config.recommend.collaborative.type = "mf"
+    config.recommend.ranker.type = "none"
+    with tempfile.TemporaryDirectory(prefix="gorse_smoke_") as tmp:
+        node = InOneNode(config, workdir=tmp)
+        check(node.device.type == "cuda", "the in-one node is on the card")
+        rng = np.random.default_rng(0)
+        node.data.insert_items([Item(f"i{k}", timestamp=float(k), categories=["c"])
+                                for k in range(12)])
+        pairs = [(u, i) for u in range(6) for i in range(12)]
+        rng.shuffle(pairs)
+        node.data.insert_feedback([Feedback("like", f"u{u}", f"i{i}", timestamp=float(t))
+                                   for t, (u, i) in enumerate(pairs[:40])])
+        t0 = time.perf_counter()
+        node.run_once()
+        cycle_s = time.perf_counter() - t0
+        httpd = node.serve("127.0.0.1", 0, background_loop=False)
+        base = f"http://127.0.0.1:{httpd.server_address[1]}"
+        try:
+            health = json.loads(run_main(cli.main, ["--url", base, "health"]))
+            user = json.loads(run_main(cli.main, ["--url", base, "get", "user", "u1"]))
+            pipeline = json.loads(run_main(cli.main, ["--url", base, "pipeline", "show"]))
+            recs = json.loads(run_main(cli.main, ["--url", base, "recommend", "u1", "-n", "3"]))
+        finally:
+            node.shutdown()
+    check(health.get("Ready", health.get("status")) in (True, "ready"), f"cli health: {health}")
+    check(user.get("UserId") == "u1", f"cli get user: {user}")
+    check("recommend" in pipeline, "cli pipeline show")
+    check(len(recs) == 3, f"cli recommend: {recs}")
+    return {"cycle_s": cycle_s, "health": health, "recommend": recs}
+
+
+def phase_approx(dev, smi: str, seed: int, earlier: dict) -> dict:
+    """Phase 13: the approximate tier (a, b), external sources (c), the
+    bench and the CLI (d)."""
+    import torch
+
+    t0 = time.perf_counter()
+    user_factors, item_factors, histories = make_data(seed)
+    out = {"tier": phase_approx_tier(user_factors, item_factors, histories, dev)}
+    torch.cuda.empty_cache()
+    out["worker"] = phase_approx_worker(user_factors, item_factors, histories, dev,
+                                        (earlier.get("path") or {}).get("users_per_s"))
+    del user_factors, item_factors, histories
+    torch.cuda.empty_cache()
+    out["external"] = phase_external(dev)
+    out["bench"] = phase_bench_cli(dev, smi)
+    out["seconds"] = time.perf_counter() - t0
+    out["card"] = smi
+    log(f"  phase 13 in {out['seconds']:.1f} s")
+    return out
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -4558,6 +5093,9 @@ def main() -> int:
         log("  sharded: " + json.dumps(out["sharded"], default=str))
     if "4" in phases or "5" in phases or "12" in phases:
         del train, test, csr
+    if "13" in phases:
+        log("== phase 13: the approximate tier, external sources, the bench and the CLI")
+        out["approx"] = phase_approx(dev, smi, args.seed, {"path": out.get("path")})
     check("jax" not in sys.modules and "gorse_tpu" not in sys.modules,
           "neither JAX nor gorse_tpu was imported")
     log(f"  total {time.perf_counter() - t_start:.1f} s")
@@ -4594,9 +5132,11 @@ def kernel_rows(out: dict) -> list[dict]:
     # phase 11 runs beside the worker process
     in_one = out["in_one"]["launches"]
     cluster = out["cluster"]["launches"]
+    approx = out["approx"]
     kernels = [row(name, "topk.cu", REPLACES[name],
                    path["launches"][name] + out["ctr"]["worker_topk_launches"][name]
-                   + in_one[name] + cluster[name], out["errors"][name], rows[name])
+                   + in_one[name] + cluster[name]
+                   + approx["worker"]["launches"].get(name, 0), out["errors"][name], rows[name])
                for name in KERNELS]
     # the training path's launches of bpr_epoch (phase 5) with the in-one
     # node's fit and BPR search trials (phase 10); the sweeps' from their
@@ -4612,6 +5152,20 @@ def kernel_rows(out: dict) -> list[dict]:
     # 1M x 64 dot shape (phase 7a)
     kernels += [row(name, "topk.cu", SQ_REPLACES[name], out["store"]["launches"][name],
                     out["sq_errors"][name], out["sq_timings"]["dot"][name]) for name in SQ_KERNELS]
+    # the approximate tier: bin_max's launches from the worker at index_recall
+    # 0.99 (phase 13b), timed at its fetch; bin_max_sq's from sq_topk_approx,
+    # its entry point, timed at k = 10 (phase 13a)
+    tier = approx["tier"]
+    timed_bf16 = next(r for r in tier["bf16"]
+                      if r["k"] == tier["fetch"] and r["target"] == APPROX_RECALL)
+    timed_sq = next(r for r in tier["sq"] if r["metric"] == "dot" and r["target"] == APPROX_RECALL)
+    kernels += [
+        row("bin_max", "topk.cu", APPROX_REPLACES["bin_max"],
+            approx["worker"]["launches"]["bin_max"],
+            max(r["max_abs_err"] for r in tier["bf16"]), timed_bf16),
+        row("bin_max_sq", "topk.cu", APPROX_REPLACES["bin_max_sq"],
+            tier["sq_launches"]["bin_max_sq"], max(r["max_abs_err"] for r in tier["sq"]), timed_sq),
+    ]
     log("  K6 routes (ms old -> new, library, candidates new): " + json.dumps({
         shape: [r["old"]["ms"], r["new"]["ms"], r["new"]["library_ms"], r["new"]["candidates"]]
         for shape, r in out["routes"].items()}))

@@ -73,6 +73,11 @@
 // (scale, minv, norms2) and qstats [2, b_pad] f32 (qsum, q2). Padded items
 // (index >= n_items) are never candidates. A launch holds at most 256
 // queries; the C entries launch once per 256-query slice.
+//
+// A fifth kernel, bin_max (and bin_max_sq), serves the approximate tier
+// (ops/topk.py dot_topk_approx, sq_topk_approx): each query's maximum key
+// in each of L strided bins (item j in bin j mod L), the PartialReduce
+// step of jax.lax.approx_max_k, which merge_topk then reduces to the top k.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -351,7 +356,10 @@ struct Affine {
 // The epilogue of gorse_tpu/ops/topk.py _block_scores (:353-357) on a
 // round's fragments: dots = raw * scale + qsum * minv, and for euclidean
 // 2 * dots - norms2 - q2, each op rounded on its own.
-__device__ __forceinline__ void apply_affine(const Affine& af, int blk, int q0, int nq, Acc& acc) {
+// The tile's items are item0 + [0, 256); one past the table (bin_max's
+// last rows) reads the last item's affine, and its score is discarded.
+__device__ __forceinline__ void apply_affine_at(const Affine& af, size_t item0, int q0, int nq,
+                                                Acc& acc) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int wq = warp >> 2, wn = warp & 3, g = lane >> 2, tq = lane & 3;
 #pragma unroll
@@ -368,7 +376,8 @@ __device__ __forceinline__ void apply_affine(const Affine& af, int blk, int q0, 
     for (int nt = 0; nt < 8; ++nt) {
 #pragma unroll
       for (int e1 = 0; e1 < 2; ++e1) {
-        const int idx = blk * BLOCK_N + wn * 64 + nt * 8 + tq * 2 + e1;
+        const size_t at = item0 + wn * 64 + nt * 8 + tq * 2 + e1, last = (size_t)af.n_pad - 1;
+        const size_t idx = at < last ? at : last;
         const float scale = __ldg(af.affine + idx), minv = __ldg(af.affine + af.n_pad + idx);
         const float n2 = __ldg(af.affine + 2 * af.n_pad + idx);
 #pragma unroll
@@ -380,6 +389,10 @@ __device__ __forceinline__ void apply_affine(const Affine& af, int blk, int q0, 
       }
     }
   }
+}
+
+__device__ __forceinline__ void apply_affine(const Affine& af, int blk, int q0, int nq, Acc& acc) {
+  apply_affine_at(af, (size_t)blk * BLOCK_N, q0, nq, acc);
 }
 
 // this block's share of the n item blocks: a contiguous range
@@ -1194,6 +1207,187 @@ __global__ void __launch_bounds__(SEED_THREADS, 2) merge_topk_kernel(
   if (t == 0) atomicAdd(&merge_path_blocks[path], 1u);
 }
 
+// --------------------------------------------------------------- bin_max
+//
+// The PartialReduce step of jax.lax.approx_max_k (arXiv 2206.14286), which
+// gorse_tpu/ops/topk.py dot_topk_approx (:860) and sq_topk_approx (:903)
+// run on the scores of a query batch: the N items fall into L strided bins,
+// item j into bin j mod L, and each query keeps each bin's maximum. The
+// result is the maximum key (score descending, index ascending) of every
+// (query, bin), [b_pad, L] int64 in candidate order; a bin with no item
+// below n_items keeps INT64_MIN, which the wrapper writes first. merge_topk
+// takes the top k of the L keys. It replaces no Pallas kernel: on the TPU
+// the reduction is one XLA op that the hardware runs, and the [B, N] score
+// matrix never exists; here it never exists either.
+//
+// Bound on this card: one table stream (1M x 64 bf16: 128 MB, ~38 us at
+// 3.35 TB/s) against the dots (33.6 GFLOP at 256 queries, ~34 us on the bf16
+// tensor cores), plus the keys written (256 x L x 8 bytes: 2 MB at L =
+// 1,024, 64 MB at L = 31,360).
+//
+// Design: view the items as rows of L, row r holding items r L + [0, L).
+// The L bins cut into chunks of 256; a thread block owns one chunk, one
+// round of 64 queries and a contiguous range of rows, and for each row
+// scores the 256 items r L + chunk + [0, 256) (a slab at any item offset,
+// through the same cp.async ring and mma.sync tile as block_max). A score
+// lands in the same fragment slot for every row, so each thread keeps its
+// slots' running maxima in registers and the winners' indices in shared
+// memory (its own slots only: no barrier). Rows are taken in ascending
+// order and a score replaces the maximum only when larger, so equal scores
+// keep the lower index. At the end each slot's key goes to the output by a
+// 64-bit atomicMax, which merges the blocks that split a chunk's rows.
+// Items past n_items (and rows past the table, read clamped) never count.
+constexpr int BIN_WIN_BYTES = RQ * BLOCK_N * 4;  // [RQ][256] winner indices
+
+template <typename T>
+__host__ __device__ constexpr int bin_smem_bytes() {
+  return RQ * 128 + NSTAGE * slab_bytes<T>() + (sizeof(T) == 1 ? BLOCK_N * DC * 2 : 0) +
+         BIN_WIN_BYTES;
+}
+
+// items item0 .. item0 + 255, dims c0 .. c0 + 63, rows past the table read
+// as its last row
+__device__ __forceinline__ void stage_slab(const __nv_bfloat16* __restrict__ table, size_t item0,
+                                           size_t n_pad, int c0, int d_pad, uint8_t* dst) {
+  for (int id = threadIdx.x; id < BLOCK_N * 8; id += THREADS) {
+    const int r = id >> 3, c = id & 7;
+    const size_t row = item0 + r < n_pad ? item0 + r : n_pad - 1;
+    cp_async16(dst + swz(r, c), table + row * d_pad + c0 + c * 8);
+  }
+}
+
+__device__ __forceinline__ void stage_slab(const uint8_t* __restrict__ table, size_t item0,
+                                           size_t n_pad, int c0, int d_pad, uint8_t* dst) {
+  for (int id = threadIdx.x; id < BLOCK_N * 4; id += THREADS) {
+    const int r = id >> 2, c = id & 3;
+    const size_t row = item0 + r < n_pad ? item0 + r : n_pad - 1;
+    cp_async16(dst + id * 16, table + row * d_pad + c0 + c * 16);
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(THREADS) bin_max_kernel(
+    const __nv_bfloat16* __restrict__ q, const T* __restrict__ table, Affine af,
+    long long* __restrict__ out, int nq, int d_pad, int n_items, int n_pad, int n_bins,
+    int n_rows, int n_seg) {
+  extern __shared__ __align__(128) uint8_t dsm[];
+  uint8_t* qbuf = dsm;
+  uint8_t* stages = qbuf + RQ * 128;
+  uint8_t* conv = stages + NSTAGE * slab_bytes<T>();
+  int* win = reinterpret_cast<int*>(conv + (sizeof(T) == 1 ? BLOCK_N * DC * 2 : 0));
+  const bool codes = sizeof(T) == 1;
+  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+  const int wq = warp >> 2, wn = warp & 3, g = lane >> 2, tq = lane & 3;
+  const int n_rounds = (nq + RQ - 1) / RQ, n_chunks = (n_bins + BLOCK_N - 1) / BLOCK_N;
+  // the round varies fastest: the blocks that read the same slabs run together
+  const int rq = blockIdx.x % n_rounds, cc = (blockIdx.x / n_rounds) % n_chunks;
+  const int seg = blockIdx.x / (n_rounds * n_chunks);
+  const int r_lo = (int)((long long)seg * n_rows / n_seg);
+  const int r_hi = (int)((long long)(seg + 1) * n_rows / n_seg);
+  const int q0 = rq * RQ, bin0 = cc * BLOCK_N, n_list = r_hi - r_lo;
+  const unsigned live = rows_live(0, nq - q0);
+  const auto item0 = [&](int i) { return (size_t)(r_lo + i) * n_bins + bin0; };
+
+  Acc acc, best;
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        best[mt][nt][e] = __int_as_float(0xff800000);
+        win[(wq * 32 + mt * 16 + g + 8 * (e >> 1)) * BLOCK_N + wn * 64 + nt * 8 + tq * 2 +
+            (e & 1)] = -1;
+      }
+  auto zero = [&acc]() {
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0.0f;
+  };
+  // fold one row's scores into the running maxima
+  auto fold = [&](int i) {
+    const size_t i0 = item0(i);
+    if (af.affine != nullptr) apply_affine_at(af, i0, q0, nq, acc);
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int col = wn * 64 + nt * 8 + tq * 2 + (e & 1);
+          const size_t item = i0 + col;
+          if (bin0 + col < n_bins && item < (size_t)n_items && acc[mt][nt][e] > best[mt][nt][e]) {
+            best[mt][nt][e] = acc[mt][nt][e];
+            win[(wq * 32 + mt * 16 + g + 8 * (e >> 1)) * BLOCK_N + col] = (int)item;
+          }
+        }
+  };
+
+  if (d_pad == DC) {
+    stage_rows(q, q0, min(RQ, nq - q0), 0, d_pad, qbuf);
+#pragma unroll
+    for (int s = 0; s < NSTAGE - 1; ++s) {
+      if (s < n_list) stage_slab(table, item0(s), n_pad, 0, d_pad, stages + s * slab_bytes<T>());
+      cp_async_commit();
+    }
+    for (int i = 0; i < n_list; ++i) {
+      cp_async_wait<NSTAGE - 2>();
+      __syncthreads();  // slab i landed; the slab read at i - 1 is free
+      const int nx = i + NSTAGE - 1;
+      if (nx < n_list)
+        stage_slab(table, item0(nx), n_pad, 0, d_pad, stages + (nx % NSTAGE) * slab_bytes<T>());
+      cp_async_commit();
+      const uint8_t* items = stages + (i % NSTAGE) * slab_bytes<T>();
+      if (codes) {
+        convert_codes(items, conv);
+        __syncthreads();
+        items = conv;
+      }
+      zero();
+      mma_pass(qbuf, items, live, acc);
+      fold(i);
+    }
+  } else {
+    for (int i = 0; i < n_list; ++i) {
+      zero();
+      for (int c0 = 0; c0 < d_pad; c0 += DC) {
+        __syncthreads();  // the previous pass's readers are done
+        stage_rows(q, q0, min(RQ, nq - q0), c0, d_pad, qbuf);
+        stage_slab(table, item0(i), n_pad, c0, d_pad, stages);
+        cp_async_commit();
+        cp_async_wait<0>();
+        __syncthreads();
+        const uint8_t* items = stages;
+        if (codes) {
+          convert_codes(items, conv);
+          __syncthreads();
+          items = conv;
+        }
+        mma_pass(qbuf, items, live, acc);
+      }
+      fold(i);
+    }
+  }
+  cp_async_wait<0>();
+
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int row = wq * 32 + mt * 16 + g + 8 * (e >> 1);
+        const int col = wn * 64 + nt * 8 + tq * 2 + (e & 1);
+        const int w = win[row * BLOCK_N + col];
+        if (w >= 0 && q0 + row < nq)
+          atomicMax(out + (size_t)(q0 + row) * n_bins + bin0 + col,
+                    (long long)(make_key(best[mt][nt][e], w) ^ SIGN64));
+      }
+}
+
 // A persistent grid: as many blocks as fit on the card at once, at most
 // one per item block.
 template <typename K>
@@ -1247,6 +1441,37 @@ int launch_block_topk(const void* q, const void* table, const void* affine, cons
         bmax ? (const float*)bmax + (size_t)s * n_blocks : nullptr,
         seeds ? (const float*)seeds + s : nullptr, (long long*)cand + (size_t)s * cap,
         (int*)count + s, nq, min(QSLICE, b - s), d_pad, n_items, n_blocks, k, cap);
+    const int rc = (int)cudaGetLastError();
+    if (rc != 0) return rc;
+  }
+  return 0;
+}
+
+
+template <typename T>
+int launch_bin_max(const void* q, const void* table, const void* affine, const void* qstats,
+                   void* out, int b_pad, int d_pad, int n_items, int n_pad, int n_bins,
+                   int euclid, cudaStream_t stream) {
+  if (n_bins < 1 || n_items < 1 || n_items > n_pad) return (int)cudaErrorInvalidValue;
+  const int n_rows = (int)(((long long)n_items + n_bins - 1) / n_bins);
+  const int smem = bin_smem_bytes<T>();
+  int dev = 0, n_sm = 0, occ = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev);
+  cudaFuncSetAttribute(bin_max_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occ, bin_max_kernel<T>, THREADS, smem);
+  for (int s = 0; s < b_pad; s += QSLICE) {
+    const int nq = min(QSLICE, b_pad - s);
+    // (round, chunk) pairs, each split over rows until about two waves fill the card
+    const long long base = (long long)((nq + RQ - 1) / RQ) * ((n_bins + BLOCK_N - 1) / BLOCK_N);
+    const long long want = 2LL * max(occ, 1) * n_sm, split = (want + base - 1) / base;
+    const int n_seg = split < 1 ? 1 : split > n_rows ? n_rows : (int)split;
+    if (base * n_seg > 0x7FFFFFFFLL) return (int)cudaErrorInvalidValue;
+    const Affine af{(const float*)affine, qstats ? (const float*)qstats + s : nullptr,
+                    qstats ? (const float*)qstats + b_pad + s : nullptr, n_pad, euclid};
+    bin_max_kernel<T><<<(int)(base * n_seg), THREADS, smem, stream>>>(
+        (const __nv_bfloat16*)q + (size_t)s * d_pad, (const T*)table, af,
+        (long long*)out + (size_t)s * n_bins, nq, d_pad, n_items, n_pad, n_bins, n_rows, n_seg);
     const int rc = (int)cudaGetLastError();
     if (rc != 0) return rc;
   }
@@ -1343,4 +1568,17 @@ extern "C" int gt_merge_topk_paths(unsigned int* blocks) {
   cudaError_t e = cudaMemcpyFromSymbol(blocks, merge_path_blocks, sizeof(zero));
   if (e == cudaSuccess) e = cudaMemcpyToSymbol(merge_path_blocks, zero, sizeof(zero));
   return (int)e;
+}
+
+extern "C" int gt_bin_max(const void* q, const void* table, void* out, int b_pad, int d_pad,
+                          int n_items, int n_pad, int n_bins, void* stream) {
+  return launch_bin_max<__nv_bfloat16>(q, table, nullptr, nullptr, out, b_pad, d_pad, n_items,
+                                       n_pad, n_bins, 0, (cudaStream_t)stream);
+}
+
+extern "C" int gt_bin_max_sq(const void* q, const void* codes, const void* affine,
+                             const void* qstats, void* out, int b_pad, int d_pad, int n_items,
+                             int n_pad, int n_bins, int euclid, void* stream) {
+  return launch_bin_max<uint8_t>(q, codes, affine, qstats, out, b_pad, d_pad, n_items, n_pad,
+                                 n_bins, euclid, (cudaStream_t)stream);
 }

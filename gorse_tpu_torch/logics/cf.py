@@ -1,7 +1,8 @@
 """Matrix-factorization serving index (port of gorse_tpu/logics/cf.py).
 
 Per-user top-k over item factors for a whole user shard at once, through
-the exact top-k of ops/topk.py, and user lookups by cosine. Saved indexes
+the exact top-k of ops/topk.py or its approximate tier, and user lookups by
+cosine. Saved indexes
 use the reference's files (``index.npz`` + ``index_meta.json``), so an
 index saved by either package loads in the other.
 """
@@ -27,7 +28,9 @@ class MatrixFactorizationIndex:
     # users get (gorse_tpu/logics/cf.py:138-139,168-169): a chunk of 256
     # users goes through the bf16 kernel route when its fetch (n + the
     # chunk's widest exclusion list) is at most 2048, and is scored from the
-    # f32 table otherwise.
+    # f32 table otherwise. With ``approx_recall`` below 1 every chunk takes
+    # the approximate tier over the prepared bf16 table instead, whatever
+    # its fetch (gorse_tpu/logics/cf.py:170-181).
     _SEARCH_CHUNK = 256
     _KERNEL_FETCH_MAX = 2048
 
@@ -125,10 +128,13 @@ class MatrixFactorizationIndex:
         n: int,
         exclude: list[list[str]] | None = None,
         use_kernel: bool = True,
+        approx_recall: float | None = None,
     ) -> list[list[Score]]:
         """Batched top-n recommendation for many users at once, in chunks of
-        256 users. ``use_kernel=False`` sends every chunk down the f32 route;
-        otherwise the route rule above picks it per chunk."""
+        256 users. ``approx_recall`` below 1 sends every chunk through the
+        approximate tier (ops/topk.py dot_topk_approx); otherwise
+        ``use_kernel=False`` sends every chunk down the f32 route, and the
+        route rule above picks it per chunk."""
         n_serving = len(self._serving_rows)
         if n_serving == 0:
             return [[] for _ in user_ids]
@@ -137,10 +143,11 @@ class MatrixFactorizationIndex:
         for lo in range(0, len(user_ids), self._SEARCH_CHUNK):
             chunk_ids = user_ids[lo : lo + self._SEARCH_CHUNK]
             chunk_ex = exclude[lo : lo + self._SEARCH_CHUNK] if exclude else None
-            out.extend(self._search_chunk(chunk_ids, n_eff, chunk_ex, use_kernel))
+            out.extend(self._search_chunk(chunk_ids, n_eff, chunk_ex, use_kernel, approx_recall))
         return out
 
-    def _search_chunk(self, user_ids, n_eff, exclude, use_kernel) -> list[list[Score]]:
+    def _search_chunk(self, user_ids, n_eff, exclude, use_kernel,
+                      approx_recall: float | None = None) -> list[list[Score]]:
         rows, valid = [], []
         for uid in user_ids:
             idx = self.user_index.to_number(uid)
@@ -163,10 +170,13 @@ class MatrixFactorizationIndex:
                 ex_arr = torch.as_tensor(ex, device=self.device)
         if n_eff + width > self._KERNEL_FETCH_MAX:
             use_kernel = False
+        # the approximate tier reads the prepared table, never the f32 one
+        use_prepared = use_kernel or (approx_recall is not None and approx_recall < 1.0)
         scores, idxs = topk_excluding(
             queries,
-            self._prepared_items if use_kernel else self._serving_factors,
+            self._prepared_items if use_prepared else self._serving_factors,
             n_eff, ex_arr, use_kernel=use_kernel, device=self.device,
+            approx_recall=approx_recall,
         )
         scores = scores.cpu().numpy()
         idxs = idxs.cpu().numpy()

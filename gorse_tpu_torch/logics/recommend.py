@@ -3,8 +3,9 @@ gorse_tpu/logics/recommend.py).
 
 Sources are composed in order with a shared exclusion set until a limit is
 reached: ``latest``, ``collaborative``, ``non-personalized/<name>``,
-``item-to-item/<name>``, ``user-to-user/<name>``. They read only the cache
-and data stores. ``external/<name>`` is not ported yet.
+``item-to-item/<name>``, ``user-to-user/<name>`` read only the cache and
+data stores; ``external/<name>`` pulls item ids from a configured external
+source (logics/external.py).
 """
 
 from __future__ import annotations
@@ -148,10 +149,8 @@ class Recommender:
             name = fullname[len(USER_TO_USER_PREFIX):]
             return lambda: self._recommend_user_to_user(name)
         if fullname.startswith(EXTERNAL_PREFIX):
-            raise NotImplementedError(
-                f"recommender {fullname!r}: external sources are not ported yet "
-                "(ROADMAP.md, M16)"
-            )
+            name = fullname[len(EXTERNAL_PREFIX):]
+            return lambda: self._recommend_external(name)
         raise ValueError(f"unknown recommender: {fullname}")
 
     def _recommend_latest(self) -> tuple[list[Score], str]:
@@ -242,3 +241,20 @@ class Recommender:
             if item is not None and all(c in item.categories for c in self.categories):
                 results.append(Score(id=item_id, score=score, categories=item.categories))
         return results, digest
+
+    def _recommend_external(self, name: str) -> tuple[list[Score], str]:
+        """The configured external source ``name`` (gorse_tpu/logics/
+        recommend.py:252-272): its item ids less the exclusions, score 0;
+        nothing under a category filter or for an unknown name."""
+        from .external import get_external
+
+        ext_cfg = next((c for c in self.config.external if c.name == name), None)
+        if ext_cfg is None:
+            return [], ""
+        if self.categories:
+            return [], ext_cfg.digest()
+        item_ids = get_external(ext_cfg).pull(self.user_id)
+        return (
+            [Score(id=i, score=0.0) for i in item_ids if i not in self.exclude_set],
+            ext_cfg.digest(),
+        )

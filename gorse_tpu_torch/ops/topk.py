@@ -36,6 +36,11 @@ Routes, as in the reference:
   ``pq_topk`` and ``rq_topk``: plain PyTorch, an f32 product and a stable
   sort.
 
+- ``dot_topk_approx`` / ``sq_topk_approx``: the approximate tier (the
+  reference's ``jax.lax.approx_max_k`` routes). ``bin_max`` (``bin_max_sq``)
+  keeps each query's best item in each of :func:`approx_bins` strided bins,
+  a fifth CUDA kernel, and ``merge_topk`` takes the top k of those.
+
 The table layout is the port's own: row-major ``[n_pad, d_pad]`` bf16 (or
 uint8 codes), zero padded to multiples of 256 items and 64 dimensions. Zero
 dimensions add exactly nothing to an f32 sum, so padding never changes a
@@ -46,8 +51,10 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import math
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from .. import resolve_device
@@ -268,6 +275,21 @@ def merge_topk_plain(cand, count, b: int, k: int):
     )
 
 
+def bin_max_plain(qp, table, n_items: int, n_bins: int, aff: Affine | None = None):
+    """Each query's maximum key in each of ``n_bins`` strided bins (item j
+    in bin j mod n_bins), ``[b_pad, n_bins]`` int64: the scores of
+    :func:`_scores_plain`, padded to a whole number of rows of ``n_bins``
+    with keys that never win (``INT64_MIN``, which a bin without items
+    keeps), viewed ``[b_pad, rows, n_bins]`` and reduced over the rows."""
+    b_pad = qp.shape[0]
+    s = _scores_plain(qp, table, aff)[:, :n_items]
+    keys = _keys(s.contiguous(), torch.arange(n_items, device=qp.device))
+    rows = -(-n_items // n_bins)
+    pad = torch.full((b_pad, rows * n_bins - n_items), _INT64_MIN, dtype=torch.int64,
+                     device=qp.device)
+    return torch.cat([keys, pad], dim=1).view(b_pad, rows, n_bins).amax(dim=1)
+
+
 def _sorted_topk(s: torch.Tensor, k_top: int, n_items: int):
     """Top ``k_top`` of ``s`` ``[b, n_items]`` by a stable descending sort,
     NEG_INF / 0 past the catalog."""
@@ -319,9 +341,12 @@ def _lib() -> ctypes.CDLL:
         lib.gt_block_topk_sq.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, p]
         lib.gt_merge_topk.argtypes = [p, p, p, p, i, i, i, i, p]
         lib.gt_merge_topk_paths.argtypes = [p]
+        lib.gt_bin_max.argtypes = [p, p, p, i, i, i, i, i, p]
+        lib.gt_bin_max_sq.argtypes = [p, p, p, p, p, i, i, i, i, i, i, p]
         for fn in (lib.gt_block_max, lib.gt_block_max_sq, lib.gt_block_seeds,
                    lib.gt_block_seeds_branches, lib.gt_block_topk, lib.gt_block_topk_sq,
-                   lib.gt_merge_topk, lib.gt_merge_topk_paths):
+                   lib.gt_merge_topk, lib.gt_merge_topk_paths, lib.gt_bin_max,
+                   lib.gt_bin_max_sq):
             fn.restype = ctypes.c_int
         lib._gt_typed = True
     return lib
@@ -562,8 +587,58 @@ def merge_topk_paths() -> dict[str, int]:
     return {name: blocks[i] for i, name in enumerate(MERGE_PATHS) if blocks[i]}
 
 
+def _bin_keys(qp, n_bins: int) -> torch.Tensor:
+    """bin_max's output, every key ``INT64_MIN`` until the kernel's
+    atomicMax raises it."""
+    return torch.full((qp.shape[0], n_bins), _INT64_MIN, dtype=torch.int64, device=qp.device)
+
+
+def bin_max(qp: torch.Tensor, table: torch.Tensor, n_items: int, n_bins: int) -> torch.Tensor:
+    """Each query's maximum key (score descending, index ascending) in each
+    of ``n_bins`` strided bins, ``[b_pad, n_bins]`` int64 candidate keys
+    (``INT64_MIN`` where a bin holds no item): the PartialReduce step of
+    ``jax.lax.approx_max_k`` in gorse_tpu/ops/topk.py dot_topk_approx, in
+    one read of the table and without the ``[B, N]`` score matrix."""
+    if qp.device.type == "cpu":
+        return bin_max_plain(qp, table, n_items, n_bins)
+    _check_operands(qp, table)
+    b_pad, d_pad = qp.shape
+    keys = _bin_keys(qp, n_bins)
+    with torch.cuda.device(qp.device):  # the tensors' card
+        rc = _lib().gt_bin_max(
+            qp.data_ptr(), table.data_ptr(), keys.data_ptr(), b_pad, d_pad, n_items,
+            table.shape[0], n_bins, _stream(qp),
+        )
+    _raise_on(rc, "bin_max")
+    bin_max.launches += 1
+    return keys
+
+
+def bin_max_sq(qp: torch.Tensor, table: torch.Tensor, aff: Affine, n_items: int,
+               n_bins: int) -> torch.Tensor:
+    """:func:`bin_max` over a uint8 table with the affine epilogue
+    (gorse_tpu/ops/topk.py sq_topk_approx)."""
+    if qp.device.type == "cpu":
+        return bin_max_plain(qp, table, n_items, n_bins, aff)
+    _check_operands(qp, table, torch.uint8)
+    _check_affine(aff, qp, table)
+    b_pad, d_pad = qp.shape
+    keys = _bin_keys(qp, n_bins)
+    with torch.cuda.device(qp.device):  # the tensors' card
+        rc = _lib().gt_bin_max_sq(
+            qp.data_ptr(), table.data_ptr(), aff.affine.data_ptr(), aff.qstats.data_ptr(),
+            keys.data_ptr(), b_pad, d_pad, n_items, table.shape[0], n_bins,
+            int(aff.euclidean), _stream(qp),
+        )
+    _raise_on(rc, "bin_max_sq")
+    bin_max_sq.launches += 1
+    return keys
+
+
 block_max.launches = 0
 block_max_sq.launches = 0
+bin_max.launches = 0
+bin_max_sq.launches = 0
 block_seeds.launches = 0
 block_topk.launches = 0
 block_topk_sq.launches = 0
@@ -705,6 +780,103 @@ def sq_topk(queries, codes, scale=None, minv=None, k_top: int = 10, norms2=None,
     return _sq_topk_xla(queries, codes, scale, minv, k_top, norms2, metric, dev)
 
 
+# ----------------------------------------------------- the approximate tier
+
+APPROX_TILING = 128  # XLA's reduction tiling for a rank-2 approx_max_k
+REF_LANES = 128  # the reference pads the item axis it reduces to a multiple of this
+
+
+def approx_bins(n: int, k: int, recall_target: float) -> int:
+    """L, the number of strided bins ``jax.lax.approx_max_k`` reduces ``n``
+    scores a row to before its top k, as XLA's shape rule gives it on every
+    platform (``approx_max_k(..., aggregate_to_topk=False).shape[-1]``).
+    With M bins the expected recall is about exp((1 - k) / M), so M =
+    (1 - k) / log(recall), at least the 128 tiling; L is n cut by the
+    largest power of two 2^r with n / 2^r >= M, rounded up to the tiling,
+    or n where no halving fits. At most 128 scores are not reduced, and a
+    top-1 reduces to the tiling whatever the target. The target is read as
+    f32, as the op stores it."""
+    if k <= 0:
+        raise ValueError(f"k must be positive, got {k}")
+    if k > n:
+        raise ValueError(f"k must be smaller than the size of reduction_dim {n}, got {k}")
+    if n <= APPROX_TILING:
+        return n
+    if k == 1:
+        return APPROX_TILING
+    target = float(np.float32(recall_target))
+    if not 0.0 < target <= 1.0:
+        raise ValueError("recall_target should range in (0,1]")
+    if target == 1.0:
+        return n
+    m = min(max(int((1.0 - k) / math.log(target)), APPROX_TILING), n)
+    r = (n // m).bit_length() - 1
+    if r == 0:
+        return n
+    return _round_up(-(-n // (1 << r)), APPROX_TILING)
+
+
+def _approx_chunk(queries, table, n_items: int, k: int, n_bins: int, operands):
+    """bin_max (or bin_max_sq) then merge_topk over the bins' keys on one
+    chunk of at most 256 queries."""
+    b = queries.shape[0]
+    qp, aff = operands(queries, _round_up(max(b, 1), QUERY_TILE))
+    if aff is None:
+        keys = bin_max(qp, table, n_items, n_bins)
+    else:
+        keys = bin_max_sq(qp, table, aff, n_items, n_bins)
+    count = torch.full((qp.shape[0],), n_bins, dtype=torch.int32, device=qp.device)
+    return merge_topk(keys, count, b, k)
+
+
+def dot_topk_approx(queries, items, k_top: int = 10, recall_target: float = 0.99, device=None):
+    """Approximate top-k by dot product (gorse_tpu/ops/topk.py
+    dot_topk_approx, the serving tier the reference offers beside the exact
+    kernels, its HNSW analog): ``(scores [B, k], indices [B, k])`` with k =
+    min(k_top, n_items). The items, reduced over the reference's 128-padded
+    width, fall into :func:`approx_bins` strided bins; :func:`bin_max` keeps
+    each query's best item a bin and :func:`merge_topk` the k best of those,
+    lower index first on ties. Where the bins are as many as the items the
+    result is exact. Queries are cast to bf16 like the table, in chunks of
+    256."""
+    dev = resolve_device(device)
+    if not isinstance(items, PreparedItems):
+        items = prepare_items(items, device=dev)
+    elif items.table.device != dev:
+        raise ValueError(f"items are prepared on {items.table.device}, not {dev}")
+    k = min(k_top, items.n_items)
+    n_bins = approx_bins(_round_up(max(items.n_items, REF_LANES), REF_LANES), k, recall_target)
+    queries = torch.as_tensor(queries).to(dev, torch.float32)
+
+    def operands(q, b_pad):
+        return _pad_queries(q, items, b_pad), None
+
+    return _chunked(_approx_chunk, queries, items.table, items.n_items, k, n_bins, operands)
+
+
+def sq_topk_approx(queries, prep: PreparedSQ, k_top: int = 10, recall_target: float = 0.99,
+                   metric: str = "dot", device=None):
+    """Approximate top-k over a scalar-quantized table (gorse_tpu/ops/topk.py
+    sq_topk_approx): :func:`dot_topk_approx` with the affine epilogue of
+    :func:`sq_topk` (``bin_max_sq``)."""
+    if metric == "euclidean" and not prep.has_norms2:
+        raise ValueError(
+            "sq_topk_approx(metric='euclidean') on a PreparedSQ built "
+            "without norms2 — pass norms2 to prepare_sq_items"
+        )
+    dev = resolve_device(device)
+    if prep.table.device != dev:
+        raise ValueError(f"items are prepared on {prep.table.device}, not {dev}")
+    k = min(k_top, prep.n_items)
+    n_bins = approx_bins(_round_up(max(prep.n_items, REF_LANES), REF_LANES), k, recall_target)
+    queries = torch.as_tensor(queries).to(dev, torch.float32)
+
+    def operands(q, b_pad):
+        return _sq_operands(q, prep, b_pad, metric)
+
+    return _chunked(_approx_chunk, queries, prep.table, prep.n_items, k, n_bins, operands)
+
+
 def _f32(x, dev) -> torch.Tensor:
     return torch.as_tensor(x).to(dev, torch.float32)
 
@@ -781,18 +953,24 @@ dot_topk_xla.uses = 0
 
 
 def topk_excluding(queries, items, k_top: int, exclude=None, use_kernel: bool = True,
-                   device=None):
+                   device=None, approx_recall: float | None = None):
     """Top-k with per-query exclusion sets (``exclude`` ``[B, E]`` int ids,
     padded with -1): fetch k_top + E, mask the excluded, re-sort stably
-    (gorse_tpu/ops/topk.py:943-975). ``use_kernel=False`` takes the f32
-    route, which scores from f32 factors only, never a bf16 table."""
+    (gorse_tpu/ops/topk.py:943-975). ``approx_recall`` below 1 fetches
+    through the approximate tier (:func:`dot_topk_approx`) whatever
+    ``use_kernel`` says, as the reference does; otherwise
+    ``use_kernel=False`` takes the f32 route, which scores from f32 factors
+    only, never a bf16 table."""
     dev = resolve_device(device)
-    if not use_kernel and isinstance(items, PreparedItems):
+    approx = approx_recall is not None and approx_recall < 1.0
+    if not approx and not use_kernel and isinstance(items, PreparedItems):
         raise TypeError("the f32 route takes [N, d] f32 factors, not a bf16 PreparedItems")
     n = items.n_items if isinstance(items, PreparedItems) else items.shape[0]
     e = 0 if exclude is None else exclude.shape[1]
     fetch = min(k_top + e, n)
-    if use_kernel:
+    if approx:
+        s, i = dot_topk_approx(queries, items, fetch, recall_target=approx_recall, device=dev)
+    elif use_kernel:
         s, i = dot_topk(queries, items, fetch, device=dev)
     else:
         s, i = dot_topk_xla(queries, items, fetch, device=dev)

@@ -17,10 +17,10 @@ Not ported (ROADMAP.md, M21), so not registered and answered 404: dump and
 restore (``/api/dump``, ``/api/restore``: msgpack), the CSV and JSONL import
 and export (``/api/import/*``, ``/api/export/*``, ``/api/bulk/*``), purge
 (``/api/purge``), the chat proxy (``/api/chat/completions``), the
-``external`` and ``ranker/prompt`` previews (``/api/dashboard/external``:
-utils/minijs.py; ``/api/dashboard/ranker/prompt``: jinja2) and the
+``ranker/prompt`` preview (``/api/dashboard/ranker/prompt``: jinja2) and the
 dashboard's HTML page (``/``). OIDC sign-on needs ``cryptography``:
-``oidc.enable = true`` raises.
+``oidc.enable = true`` raises. The ``external`` preview
+(``/api/dashboard/external``) runs a source through logics/external.py.
 """
 
 from __future__ import annotations
@@ -96,6 +96,7 @@ class MasterRestServer(RestServer):
         r("GET", "/api/dashboard/non-personalized/{name}", self.get_dashboard_non_personalized)
         r("GET", "/api/dashboard/item-to-item/{name}/{item-id}", self.get_dashboard_item_to_item)
         r("GET", "/api/dashboard/user-to-user/{name}/{user-id}", self.get_dashboard_user_to_user)
+        r("GET", "/api/dashboard/external", self.get_dashboard_external)
         # login (reference: master/rest.go:271-273,369-418)
         r("GET", "/login", self.get_login)
         r("POST", "/login", self.post_login)
@@ -256,6 +257,36 @@ class MasterRestServer(RestServer):
             ck_mod.USER_TO_USER, key(req.params["name"], req.params["user_id"])
         )
         return self._scored_users(self._page(req, scores))
+
+    def get_dashboard_external(self, req) -> list:
+        """External recommender preview (reference: getExternal
+        master/rest.go:1123-1156; script = base64-encoded JavaScript,
+        evaluated with the requested user id). As gorse_tpu/serve/
+        dashboard.py:271-299: a bare HTTP URL is an endpoint source, a
+        registered callable's name a Python source, anything else a JS
+        script (logics/external.py)."""
+        import base64
+
+        from ..logics.external import _REGISTRY, External, ExternalConfig
+
+        spec_b64 = req.query.get("script", "")
+        if not spec_b64:
+            raise HTTPError(400, "script is required")
+        try:
+            spec = base64.b64decode(spec_b64).decode()
+        except Exception:
+            raise HTTPError(400, "invalid script encoding")
+        stripped = spec.strip()
+        if stripped.startswith(("http://", "https://")) and "\n" not in stripped:
+            cfg = ExternalConfig(name="preview", type="http", url=stripped)
+        elif stripped in _REGISTRY:
+            cfg = ExternalConfig(name=stripped, type="python")
+        else:
+            cfg = ExternalConfig(name="preview", type="js", script=spec)
+        try:
+            return External(cfg).pull(req.query.get("user-id", ""))
+        except Exception as e:  # the dashboard shows the script's error
+            raise HTTPError(400, f"external script failed: {e}")
 
     # ---------------------------------------------------------------- login
 

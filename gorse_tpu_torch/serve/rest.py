@@ -9,9 +9,7 @@ reference's JSON shapes, status codes and error texts; ``/apidocs.json``
 Two front ends drive the same ``dispatch``: the event-loop server of
 serve/asynchttp.py (the default) and the stdlib ThreadingHTTPServer.
 
-Not ported: an ``external/...`` recommender source raises
-``NotImplementedError`` (ROADMAP.md, M16), answered as a 500; request
-tracing and the event recorder (M21).
+Not ported: request tracing and the event recorder (ROADMAP.md, M21).
 """
 
 from __future__ import annotations

@@ -163,7 +163,13 @@ class Worker:
                 exclude = [
                     [fb.item_id for fb in self.data.get_user_feedback(u)] for u in todo
                 ]
-                cf_results = self.cf_index.search_users(todo, cfg.cache_size, exclude=exclude)
+                # index_recall < 1 takes the approximate tier (bin_max, then
+                # merge_topk), as gorse_tpu/serve/worker.py:189-197 does
+                recall = cfg.collaborative.index_recall
+                cf_results = self.cf_index.search_users(
+                    todo, cfg.cache_size, exclude=exclude,
+                    approx_recall=recall if recall < 1.0 else None,
+                )
                 run_ts = time.time()
                 for user_id, scores in zip(todo, cf_results):
                     if scores:

@@ -36,7 +36,9 @@ def test_port_imports_no_jax_and_no_reference():
                  "serve.rest", "serve.asynchttp", "serve.metrics", "serve.oidc",
                  "serve.dashboard", "serve.nodes", "client", "cmd", "cmd.nodes_main",
                  "cmd._spawn", "parallel", "parallel.mesh", "parallel.sharded",
-                 "parallel.catalog", "parallel.multihost"):
+                 "parallel.catalog", "parallel.multihost", "parallel.ratelimit",
+                 "utils.minijs", "logics.external", "llm", "llm.client", "llm.mock",
+                 "cmd.bench", "cmd.cli"):
         assert f"gorse_tpu_torch.{name}" in modules
     code = (
         "import importlib, json, sys\n"
@@ -73,6 +75,14 @@ def _entry_points():
         "dot_topk": lambda device: topk.dot_topk(q, items, 3, device=device),
         "dot_topk_xla": lambda device: topk.dot_topk_xla(q, items, 3, device=device),
         "topk_excluding": lambda device: topk.topk_excluding(q, items, 3, device=device),
+        "dot_topk_approx": lambda device: topk.dot_topk_approx(q, items, 3, device=device),
+        "sq_topk_approx": lambda device: topk.sq_topk_approx(
+            q, topk.prepare_sq_items(codes, row, row, device="cpu"), 3,
+            device=device),
+        "bench_retrieval": lambda device: __import__(
+            "gorse_tpu_torch.cmd.bench", fromlist=["main"]).main(
+            ["retrieval", "--items", "64", "--batch", "2", "--batches", "1", "--dim", "4"]
+            + ([] if device is None else ["--device", device])),
         "index": lambda device: MatrixFactorizationIndex.from_numpy(
             q, items, {"names": ["a", "b"], "freqs": [1, 1]},
             {"names": [str(i) for i in range(8)], "freqs": [1] * 8},
@@ -153,7 +163,8 @@ def _master_main(device):
                                   "idf_distance_matrix", "embedding_neighbors",
                                   "embedding_query", "item_to_item", "user_to_user", "afm",
                                   "afm_params_from_numpy", "in_one", "worker_node",
-                                  "master_main"])
+                                  "master_main", "dot_topk_approx", "sq_topk_approx",
+                                  "bench_retrieval"])
 def test_entry_points_default_to_cuda(name, monkeypatch):
     """``device=None`` means the card: without CUDA it raises; an explicit
     ``device="cpu"`` runs the plain versions."""

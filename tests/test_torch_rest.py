@@ -499,8 +499,7 @@ M21_ROUTES = {
     ("GET", "/api/bulk/users"), ("POST", "/api/bulk/users"), ("GET", "/api/bulk/items"),
     ("POST", "/api/bulk/items"), ("GET", "/api/bulk/feedback"),
     ("POST", "/api/bulk/feedback"), ("POST", "/api/purge"),
-    ("POST", "/api/chat/completions"), ("GET", "/api/dashboard/external"),
-    ("GET", "/api/dashboard/ranker/prompt"),
+    ("POST", "/api/chat/completions"), ("GET", "/api/dashboard/ranker/prompt"),
 }
 
 
@@ -596,6 +595,12 @@ def _comparable(rest, status, payload, norm):
     else:
         body = data.decode()
     return status, ctype, headers, body
+
+
+def _b64(text: str) -> str:
+    import base64
+
+    return base64.b64encode(text.encode()).decode()
 
 
 def _script():
@@ -729,6 +734,15 @@ def _script():
         ("GET", "/api/dashboard/non-personalized/popular", {}, None, {}),
         ("GET", "/api/dashboard/item-to-item/similar/i2", {}, None, {}),
         ("GET", "/api/dashboard/user-to-user/peers/u2", {}, None, {}),
+        ("GET", "/api/dashboard/external", {}, None, {}),
+        ("GET", "/api/dashboard/external", {"script": "a"}, None, {}),
+        ("GET", "/api/dashboard/external",
+         {"script": _b64("JSON.stringify([user_id, 'x'].concat([1, 2].map(String)))"),
+          "user-id": "u1"}, None, {}),
+        ("GET", "/api/dashboard/external", {"script": _b64("[user_id]")}, None, {}),
+        ("GET", "/api/dashboard/external", {"script": _b64("throw new Error('boom')")},
+         None, {}),
+        ("GET", "/api/dashboard/external", {"script": _b64("42")}, None, {}),
         ("GET", "/login", {}, None, {}),
         ("POST", "/login", {}, {"user_name": "a", "password": "b"}, {}),
         ("GET", "/callback/oauth2", {"state": "s"}, None, {}),

@@ -213,18 +213,29 @@ def test_config_defaults_and_digest_match_reference(variant):
 @pytest.mark.parametrize("part", ["llm_ranker", "external_source"])
 def test_unported_parts_raise(part, tmp_path):
     """What the slice does not port yet raises NotImplementedError naming its
-    ROADMAP item, instead of serving something else."""
+    ROADMAP item, instead of serving something else. The external source,
+    ported since, answers as the reference does: an unconfigured name
+    yields nothing."""
+    from gorse_tpu.logics.recommend import Recommender as RefRecommender
+    from gorse_tpu.utils.config import Config as RefConfig
     from gorse_tpu_torch.logics.recommend import Recommender
 
     cfg = _configure(Config())
     data, cache = MemoryDataStore(), MemoryCacheStore()
     worker = Worker(cfg, data, cache, BlobStore(tmp_path), device="cpu")
+    if part == "external_source":
+        got = Recommender(cfg.recommend, cache, data, online=True, user_id="u0").parse(
+            "external/x")()
+        ref_data = __import__("gorse_tpu.storage.data", fromlist=["MemoryDataStore"])
+        ref_cache = __import__("gorse_tpu.storage.cache", fromlist=["MemoryCacheStore"])
+        want = RefRecommender(RefConfig().recommend, ref_cache.MemoryCacheStore(),
+                              ref_data.MemoryDataStore(), online=True,
+                              user_id="u0").parse("external/x")()
+        assert got == want == ([], "")
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        if part == "external_source":
-            Recommender(cfg.recommend, cache, data, online=True, user_id="u0").parse("external/x")
-        else:
-            cfg.recommend.ranker.type = part.split("_")[0]
-            worker._rank({"u0": []})
+        cfg.recommend.ranker.type = part.split("_")[0]
+        worker._rank({"u0": []})
 
 
 # ------------------------------------------------------------ the fm ranker
