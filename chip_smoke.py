@@ -290,6 +290,28 @@ kernel's own block maxima.
    library route, ``embedding`` against the mock server, ``reranker``
    naming M21; the CLI's ``health``, ``get user``, ``pipeline show`` and
    ``recommend`` against an in-one node on the card.
+14. The in-one node over the remote stores. ``native/fastdata.cpp`` and
+   ``native/hnsw.cpp`` must build with ``g++``. The port's MiniMySQL,
+   MiniPostgres, MiniClickHouse, MiniS3 and MiniRedis start on 127.0.0.1.
+   Phase 10's rows for the first ``REMOTE_USERS`` users go into
+   ``mysql://`` and every user, item and feedback row reads back equal; the
+   first ``REMOTE_COPY_USERS`` users' rows likewise through ``postgres://``
+   and ``clickhouse://``. A copy of config.toml.example with ``mysql://``
+   data, ``redis://`` cache, ``hnsw://`` vectors and an ``s3://`` blob
+   store; ``InOneNode`` on the card and one ``run_once`` (``bpr_epoch``,
+   ``block_max``, ``block_seeds``, ``block_topk`` and ``merge_topk`` each
+   launch). Held: every blob the master saved reads back from S3 byte for
+   byte; 16 users' collaborative lists in Redis equal ``search_users`` on
+   the card; ``GET /api/recommend`` equals the Redis cache. ``hnsw://`` on
+   the fitted item table (the users' factors as queries) and on a
+   synthetic f32 table (``HNSW_SYNTH``, cut where its build would pass
+   ``HNSW_BUILD_S``): recall@10 against a ``memory://`` store on the card
+   and against ``dot_topk`` (K4-K6) at least 0.9, build s and q/s. Phase
+   9's CTR rows as a libFM file: ``load_libfm_file`` native and in Python
+   equal the rows. Printed: rows/s of the ingest, ``run_once`` s, the
+   cache writes over Redis and their s (beside phase 10's SQLite commits),
+   REST p50/p99 from Redis, each step's s; the phase within
+   ``REMOTE_PHASE_S``.
 
 The last three lines of standard output are the kernels' JSON record, the
 card's ``name, power.limit`` as nvidia-smi gives them, and
@@ -301,6 +323,7 @@ prints no result.
 from __future__ import annotations
 
 import argparse
+import functools
 import http.client
 import json
 import os
@@ -479,7 +502,33 @@ SHARDED_EPOCH_TOL = {"p": FIRST_EPOCH_TOL, "q": 2e-4}
 # (one sweep's rounding a step, no atomics between the two): the same two
 # runs read at most 1.6e-6, twelve times under this limit
 SYNC4_TOL = 2e-5
-PHASES = ("2", "2b", "2c", "3", "4", "5", "6", "7", "7c", "8", "9", "10", "11", "12", "13")
+PHASES = ("2", "2b", "2c", "3", "4", "5", "6", "7", "7c", "8", "9", "10", "11", "12", "13",
+          "14")
+# phase 14: the in-one node over the remote stores (the port's MiniMySQL,
+# MiniRedis and MiniS3 on 127.0.0.1, and hnsw://) on phase 10's rows for the
+# first REMOTE_USERS users. Cut from phase 10's 2,000 (time: the phase must
+# end within 150 s. At 150 users it took 205.7 s: each feedback row goes
+# in as three MySQL statements, 822 rows/s on the card's host, and
+# run_once took 94.8 s, nearly half of it the cache's writes through a
+# Python Redis server; at 40 users 114.3 s)
+REMOTE_USERS = 40
+REMOTE_COPY_USERS = 3  # the smaller copy through postgres:// and clickhouse://
+REMOTE_PHASE_S = 150  # the phase's own limit
+# hnsw:// on a synthetic f32 table of HNSW_SYNTH rows (low rank plus noise,
+# as item embeddings are), added in chunks of HNSW_CHUNK while the build
+# stays within HNSW_BUILD_S (time: the whole build takes over 45 s on the
+# card's host, 60,000 rows in 37.5 s, and the phase has 150 s);
+# HNSW_QUERIES held-out queries at k = HNSW_K, recall held at
+# tests/test_hnsw.py:36's floor
+HNSW_SYNTH = (100_000, 64)
+HNSW_CHUNK = 10_000
+HNSW_BUILD_S = 35.0
+HNSW_QUERIES = 1024
+HNSW_K = 10
+HNSW_RECALL = 0.9
+# the cache store's writes, counted and timed over redis://
+CACHE_WRITES = ("set", "delete", "push", "pop", "add_scores", "delete_scores", "update_scores",
+                "add_time_series_points")
 # phase 13: the approximate tier on phase 3's table, external sources, bench and CLI
 APPROX_KERNELS = ("bin_max", "bin_max_sq")
 APPROX_REPLACES = {  # jax.lax.approx_max_k inside these functions; no pallas_call
@@ -2986,7 +3035,7 @@ def hold_afm(dev, smi: str) -> dict:
     from gorse_tpu_torch.models.params import FitConfig, Params
 
     t0 = time.perf_counter()
-    data = synthetic_ctr(**AFM_SHAPE)
+    data = afm_rows()
     data_s = time.perf_counter() - t0
     hp = Params(n_factors=AFM_K, batch_size=AFM_BATCH)
     card, cpu = AFM(hp, device=dev), AFM(hp, device="cpu")
@@ -3262,16 +3311,18 @@ def toml_set(text: str, section: str, key: str, value: str) -> str:
     return "\n".join(lines)
 
 
-def in_one_config(tmp: Path) -> tuple[Path, dict]:
+def in_one_config(tmp: Path, stores: dict | None = None) -> tuple[Path, dict]:
     """A copy of config.toml.example in ``tmp``: the four stores and the
-    blob directory in ``tmp`` (absolute paths) and ``IN_ONE_CUTS``; the
-    changes made, as (section, key) -> value."""
+    blob directory in ``tmp`` (absolute paths), or the URLs ``stores``
+    gives by (section, key), and ``IN_ONE_CUTS``; the changes made, as
+    (section, key) -> value."""
     text = (ROOT / "config.toml.example").read_text()
     changes = {("database", "data_store"): f'"sqlite://{tmp}/data.sqlite"',
                ("database", "cache_store"): f'"sqlite://{tmp}/cache.sqlite"',
                ("database", "vector_store"): f'"sqlite://{tmp}/vector.sqlite"',
                ("database", "meta_store"): f'"{tmp}/meta.sqlite"',
                ("blob", "uri"): f'"{tmp}/blob"'}
+    changes.update({k: f'"{v}"' for k, v in (stores or {}).items()})
     changes.update({(section, k): v for section, k, v, _ in IN_ONE_CUTS})
     for (section, k), v in changes.items():
         text = toml_set(text, section, k, v)
@@ -4978,6 +5029,411 @@ def phase_approx(dev, smi: str, seed: int, earlier: dict) -> dict:
     return out
 
 
+# ---------------------------------------------------------------- phase 14
+
+
+def rows_of(store) -> list:
+    """Every user, item and feedback row of a data store, as dicts, each
+    table in key order."""
+    import dataclasses
+
+    return [sorted((dataclasses.asdict(u) for u in store.get_users()),
+                   key=lambda r: r["user_id"]),
+            sorted((dataclasses.asdict(i) for i in store.get_items()),
+                   key=lambda r: r["item_id"]),
+            sorted((dataclasses.asdict(f) for f in store.get_feedback()),
+                   key=lambda r: (r["feedback_type"], r["user_id"], r["item_id"]))]
+
+
+def first_users(rows: list, n_users: int) -> list:
+    """The first ``n_users`` users of ``rows`` (``rows_of``'s form), their
+    feedback and the items it names, in the same form."""
+    users = rows[0][:n_users]
+    keep = {u["user_id"] for u in users}
+    feedback = [f for f in rows[2] if f["user_id"] in keep]
+    named = {f["item_id"] for f in feedback}
+    return [users, [i for i in rows[1] if i["item_id"] in named], feedback]
+
+
+def insert_rows(store, rows: list) -> None:
+    """``rows`` (``rows_of``'s form) into ``store``: users, items, feedback."""
+    from gorse_tpu_torch.storage.types import Feedback, Item, User
+
+    store.insert_users([User(**u) for u in rows[0]])
+    store.insert_items([Item(**i) for i in rows[1]])
+    store.insert_feedback([Feedback(**f) for f in rows[2]])
+
+
+class WriteClock:
+    """Counts one cache store's writes (its ``CACHE_WRITES`` methods) and
+    their seconds on the host clock, each call timed where it is made."""
+
+    def __init__(self, store) -> None:
+        self.writes, self.seconds = 0, 0.0
+        for name in CACHE_WRITES:
+            setattr(store, name, self._timed(getattr(store, name)))
+
+    def _timed(self, fn):
+        def call(*args, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                self.seconds += time.perf_counter() - t0
+                self.writes += 1
+        return call
+
+
+def hold_hnsw(what: str, store, name: str, ids: list, rows, queries, dev) -> dict:
+    """recall@HNSW_K of the ``hnsw://`` store's lists for ``queries``
+    against the exact route of a ``memory://`` store holding the same rows
+    on the card (f32), and against the kernels' route (``dot_topk``: K4-K6,
+    their launches counted from 0); both at least ``HNSW_RECALL``. The q/s
+    of each store, the second call of the exact one (warm)."""
+    import torch
+
+    from gorse_tpu_torch.ops import topk
+    from gorse_tpu_torch.storage.vectors import MemoryVectorStore
+
+    exact = MemoryVectorStore(dev)
+    exact.create_collection(name, rows.shape[1], "dot")
+    exact.add(name, ids, rows)
+    t0 = time.perf_counter()
+    got = store.query(name, queries, HNSW_K)
+    hnsw_s = time.perf_counter() - t0
+    exact.query(name, queries[:1], HNSW_K)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    want = exact.query(name, queries, HNSW_K)
+    torch.cuda.synchronize()
+    exact_s = time.perf_counter() - t0
+    prep = topk.prepare_items(rows, device=dev)
+    zero_counts()
+    _, idx = topk.dot_topk(queries, prep, HNSW_K, device=dev)
+    launches = {n: getattr(topk, n).launches for n in KERNELS}
+    check(all(launches[n] > 0 for n in KERNELS), f"{what}: dot_topk launches {launches}")
+    kernel = [[ids[int(j)] for j in row] for row in idx.cpu().tolist()]
+
+    def recall(lists) -> float:
+        return float(np.mean([len({s.id for s in g} & set(w)) / HNSW_K
+                              for g, w in zip(got, lists)]))
+
+    out = {"rows": len(ids), "dim": int(rows.shape[1]), "queries": len(queries),
+           "recall_exact": recall([[s.id for s in w] for w in want]),
+           "recall_kernels": recall(kernel), "hnsw_q_per_s": len(queries) / hnsw_s,
+           "exact_q_per_s": len(queries) / exact_s, "kernel_launches": launches}
+    check(out["recall_exact"] >= HNSW_RECALL and out["recall_kernels"] >= HNSW_RECALL,
+          f"{what}: hnsw:// recall@{HNSW_K} {out['recall_exact']:.4f} against the exact "
+          f"store, {out['recall_kernels']:.4f} against the kernels, each >= {HNSW_RECALL}")
+    return out
+
+
+def hnsw_synthetic(seed: int, dev) -> dict:
+    """``hnsw://`` on a synthetic f32 table: rows of rank 16 plus noise,
+    added HNSW_CHUNK at a time up to HNSW_SYNTH rows while the build stays
+    within HNSW_BUILD_S (the next chunk is not added when the last one's
+    time would take it over); held-out queries from the same law."""
+    from gorse_tpu_torch.storage.vectors import open_vector_store
+
+    n_max, dim = HNSW_SYNTH
+    rng = np.random.default_rng(seed + 14)
+    basis = rng.standard_normal((16, dim), dtype=np.float32) / 4
+
+    def draw(m: int) -> np.ndarray:
+        return (rng.standard_normal((m, 16), dtype=np.float32) @ basis
+                + 0.3 * rng.standard_normal((m, dim), dtype=np.float32)).astype(np.float32)
+
+    store = open_vector_store("hnsw://", device=dev)
+    store.create_collection("synthetic", dim, "dot")
+    chunks, build_s, last_s = [], 0.0, 0.0
+    while len(chunks) * HNSW_CHUNK < n_max and build_s + last_s <= HNSW_BUILD_S:
+        rows = draw(HNSW_CHUNK)
+        lo = len(chunks) * HNSW_CHUNK
+        t0 = time.perf_counter()
+        store.add("synthetic", [f"s{lo + j}" for j in range(HNSW_CHUNK)], rows)
+        last_s = time.perf_counter() - t0
+        build_s += last_s
+        chunks.append(rows)
+    table = np.concatenate(chunks)
+    out = hold_hnsw("synthetic table", store, "synthetic",
+                    [f"s{j}" for j in range(len(table))], table, draw(HNSW_QUERIES), dev)
+    out.update(build_s=build_s, cut=len(table) < n_max)
+    return out
+
+
+@functools.lru_cache(maxsize=1)
+def afm_rows():
+    """Phase 9's CTR rows, ``synthetic_ctr`` at ``AFM_SHAPE``, made once a
+    run (phases 9 and 14 read them)."""
+    from gorse_tpu_torch.data.ctr import synthetic_ctr
+
+    return synthetic_ctr(**AFM_SHAPE)
+
+
+def hold_libfm(tmp: Path) -> dict:
+    """Phase 9's CTR rows (``synthetic_ctr`` at ``AFM_SHAPE``) written as a
+    libFM file, parsed by ``load_libfm_file`` natively and with the Python
+    parser (the native library set aside): both datasets equal the rows."""
+    import gorse_tpu_torch.native as native
+    from gorse_tpu_torch.data.ctr import load_libfm_file
+
+    data = afm_rows()
+    path = tmp / "ctr.libfm"
+    path.write_text("".join(
+        f"{int(t)} " + " ".join(f"{k}:{v!r}" for k, v in zip(idx, val)) + "\n"
+        for (idx, val), t in zip(data.features, data.targets)))
+    t0 = time.perf_counter()
+    parsed = load_libfm_file(str(path))
+    native_s = time.perf_counter() - t0
+    lib, native._lib = native._lib, None
+    try:
+        t0 = time.perf_counter()
+        python = load_libfm_file(str(path))
+        python_s = time.perf_counter() - t0
+    finally:
+        native._lib = lib
+    for name, got in (("native", parsed), ("Python", python)):
+        check(len(got) == len(data) and got.targets == data.targets
+              and [(list(i), [float(x) for x in v]) for i, v in got.features]
+              == [(list(i), list(v)) for i, v in data.features],
+              f"libFM: the {name} parse equals phase 9's rows")
+    check(len(parsed.index) == len(python.index), "libFM: both parses size the index alike")
+    return {"rows": len(data), "bytes": path.stat().st_size, "native_s": native_s,
+            "python_s": python_s}
+
+
+def phase_remote(dev, smi: str, seed: int, earlier: dict) -> dict:
+    """Phase 14: the in-one node over ``mysql://``, ``redis://``,
+    ``s3://`` and ``hnsw://`` on the card."""
+    from gorse_tpu_torch.native import load_native
+    from gorse_tpu_torch.native.hnsw import native_available
+    from gorse_tpu_torch.storage.miniobj import MiniS3
+    from gorse_tpu_torch.storage.minisql import MiniClickHouse, MiniMySQL, MiniPostgres
+    from gorse_tpu_torch.storage.resp import MiniRedis
+
+    t_phase = time.perf_counter()
+    check(load_native() is not None, "native/fastdata.cpp built by g++ and loaded")
+    check(native_available(), "native/hnsw.cpp built by g++ and loaded")
+    servers = {"mysql": MiniMySQL().start(), "postgres": MiniPostgres().start(),
+               "clickhouse": MiniClickHouse().start(), "s3": MiniS3().start()}
+    redis = MiniRedis()
+    try:
+        with tempfile.TemporaryDirectory(prefix="gorse_remote_") as tmp_name:
+            result = remote_node(dev, smi, seed, Path(tmp_name), servers, redis, earlier)
+            t0 = time.perf_counter()
+            result["hnsw_synthetic"] = hnsw_synthetic(seed, dev)
+            result["steps_s"]["hnsw_synthetic"] = time.perf_counter() - t0
+            syn = result["hnsw_synthetic"]
+            log(f"  hnsw:// on a synthetic {syn['rows']:,} x {syn['dim']} f32 table"
+                + (f" (cut from {HNSW_SYNTH[0]:,}: the build reached {HNSW_BUILD_S} s)"
+                   if syn["cut"] else "")
+                + f": build {syn['build_s']:.1f} s, {syn['hnsw_q_per_s']:.0f} q/s against "
+                f"the card's exact store's {syn['exact_q_per_s']:.0f}, recall@{HNSW_K} "
+                f"{syn['recall_exact']:.4f} (exact) / {syn['recall_kernels']:.4f} (kernels)")
+            t0 = time.perf_counter()
+            result["libfm"] = hold_libfm(Path(tmp_name))
+            result["steps_s"]["libfm"] = time.perf_counter() - t0
+            lf = result["libfm"]
+            log(f"  libFM: {lf['rows']:,} rows ({lf['bytes']:,} bytes) through load_libfm_file: "
+                f"native {lf['native_s']:.2f} s, Python {lf['python_s']:.2f} s, equal")
+    finally:
+        for server in servers.values():
+            server.stop()
+        redis.close()
+    result["seconds"] = time.perf_counter() - t_phase
+    log(f"  phase 14 in {result['seconds']:.1f} s ({smi}); steps (s): "
+        f"{json.dumps({k: round(v, 1) for k, v in result['steps_s'].items()})}")
+    check(result["seconds"] <= REMOTE_PHASE_S,
+          f"phase 14 took {result['seconds']:.1f} s of its {REMOTE_PHASE_S} s")
+    return result
+
+
+def remote_node(dev, smi: str, seed: int, tmp: Path, servers: dict, redis, earlier: dict) -> dict:
+    """Phase 10's rows into ``mysql://`` (a smaller copy into
+    ``postgres://`` and ``clickhouse://``), each read back; the node from a
+    copy of config.toml.example over ``mysql://``, ``redis://``, ``s3://``
+    and ``hnsw://``; one ``run_once`` with every count at 0 before; the
+    blobs from S3, the worker's lists, REST, ``hnsw://`` on the item
+    table."""
+    import torch
+
+    from gorse_tpu_torch.ops import bpr_kernel, topk
+    from gorse_tpu_torch.serve.in_one import InOneNode
+    from gorse_tpu_torch.serve.master import Master
+    from gorse_tpu_torch.storage import cache as ck
+    from gorse_tpu_torch.storage.data import open_data_store
+    from gorse_tpu_torch.storage.meta import COLLABORATIVE_FILTERING_MODEL
+    from gorse_tpu_torch.storage.object import ObjectBlobStore, open_blob_store
+    from gorse_tpu_torch.storage.vectors import HNSWVectorStore
+    from gorse_tpu_torch.utils.config import load_config
+
+    result = {"card": smi, "users": REMOTE_USERS}
+    steps = result["steps_s"] = {}
+    t_step = time.perf_counter()
+
+    def step(name: str) -> None:
+        nonlocal t_step
+        steps[name] = time.perf_counter() - t_step
+        t_step = time.perf_counter()
+
+    # ---- the rows through mysql://, read back; the smaller copies
+    rng = np.random.default_rng(seed + 10)
+    picks = rng.integers(len(IN_ONE_TYPES), size=1 << 21)
+    reads = rng.integers(3, 6, size=1 << 21)
+
+    def feedback_type(n):
+        t = IN_ONE_TYPES[picks[n]]
+        return t, float(reads[n]) if t == "read" else 1.0
+
+    want = rows_of(neighbor_store(0, embedding=False, user_fields=USER_FIELDS,
+                                  feedback_type=feedback_type, n_users=REMOTE_USERS))
+    mysql_url = servers["mysql"].url()
+    store = open_data_store(mysql_url)
+    t0 = time.perf_counter()
+    insert_rows(store, want)
+    ingest_s = time.perf_counter() - t0
+    store.close()
+    n_rows = sum(len(t) for t in want)
+    fresh = open_data_store(mysql_url)
+    check(rows_of(fresh) == want, f"mysql://: every one of the {n_rows:,} rows reads back")
+    fresh.close()
+    copies = {}
+    for scheme in ("postgres", "clickhouse"):
+        store = open_data_store(servers[scheme].url())
+        wrote = first_users(want, REMOTE_COPY_USERS)
+        t0 = time.perf_counter()
+        insert_rows(store, wrote)
+        copy_s = time.perf_counter() - t0
+        store.close()
+        fresh = open_data_store(servers[scheme].url())
+        check(rows_of(fresh) == wrote, f"{scheme}://: every row of the copy reads back")
+        fresh.close()
+        copies[scheme] = {"rows": sum(len(t) for t in wrote), "s": copy_s}
+    step("rows")
+    result.update(rows=n_rows, users_items_feedback=[len(t) for t in want], ingest_s=ingest_s,
+                  ingest_rows_per_s=n_rows / ingest_s, copies=copies)
+    log(f"  {len(want[2]):,} feedback rows, {len(want[0])} users, {len(want[1])} items into "
+        f"mysql:// in {ingest_s:.1f} s ({n_rows / ingest_s:,.0f} rows/s), every row read back; "
+        + "; ".join(f"{k}:// a copy of {v['rows']:,} rows in {v['s']:.1f} s, read back"
+                    for k, v in copies.items()))
+
+    # ---- the node from config.toml.example over the remote stores
+    blob_url = servers["s3"].url(prefix="models")
+    config_path, changes = in_one_config(tmp, {
+        ("database", "data_store"): mysql_url, ("database", "cache_store"): redis.url,
+        ("database", "vector_store"): "hnsw://",
+        ("blob", "uri"): f"{blob_url}&spool={tmp / 'blob_spool'}"})
+    cfg = load_config(config_path)
+    hold_config(cfg, changes)
+    node = InOneNode(cfg, workdir=str(tmp), device=dev)
+    check(type(node.data).__name__ == "GenericSQLDataStore"
+          and type(node.cache).__name__ == "RedisCacheStore"
+          and isinstance(node.blob, ObjectBlobStore) and isinstance(node.vectors, HNSWVectorStore),
+          "the node opened mysql://, redis://, s3:// and hnsw://")
+    clock = WriteClock(node.cache)
+    zero_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    summary = node.run_once()
+    torch.cuda.synchronize()
+    cycle_s = time.perf_counter() - t0
+    launches = {n: getattr(topk, n).launches for n in KERNELS}
+    launches["bpr_epoch"] = bpr_kernel.bpr_epoch.launches
+    writes = {"writes": clock.writes, "seconds": clock.seconds}
+    check(all(c > 0 for c in launches.values()),
+          f"the cycle over the remote stores launches {launches}, each must be above 0")
+    check(summary["users_refreshed"] == REMOTE_USERS,
+          f"the worker refreshed {summary['users_refreshed']} of {REMOTE_USERS} users")
+    step("node")
+    master, worker = node.master, node.worker
+    t0 = time.perf_counter()
+    while master._sizeof_busy and time.perf_counter() - t0 < 60:
+        time.sleep(0.1)
+    result.update(cycle_s=cycle_s, launches=launches, cache_writes=writes)
+    phase10 = earlier.get("in_one") or {}
+    log(f"  run_once {cycle_s:.1f} s ({smi}); launches {json.dumps(launches)}; redis:// "
+        f"{writes['writes']:,} cache writes in {writes['seconds']:.2f} s"
+        + (f"; phase 10 over SQLite: {phase10['users']} users, ingest "
+           f"{sum((phase10['users'], phase10['items'], phase10['feedback'])) / phase10['insert_s']:,.0f}"
+           f" rows/s, run_once {phase10['cycle_s']:.1f} s, "
+           f"{phase10['commits']['cache']['commits']:,} cache commits in "
+           f"{phase10['commits']['cache']['seconds']:.2f} s" if phase10 else ""))
+
+    # ---- the blobs the master saved, read back from S3 by a fresh store
+    cf_id = node.meta.get(COLLABORATIVE_FILTERING_MODEL)
+    names = sorted(node.blob.list())
+    check(cf_id in names, f"s3:// lists the CF model {cf_id} among {names}")
+    reader = open_blob_store(f"{blob_url}&spool={tmp / 'spool'}")
+    blob_bytes = 0
+    try:
+        for name in names:
+            saved, read = node.blob.path(name), reader.open(name)
+            files = sorted(p.relative_to(saved) for p in saved.rglob("*") if p.is_file())
+            check(bool(files) and files == sorted(p.relative_to(read) for p in read.rglob("*")
+                                                  if p.is_file())
+                  and all((saved / f).read_bytes() == (read / f).read_bytes() for f in files),
+                  f"s3://: blob {name} reads back byte for byte")
+            blob_bytes += sum((saved / f).stat().st_size for f in files)
+    finally:
+        reader.close()
+    result["blob_bytes"] = blob_bytes
+
+    step("blobs")
+    # ---- the worker's lists in redis:// against search_users on the card
+    index = worker.cf_index
+    check(index is not None and index.device == dev, "the worker's index is on the card")
+    users = [f"u{u}" for u in sorted(np.random.default_rng(3).choice(
+        REMOTE_USERS, min(MASTER_SAMPLE_USERS, REMOTE_USERS), replace=False))]
+    for uid in users:
+        seen = [fb.item_id for fb in node.data.get_user_feedback(uid)]
+        want_list = index.search_users([uid], cfg.recommend.cache_size, exclude=[seen])[0]
+        got = node.cache.search_scores(ck.COLLABORATIVE, uid)
+        check(sorted((-s.score, s.id) for s in got) == sorted((-s.score, s.id)
+                                                              for s in want_list),
+              f"{uid}: redis://'s collaborative list equals search_users on the card")
+    sample = {uid: node.cache.search_scores(ck.RECOMMEND, uid) for uid in users}
+    httpd = node.serve("127.0.0.1", 0, background_loop=False)
+    port = httpd.server_address[1]
+    try:
+        for uid in users:
+            status, body = get_json(port, f"/api/recommend/{uid}")
+            check(status == 200 and bool(body)
+                  and body == [x.id for x in sample[uid]][: cfg.server.default_n],
+                  f"GET /api/recommend/{uid} equals the redis:// cache")
+        result["rest_p50_ms"], result["rest_p99_ms"] = rest_latency(
+            port, lambda r: f"/api/recommend/u{r % REMOTE_USERS}")
+    finally:
+        node.shutdown()
+        node.data.close()
+        node.blob.close()
+    log(f"  {len(names)} blobs ({blob_bytes:,} bytes) read back from s3:// byte for byte; "
+        f"{len(users)} users' collaborative lists in redis:// equal search_users on the card; "
+        f"REST from redis:// p50 {result['rest_p50_ms']:.3f} ms, p99 "
+        f"{result['rest_p99_ms']:.3f} ms")
+
+    step("lists_rest")
+    # ---- hnsw:// on the fitted item table, synced by the master
+    ids, rows = index.serving_items()
+    name = Master.CF_COLLECTION
+    check(node.vectors.describe_collection(name)["dimension"] == rows.shape[1]
+          and set(node.vectors._collections[name].rows) == set(ids),
+          "hnsw:// holds the master's serving items")
+    trained = np.flatnonzero(index.user_predictable)
+    queries = index.user_factors[torch.as_tensor(trained[:HNSW_QUERIES],
+                                                 device=dev)].cpu().numpy()
+    result["hnsw_fitted"] = fitted = hold_hnsw("fitted item table", node.vectors, name, ids,
+                                               np.asarray(rows, np.float32), queries, dev)
+    log(f"  hnsw:// on the fitted {fitted['rows']:,} x {fitted['dim']} item table, "
+        f"{fitted['queries']} users' queries: {fitted['hnsw_q_per_s']:.0f} q/s against the "
+        f"card's exact store's {fitted['exact_q_per_s']:.0f}, recall@{HNSW_K} "
+        f"{fitted['recall_exact']:.4f} (exact) / {fitted['recall_kernels']:.4f} (kernels)")
+    step("hnsw_fitted")
+    node.cache.close()
+    del node, master, worker, index
+    torch.cuda.empty_cache()
+    return result
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -5096,6 +5552,10 @@ def main() -> int:
     if "13" in phases:
         log("== phase 13: the approximate tier, external sources, the bench and the CLI")
         out["approx"] = phase_approx(dev, smi, args.seed, {"path": out.get("path")})
+    if "14" in phases:
+        log("== phase 14: the in-one node over the remote stores")
+        out["remote"] = phase_remote(dev, smi, args.seed, {"in_one": out.get("in_one")})
+        log("  remote: " + json.dumps(out["remote"], default=str))
     check("jax" not in sys.modules and "gorse_tpu" not in sys.modules,
           "neither JAX nor gorse_tpu was imported")
     log(f"  total {time.perf_counter() - t_start:.1f} s")
@@ -5128,22 +5588,23 @@ def kernel_rows(out: dict) -> list[dict]:
                                                 "library_ms")}}
 
     # the serving path's launches (phase 3) with the fm worker's recall
-    # (phase 9), the in-one node's cycle (phase 10) and the card worker that
-    # phase 11 runs beside the worker process
+    # (phase 9), the in-one node's cycles (phases 10 and 14) and the card
+    # worker that phase 11 runs beside the worker process
     in_one = out["in_one"]["launches"]
     cluster = out["cluster"]["launches"]
     approx = out["approx"]
+    remote = out["remote"]["launches"]  # the cycle over the remote stores (phase 14)
     kernels = [row(name, "topk.cu", REPLACES[name],
                    path["launches"][name] + out["ctr"]["worker_topk_launches"][name]
-                   + in_one[name] + cluster[name]
+                   + in_one[name] + cluster[name] + remote[name]
                    + approx["worker"]["launches"].get(name, 0), out["errors"][name], rows[name])
                for name in KERNELS]
     # the training path's launches of bpr_epoch (phase 5) with the in-one
-    # node's fit and BPR search trials (phase 10); the sweeps' from their
+    # nodes' fits and BPR search trials (phases 10 and 14); the sweeps' from their
     # own paths (phase 4), K3's with the sharded fits (phase 12). No single PyTorch call computes a sweep or an
     # epoch, so library_ms is null.
     bpr_launches = dict(out["training"]["launches"], **out["path_launches"])
-    bpr_launches["bpr_epoch"] += in_one["bpr_epoch"]
+    bpr_launches["bpr_epoch"] += in_one["bpr_epoch"] + remote["bpr_epoch"]
     # K3 on the sharded path: phase 12's epoch and the sharded master's fit
     bpr_launches["bpr_sweep_pairs"] += out["sharded"]["launches"]["bpr_sweep_pairs"]
     kernels += [row(name, "bpr.cu", BPR_REPLACES[name], bpr_launches[name],

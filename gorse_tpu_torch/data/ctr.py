@@ -6,8 +6,8 @@ optional dense embedding columns. ``padded`` gives the model's view:
 ``[N, D]`` index and value matrices, pad index 0 with value 0 (it adds
 nothing to an FM forward pass). ``split`` draws numpy's
 ``default_rng(seed).permutation``, so splits equal the reference's.
-``load_libfm_file`` parses in Python only (the reference's native parser is
-ROADMAP.md's M19).
+``load_libfm_file`` parses with the native C++ parser (native/) when it
+builds, in Python otherwise.
 """
 
 from __future__ import annotations
@@ -153,9 +153,21 @@ class CTRDataset:
 
 def load_libfm_file(path: str) -> CTRDataset:
     """Load a libFM-format file: ``target idx:val idx:val ...`` per line, a
-    target of -1 read as 0, a bare ``idx`` as value 1."""
+    target of -1 read as 0, a bare ``idx`` as value 1. Uses the native C++
+    parser (gorse_tpu_torch.native) when available; pure-Python fallback
+    otherwise."""
+    from ..native import parse_libfm_bytes
+
     with open(path, "rb") as f:
         buf = f.read()
+    parsed = parse_libfm_bytes(buf)
+    if parsed is not None:
+        targets, indptr, indices, values, max_label = parsed
+        d = CTRDataset(DirectIndex(int(max_label) + 1))
+        for r in range(len(targets)):
+            lo, hi = int(indptr[r]), int(indptr[r + 1])
+            d.add(indices[lo:hi].tolist(), values[lo:hi].tolist(), float(targets[r]))
+        return d
     features: list[tuple[list[int], list[float]]] = []
     targets_list: list[float] = []
     max_label = 0

@@ -3,11 +3,14 @@ gorse_tpu/serve/in_one.py).
 
     python -m gorse_tpu_torch.serve.in_one --config config.toml [--port 8087]
 
-The stores come from the config: the data and cache stores
-(``memory://``, ``sqlite://``, ``none://``), the meta store (a SQLite path),
-the blob store (``database.blob_store``, else ``[blob].uri``, else
-``<workdir>/blobs``) and the vector store (``open_vector_store`` on the
-node's device). ``run_once`` runs the master's task cycle on the card, the
+The stores come from the config: the data and cache stores (``memory://``,
+``sqlite://``, ``none://``, and the remote ``mysql://``, ``postgres://``,
+``clickhouse://`` (data only), ``redis://``, ``redis+cluster://`` (cache
+only) and ``mongodb://``), the meta store (a SQLite path), the blob store
+(``database.blob_store``, else ``[blob].uri``, else ``<workdir>/blobs``;
+``s3://``, ``gs://`` and ``azblob://`` too) and the vector store
+(``open_vector_store`` on the node's device; ``hnsw://`` and the vector
+databases too). ``run_once`` runs the master's task cycle on the card, the
 model searches that have come due included, then the worker refreshes its
 shard; ``serve`` answers REST requests and repeats the cycle every
 ``collaborative.fit_period`` minutes on a thread.

@@ -46,7 +46,9 @@ def _shared_stores(config: Config) -> None:
             raise NotImplementedError(
                 f"the master's {name} {url!r} lives in its own process and nodes reach it "
                 "only through the master's gRPC storage proxy, which is not ported yet: "
-                "ROADMAP.md M21 (give the master shared stores, e.g. sqlite://)")
+                "ROADMAP.md M21 (give the master shared stores: mysql://, postgres://, "
+                "clickhouse:// or mongodb:// for data, redis://, mysql://, postgres:// or "
+                "mongodb:// for the cache, or sqlite:// files on one host)")
 
 
 class MasterClient:

@@ -7,9 +7,9 @@ subset/category/time conditions, beside a string KV space (digests, update
 times), FIFO queues and time-series points. Key and collection names and
 the SQLite schema are the reference's, so both packages read each other's
 entries and ``cache.sqlite``. As in the reference, each write of the SQLite
-store commits. ``open_cache_store`` opens ``memory://``, ``sqlite://`` and
-``none://``; Redis, the SQL wire stores, Mongo and the proxy are not ported
-(ROADMAP.md, M21).
+store commits. ``open_cache_store`` also opens Redis (redis.py), the server
+SQL stores (sqlstores.py) and MongoDB (mongo.py); only the gRPC proxy is
+not ported (ROADMAP.md, M21).
 """
 
 from __future__ import annotations
@@ -454,10 +454,6 @@ class SQLiteCacheStore(CacheStore):
         self._conn.close()
 
 
-# schemes the reference opens that the port has not ported
-_NOT_PORTED = ("proxy", "redis", "redis+cluster", "postgres", "postgresql", "mysql", "mongodb")
-
-
 def open_cache_store(
     url: str,
     table_prefix: str = "",
@@ -465,20 +461,37 @@ def open_cache_store(
     max_search_results: int = 0,
 ) -> CacheStore:
     """Open a cache store by URL: ``memory://``, ``sqlite://<path>``
-    (``sqlite://`` alone is an in-memory database) and ``none://``.
-    ``table_prefix``, ``client_name`` and ``max_search_results`` are the
-    knobs of the Redis, server-SQL and MongoDB backends, which are not
-    ported: their schemes and ``proxy://`` raise ``NotImplementedError``."""
+    (``sqlite://`` alone is an in-memory database), ``none://``,
+    ``redis://`` and ``redis+cluster://`` (storage/redis.py), the server SQL
+    stores ``postgres://``/``postgresql://`` and ``mysql://``
+    (storage/sqlstores.py) and ``mongodb://`` (storage/mongo.py).
+    ``table_prefix`` applies to server-SQL tables, MongoDB collections and
+    Redis keys; ``client_name`` and ``max_search_results`` are the Redis
+    knobs. ``proxy://`` (the master's gRPC storage proxy) is not ported
+    yet."""
     if url.startswith("memory://") or url == "memory":
         return MemoryCacheStore()
     if url.startswith("sqlite://"):
         path = url[len("sqlite://"):] or ":memory:"
         return SQLiteCacheStore(path)
-    if url.split("://", 1)[0] in _NOT_PORTED:
+    if url.startswith("proxy://"):
         raise NotImplementedError(
-            f"cache store {url.split('://', 1)[0]!r} is not ported yet: ROADMAP.md M21 "
-            "(the Redis, SQL, Mongo and proxy stores)"
+            "cache store 'proxy' is not ported yet: ROADMAP.md M21 (the gRPC plane)")
+    if url.startswith(("redis://", "redis+cluster://")):
+        from .redis import RedisCacheStore
+
+        return RedisCacheStore(
+            url, key_prefix=table_prefix, client_name=client_name,
+            max_search_results=max_search_results,
         )
+    if url.split("://", 1)[0] in ("postgres", "postgresql", "mysql"):
+        from .sqlstores import open_sql_cache_store
+
+        return open_sql_cache_store(url, table_prefix=table_prefix)
+    if url.startswith("mongodb://"):
+        from .mongo import MongoCacheStore
+
+        return MongoCacheStore(url, collection_prefix=table_prefix)
     if url.startswith("none://") or url in ("", "none"):
         from .none import NoCacheStore
 

@@ -4,8 +4,8 @@ The abstract store, the in-memory store and the SQLite store, with the
 reference's schema, statements and indexes (its FTS5 item-search index
 included), so either package reads the other's ``data.sqlite``. Streams are
 Python iterators; scan options (begin id, feedback types, time ranges) are
-keyword arguments. ``open_data_store`` opens ``memory://``, ``sqlite://``
-and ``none://``; the reference's wire and proxy backends are not ported
+keyword arguments. ``open_data_store`` also opens the server SQL stores
+(sqlstores.py) and MongoDB (mongo.py); only the gRPC proxy is not ported
 (ROADMAP.md, M21).
 """
 
@@ -642,26 +642,30 @@ class SQLiteDataStore(DataStore):
         self._conn.close()
 
 
-# schemes the reference opens that the port has not ported
-_NOT_PORTED = ("proxy", "postgres", "postgresql", "mysql", "clickhouse", "mongodb")
-
-
 def open_data_store(url: str, table_prefix: str = "") -> DataStore:
     """Open a data store by URL: ``memory://``, ``sqlite://<path>``
     (``sqlite://`` alone is an in-memory database; a relative path is
-    relative to the working directory) and ``none://``. ``table_prefix``
-    applies to the server-SQL and MongoDB backends, which are not ported:
-    their schemes and ``proxy://`` raise ``NotImplementedError``."""
+    relative to the working directory), ``none://``, the server SQL stores
+    ``postgres://``/``postgresql://``, ``mysql://`` and ``clickhouse://``
+    (storage/sqlstores.py) and ``mongodb://`` (storage/mongo.py).
+    ``table_prefix`` applies to the server-SQL and MongoDB backends.
+    ``proxy://`` (the master's gRPC storage proxy) is not ported yet."""
     if url.startswith("memory://") or url == "memory":
         return MemoryDataStore()
     if url.startswith("sqlite://"):
         path = url[len("sqlite://"):] or ":memory:"
         return SQLiteDataStore(path)
-    if url.split("://", 1)[0] in _NOT_PORTED:
+    if url.startswith("proxy://"):
         raise NotImplementedError(
-            f"data store {url.split('://', 1)[0]!r} is not ported yet: ROADMAP.md M21 "
-            "(the SQL, Mongo and proxy stores)"
-        )
+            "data store 'proxy' is not ported yet: ROADMAP.md M21 (the gRPC plane)")
+    if url.split("://", 1)[0] in ("postgres", "postgresql", "mysql", "clickhouse"):
+        from .sqlstores import open_sql_data_store
+
+        return open_sql_data_store(url, table_prefix=table_prefix)
+    if url.startswith("mongodb://"):
+        from .mongo import MongoDataStore
+
+        return MongoDataStore(url, collection_prefix=table_prefix)
     if url.startswith("none://") or url in ("", "none"):
         from .none import NoDataStore
 

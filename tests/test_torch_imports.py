@@ -38,11 +38,44 @@ def test_port_imports_no_jax_and_no_reference():
                  "cmd._spawn", "parallel", "parallel.mesh", "parallel.sharded",
                  "parallel.catalog", "parallel.multihost", "parallel.ratelimit",
                  "utils.minijs", "logics.external", "llm", "llm.client", "llm.mock",
-                 "cmd.bench", "cmd.cli"):
+                 "cmd.bench", "cmd.cli", "native", "native.hnsw", "storage.bson",
+                 "storage.chhttp", "storage.miniobj", "storage.minisql", "storage.mongo",
+                 "storage.mongowire", "storage.mysqlwire", "storage.pgwire", "storage.redis",
+                 "storage.resp", "storage.sqlstores", "storage.vectordb"):
         assert f"gorse_tpu_torch.{name}" in modules
     code = (
         "import importlib, json, sys\n"
         f"for m in {modules!r}: importlib.import_module(m)\n"
+        "print(json.dumps(sorted(n for n in sys.modules"
+        " if n.split('.')[0] in ('jax', 'jaxlib', 'gorse_tpu'))))\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run(
+        [sys.executable, "-c", code], cwd=ROOT, env=env, capture_output=True, text=True,
+        timeout=120, check=True,
+    )
+    assert json.loads(out.stdout.strip().splitlines()[-1]) == []
+
+
+def test_chip_smoke_imports_no_jax_and_no_reference():
+    """chip_smoke.py's own imports and every module it imports of the
+    port, in a fresh interpreter (its ``main`` leaves before any phase
+    here, without a card), load neither JAX nor gorse_tpu."""
+    import ast
+
+    tree = ast.parse((ROOT / "chip_smoke.py").read_text())
+    names = {alias.name for node in ast.walk(tree) if isinstance(node, ast.Import)
+             for alias in node.names}
+    names |= {node.module for node in ast.walk(tree)
+              if isinstance(node, ast.ImportFrom) and node.module and not node.level}
+    assert not {n for n in names if n.split(".")[0] in ("jax", "jaxlib", "gorse_tpu")}
+    port = sorted(n for n in names if n.split(".")[0] == "gorse_tpu_torch")
+    assert "gorse_tpu_torch.storage.minisql" in port and "gorse_tpu_torch.native" in port
+    code = (
+        "import importlib, json, sys\n"
+        "sys.argv = ['chip_smoke.py']\n"
+        "import chip_smoke\n"
+        f"for m in {port!r}: importlib.import_module(m)\n"
         "print(json.dumps(sorted(n for n in sys.modules"
         " if n.split('.')[0] in ('jax', 'jaxlib', 'gorse_tpu'))))\n"
     )

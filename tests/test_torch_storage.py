@@ -8,7 +8,8 @@ must equal the reference's field for field. Then the file formats: a
 ``data.sqlite`` and a ``cache.sqlite`` written by either package read back
 equal in the other. Then full-text search (``reconcile``, ``search_items``)
 with the FTS5 index and without it, a search while the index is rebuilt,
-and the URL schemes the port does not open."""
+and the URL schemes: ``proxy://`` raising, the remote ones dialling what
+the reference's openers dial."""
 
 import dataclasses
 import threading
@@ -394,20 +395,63 @@ def test_item_search_without_reconcile_across_processes(tmp_path):
 # ------------------------------------------------------------- URLs
 
 
+class _Dialled(Exception):
+    """Raised in place of a store's connection: what it would have dialled."""
+
+
+def _dial_of(pkg: str, url: str, opener: str, monkeypatch) -> tuple:
+    """The connection ``opener`` of package ``pkg`` makes for ``url``, by
+    class and arguments, caught before it reaches the network."""
+    import importlib
+
+    root = "gorse_tpu_torch" if pkg == "port" else "gorse_tpu"
+    for module, name in (("pgwire", "PGConnection"), ("mysqlwire", "MySQLConnection"),
+                         ("chhttp", "ClickHouseConnection"), ("redis", "RespClient"),
+                         ("redis", "RespClusterClient")):
+        def dial(*args, _name=name, **kwargs):
+            raise _Dialled(_name, args, kwargs)
+
+        monkeypatch.setattr(importlib.import_module(f"{root}.storage.{module}"), name, dial)
+
+    class Mongo:
+        @staticmethod
+        def from_url(*args, **kwargs):
+            raise _Dialled("MongoConnection", args, kwargs)
+
+    monkeypatch.setattr(importlib.import_module(f"{root}.storage.mongo"), "MongoConnection",
+                        Mongo)
+    mod = importlib.import_module(f"{root}.storage.{opener}")
+    with pytest.raises(_Dialled) as caught:
+        getattr(mod, f"open_{opener}_store")(url, table_prefix="p_")
+    return caught.value.args
+
+
 @pytest.mark.parametrize("url", ["proxy://127.0.0.1:8086", "mysql://u:p@h:3306/db",
                                  "postgres://u:p@h/db", "postgresql://u:p@h/db",
                                  "clickhouse://h:8123/db", "mongodb://h:27017/db"])
-def test_data_store_schemes_not_ported_raise_m21(url):
-    with pytest.raises(NotImplementedError, match="M21"):
-        PD.open_data_store(url)
+def test_data_store_schemes_not_ported_raise_m21(url, monkeypatch):
+    """Only ``proxy://`` still raises, naming M21 (the gRPC plane); every
+    other scheme dials what the reference's opener dials, with the same
+    arguments (caught here before any connection)."""
+    if url.startswith("proxy://"):
+        with pytest.raises(NotImplementedError, match="M21"):
+            PD.open_data_store(url)
+        return
+    assert _dial_of("port", url, "data", monkeypatch) == _dial_of("ref", url, "data", monkeypatch)
 
 
 @pytest.mark.parametrize("url", ["redis://h:6379/0", "redis+cluster://h:6379", "proxy://h:1",
                                  "mysql://u:p@h/db", "postgres://u:p@h/db",
                                  "postgresql://u:p@h/db", "mongodb://h/db"])
-def test_cache_store_schemes_not_ported_raise_m21(url):
-    with pytest.raises(NotImplementedError, match="M21"):
-        PC.open_cache_store(url)
+def test_cache_store_schemes_not_ported_raise_m21(url, monkeypatch):
+    """As for the data store: ``proxy://`` raises naming M21, the rest dial
+    what the reference dials."""
+    if url.startswith("proxy://"):
+        with pytest.raises(NotImplementedError, match="M21"):
+            PC.open_cache_store(url)
+        return
+    assert _dial_of("port", url, "cache", monkeypatch) == \
+        _dial_of("ref", url, "cache", monkeypatch)
 
 
 @pytest.mark.parametrize("url,kind", [("memory://", "Memory"), ("sqlite://", "SQLite"),

@@ -380,8 +380,20 @@ def test_open_vector_store(url, kind):
 @pytest.mark.parametrize("url", ["hnsw://", "proxy://h:1", "qdrant://h:6333",
                                  "weaviate://h:8080", "milvus://u:p@h:19530"])
 def test_backends_not_ported_name_their_roadmap_item(url):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md M19"):
-        V.open_vector_store(url, device="cpu")
+    """Only ``proxy://`` still raises, naming its ROADMAP item (M21, the
+    gRPC plane); ``hnsw://`` and the vector databases open the port's
+    counterpart of the reference's class, a database's client with the
+    reference's host, port, TLS and credentials (it reaches the network
+    only when called)."""
+    if url.startswith("proxy://"):
+        with pytest.raises(NotImplementedError, match="ROADMAP.md M21"):
+            V.open_vector_store(url, device="cpu")
+    else:
+        got, want = V.open_vector_store(url, device="cpu"), RV.open_vector_store(url)
+        assert type(got).__name__ == type(want).__name__
+        assert type(got).__module__.startswith("gorse_tpu_torch.storage.")
+        if hasattr(want, "c"):
+            assert vars(got.c) == vars(want.c)
     with pytest.raises(ValueError):
         V.open_vector_store("redis://h", device="cpu")
 
