@@ -167,7 +167,7 @@ kernel's own block maxima.
    kernels of an epoch and their device time from a ``torch.profiler``
    trace; ``tests/test_fm.py``'s accuracy gate on the card (AUC > 0.75).
    Then phase 8's ml-1m data without the embedding label, its first 2,000
-   users (``CTR_USERS``; phase 10 runs the cycle at full width) and their
+   users (``CTR_USERS``; phase 10 runs the cycle on ``IN_ONE_USERS``) and their
    rows, each user with a gender (2), an age (7) and an occupation (21)
    from the seed;
    ``ranker.type = "fm"`` over the ``collaborative`` candidates, the AFM's
@@ -213,7 +213,9 @@ kernel's own block maxima.
    ``CLUSTER_HELD`` users, in ``data.sqlite``; tests/test_integration_
    cluster.py's config (BPR, no ranker over the collaborative lists, the
    ``latest`` fallback) with CF switched on, phase 10's positive types and
-   the master's admin key. The held-back users and their rows go in through
+   the master's admin key; the nodes reach data.sqlite and cache.sqlite
+   through the master's storage proxy (``proxy://``: a ``sqlite://`` data
+   store is node-local, as the reference rules). The held-back users and their rows go in through
    the server (``POST /api/users``, then ``PUT /api/feedback`` by the
    port's ``GorseClient`` in batches of ``CLUSTER_BATCH``, each timed).
    Held, in order: the master's admin routes answer 401 without the key;
@@ -312,6 +314,31 @@ kernel's own block maxima.
    cache writes over Redis and their s (beside phase 10's SQLite commits),
    REST p50/p99 from Redis, each step's s; the phase within
    ``REMOTE_PHASE_S``.
+15. The gRPC plane. Phase 11's rows for the first ``GRPC_USERS`` users in
+   data.sqlite, less ``GRPC_HELD`` users who come in through the server's
+   REST API; phase 11's config with the cache in the master's memory
+   (``memory://``), ``master.ssl_mode`` with the test-only certificates of
+   tests/data/tls, and ``tracing`` exported over OTLP/gRPC to a collector
+   that this script runs on the port's grpcwire server. The master, server
+   and worker as processes (the nodes with the client certificate): the
+   nodes open the ``proxy://`` URLs the master's meta names, over mutual
+   TLS. Held: the meta and both nodes' logs name the master's proxy for
+   the data and the cache; after a scheduled cycle (``bpr_epoch`` in the
+   master) the worker's span for every user reaches the master; every list
+   in the master's memory cache (read through the proxy) holds only
+   catalog ids, at most ``cache_size``, none of the user's items; 16 users
+   served by the server equal those lists, each request in a trace the
+   script starts (``traceparent``); ``BlobStoreClient`` downloads the
+   published model equal to its blob directory byte for byte; clients
+   without TLS or without a certificate are refused (UNAVAILABLE); after
+   SIGTERM (each process within ``CLUSTER_STOP_S``, exit code 0) every
+   held user's rows are in data.sqlite, the worker's log counts K4-K6
+   launches and the master's ``bpr_epoch``, and the collector holds the
+   server's recommend spans in the script's traces and the master's span
+   that only its flush at SIGTERM exports. Printed: p50/p99 of
+   ``GRPC_CALLS`` unary ``get_user`` calls over mTLS, the ``get_feedback``
+   stream's rows/s, the download's MB/s, schedule -> served, REST p50/p99
+   through the proxied cache; the phase within ``GRPC_PHASE_S``.
 
 The last three lines of standard output are the kernels' JSON record, the
 card's ``name, power.limit`` as nvidia-smi gives them, and
@@ -456,10 +483,12 @@ IN_ONE_CUTS = (
     ("recommend.collaborative", "model_search_epoch", "2",
      "time: the epochs of every CF and every AFM search trial"),
 )
-# phase 10 keeps the first 2,000 of ml-1m's 6,040 users and their rows
+# phase 10 keeps the first 1,000 of ml-1m's 6,040 users and their rows
 # (time: at 6,040 its run_once took 281-409 s, the worker's refresh and the
-# neighbours per user, and the whole run must end within 1,200 s)
-IN_ONE_USERS = 2000
+# neighbours per user, and the whole run must end within 1,200 s; at 2,000
+# it took 143.3 s on one card's host and 231.1 s on another, whose whole
+# run took 1,279 s)
+IN_ONE_USERS = 1000
 # the example's positive types: "read" rows carry a value of at least 3
 IN_ONE_TYPES = ("star", "like", "read")
 IN_ONE_START_S = 300  # the entry point's subprocess answers within this
@@ -468,8 +497,12 @@ IN_ONE_STOP_S = 60  # and ends on SIGINT within this
 # phase 10's rows for the first CLUSTER_USERS users, CLUSTER_HELD of them
 # held back and sent through the server's REST API in batches of
 # CLUSTER_BATCH. Cut from 2,000 and 200 users (time: at that width the
-# REST ingest took 86 s and the phase 230 s of its 150 s)
-CLUSTER_USERS, CLUSTER_HELD, CLUSTER_BATCH, CLUSTER_SAMPLE = 1000, 100, 1000, 16
+# REST ingest took 86 s and the phase 230 s of its 150 s), then the held
+# users from 100 to 20 and the users from 1,000 to 400 (time: since the
+# nodes reach data.sqlite through the master's proxy the ingest ran at
+# 121-155 rows/s and the worker's cycle took 52.9-99.6 s; the phase took
+# 220.6 s, and 241.7 s with 40 held users on a slower host)
+CLUSTER_USERS, CLUSTER_HELD, CLUSTER_BATCH, CLUSTER_SAMPLE = 400, 20, 1000, 16
 CLUSTER_READBACK = 8  # held-back users whose rows are read back from the server
 CLUSTER_ADMIN_KEY = "chip-smoke-admin"
 CLUSTER_START_S = 120  # each process answers /api/health/live within this
@@ -503,7 +536,7 @@ SHARDED_EPOCH_TOL = {"p": FIRST_EPOCH_TOL, "q": 2e-4}
 # runs read at most 1.6e-6, twelve times under this limit
 SYNC4_TOL = 2e-5
 PHASES = ("2", "2b", "2c", "3", "4", "5", "6", "7", "7c", "8", "9", "10", "11", "12", "13",
-          "14")
+          "14", "15")
 # phase 14: the in-one node over the remote stores (the port's MiniMySQL,
 # MiniRedis and MiniS3 on 127.0.0.1, and hnsw://) on phase 10's rows for the
 # first REMOTE_USERS users. Cut from phase 10's 2,000 (time: the phase must
@@ -544,6 +577,15 @@ BENCH_BATCHES = 32  # the bench's default chain
 # and samples (CPU generators), sums in another order on the card
 BENCH_NDCG_TOL = 0.05
 BENCH_AUC_TOL = 0.05
+# phase 15: the master's gRPC plane. Phase 11's rows for the first GRPC_USERS
+# users in data.sqlite, GRPC_HELD of them held back and sent through the
+# server's REST API, the cache in the master's memory (memory://); the nodes
+# on its proxy over mutual TLS with tests/data/tls (test-only certificates
+# valid for 100 years); GRPC_SAMPLE users served in traces of the phase's
+# own; GRPC_CALLS unary calls timed
+GRPC_USERS, GRPC_HELD, GRPC_SAMPLE, GRPC_CALLS = 300, 30, 16, 1000
+GRPC_PHASE_S = 120  # the phase's own limit
+TLS_DIR = ROOT / "tests" / "data" / "tls"
 SQ_REPLACES = {
     "block_max_sq": "gorse_tpu/ops/topk.py:361",
     "block_topk_sq": "gorse_tpu/ops/topk.py:442",
@@ -3730,6 +3772,46 @@ def sqlite_copy(src: Path, dst: Path) -> None:
         a.backup(b)
 
 
+def cluster_rows(seed: int, n_users: int, n_held: int, path: Path) -> SimpleNamespace:
+    """Phase 10's rows for the first ``n_users`` users in a SQLite data
+    store at ``path``, less the rows of ``n_held`` users drawn from the
+    seed (held back for a REST ingest): the users, the held ids and rows,
+    the catalog, each user's items, the counts and the insert's seconds."""
+    from gorse_tpu_torch.storage.data import SQLiteDataStore
+
+    rng = np.random.default_rng(seed + 10)
+    picks = rng.integers(len(IN_ONE_TYPES), size=1 << 21)
+    reads = rng.integers(3, 6, size=1 << 21)
+
+    def feedback_type(n):
+        t = IN_ONE_TYPES[picks[n]]
+        return t, float(reads[n]) if t == "read" else 1.0
+
+    mem = neighbor_store(0, embedding=False, user_fields=USER_FIELDS,
+                         feedback_type=feedback_type, n_users=n_users)
+    users, items, rows = list(mem.get_users()), list(mem.get_items()), list(mem.get_feedback())
+    del mem
+    held = {f"u{u}" for u in np.random.default_rng(seed + 11).choice(
+        n_users, n_held, replace=False)}
+    held_rows = [fb for fb in rows if fb.user_id in held]
+    t0 = time.perf_counter()
+    store = SQLiteDataStore(str(path))
+    store.insert_items(items)
+    store.insert_users(u for u in users if u.user_id not in held)
+    store.insert_feedback(fb for fb in rows if fb.user_id not in held)
+    store.close()
+    insert_s = time.perf_counter() - t0
+    seen: dict[str, set] = {}
+    for fb in rows:
+        seen.setdefault(fb.user_id, set()).add(fb.item_id)
+    log(f"  {len(rows) - len(held_rows):,} feedback rows of {len(users) - len(held)} users "
+        f"and {len(items)} items into {path.name} in {insert_s:.1f} s; {len(held_rows):,} "
+        f"rows of {len(held)} users held back for the REST ingest")
+    return SimpleNamespace(users=users, held=held, held_rows=held_rows, n_rows=len(rows),
+                           n_items=len(items), catalog={i.item_id for i in items}, seen=seen,
+                           insert_s=insert_s)
+
+
 def phase_cluster(dev, smi: str, seed: int, earlier: dict) -> dict:
     """The master, server and worker as processes on the card: phase 10's
     rows for the first ``CLUSTER_USERS`` users in data.sqlite less
@@ -3740,45 +3822,16 @@ def phase_cluster(dev, smi: str, seed: int, earlier: dict) -> dict:
 
     import torch
 
-    from gorse_tpu_torch.storage.data import SQLiteDataStore
-
     t_phase = time.perf_counter()
     result = {"card": smi}
     key = CLUSTER_ADMIN_KEY
     with tempfile.TemporaryDirectory(prefix="gorse_cluster_") as tmp_name:
         tmp = Path(tmp_name)
-        # ---- phase 10's rows for the first CLUSTER_USERS users, less the held
-        rng = np.random.default_rng(seed + 10)
-        picks = rng.integers(len(IN_ONE_TYPES), size=1 << 21)
-        reads = rng.integers(3, 6, size=1 << 21)
-
-        def feedback_type(n):
-            t = IN_ONE_TYPES[picks[n]]
-            return t, float(reads[n]) if t == "read" else 1.0
-
-        mem = neighbor_store(0, embedding=False, user_fields=USER_FIELDS,
-                             feedback_type=feedback_type, n_users=CLUSTER_USERS)
-        users, items, rows = list(mem.get_users()), list(mem.get_items()), list(mem.get_feedback())
-        del mem
-        held = {f"u{u}" for u in np.random.default_rng(seed + 11).choice(
-            CLUSTER_USERS, CLUSTER_HELD, replace=False)}
-        held_rows = [fb for fb in rows if fb.user_id in held]
-        t0 = time.perf_counter()
-        store = SQLiteDataStore(str(tmp / "data.sqlite"))
-        store.insert_items(items)
-        store.insert_users(u for u in users if u.user_id not in held)
-        store.insert_feedback(fb for fb in rows if fb.user_id not in held)
-        store.close()
-        insert_s = time.perf_counter() - t0
-        catalog = {i.item_id for i in items}
-        seen: dict[str, set] = {}
-        for fb in rows:
-            seen.setdefault(fb.user_id, set()).add(fb.item_id)
-        log(f"  {len(rows) - len(held_rows):,} feedback rows of {len(users) - len(held)} users "
-            f"and {len(items)} items into data.sqlite in {insert_s:.1f} s; {len(held_rows):,} "
-            f"rows of {len(held)} users held back for the REST ingest")
-        result.update(users=len(users), items=len(items), rows=len(rows),
-                      held_rows=len(held_rows), insert_s=insert_s)
+        rows = cluster_rows(seed, CLUSTER_USERS, CLUSTER_HELD, tmp / "data.sqlite")
+        users, held, held_rows = rows.users, rows.held, rows.held_rows
+        catalog, seen = rows.catalog, rows.seen
+        result.update(users=len(users), items=rows.n_items, rows=rows.n_rows,
+                      held_rows=len(held_rows), insert_s=rows.insert_s)
 
         ports = {role: free_port() for role in ("master", "server", "worker")}
         config_path = cluster_config(tmp, ports["master"])
@@ -5434,6 +5487,401 @@ def remote_node(dev, smi: str, seed: int, tmp: Path, servers: dict, redis, earli
     return result
 
 
+# ---------------------------------------------------------------- phase 15
+
+
+def pb_fields(data: bytes) -> list:
+    """[(field, wire type, value), ...] of one protobuf message."""
+    out, i = [], 0
+
+    def varint():
+        nonlocal i
+        value = shift = 0
+        while True:
+            b = data[i]
+            i += 1
+            value |= (b & 0x7F) << shift
+            shift += 7
+            if not b & 0x80:
+                return value
+
+    while i < len(data):
+        tag = varint()
+        field, wire = tag >> 3, tag & 7
+        if wire == 0:
+            out.append((field, wire, varint()))
+        elif wire == 1:
+            out.append((field, wire, data[i:i + 8]))
+            i += 8
+        elif wire == 5:
+            out.append((field, wire, data[i:i + 4]))
+            i += 4
+        else:
+            n = varint()
+            out.append((field, wire, data[i:i + n]))
+            i += n
+    return out
+
+
+class OTLPCollector:
+    """An OTLP/gRPC TraceService in this process, on the port's grpcwire
+    server: each exported span as (name, trace id, parent span id), in the
+    order they arrived."""
+
+    def __init__(self) -> None:
+        import threading
+
+        from gorse_tpu_torch.protocol import grpcwire
+
+        self.spans: list[tuple[str, str, str]] = []
+        self.requests = 0
+        self._lock = threading.Lock()
+
+        def export(request: bytes, context) -> bytes:
+            spans = []
+            for f1, _, rs in pb_fields(request):  # ExportTraceServiceRequest.resource_spans
+                for f2, _, ss in pb_fields(rs):  # ResourceSpans.scope_spans
+                    if f1 != 1 or f2 != 2:
+                        continue
+                    for f3, _, span in pb_fields(ss):  # ScopeSpans.spans
+                        if f3 == 2:
+                            fields = {f: v for f, _, v in pb_fields(span)}
+                            spans.append((fields[5].decode(), fields[1].hex(),
+                                          fields.get(4, b"").hex()))
+            with self._lock:
+                self.requests += 1
+                self.spans += spans
+            return b""
+
+        handler = grpcwire.method_handlers_generic_handler(
+            "opentelemetry.proto.collector.trace.v1.TraceService",
+            {"Export": grpcwire.unary_unary_rpc_method_handler(export)})
+        self.server = grpcwire.Server(max_workers=2)
+        self.server.add_generic_rpc_handlers((handler,))
+        self.port = self.server.add_insecure_port("127.0.0.1:0")
+        self.server.start()
+
+    def traces(self) -> dict:
+        """trace id -> [(name, parent span id), ...]."""
+        with self._lock:
+            out: dict = {}
+            for name, trace, parent in self.spans:
+                out.setdefault(trace, []).append((name, parent))
+            return out
+
+
+def grpc_config(tmp: Path, http_port: int, grpc_port: int, collector_port: int) -> Path:
+    """Phase 11's config with the data in data.sqlite and the cache in the
+    master's memory, the master's gRPC plane on ``grpc_port`` over mutual
+    TLS (tests/data/tls), and tracing exported over OTLP/gRPC."""
+    text = cluster_config(tmp, http_port).read_text()
+    text = text.replace(f'cache_store = "sqlite://{tmp}/cache.sqlite"', 'cache_store = "memory://"')
+    text = re.sub(r"(?m)^port = \d+$", f"port = {grpc_port}", text)
+    text = text.replace("[recommend.data_source]", f"""ssl_mode = true
+ssl_ca = "{TLS_DIR / 'ca.pem'}"
+ssl_cert = "{TLS_DIR / 'server.pem'}"
+ssl_key = "{TLS_DIR / 'server.key'}"
+
+[tracing]
+enable_tracing = true
+exporter = "otlp"
+collector_endpoint = "127.0.0.1:{collector_port}"
+
+[recommend.data_source]""")
+    path = tmp / "config.toml"
+    path.write_text(text)
+    return path
+
+
+def traced_get(port: int, path: str, traceparent: str) -> tuple[int, object]:
+    """``GET path`` on 127.0.0.1:``port`` with a ``traceparent`` header."""
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
+    try:
+        conn.request("GET", path, headers={"traceparent": traceparent})
+        resp = conn.getresponse()
+        return resp.status, json.loads(resp.read())
+    finally:
+        conn.close()
+
+
+def percentiles(lat: list) -> tuple[float, float]:
+    lat = sorted(lat)
+    return lat[len(lat) // 2], lat[max(int(len(lat) * 0.99) - 1, 0)]
+
+
+def phase_grpc(dev, smi: str, seed: int) -> dict:
+    """Phase 15: the master's gRPC plane on the card. Phase 11's rows for
+    the first ``GRPC_USERS`` users in data.sqlite less ``GRPC_HELD``, the
+    cache in the master's memory; the master, server and worker as
+    processes, the nodes on the ``proxy://`` URLs the master hands out,
+    over mutual TLS; spans to a collector here; the holds of the module
+    docstring, each process ended by SIGTERM."""
+    import signal
+
+    import torch
+
+    from gorse_tpu_torch.storage.data import SQLiteDataStore
+    from gorse_tpu_torch.utils.tls import TLSConfig
+
+    t_phase = time.perf_counter()
+    result = {"card": smi}
+    client_tls = TLSConfig(str(TLS_DIR / "ca.pem"), str(TLS_DIR / "client.pem"),
+                           str(TLS_DIR / "client.key"))
+    tls_flags = ["--ssl-mode", "--ssl-ca", client_tls.ssl_ca, "--ssl-cert", client_tls.ssl_cert,
+                 "--ssl-key", client_tls.ssl_key]
+    collector = OTLPCollector()
+    with tempfile.TemporaryDirectory(prefix="gorse_grpc_") as tmp_name:
+        tmp = Path(tmp_name)
+        rows = cluster_rows(seed, GRPC_USERS, GRPC_HELD, tmp / "data.sqlite")
+        result.update(users=len(rows.users), items=rows.n_items, rows=rows.n_rows,
+                      held_rows=len(rows.held_rows))
+        ports = {role: free_port() for role in ("master", "grpc", "server", "worker")}
+        config_path = grpc_config(tmp, ports["master"], ports["grpc"], collector.port)
+        procs: dict[str, subprocess.Popen] = {}
+        logs: dict[str, Path] = {}
+
+        def spawn(role: str, *args) -> None:
+            t0 = time.perf_counter()
+            logs[role] = tmp / f"{role}.log"
+            with open(logs[role], "wb") as out:
+                procs[role] = subprocess.Popen(SPAWN + [role, *args], cwd=ROOT, stdout=out,
+                                               stderr=subprocess.STDOUT, start_new_session=True)
+            live = poll(f"the {role} answers /api/health/live", lambda: http_json(
+                ports[role], "GET", "/api/health/live", timeout=5)[0] == 200
+                and time.perf_counter(), t0 + CLUSTER_START_S)
+            result.setdefault("live_s", {})[role] = live - t0
+
+        master_url = f"http://127.0.0.1:{ports['master']}"
+        trailing = "00-" + "f" * 32 + "-" + "e" * 16 + "-01"
+        try:
+            spawn("master", "--config", str(config_path))
+            spawn("server", "--master", master_url, "--api-key", CLUSTER_ADMIN_KEY, "--port",
+                  str(ports["server"]), *tls_flags)
+            run = SimpleNamespace(tmp=tmp, ports=ports, rows=rows, tls=client_tls,
+                                  spawn=lambda: spawn(
+                                      "worker", "--master", master_url, "--api-key",
+                                      CLUSTER_ADMIN_KEY, "--meta-timeout", "1", "--http-port",
+                                      str(ports["worker"]), *tls_flags))
+            result.update(_grpc_run(run))
+            # one request to the master in a trace of its own: a span that
+            # only the flush at SIGTERM is sure to export
+            check(traced_get(ports["master"], "/api/health/live", trailing)[0] == 200,
+                  "GET /api/health/live on the master")
+            stop = {}
+            for role in ("worker", "server", "master"):
+                t0 = time.perf_counter()
+                os.killpg(procs[role].pid, signal.SIGTERM)
+                try:
+                    procs[role].wait(timeout=CLUSTER_STOP_S)
+                except subprocess.TimeoutExpired:
+                    raise RuntimeError(f"check failed: SIGTERM ended the {role} within "
+                                       f"{CLUSTER_STOP_S} s")
+                stop[role] = time.perf_counter() - t0
+                check(procs[role].returncode == 0,
+                      f"the {role} exited 0 on SIGTERM, not {procs[role].returncode}")
+            result["stop_s"] = stop
+        except Exception:
+            for role, path in logs.items():
+                log(f"  the {role}'s log, its tail:\n" + path.read_text()[-4000:])
+            raise
+        finally:
+            for proc in procs.values():
+                if proc.poll() is None:
+                    os.killpg(proc.pid, signal.SIGKILL)
+                    proc.wait()
+            collector.server.stop(None)
+        text = {role: path.read_text() for role, path in logs.items()}
+        # ---- the nodes received proxy:// for both stores and ran on the card
+        proxy = f"proxy://127.0.0.1:{ports['grpc']}"
+        for role in ("server", "worker"):
+            check(f"{role} config synced from master: data {proxy}, cache {proxy}" in text[role],
+                  f"the {role} synced data and cache as {proxy}")
+        check(f"master on device {dev}" in text["master"], f"the master's log names {dev}")
+        check(re.search(rf"worker \S+ on device {re.escape(str(dev))}", text["worker"])
+              is not None, f"the worker's log names {dev}")
+        launches = {}
+        for role in ("master", "worker"):
+            found = re.findall(r"kernel launches (\{.*\})", text[role])
+            check(len(found) == 1, f"the {role} logged its kernels' launches at SIGTERM")
+            launches[role] = json.loads(found[0])
+        result["launches"] = {n: launches["worker"][n] for n in KERNELS}
+        result["master_launches"] = {n: launches["master"][n] for n in BPR_KERNELS}
+        check(all(v > 0 for v in result["launches"].values()),
+              f"the worker process launched K4-K6: {result['launches']}")
+        check(launches["master"]["bpr_epoch"] > 0,
+              f"the master process launched bpr_epoch: {result['master_launches']}")
+        log(f"  the nodes synced {proxy} for the data and the cache; launches: the worker "
+            f"{json.dumps(result['launches'])}, the master {json.dumps(result['master_launches'])}"
+            f"; SIGTERM ended each in (s) {json.dumps(stop)}")
+        # ---- every held user's rows are in data.sqlite after the master stopped
+        store = SQLiteDataStore(str(tmp / "data.sqlite"))
+        for uid in sorted(rows.held):
+            sent = {fb.key(): fb.value for fb in rows.held_rows if fb.user_id == uid}
+            got = {fb.key(): fb.value for fb in store.get_user_feedback(uid)}
+            check(got == sent, f"data.sqlite holds {uid}'s {len(sent)} rows ({len(got)})")
+        check(store.count_feedback() == rows.n_rows, "data.sqlite holds every row")
+        store.close()
+    # ---- the spans at the collector
+    traces = collector.traces()
+    for trace, parent in result.pop("traceparents"):
+        check(("GET /api/recommend/{user-id}", parent) in traces.get(trace, []),
+              f"the collector holds the server's span of trace {trace}")
+    check(("GET /api/health/live", "e" * 16) in traces.get("f" * 32, []),
+          "the collector holds the master's trailing span, flushed at SIGTERM")
+    result["spans"] = len(collector.spans)
+    result["exports"] = collector.requests
+    log(f"  the collector received {result['spans']} spans in {result['exports']} exports: the "
+        f"server's GET /api/recommend/{{user-id}} spans in the phase's traces and the master's "
+        f"trailing span")
+    torch.cuda.empty_cache()
+    result["phase_s"] = time.perf_counter() - t_phase
+    log(f"  phase 15 took {result['phase_s']:.1f} s ({smi})")
+    check(result["phase_s"] <= GRPC_PHASE_S,
+          f"phase 15 took {result['phase_s']:.1f} s of its {GRPC_PHASE_S} s")
+    return result
+
+
+def _grpc_run(run) -> dict:
+    """Phase 15 once the master and the server answer: the ingest, the
+    meta, the scheduled cycle, the worker, the served lists in traces of
+    the phase's own, the proxy's and the blob's timings over mutual TLS,
+    the refused clients, REST latency."""
+    from gorse_tpu_torch.client import GorseClient
+    from gorse_tpu_torch.protocol import grpcwire, rpc
+    from gorse_tpu_torch.storage import cache as ck
+    from gorse_tpu_torch.storage.proxy import ProxyCacheStore, ProxyDataStore
+    from gorse_tpu_torch.utils.config import Config
+
+    out = {}
+    master, server, grpc_port = run.ports["master"], run.ports["server"], run.ports["grpc"]
+    target = f"127.0.0.1:{grpc_port}"
+    rows = run.rows
+    # ---- the held users and their rows through the server, into data.sqlite by the proxy
+    t0 = time.perf_counter()
+    status, body = http_json(server, "POST", "/api/users",
+                             [u.to_dict() for u in rows.users if u.user_id in rows.held])
+    check(status == 200 and body == {"RowAffected": len(rows.held)}, f"POST /api/users: {body}")
+    client = GorseClient(f"http://127.0.0.1:{server}", timeout=60)
+    for n in range(0, len(rows.held_rows), CLUSTER_BATCH):
+        batch = rows.held_rows[n:n + CLUSTER_BATCH]
+        body = client.insert_feedback(batch, overwrite=True)
+        check(body == {"RowAffected": len(batch)}, f"PUT /api/feedback: {body}")
+    out["ingest_rows_per_s"] = len(rows.held_rows) / (time.perf_counter() - t0)
+
+    def meta():
+        status, body = http_json(master, "POST", "/api/admin/meta", {}, CLUSTER_ADMIN_KEY)
+        check(status == 200, f"POST /api/admin/meta with the key: {status}")
+        return body
+
+    # ---- the meta names the master's proxy for the data and the cache
+    proxy = f"proxy://{target}"
+    db = json.loads(meta()["config"])["database"]
+    check(db["data_store"] == proxy and db["cache_store"] == proxy,
+          f"the meta names {proxy} for data and cache: {db['data_store']}, {db['cache_store']}")
+    # ---- the scheduled cycle, then the worker over the proxy
+    first = poll("the master's first cycle names a CF model", lambda: meta()["cf_model_id"],
+                 time.perf_counter() + CLUSTER_CYCLE_S)
+    t_sched = time.perf_counter()
+    check(http_json(master, "POST", "/api/dashboard/schedule", {}, CLUSTER_ADMIN_KEY)
+          == (200, {"status": "scheduled"}), "POST /api/dashboard/schedule")
+    deadline = t_sched + CLUSTER_CYCLE_S
+    cf_id = poll("the scheduled cycle names a new CF model",
+                 lambda: (m := meta()["cf_model_id"]) != first and m, deadline)
+    out["schedule_to_model_s"] = time.perf_counter() - t_sched
+    run.spawn()
+
+    def span_arrived():
+        status, tasks = http_json(master, "GET", "/api/dashboard/tasks", None, CLUSTER_ADMIN_KEY)
+        return status == 200 and any(
+            t.get("Node", "").startswith("worker-") and t["Name"] == "recommend"
+            and t["Status"] == "complete" and t["Count"] == len(rows.users) for t in tasks)
+
+    poll(f"the worker's span for {len(rows.users)} users at the master", span_arrived, deadline,
+         every=0.25)
+    # ---- every list in the master's memory cache, and the server's answers
+    cache = ProxyCacheStore(target, tls=run.tls)
+    cfg = Config.from_json(meta()["config"])
+    lists: dict[str, list] = {}
+    for subset, score in cache.scan_scores(ck.RECOMMEND):
+        lists.setdefault(subset, []).append(score.id)
+    check(len(lists) == len(rows.users),
+          f"the master's cache holds {len(lists)} lists of {len(rows.users)}")
+    for uid, ids in lists.items():
+        check(0 < len(ids) <= cfg.recommend.cache_size and set(ids) <= rows.catalog
+              and not set(ids) & rows.seen.get(uid, set()),
+              f"{uid}: {len(ids)} catalog ids, none of the user's items")
+    rng = np.random.default_rng(15)
+    others = sorted(u.user_id for u in rows.users if u.user_id not in rows.held)
+    sample = ([str(u) for u in rng.choice(sorted(rows.held), GRPC_SAMPLE // 2, replace=False)]
+              + [str(u) for u in rng.choice(others, GRPC_SAMPLE // 2, replace=False)])
+    out["traceparents"] = []
+    for n, uid in enumerate(sample):
+        trace, parent = f"{15:08x}{n:024x}", f"{n + 1:016x}"
+        status, body = traced_get(server, f"/api/recommend/{uid}", f"00-{trace}-{parent}-01")
+        want = [x.id for x in cache.search_scores(ck.RECOMMEND, uid)][: cfg.server.default_n]
+        check(status == 200 and body == want, f"GET /api/recommend/{uid} equals the cache")
+        out["traceparents"].append((trace, parent))
+    out["schedule_to_served_s"] = time.perf_counter() - t_sched
+    log(f"  schedule -> {cf_id} in {out['schedule_to_model_s']:.1f} s; the worker's lists for "
+        f"{len(rows.users)} users in the master's memory through {proxy}; {len(sample)} served "
+        f"equal to them {out['schedule_to_served_s']:.1f} s after schedule")
+    # ---- the proxy over mutual TLS: unary calls, a row stream
+    data = ProxyDataStore(target, tls=run.tls)
+    lat = []
+    for n in range(GRPC_CALLS):
+        t0 = time.perf_counter()
+        user = data.get_user(f"u{n % len(rows.users)}")
+        lat.append((time.perf_counter() - t0) * 1e3)
+        check(user is not None, f"get_user(u{n % len(rows.users)}) through the proxy")
+    out["get_user_p50_ms"], out["get_user_p99_ms"] = percentiles(lat)
+    t0 = time.perf_counter()
+    streamed = sum(1 for _ in data.get_feedback())
+    out["stream_rows_per_s"] = streamed / (time.perf_counter() - t0)
+    check(streamed == rows.n_rows, f"get_feedback streamed {streamed} of {rows.n_rows} rows")
+    # ---- the published model, downloaded with the client's certificate
+    blobs = rpc.BlobStoreClient(target, tls=run.tls)
+    check(cf_id in blobs.list(), f"the BlobStore lists {cf_id}")
+    t0 = time.perf_counter()
+    dst = blobs.download(cf_id, run.tmp / "download")
+    seconds = time.perf_counter() - t0
+    src = run.tmp / "blobs" / cf_id
+    files = sorted(p.relative_to(src) for p in src.rglob("*") if p.is_file())
+    check(files and files == sorted(p.relative_to(dst) for p in dst.rglob("*") if p.is_file())
+          and all((src / f).read_bytes() == (dst / f).read_bytes() for f in files),
+          f"the download of {cf_id} equals its blob directory byte for byte")
+    size = sum((src / f).stat().st_size for f in files)
+    out["blob_bytes"], out["blob_mb_per_s"] = size, size / seconds / 1e6
+    # ---- clients without a certificate are refused
+    import ssl
+
+    bare = rpc.MasterGrpcClient(target, "worker", node_id="intruder")
+    context = ssl.SSLContext(ssl.PROTOCOL_TLS_CLIENT)
+    context.load_verify_locations(run.tls.ssl_ca)
+    context.set_alpn_protocols(["h2"])
+    channel = grpcwire.Channel(target, context)
+    no_cert = channel.unary_unary("/gorse_tpu.Master/GetMeta")
+    for what, call in (("without TLS", bare.get_meta), ("without a certificate",
+                                                         lambda: no_cert(b"", timeout=30))):
+        try:
+            call()
+            check(False, f"a client {what} is refused")
+        except grpcwire.RpcError as e:
+            check(e.code() is grpcwire.StatusCode.UNAVAILABLE,
+                  f"a client {what} is refused: {e.code().name}")
+    for c in (cache, data, blobs, bare, channel):
+        c.close()
+    # ---- REST latency through the proxied cache
+    out["rest_p50_ms"], out["rest_p99_ms"] = rest_latency(
+        server, lambda r: f"/api/recommend/u{r % len(rows.users)}")
+    log(f"  over mutual TLS: get_user p50 {out['get_user_p50_ms']:.3f} ms, p99 "
+        f"{out['get_user_p99_ms']:.3f} ms ({GRPC_CALLS} calls); get_feedback {streamed:,} rows "
+        f"at {out['stream_rows_per_s']:,.0f} rows/s; {cf_id} ({size:,} bytes) downloaded at "
+        f"{out['blob_mb_per_s']:.1f} MB/s; refused without TLS and without a certificate; REST "
+        f"through the proxied cache p50 {out['rest_p50_ms']:.3f} ms, p99 "
+        f"{out['rest_p99_ms']:.3f} ms; ingest {out['ingest_rows_per_s']:.0f} rows/s")
+    return out
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -5556,8 +6004,13 @@ def main() -> int:
         log("== phase 14: the in-one node over the remote stores")
         out["remote"] = phase_remote(dev, smi, args.seed, {"in_one": out.get("in_one")})
         log("  remote: " + json.dumps(out["remote"], default=str))
-    check("jax" not in sys.modules and "gorse_tpu" not in sys.modules,
-          "neither JAX nor gorse_tpu was imported")
+    if "15" in phases:
+        log("== phase 15: the gRPC plane: the nodes on the master's proxy over mutual TLS")
+        out["grpc"] = phase_grpc(dev, smi, args.seed)
+        log("  grpc: " + json.dumps(out["grpc"], default=str))
+    check("jax" not in sys.modules and "gorse_tpu" not in sys.modules
+          and "grpc" not in sys.modules and "google.protobuf" not in sys.modules,
+          "neither JAX, grpc, protobuf nor gorse_tpu was imported")
     log(f"  total {time.perf_counter() - t_start:.1f} s")
     if len(phases) < len(PHASES):
         print(json.dumps({"partial": phases, **{key: out[key] for key in out if key != "errors"}},
@@ -5594,9 +6047,10 @@ def kernel_rows(out: dict) -> list[dict]:
     cluster = out["cluster"]["launches"]
     approx = out["approx"]
     remote = out["remote"]["launches"]  # the cycle over the remote stores (phase 14)
+    grpc = out["grpc"]  # the worker and master processes on the proxy (phase 15)
     kernels = [row(name, "topk.cu", REPLACES[name],
                    path["launches"][name] + out["ctr"]["worker_topk_launches"][name]
-                   + in_one[name] + cluster[name] + remote[name]
+                   + in_one[name] + cluster[name] + remote[name] + grpc["launches"][name]
                    + approx["worker"]["launches"].get(name, 0), out["errors"][name], rows[name])
                for name in KERNELS]
     # the training path's launches of bpr_epoch (phase 5) with the in-one
@@ -5604,7 +6058,8 @@ def kernel_rows(out: dict) -> list[dict]:
     # own paths (phase 4), K3's with the sharded fits (phase 12). No single PyTorch call computes a sweep or an
     # epoch, so library_ms is null.
     bpr_launches = dict(out["training"]["launches"], **out["path_launches"])
-    bpr_launches["bpr_epoch"] += in_one["bpr_epoch"] + remote["bpr_epoch"]
+    bpr_launches["bpr_epoch"] += (in_one["bpr_epoch"] + remote["bpr_epoch"]
+                                  + grpc["master_launches"]["bpr_epoch"])
     # K3 on the sharded path: phase 12's epoch and the sharded master's fit
     bpr_launches["bpr_sweep_pairs"] += out["sharded"]["launches"]["bpr_sweep_pairs"]
     kernels += [row(name, "bpr.cu", BPR_REPLACES[name], bpr_launches[name],

@@ -1,27 +1,31 @@
 """Entry points of the three node roles (port of gorse_tpu/cmd/nodes_main.py).
 
     gorse-tpu-torch-master --config config.toml
-    gorse-tpu-torch-server --master http://127.0.0.1:8088 [--port 8087]
-    gorse-tpu-torch-worker --master http://127.0.0.1:8088 [--http-port N]
+    gorse-tpu-torch-server --master http://127.0.0.1:8088 [--port 8087] [--ssl-mode ...]
+    gorse-tpu-torch-worker --master http://127.0.0.1:8088 [--http-port N] [--ssl-mode ...]
 
 As gorse's cmd/gorse-master, cmd/gorse-server and cmd/gorse-worker: a master
-process that runs the task cycle on the card and serves the public API with
-the dashboard and the node-sync routes (``MasterRestServer``), stateless
-REST server processes, and worker processes that fill their shard's caches
-on the card; the server and worker poll the master over HTTP and open the
-stores by the URLs in its config. The reference's gRPC control plane and
-storage proxy (its nodes_main.py:56-76) are not ported (ROADMAP.md, M21):
-the nodes sync over the HTTP routes and ``Master.get_meta`` hands out the
-store URLs as they are, so the nodes share SQLite files or remote stores
-(a ``memory://`` store lives in the master's process alone: the nodes
-refuse it). ``master.ssl_mode`` and ``tracing.enable`` raise.
+process that runs the task cycle on the card, serves the public API with
+the dashboard and the node-sync routes (``MasterRestServer``) and its gRPC
+plane on ``master.host:master.port`` (protocol/rpc.py: the Master and
+BlobStore services, and the storage proxy of its data and cache stores
+when the data store is node-local, ``memory://`` or ``sqlite://``; mutual
+TLS with ``master.ssl_mode``); stateless REST server processes; and worker
+processes that fill their shard's caches on the card. The server and worker
+poll the master over HTTP and open the stores by the URLs in its config:
+``proxy://`` where the master proxies them, over TLS with ``--ssl-mode``
+(gorse's ``--ssl-*`` flags). The master and the server install the
+config's tracer; each process, on SIGTERM or SIGINT, stops its work,
+flushes the tracer, logs its kernels' launches and exits 0.
 """
 
 from __future__ import annotations
 
 import argparse
+import json
 import logging
 import os
+import signal
 import tempfile
 import threading
 
@@ -45,11 +49,6 @@ def build_master(config, device=None):
     from ..storage.object import open_blob_store_from_config
     from ..storage.vectors import open_vector_store
 
-    if config.tracing.enable:
-        raise NotImplementedError("tracing is not ported yet: ROADMAP.md M21")
-    if config.master.ssl_mode:
-        raise NotImplementedError("the master's TLS (master.ssl_mode) belongs to its gRPC "
-                                  "control plane, which is not ported yet: ROADMAP.md M21")
     device = resolve_device(device)
     db = config.database
     data = open_data_store_from_config(db)
@@ -62,10 +61,65 @@ def build_master(config, device=None):
     return Master(config, data, cache, blob, meta, device=device, vector_store=vectors)
 
 
+def kernel_launches() -> dict:
+    """Each kernel wrapper's launches in this process, by name."""
+    from ..ops import bpr_kernel, topk
+
+    names = {topk: ("block_max", "block_max_sq", "block_seeds", "block_topk", "block_topk_sq",
+                    "merge_topk", "bin_max", "bin_max_sq"),
+             bpr_kernel: ("bpr_sweep_sampled", "bpr_sweep_pairs", "bpr_epoch")}
+    return {name: getattr(module, name).launches for module, group in names.items()
+            for name in group}
+
+
+def _serve_until_signal(stop, work: threading.Thread | None = None) -> None:
+    """Wait for SIGTERM or SIGINT, then ``stop()``, flush the tracer, log
+    the kernels' launches and exit 0; exit 1 if ``work`` ends first."""
+    from ..utils.tracing import tracer
+
+    signalled = threading.Event()
+    for sig in (signal.SIGTERM, signal.SIGINT):
+        signal.signal(sig, lambda *_: signalled.set())
+    code = 0
+    while not signalled.wait(1.0):
+        if work is not None and not work.is_alive():
+            code = 1
+            break
+    try:
+        stop()
+        tracer().flush()
+    finally:
+        logger.info("kernel launches %s", json.dumps(kernel_launches()))
+        logging.shutdown()
+        os._exit(code)  # the daemon threads (stores, servers) end with the process
+
+
+def grpc_tls(config):
+    """The master's TLSConfig when ``master.ssl_mode`` is on, else None."""
+    from ..utils.tls import TLSConfig
+
+    m = config.master
+    return TLSConfig(m.ssl_ca, m.ssl_cert, m.ssl_key) if m.ssl_mode else None
+
+
+def serve_grpc_plane(master, config):
+    """The master's gRPC plane on ``master.host:master.port``, mutual TLS
+    with ``master.ssl_mode``, its data and cache stores proxied when the
+    data store is node-local (the reference's rule); (server, port)."""
+    from ..protocol import serve_master_grpc
+
+    local = config.database.data_store.startswith(("memory://", "sqlite://"))
+    return serve_master_grpc(
+        master, master.blob, host=config.master.host, port=config.master.port,
+        tls=grpc_tls(config), data_store=master.data if local else None,
+        cache_store=master.cache if local else None)
+
+
 def master_main() -> None:
     from .. import __version__
     from ..serve.dashboard import MasterRestServer
     from ..utils.config import ConfigWatcher, default_config, load_config
+    from ..utils.tracing import configure_from
 
     parser = argparse.ArgumentParser(prog="gorse-tpu-torch-master")
     parser.add_argument("--version", action="version",
@@ -76,10 +130,14 @@ def master_main() -> None:
     args = parser.parse_args()
     _logging()
     config = load_config(args.config) if args.config else default_config()
+    configure_from(config)
     master = build_master(config)
     logger.info("master on device %s", master.device)
     rest = MasterRestServer(master, api_key=config.server.api_key)
     rest.serve(args.host or config.master.http_host, args.port or config.master.http_port)
+    grpc_server, grpc_port = serve_grpc_plane(master, config)
+    logger.info("master gRPC on %s:%d%s", config.master.host, grpc_port,
+                " (mutual TLS)" if config.master.ssl_mode else "")
     master.serve_background()
     if args.config:
         def on_change(new_cfg):
@@ -87,7 +145,27 @@ def master_main() -> None:
             master.trigger()
 
         ConfigWatcher(args.config, on_change).start()
-    threading.Event().wait()
+
+    def stop():
+        master.shutdown()
+        grpc_server.stop(None)
+
+    _serve_until_signal(stop)
+
+
+def _tls_flags(parser) -> None:
+    """gorse's node flags for the master's TLS (cmd/gorse-worker)."""
+    parser.add_argument("--ssl-mode", action="store_true",
+                        help="reach the master's gRPC plane over mutual TLS")
+    parser.add_argument("--ssl-ca", default="", help="CA bundle of the master's certificate")
+    parser.add_argument("--ssl-cert", default="", help="this node's certificate")
+    parser.add_argument("--ssl-key", default="", help="this node's key")
+
+
+def _tls_of(args):
+    from ..utils.tls import TLSConfig
+
+    return TLSConfig(args.ssl_ca, args.ssl_cert, args.ssl_key) if args.ssl_mode else None
 
 
 def server_main() -> None:
@@ -106,12 +184,13 @@ def server_main() -> None:
     parser.add_argument("--master-port", type=int, default=8088)
     parser.add_argument("--http-host", "--host", dest="http_host", default="127.0.0.1")
     parser.add_argument("--http-port", "--port", dest="http_port", type=int, default=8087)
+    _tls_flags(parser)
     args = parser.parse_args()
     _logging()
     master_url = args.master or f"http://{args.master_host}:{args.master_port}"
-    node = ServerNode(master_url, api_key=args.api_key)
+    node = ServerNode(master_url, api_key=args.api_key, tls=_tls_of(args))
     node.serve(args.http_host, args.http_port)
-    threading.Event().wait()
+    _serve_until_signal(node.shutdown)
 
 
 def worker_main() -> None:
@@ -129,11 +208,19 @@ def worker_main() -> None:
     parser.add_argument("--http-host", dest="http_host", default="127.0.0.1")
     parser.add_argument("--http-port", dest="http_port", type=int, default=0)
     parser.add_argument("--meta-timeout", type=float, default=10.0)
+    _tls_flags(parser)
     args = parser.parse_args()
     _logging()
     master_url = args.master or f"http://{args.master_host}:{args.master_port}"
-    node = WorkerNode(master_url, meta_timeout=args.meta_timeout, api_key=args.api_key)
+    node = WorkerNode(master_url, meta_timeout=args.meta_timeout, api_key=args.api_key,
+                      tls=_tls_of(args))
     logger.info("worker %s on device %s", node.client.node_id, node.device)
     if args.http_port:
         node.serve_http(args.http_host, args.http_port)
-    node.serve()
+    loop = node.serve_background()
+
+    def stop():
+        node.shutdown()
+        loop.join(timeout=5.0)
+
+    _serve_until_signal(stop, loop)

@@ -17,8 +17,8 @@ shard; ``serve`` answers REST requests and repeats the cycle every
 
 The REST surface is the master's, ``MasterRestServer`` (serve/dashboard.py):
 the public API with the dashboard, admin and node-sync routes, as the
-reference's in-one node serves it. Tracing is not ported:
-``tracing.enable = true`` raises (ROADMAP.md M21).
+reference's in-one node serves it. The node installs the tracer the
+config's ``[tracing]`` names (utils/tracing.py), and ``shutdown`` flushes it.
 """
 
 from __future__ import annotations
@@ -36,6 +36,7 @@ from ..storage.meta import MetaStore
 from ..storage.object import open_blob_store_from_config
 from ..storage.vectors import open_vector_store
 from ..utils.config import Config, default_config, load_config
+from ..utils.tracing import configure_from, tracer
 from .dashboard import MasterRestServer
 from .master import Master
 from .worker import Worker
@@ -50,8 +51,7 @@ class InOneNode:
     def __init__(self, config: Config | None = None, workdir: str | None = None,
                  device=None) -> None:
         self.config = config or Config()
-        if self.config.tracing.enable:
-            raise NotImplementedError("tracing is not ported yet: ROADMAP.md M21")
+        configure_from(self.config)
         self.device = resolve_device(device)
         self.workdir = workdir or tempfile.mkdtemp(prefix="gorse_tpu_torch_")
         db = self.config.database
@@ -140,10 +140,12 @@ class InOneNode:
         running after a 5 s wait."""
         self._stop.set()
         self.rest.shutdown()
+        stopped = True
         if self._loop_thread:
             self._loop_thread.join(timeout=5.0)
-            return not self._loop_thread.is_alive()
-        return True
+            stopped = not self._loop_thread.is_alive()
+        tracer().flush()  # the trailing spans, fewer than a batch
+        return stopped
 
 
 def main() -> None:

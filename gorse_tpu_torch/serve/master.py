@@ -28,8 +28,10 @@ on the card; the best parameters go to the meta store for the next fit.
 starts the data store's search-column reconcile on a thread.
 
 With more than one card (or a joined process group) the CF, eALS and CTR
-fits shard over ``training_mesh`` (parallel/). Not ported yet: the tracer
-flush at shutdown (ROADMAP.md M21).
+fits shard over ``training_mesh`` (parallel/). When the master's gRPC plane
+proxies its stores (protocol/rpc.py sets ``grpc_proxy_target``), ``get_meta``
+hands the nodes ``proxy://`` URLs for its local data and cache stores;
+``shutdown`` flushes the tracer.
 """
 
 from __future__ import annotations
@@ -69,6 +71,7 @@ from ..utils.config import Config, NonPersonalizedConfigEntry
 from ..utils.expression import match_any
 from ..utils.gcpause import gc_paused
 from ..utils.sizeof import deep_size
+from ..utils.tracing import tracer
 from .metrics import MetricsRegistry
 from .progress import ProgressTracker
 
@@ -147,9 +150,22 @@ class Master:
 
     def get_meta(self) -> dict:
         """Config JSON, active model ids and peer lists, as workers and
-        servers poll them."""
+        servers poll them. A master that proxies its node-local stores
+        over gRPC names the proxy in place of their URLs, which hold only
+        on its own host (gorse: worker/worker.go:164-223,
+        server/server.go:177-226)."""
+        config_json = self.config.to_json()
+        target = getattr(self, "grpc_proxy_target", None)
+        if target:
+            cfg = json.loads(config_json)
+            db = cfg.get("database", {})
+            for store_key in ("data_store", "cache_store"):
+                url = db.get(store_key, "")
+                if url.startswith(("memory://", "sqlite://")) or url in ("memory", "sqlite"):
+                    db[store_key] = f"proxy://{target}"
+            config_json = json.dumps(cfg)
         return {
-            "config": self.config.to_json(),
+            "config": config_json,
             "cf_model_id": self.meta.get(COLLABORATIVE_FILTERING_MODEL) or "",
             "ctr_model_id": self.meta.get(CLICK_THROUGH_RATE_MODEL) or "",
             "servers": [n.uuid for n in self.meta.list_nodes("server")],
@@ -846,3 +862,4 @@ class Master:
         self._trigger.set()
         if self._thread:
             self._thread.join(timeout=5.0)
+        tracer().flush()  # the trailing spans, fewer than a batch

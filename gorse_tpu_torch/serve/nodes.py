@@ -2,15 +2,19 @@
 gorse_tpu/serve/nodes.py).
 
 Nodes register with the master, poll it for the config, the model ids and
-the peer lists, and serve or compute against the shared stores, as gorse's
-cmd/gorse-server and cmd/gorse-worker do. gorse's gRPC Master service
-(GetMeta, PushProgress) maps to the master's HTTP ``POST /api/admin/meta``
-and ``/api/admin/progress`` (serve/dashboard.py); the stores are shared
-through their URLs (SQLite files here). A ``memory://`` store would be a
-private, empty one in each node's process: gorse's master hands its nodes
-its gRPC storage proxy for such stores, which is not ported (ROADMAP.md,
-M21), so a node refuses them. ``WorkerNode`` runs its pipeline on
-``device`` (``None``: the card; without CUDA it raises).
+the peer lists, and serve or compute against the stores the config names,
+as gorse's cmd/gorse-server and cmd/gorse-worker do. gorse's gRPC Master
+service (GetMeta, PushProgress) maps to the master's HTTP ``POST
+/api/admin/meta`` and ``/api/admin/progress`` (serve/dashboard.py). A
+master whose data store is node-local runs its gRPC storage proxy
+(cmd/nodes_main.py) and names it in the config it hands out: the nodes
+open ``proxy://host:port`` stores (storage/proxy.py), over mutual TLS with
+``tls``, gorse's ``--ssl-*`` flags. A ``memory://`` store that still
+arrives (a master without the proxy) would be a private, empty one in the
+node's process, so a node refuses it (``UnsharedStoreError``). With
+``tracing.enable`` in the config, the server node traces its requests as
+gorse's server does. ``WorkerNode`` runs its pipeline on ``device``
+(``None``: the card; without CUDA it raises).
 """
 
 from __future__ import annotations
@@ -29,10 +33,15 @@ from ..storage.cache import open_cache_store_from_config
 from ..storage.data import open_data_store_from_config
 from ..storage.object import open_blob_store_from_config
 from ..utils.config import Config
+from ..utils.tracing import configure_from
 from .rest import RestServer
 from .worker import Worker
 
 logger = logging.getLogger(__name__)
+
+
+class UnsharedStoreError(RuntimeError):
+    """The master names a store that lives only in its own process."""
 
 
 def _shared_stores(config: Config) -> None:
@@ -43,12 +52,13 @@ def _shared_stores(config: Config) -> None:
     for name in ("data_store", "cache_store"):
         url = getattr(config.database, name)
         if url.startswith("memory://") or url == "memory":
-            raise NotImplementedError(
-                f"the master's {name} {url!r} lives in its own process and nodes reach it "
-                "only through the master's gRPC storage proxy, which is not ported yet: "
-                "ROADMAP.md M21 (give the master shared stores: mysql://, postgres://, "
-                "clickhouse:// or mongodb:// for data, redis://, mysql://, postgres:// or "
-                "mongodb:// for the cache, or sqlite:// files on one host)")
+            raise UnsharedStoreError(
+                f"the master's {name} {url!r} lives in its own process: nodes reach it "
+                "through the master's gRPC storage proxy, which a master started by "
+                "gorse-tpu-torch-master runs and names in the meta as proxy://host:port; "
+                "this master handed out the store's own URL (give it its gRPC plane, or "
+                "shared stores: mysql://, postgres://, redis://, mongodb:// or sqlite:// "
+                "files on one host)")
 
 
 class MasterClient:
@@ -100,9 +110,11 @@ class ServerNode:
     """REST frontend node (reference: server/server.go): syncs config from
     the master each meta_timeout, serves the public API from the stores."""
 
-    def __init__(self, master_url: str, meta_timeout: float = 10.0, api_key: str = "") -> None:
+    def __init__(self, master_url: str, meta_timeout: float = 10.0, api_key: str = "",
+                 tls=None) -> None:
         self.client = MasterClient(master_url, "server", api_key=api_key)
         self.meta_timeout = meta_timeout
+        self.tls = tls  # utils.tls.TLSConfig for proxy:// stores
         self.config: Config | None = None
         self.rest: RestServer | None = None
         self._stop = threading.Event()
@@ -114,8 +126,9 @@ class ServerNode:
         if self.config is None or new_config.to_json() != self.config.to_json():
             _shared_stores(new_config)
             self.config = new_config
-            data = open_data_store_from_config(new_config.database)
-            cache = open_cache_store_from_config(new_config.database)
+            configure_from(new_config)
+            data = open_data_store_from_config(new_config.database, tls=self.tls)
+            cache = open_cache_store_from_config(new_config.database, tls=self.tls)
             if self.rest is None:
                 self.rest = RestServer(
                     new_config, data, cache, api_key=new_config.server.api_key
@@ -126,7 +139,8 @@ class ServerNode:
                 self.rest.cache = cache
                 # api-key rotation must take effect without a restart
                 self.rest.api_key = new_config.server.api_key
-            logger.info("server config synced from master")
+            logger.info("server config synced from master: data %s, cache %s",
+                        new_config.database.data_store, new_config.database.cache_store)
 
     def serve(self, host: str = "127.0.0.1", port: int = 8087):
         self.sync()
@@ -154,11 +168,12 @@ class WorkerNode:
 
     def __init__(
         self, master_url: str, meta_timeout: float = 10.0, node_id: str | None = None,
-        api_key: str = "", device=None,
+        api_key: str = "", device=None, tls=None,
     ) -> None:
         self.device = resolve_device(device)
         self.client = MasterClient(master_url, "worker", node_id=node_id, api_key=api_key)
         self.meta_timeout = meta_timeout
+        self.tls = tls  # utils.tls.TLSConfig for proxy:// stores
         self.config: Config | None = None
         self.worker: Worker | None = None
         self._stop = threading.Event()
@@ -170,13 +185,15 @@ class WorkerNode:
         if self.worker is None or new_config.to_json() != self.config.to_json():
             _shared_stores(new_config)
             self.config = new_config
-            data = open_data_store_from_config(new_config.database)
-            cache = open_cache_store_from_config(new_config.database)
+            data = open_data_store_from_config(new_config.database, tls=self.tls)
+            cache = open_cache_store_from_config(new_config.database, tls=self.tls)
             blob = open_blob_store_from_config(
                 new_config.blob,
                 new_config.database.blob_store,
                 os.path.join(tempfile.gettempdir(), "gorse_tpu_blobs"),
             )
+            logger.info("worker config synced from master: data %s, cache %s",
+                        new_config.database.data_store, new_config.database.cache_store)
             self.worker = Worker(
                 new_config, data, cache, blob, node_id=self.client.node_id,
                 device=self.device,
@@ -192,7 +209,7 @@ class WorkerNode:
         while not self._stop.is_set():
             try:
                 self.sync_once()
-            except NotImplementedError:
+            except UnsharedStoreError:
                 raise  # stores no node can share: no later cycle would do better
             except Exception as e:  # noqa: BLE001
                 logger.error("worker cycle failed: %s", e)

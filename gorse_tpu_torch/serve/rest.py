@@ -7,9 +7,10 @@ recommend), health checks and measurements, with X-API-Key auth and the
 reference's JSON shapes, status codes and error texts; ``/apidocs.json``
 (the OpenAPI document generated from the route table) and ``/metrics``.
 Two front ends drive the same ``dispatch``: the event-loop server of
-serve/asynchttp.py (the default) and the stdlib ThreadingHTTPServer.
-
-Not ported: request tracing and the event recorder (ROADMAP.md, M21).
+serve/asynchttp.py (the default) and the stdlib ThreadingHTTPServer. Each
+request runs in a span of the process's tracer (utils/tracing.py) named
+``METHOD /route/{template}``, a child of the caller's ``traceparent``, with
+its status code, and goes to the event recorder (utils/events.py).
 """
 
 from __future__ import annotations
@@ -28,7 +29,9 @@ from ..storage.cache import CacheStore, key
 from ..storage.data import DataStore
 from ..storage.types import Feedback, Item, Score, User
 from ..utils.config import Config
+from ..utils.events import get_recorder
 from ..utils.expression import match_any
+from ..utils.tracing import tracer
 
 logger = logging.getLogger(__name__)
 
@@ -470,20 +473,27 @@ class RestServer:
                     headers=headers,
                 )
                 t0 = time.perf_counter()
-                try:
-                    out = 200, handler(req)
-                except HTTPError as e:
-                    out = e.status, {"error": e.message}
-                except Exception as e:  # noqa: BLE001 — surface as 500 like the reference
-                    logger.exception("handler error")
-                    out = 500, {"error": str(e)}
+                with tracer().span(f"{method} {template}",
+                                   traceparent=headers.get("traceparent"), method=method) as span:
+                    try:
+                        out = 200, handler(req)
+                    except HTTPError as e:
+                        out = e.status, {"error": e.message}
+                    except Exception as e:  # noqa: BLE001 — surface as 500 like the reference
+                        logger.exception("handler error")
+                        out = 500, {"error": str(e)}
+                    if span is not None:
+                        span.set_attribute("status_code", out[0])
+                        if out[0] >= 500:
+                            span.status = f"error: {out[1].get('error', '')}"
                 self._observe(method, template, out[0], time.perf_counter() - t0)
                 return out
         return 404, {"error": "not found"}
 
     def _observe(self, method: str, route: str, status: int, seconds: float) -> None:
-        """Request metrics (reference: gorse_server_rest_api_request_seconds,
-        server/metrics.go:26)."""
+        """Request metrics and the event recorder (reference:
+        gorse_server_rest_api_request_seconds, server/metrics.go:26)."""
+        get_recorder().record_api(method, route, status, seconds)
         metrics = getattr(self, "metrics", None)
         if metrics is not None:
             metrics.counter_inc(

@@ -459,24 +459,27 @@ def open_cache_store(
     table_prefix: str = "",
     client_name: str = "",
     max_search_results: int = 0,
+    tls=None,
 ) -> CacheStore:
     """Open a cache store by URL: ``memory://``, ``sqlite://<path>``
     (``sqlite://`` alone is an in-memory database), ``none://``,
     ``redis://`` and ``redis+cluster://`` (storage/redis.py), the server SQL
     stores ``postgres://``/``postgresql://`` and ``mysql://``
     (storage/sqlstores.py) and ``mongodb://`` (storage/mongo.py).
+    ``proxy://host:port`` (the master's gRPC storage proxy,
+    storage/proxy.py; over mutual TLS with ``tls``, a utils.tls.TLSConfig).
     ``table_prefix`` applies to server-SQL tables, MongoDB collections and
     Redis keys; ``client_name`` and ``max_search_results`` are the Redis
-    knobs. ``proxy://`` (the master's gRPC storage proxy) is not ported
-    yet."""
+    knobs."""
     if url.startswith("memory://") or url == "memory":
         return MemoryCacheStore()
     if url.startswith("sqlite://"):
         path = url[len("sqlite://"):] or ":memory:"
         return SQLiteCacheStore(path)
     if url.startswith("proxy://"):
-        raise NotImplementedError(
-            "cache store 'proxy' is not ported yet: ROADMAP.md M21 (the gRPC plane)")
+        from .proxy import ProxyCacheStore
+
+        return ProxyCacheStore(url[len("proxy://"):], tls=tls)
     if url.startswith(("redis://", "redis+cluster://")):
         from .redis import RedisCacheStore
 
@@ -499,12 +502,14 @@ def open_cache_store(
     raise ValueError(f"unsupported cache store URL {url!r}")
 
 
-def open_cache_store_from_config(db_cfg) -> CacheStore:
+def open_cache_store_from_config(db_cfg, tls=None) -> CacheStore:
     """Open the cache store a DatabaseConfig names (with its
-    cache_table_prefix or table_prefix and the Redis client options)."""
+    cache_table_prefix or table_prefix and the Redis client options;
+    ``tls`` for ``proxy://``)."""
     return open_cache_store(
         db_cfg.cache_store,
         table_prefix=db_cfg.effective_cache_prefix(),
         client_name=db_cfg.cache_client_name,
         max_search_results=db_cfg.redis.max_search_results,
+        tls=tls,
     )

@@ -642,22 +642,24 @@ class SQLiteDataStore(DataStore):
         self._conn.close()
 
 
-def open_data_store(url: str, table_prefix: str = "") -> DataStore:
+def open_data_store(url: str, table_prefix: str = "", tls=None) -> DataStore:
     """Open a data store by URL: ``memory://``, ``sqlite://<path>``
     (``sqlite://`` alone is an in-memory database; a relative path is
     relative to the working directory), ``none://``, the server SQL stores
     ``postgres://``/``postgresql://``, ``mysql://`` and ``clickhouse://``
-    (storage/sqlstores.py) and ``mongodb://`` (storage/mongo.py).
-    ``table_prefix`` applies to the server-SQL and MongoDB backends.
-    ``proxy://`` (the master's gRPC storage proxy) is not ported yet."""
+    (storage/sqlstores.py), ``mongodb://`` (storage/mongo.py) and
+    ``proxy://host:port`` (the master's gRPC storage proxy, storage/proxy.py;
+    over mutual TLS with ``tls``, a utils.tls.TLSConfig). ``table_prefix``
+    applies to the server-SQL and MongoDB backends."""
     if url.startswith("memory://") or url == "memory":
         return MemoryDataStore()
     if url.startswith("sqlite://"):
         path = url[len("sqlite://"):] or ":memory:"
         return SQLiteDataStore(path)
     if url.startswith("proxy://"):
-        raise NotImplementedError(
-            "data store 'proxy' is not ported yet: ROADMAP.md M21 (the gRPC plane)")
+        from .proxy import ProxyDataStore
+
+        return ProxyDataStore(url[len("proxy://"):], tls=tls)
     if url.split("://", 1)[0] in ("postgres", "postgresql", "mysql", "clickhouse"):
         from .sqlstores import open_sql_data_store
 
@@ -673,7 +675,8 @@ def open_data_store(url: str, table_prefix: str = "") -> DataStore:
     raise ValueError(f"unsupported data store URL {url!r}")
 
 
-def open_data_store_from_config(db_cfg) -> DataStore:
+def open_data_store_from_config(db_cfg, tls=None) -> DataStore:
     """Open the data store a DatabaseConfig names (with its
-    data_table_prefix or table_prefix)."""
-    return open_data_store(db_cfg.data_store, table_prefix=db_cfg.effective_data_prefix())
+    data_table_prefix or table_prefix; ``tls`` for ``proxy://``)."""
+    return open_data_store(db_cfg.data_store, table_prefix=db_cfg.effective_data_prefix(),
+                           tls=tls)

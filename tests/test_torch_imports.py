@@ -1,6 +1,6 @@
 """The port stands alone: importing every module of gorse_tpu_torch loads
-neither JAX nor anything of gorse_tpu, and its entry points default to the
-card, raising where there is none."""
+neither JAX, grpc, protobuf nor anything of gorse_tpu, and its entry points
+default to the card, raising where there is none."""
 
 import json
 import os
@@ -41,13 +41,42 @@ def test_port_imports_no_jax_and_no_reference():
                  "cmd.bench", "cmd.cli", "native", "native.hnsw", "storage.bson",
                  "storage.chhttp", "storage.miniobj", "storage.minisql", "storage.mongo",
                  "storage.mongowire", "storage.mysqlwire", "storage.pgwire", "storage.redis",
-                 "storage.resp", "storage.sqlstores", "storage.vectordb"):
+                 "storage.resp", "storage.sqlstores", "storage.vectordb", "protocol",
+                 "protocol.pb", "protocol.h2", "protocol.grpcwire", "protocol.rpc",
+                 "storage.proxy", "utils.tls", "utils.tracing", "utils.events", "utils.log"):
         assert f"gorse_tpu_torch.{name}" in modules
     code = (
         "import importlib, json, sys\n"
         f"for m in {modules!r}: importlib.import_module(m)\n"
         "print(json.dumps(sorted(n for n in sys.modules"
-        " if n.split('.')[0] in ('jax', 'jaxlib', 'gorse_tpu'))))\n"
+        " if n.split('.')[0] in ('jax', 'jaxlib', 'gorse_tpu', 'grpc')"
+        " or n.startswith('google.protobuf'))))\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run(
+        [sys.executable, "-c", code], cwd=ROOT, env=env, capture_output=True, text=True,
+        timeout=120, check=True,
+    )
+    assert json.loads(out.stdout.strip().splitlines()[-1]) == []
+
+
+def test_grpc_plane_imports_neither_grpc_nor_protobuf():
+    """The gRPC plane (protocol/, storage/proxy.py, utils/tls.py,
+    utils/tracing.py) stands on the port's own HTTP/2 and message
+    encoding: in a fresh interpreter, importing it and opening a proxy
+    store (no call made) loads none of jax, grpc, google.protobuf or
+    gorse_tpu."""
+    code = (
+        "import json, sys\n"
+        "import gorse_tpu_torch.protocol, gorse_tpu_torch.storage.proxy\n"
+        "import gorse_tpu_torch.utils.tls, gorse_tpu_torch.utils.tracing\n"
+        "from gorse_tpu_torch.storage.data import open_data_store\n"
+        "from gorse_tpu_torch.utils.tracing import make_exporter\n"
+        "open_data_store('proxy://127.0.0.1:1').close()\n"
+        "make_exporter('otlp', '127.0.0.1:1')\n"
+        "print(json.dumps(sorted(n for n in sys.modules"
+        " if n.split('.')[0] in ('jax', 'jaxlib', 'gorse_tpu', 'grpc')"
+        " or n.startswith('google.protobuf'))))\n"
     )
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     out = subprocess.run(

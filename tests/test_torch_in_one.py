@@ -317,12 +317,30 @@ def test_reconcile_builds_the_search_index(tmp_path):
 
 
 def test_tracing_and_the_card(tmp_path):
+    """``tracing.enable`` installs the config's tracer (the in-memory buffer
+    without a collector endpoint); a request through the node's REST
+    server is a span."""
+    from gorse_tpu_torch.utils import tracing
     from gorse_tpu_torch.utils.config import Config
 
     cfg = Config()
     cfg.tracing.enable = True
-    with pytest.raises(NotImplementedError, match="M21"):
-        InOneNode(cfg, workdir=str(tmp_path), device="cpu")
+    cfg.tracing.sampler = "ratio"
+    cfg.tracing.ratio = 0.5
+    try:
+        node = InOneNode(cfg, workdir=str(tmp_path), device="cpu")
+        t = tracing.tracer()
+        assert t.enabled and t.sample_ratio == 0.5 and t.exporter is None
+        parent = "00-" + "a" * 32 + "-" + "b" * 16 + "-01"
+        status, _ = node.rest.dispatch("GET", "/api/latest", {}, None, {"traceparent": parent})
+        assert status == 200
+        span = t.export()[-1]
+        assert (span["name"], span["trace_id"], span["parent_id"]) == \
+            ("GET /api/latest", "a" * 32, "b" * 16)
+        assert span["attrs"]["status_code"] == 200
+        node.shutdown()
+    finally:
+        tracing.configure(enabled=False)
 
 
 def test_the_entry_point_serves_and_stops_on_sigint(nodes, tmp_path):

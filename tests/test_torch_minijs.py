@@ -3,14 +3,15 @@ held against gorse_tpu/utils/minijs.py: every test of tests/test_minijs.py
 runs with that module's names bound to the port's, and its ``ev`` evaluates
 each expression in both interpreters, which must agree exactly (the same
 value, type for type, NaN for NaN, or the same exception with the same
-message; ``Math.random`` from the same seed) before the test's own
-assertions check the port's value.
+message; ``Math.random`` from the same seed, ``Date.now`` from the same
+frozen clock) before the test's own assertions check the port's value.
 """
 
 import importlib.util
 import inspect
 import math
 import random
+import time
 from pathlib import Path
 
 import pytest
@@ -85,6 +86,8 @@ def test_reference_case_through_both_interpreters(case, monkeypatch):
                  "to_python"):
         monkeypatch.setattr(REF_TESTS, name, getattr(port_js, name))
     monkeypatch.setattr(REF_TESTS, "ev", both_ev)
+    # each interpreter reads the clock itself: both must read the same instant
+    monkeypatch.setattr(time, "time", lambda: 1.75e9)
     if "." in case:
         cls_name, method = case.split(".")
         getattr(getattr(REF_TESTS, cls_name)(), method)()

@@ -23,6 +23,7 @@ import urllib.request
 
 import numpy as np
 import pytest
+import torch
 
 from gorse_tpu.logics.cf import MatrixFactorizationIndex as RefIndex
 from gorse_tpu.serve.dashboard import MasterRestServer as RefMasterRestServer
@@ -36,7 +37,7 @@ from gorse_tpu.storage.meta import MetaStore as RefMetaStore
 from gorse_tpu.utils.config import Config as RefConfig
 from gorse_tpu_torch.serve.dashboard import MasterRestServer
 from gorse_tpu_torch.serve.master import Master
-from gorse_tpu_torch.serve.nodes import MasterClient, ServerNode, WorkerNode
+from gorse_tpu_torch.serve.nodes import MasterClient, ServerNode, UnsharedStoreError, WorkerNode
 from gorse_tpu_torch.storage import cache as ck
 from gorse_tpu_torch.storage.blob import BlobStore
 from gorse_tpu_torch.storage.cache import open_cache_store
@@ -167,9 +168,11 @@ def test_worker_http_health_and_metrics(master_env):
 @pytest.mark.parametrize("store", ["data_store", "cache_store"])
 def test_nodes_refuse_a_master_on_memory_stores(store, tmp_path):
     """A master on a ``memory://`` store holds it in its own process; a node
-    would open a private, empty one (gorse's nodes reach such stores through
-    the master's gRPC proxy, M21), so the server's first sync and the
-    worker's cycle raise instead of dropping acknowledged writes."""
+    would open a private, empty one. A master that runs its gRPC plane
+    hands out ``proxy://`` in its place (tests/test_torch_proxy.py); one
+    without it hands out the URL as it is, so the server's first sync and
+    the worker's cycle raise, naming ``proxy://``, instead of dropping
+    acknowledged writes."""
     config = _configure(Config(), tmp_path)
     setattr(config.database, store, "memory://")
     master = Master(config, open_data_store(config.database.data_store),
@@ -181,13 +184,13 @@ def test_nodes_refuse_a_master_on_memory_stores(store, tmp_path):
     url = f"http://127.0.0.1:{port}"
     try:
         server = ServerNode(url)
-        with pytest.raises(NotImplementedError, match=f"{store}.*M21"):
+        with pytest.raises(UnsharedStoreError, match=f"{store}.*proxy://"):
             server.serve("127.0.0.1", _free_port())
         assert server.rest is None
         worker = WorkerNode(url, meta_timeout=0.1, device="cpu")
-        with pytest.raises(NotImplementedError, match=f"{store}.*M21"):
+        with pytest.raises(UnsharedStoreError, match=f"{store}.*proxy://"):
             worker.sync_once()
-        with pytest.raises(NotImplementedError, match="M21"):
+        with pytest.raises(UnsharedStoreError, match="proxy://"):
             worker.serve()  # the cycle's loop does not swallow it
         assert worker.worker is None
     finally:
@@ -303,12 +306,17 @@ def test_nodes_across_packages(tmp_path, monkeypatch):
 
 @pytest.mark.parametrize("section,name", [("tracing", "enable"), ("master", "ssl_mode")])
 def test_master_process_raises_for_m21(section, name, tmp_path):
-    """The master process's tracing and its gRPC TLS are not ported: the
-    master that ``master_main`` builds refuses either, naming M21."""
-    from gorse_tpu_torch.cmd.nodes_main import build_master
+    """The master process's tracing and its gRPC TLS no longer raise: the
+    master that ``master_main`` builds accepts either, and its gRPC plane
+    is mutually authenticated with ``master.ssl_mode``."""
+    from gorse_tpu_torch.cmd.nodes_main import build_master, grpc_tls
+    from gorse_tpu_torch.utils.tls import TLSConfig
 
     config = Config()
     config.database.blob_store = str(tmp_path / "blobs")
+    config.master.ssl_ca, config.master.ssl_cert, config.master.ssl_key = "ca", "cert", "key"
     setattr(getattr(config, section), name, True)
-    with pytest.raises(NotImplementedError, match="M21"):
-        build_master(config, device="cpu")
+    master = build_master(config, device="cpu")
+    assert master.device == torch.device("cpu")
+    want = TLSConfig("ca", "cert", "key") if section == "master" else None
+    assert grpc_tls(config) == want

@@ -430,12 +430,16 @@ def _dial_of(pkg: str, url: str, opener: str, monkeypatch) -> tuple:
                                  "postgres://u:p@h/db", "postgresql://u:p@h/db",
                                  "clickhouse://h:8123/db", "mongodb://h:27017/db"])
 def test_data_store_schemes_not_ported_raise_m21(url, monkeypatch):
-    """Only ``proxy://`` still raises, naming M21 (the gRPC plane); every
-    other scheme dials what the reference's opener dials, with the same
+    """Every scheme opens what the reference's opener opens: ``proxy://``
+    the proxy store on the same target (its channel connects at the first
+    call), the others dial what the reference dials, with the same
     arguments (caught here before any connection)."""
     if url.startswith("proxy://"):
-        with pytest.raises(NotImplementedError, match="M21"):
-            PD.open_data_store(url)
+        got, want = PD.open_data_store(url), RD.open_data_store(url)
+        assert type(got).__name__ == type(want).__name__ == "ProxyDataStore"
+        assert got._channel.target == url[len("proxy://"):]
+        got.close()
+        want.close()
         return
     assert _dial_of("port", url, "data", monkeypatch) == _dial_of("ref", url, "data", monkeypatch)
 
@@ -444,11 +448,14 @@ def test_data_store_schemes_not_ported_raise_m21(url, monkeypatch):
                                  "mysql://u:p@h/db", "postgres://u:p@h/db",
                                  "postgresql://u:p@h/db", "mongodb://h/db"])
 def test_cache_store_schemes_not_ported_raise_m21(url, monkeypatch):
-    """As for the data store: ``proxy://`` raises naming M21, the rest dial
-    what the reference dials."""
+    """As for the data store: ``proxy://`` opens the proxy store on the
+    same target, the rest dial what the reference dials."""
     if url.startswith("proxy://"):
-        with pytest.raises(NotImplementedError, match="M21"):
-            PC.open_cache_store(url)
+        got, want = PC.open_cache_store(url), RC.open_cache_store(url)
+        assert type(got).__name__ == type(want).__name__ == "ProxyCacheStore"
+        assert got._channel.target == url[len("proxy://"):]
+        got.close()
+        want.close()
         return
     assert _dial_of("port", url, "cache", monkeypatch) == \
         _dial_of("ref", url, "cache", monkeypatch)

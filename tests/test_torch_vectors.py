@@ -380,14 +380,16 @@ def test_open_vector_store(url, kind):
 @pytest.mark.parametrize("url", ["hnsw://", "proxy://h:1", "qdrant://h:6333",
                                  "weaviate://h:8080", "milvus://u:p@h:19530"])
 def test_backends_not_ported_name_their_roadmap_item(url):
-    """Only ``proxy://`` still raises, naming its ROADMAP item (M21, the
-    gRPC plane); ``hnsw://`` and the vector databases open the port's
-    counterpart of the reference's class, a database's client with the
-    reference's host, port, TLS and credentials (it reaches the network
-    only when called)."""
+    """Every backend opens the port's counterpart of the reference's class:
+    ``proxy://`` the proxy store on the same target, ``hnsw://`` and the
+    vector databases a database's client with the reference's host, port,
+    TLS and credentials (each reaches the network only when called)."""
     if url.startswith("proxy://"):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md M21"):
-            V.open_vector_store(url, device="cpu")
+        got, want = V.open_vector_store(url, device="cpu"), RV.open_vector_store(url)
+        assert type(got).__name__ == type(want).__name__ == "ProxyVectorStore"
+        assert got._channel.target == url[len("proxy://"):]
+        got.close()
+        want.close()
     else:
         got, want = V.open_vector_store(url, device="cpu"), RV.open_vector_store(url)
         assert type(got).__name__ == type(want).__name__
