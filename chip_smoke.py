@@ -289,8 +289,8 @@ kernel's own block maxima.
    bench: ``cf`` (bpr with ``bpr_epoch`` launched, then als) and ``ctr`` on
    the card within ``BENCH_NDCG_TOL`` / ``BENCH_AUC_TOL`` of the same
    command on the CPU, ``retrieval`` at 1M through K4-K6 beside the
-   library route, ``embedding`` against the mock server, ``reranker``
-   naming M21; the CLI's ``health``, ``get user``, ``pipeline show`` and
+   library route, ``embedding`` and ``reranker`` against the mock server;
+   the CLI's ``health``, ``get user``, ``pipeline show`` and
    ``recommend`` against an in-one node on the card.
 14. The in-one node over the remote stores. ``native/fastdata.cpp`` and
    ``native/hnsw.cpp`` must build with ``g++``. The port's MiniMySQL,
@@ -339,6 +339,32 @@ kernel's own block maxima.
    ``GRPC_CALLS`` unary ``get_user`` calls over mTLS, the ``get_feedback``
    stream's rows/s, the download's MB/s, schedule -> served, REST p50/p99
    through the proxied cache; the phase within ``GRPC_PHASE_S``.
+16. The rest of the surface. Phase 10's rows for the first ``LLM_USERS``
+   users in data.sqlite; a master fits BPR (``bpr_epoch``); a worker with
+   ``ranker.type = "none"`` gives each user's recall list (K4-K6; 16 users
+   held against the plain top-k); a worker with ``ranker.type = "llm"``
+   asks the port's MockOpenAIServer, which echoes ``LLM_PROMPT`` (the
+   candidates' ids reversed, rendered by utils/template.py): each list
+   must be the recall list reversed and the completions as many as the
+   users; ``LLM_API_USERS`` users through a reranker API in this script
+   that answers in reverse, held the same. (c) ``ChatItemToItem`` with a
+   client over ``CHAT_ITEMS`` items with the mock's 128-float hash
+   embeddings, on the card and on the CPU (the same answers): neighbour
+   ids equal except within ``CHAT_TIE``, scores within ``CHAT_RTOL``. (d)
+   ``GET /api/dump`` of that master, ``POST /api/restore`` into a second
+   over an empty SQLite file: every row equal, a second dump byte-equal,
+   the CSV and JSONL round trips byte-equal; the second master's fit and
+   worker launch K1 and K4-K6 and its lists are held against its index's
+   plain top-k. (e) OIDC against the port's MockOIDCProvider: /login ->
+   the provider -> /callback/oauth2 -> the session -> userinfo with the
+   provider's claims; tokens signed by another key or past their exp
+   refused; ``GET /`` the port's dashboard.html. (f) The in-one node over
+   ``mongodb://`` (the port's MiniMongo) for ``MONGO_USERS`` users' rows,
+   its lists equal ``search_users``; ``qdrant://``, ``weaviate://`` and
+   ``milvus://`` (the port's servers) synced with the serving items, their
+   top-10 equal to the card's exact ``MemoryVectorStore`` (recall 1.0).
+   Printed: each step's s, LLM-ranked users/s, dump MB/s, restore rows/s;
+   the phase within ``SURFACE_PHASE_S``.
 
 The last three lines of standard output are the kernels' JSON record, the
 card's ``name, power.limit`` as nvidia-smi gives them, and
@@ -536,7 +562,7 @@ SHARDED_EPOCH_TOL = {"p": FIRST_EPOCH_TOL, "q": 2e-4}
 # runs read at most 1.6e-6, twelve times under this limit
 SYNC4_TOL = 2e-5
 PHASES = ("2", "2b", "2c", "3", "4", "5", "6", "7", "7c", "8", "9", "10", "11", "12", "13",
-          "14", "15")
+          "14", "15", "16")
 # phase 14: the in-one node over the remote stores (the port's MiniMySQL,
 # MiniRedis and MiniS3 on 127.0.0.1, and hnsw://) on phase 10's rows for the
 # first REMOTE_USERS users. Cut from phase 10's 2,000 (time: the phase must
@@ -585,6 +611,21 @@ BENCH_AUC_TOL = 0.05
 # own; GRPC_CALLS unary calls timed
 GRPC_USERS, GRPC_HELD, GRPC_SAMPLE, GRPC_CALLS = 300, 30, 16, 1000
 GRPC_PHASE_S = 120  # the phase's own limit
+# phase 16: the rest of the surface on phase 10's rows for the first
+# LLM_USERS users: the LLM ranker through the chat completions (and
+# LLM_API_USERS through a reranker API), chat item-to-item, dump and
+# restore, OIDC, MiniMongo and the vector databases
+SURFACE_PHASE_S = 120  # the phase's own limit
+LLM_USERS = 200
+LLM_API_USERS = 20
+LLM_PROMPT = ('[{% for item in items|reverse %}"{{ item.item_id }}"{% if not loop.last %},'
+              '{% endif %}{% endfor %}]')
+CHAT_ITEMS, CHAT_DIM, CHAT_N = 2000, 128, 10
+CHAT_PROMPT = "{{ item.item_id }} sequel"
+CHAT_TIE = 1e-6  # card and CPU neighbours may swap where distances lie this close
+CHAT_RTOL = 1e-5  # relative, card against CPU
+MONGO_USERS = 3
+VECTOR_QUERIES, VECTOR_K = 16, 10
 TLS_DIR = ROOT / "tests" / "data" / "tls"
 SQ_REPLACES = {
     "block_max_sq": "gorse_tpu/ops/topk.py:361",
@@ -5012,11 +5053,10 @@ def phase_bench_cli(dev, smi: str) -> dict:
     check(emb["device"].startswith("cuda") and 0.0 <= emb["recall_vs_coconsumption"] <= 1.0,
           "bench embedding on the card")
     out["embedding"] = emb
-    try:
-        bench.main(["reranker"])
-        check(False, "bench reranker raises")
-    except NotImplementedError as e:
-        check("M21" in str(e), "bench reranker names M21")
+    reranker = last_json(run_main(bench.main, ["reranker"]))
+    check(reranker["users"] > 0 and 0.0 <= reranker["AUC"] <= 1.0,
+          "bench reranker ranks through the mock's chat completions")
+    out["reranker"] = reranker
     out["cli"] = cli_on_in_one(cli)
     log("  bench and CLI: " + json.dumps(out) + " | " + smi)
     return out
@@ -5330,16 +5370,7 @@ def remote_node(dev, smi: str, seed: int, tmp: Path, servers: dict, redis, earli
         t_step = time.perf_counter()
 
     # ---- the rows through mysql://, read back; the smaller copies
-    rng = np.random.default_rng(seed + 10)
-    picks = rng.integers(len(IN_ONE_TYPES), size=1 << 21)
-    reads = rng.integers(3, 6, size=1 << 21)
-
-    def feedback_type(n):
-        t = IN_ONE_TYPES[picks[n]]
-        return t, float(reads[n]) if t == "read" else 1.0
-
-    want = rows_of(neighbor_store(0, embedding=False, user_fields=USER_FIELDS,
-                                  feedback_type=feedback_type, n_users=REMOTE_USERS))
+    want = phase10_rows(seed, REMOTE_USERS)
     mysql_url = servers["mysql"].url()
     store = open_data_store(mysql_url)
     t0 = time.perf_counter()
@@ -5882,6 +5913,676 @@ def _grpc_run(run) -> dict:
     return out
 
 
+# ---------------------------------------------------------------- phase 16
+
+
+def phase10_rows(seed: int, n_users: int) -> list:
+    """Phase 10's rows (its feedback types drawn from ``seed``) for the
+    first ``n_users`` users, in ``rows_of``'s form."""
+    rng = np.random.default_rng(seed + 10)
+    picks = rng.integers(len(IN_ONE_TYPES), size=1 << 21)
+    reads = rng.integers(3, 6, size=1 << 21)
+
+    def feedback_type(n):
+        t = IN_ONE_TYPES[picks[n]]
+        return t, float(reads[n]) if t == "read" else 1.0
+
+    return rows_of(neighbor_store(0, embedding=False, user_fields=USER_FIELDS,
+                                  feedback_type=feedback_type, n_users=n_users))
+
+
+def hold_recall(what: str, index, data, cache, users: list, n: int, dev) -> None:
+    """Each user's collaborative list in ``cache``: the kernels' list of
+    its fetch (``n`` + its history) held tie-aware against the plain top-k
+    of the same index, and the cache equal to it after the user's items."""
+    from gorse_tpu_torch.ops import topk
+    from gorse_tpu_torch.storage import cache as ck
+
+    items = index._prepared_items
+    for uid in users:
+        seen = {fb.item_id for fb in data.get_user_feedback(uid)}
+        row = index.user_index.to_number(uid)
+        q = index.user_factors[row : row + 1]
+        fetch = n + len(seen)
+        s_k, i_k = topk.dot_topk(q, items, fetch, device=dev)
+        hold_lists(f"{what} {uid}: fetched list", (s_k, i_k), topk.dot_topk_plain(q, items, fetch),
+                   topk._pad_queries(q, items, topk.QUERY_TILE), items.table)
+        ids = [index.item_index.to_name(int(index._serving_rows[j])) for j in i_k[0].tolist()]
+        want = [(i, float(s)) for i, s in zip(ids, s_k[0].tolist()) if i not in seen]
+        got = [(s.id, s.score) for s in cache.search_scores(ck.COLLABORATIVE, uid)]
+        check(got == want[:n], f"{what} {uid}: the cache equals the kernels' list less the "
+              "user's items")
+
+
+def surface_config(mock=None, ranker: str = "none"):
+    """The phase's config: BPR (``MASTER_EPOCHS`` epochs) and collaborative
+    candidates only, no fallback, ranked by ``ranker`` with the reversing
+    prompt; with ``mock``, its OpenAI endpoint without rate limits."""
+    from gorse_tpu_torch.utils.config import Config
+
+    cfg = Config()
+    cfg.recommend.collaborative.type = "mf"
+    cfg.recommend.collaborative.fit_epoch = MASTER_EPOCHS
+    cfg.recommend.ranker.type = ranker
+    cfg.recommend.ranker.recommenders = ["collaborative"]
+    cfg.recommend.ranker.prompt = LLM_PROMPT
+    cfg.recommend.fallback.recommenders = []
+    if mock is not None:
+        cfg.openai.base_url, cfg.openai.auth_token = mock.base_url, mock.auth_token
+        cfg.openai.chat_completion_model = "mock"
+        cfg.openai.chat_completion_rpm = cfg.openai.embedding_rpm = 10**9
+        cfg.openai.chat_completion_tpm = cfg.openai.embedding_tpm = 10**12
+    return cfg
+
+
+class ReverseReranker:
+    """A reranker API: each request's document indices in reverse order,
+    scores descending; it counts its requests."""
+
+    def __init__(self) -> None:
+        import threading
+        from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+
+        owner = self
+        self.calls = 0
+
+        class Handler(BaseHTTPRequestHandler):
+            def log_message(self, *args):
+                pass
+
+            def do_POST(self):
+                body = json.loads(self.rfile.read(int(self.headers["Content-Length"])))
+                owner.calls += 1
+                n = len(body["documents"])
+                out = json.dumps({"results": [{"index": i, "relevance_score": float(i + 1)}
+                                              for i in range(n - 1, -1, -1)]}).encode()
+                self.send_response(200)
+                self.send_header("Content-Length", str(len(out)))
+                self.end_headers()
+                self.wfile.write(out)
+
+        self.httpd = ThreadingHTTPServer(("127.0.0.1", 0), Handler)
+        threading.Thread(target=self.httpd.serve_forever, daemon=True).start()
+        self.url = f"http://127.0.0.1:{self.httpd.server_port}/rerank"
+
+    def close(self) -> None:
+        self.httpd.shutdown()
+        self.httpd.server_close()
+
+
+def topk_launches() -> dict:
+    from gorse_tpu_torch.ops import topk
+
+    return {n: getattr(topk, n).launches for n in KERNELS}
+
+
+def want_launches(index, users: list, data, n: int) -> dict:
+    """K4-K6's launches that ``search_users(users, n, exclude=histories)``
+    makes: each 256-user chunk's route's (``worker_routes``)."""
+    want = dict.fromkeys(KERNELS, 0)
+    for route in worker_routes(index, users, data, n):
+        for kernel, c in route_launches(route, sq=False).items():
+            want[kernel] += c
+    return want
+
+
+def surface_llm(dev, seed: int, tmp: Path, mock) -> tuple[dict, object, object]:
+    """(a) and (b): the master's fit, the recall lists (``ranker.type =
+    "none"``), then the LLM ranking through the chat completions and
+    through the reranker API. Returns the result, the master and its
+    SQLite data store."""
+    import torch
+
+    from gorse_tpu_torch.ops import bpr_kernel
+    from gorse_tpu_torch.serve.master import Master
+    from gorse_tpu_torch.serve.worker import Worker
+    from gorse_tpu_torch.storage import cache as ck
+    from gorse_tpu_torch.storage.blob import BlobStore
+    from gorse_tpu_torch.storage.cache import MemoryCacheStore
+    from gorse_tpu_torch.storage.data import SQLiteDataStore
+    from gorse_tpu_torch.storage.meta import MetaStore
+
+    rows = phase10_rows(seed, LLM_USERS)
+    data = SQLiteDataStore(str(tmp / "data.sqlite"))
+    insert_rows(data, rows)
+    users = [u["user_id"] for u in rows[0]]
+    out = {"users_items_feedback": [len(t) for t in rows]}
+    cfg = surface_config(mock)
+    master = Master(cfg, data, MemoryCacheStore(), BlobStore(tmp / "blob"), MetaStore(),
+                    device=dev)
+    zero_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    master.train_collaborative_filtering(master.load_dataset())
+    torch.cuda.synchronize()
+    out["fit_s"] = time.perf_counter() - t0
+    out["fit_launches"] = {"bpr_epoch": bpr_kernel.bpr_epoch.launches}
+    check(out["fit_launches"]["bpr_epoch"] == MASTER_EPOCHS,
+          f"the master's fit launched bpr_epoch {out['fit_launches']['bpr_epoch']} times")
+
+    # ---- the recall lists: the same index with ranker.type = "none"
+    recall_cache = MemoryCacheStore()
+    plain = Worker(cfg, data, recall_cache, master.blob, node_id="recall", device=dev)
+    zero_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    check(plain.sync_and_recommend(master) == len(users), "the recall worker served every user")
+    torch.cuda.synchronize()
+    out["recall_s"] = time.perf_counter() - t0
+    out["recall_launches"] = topk_launches()
+    want = want_launches(plain.cf_index, users, data, cfg.recommend.cache_size)
+    check(out["recall_launches"] == want and want["block_max"] > 0,
+          f"the recall worker launched {out['recall_launches']}, want {want}")
+    recall = {u: [s.id for s in recall_cache.search_scores(ck.RECOMMEND, u)] for u in users}
+    check(all(recall.values()), "every user has a recall list")
+    sample = [str(u) for u in sorted(np.random.default_rng(5).choice(
+        users, min(MASTER_SAMPLE_USERS, len(users)), replace=False))]
+    hold_recall("recall", plain.cf_index, data, recall_cache, sample, cfg.recommend.cache_size,
+                dev)
+
+    # ---- (a) ranker.type = "llm" through the chat completions
+    llm_cache = MemoryCacheStore()
+    worker = Worker(surface_config(mock, "llm"), data, llm_cache, master.blob, node_id="llm",
+                    device=dev)
+    check(worker.openai_client is not None, "the llm worker built its client from [openai]")
+    mock.requests.clear()
+    zero_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    served = worker.sync_and_recommend(master)
+    torch.cuda.synchronize()
+    out["llm_s"] = time.perf_counter() - t0
+    out["llm_launches"] = topk_launches()
+    completions = sum(1 for r in mock.requests if r["path"].endswith("/chat/completions"))
+    check(served == len(users) and completions == served,
+          f"the llm worker served {served} users with {completions} completions")
+    check(out["llm_launches"] == want,
+          f"the llm worker's recall launched {out['llm_launches']}, want {want}")
+    for u in users:
+        got = [s.id for s in llm_cache.search_scores(ck.RECOMMEND, u)]
+        check(got == recall[u][::-1], f"{u}: the LLM-ranked list is its recall list reversed")
+    out.update(llm_users=served, completions=completions, llm_users_per_s=served / out["llm_s"])
+
+    # ---- (b) the reranker-API route
+    reranker = ReverseReranker()
+    try:
+        api_cfg = surface_config(mock, "llm")
+        api_cfg.recommend.ranker.reranker_api.url = reranker.url
+        api_cfg.recommend.ranker.query_template = "{{ user.user_id }}"
+        api_cfg.recommend.ranker.document_template = "{{ item.item_id }}"
+        api_cache = MemoryCacheStore()
+        api = Worker(api_cfg, data, api_cache, master.blob, node_id="api", device=dev)
+        api.pull_models(master.get_meta()["cf_model_id"])
+        zero_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        n_api = api.recommend(users[:LLM_API_USERS])
+        torch.cuda.synchronize()
+        out["api_s"] = time.perf_counter() - t0
+        out["api_launches"] = topk_launches()
+        check(n_api == LLM_API_USERS and reranker.calls == LLM_API_USERS,
+              f"the reranker API ranked {n_api} users in {reranker.calls} requests")
+        api_want = want_launches(api.cf_index, users[:LLM_API_USERS], data,
+                                 cfg.recommend.cache_size)
+        check(out["api_launches"] == api_want and api_want["block_max"] > 0,
+              f"the reranker worker's recall launched {out['api_launches']}, want {api_want}")
+        for u in users[:LLM_API_USERS]:
+            got = [s.id for s in api_cache.search_scores(ck.RECOMMEND, u)]
+            check(got == recall[u][::-1], f"{u}: the reranker's list is its recall list reversed")
+    finally:
+        reranker.close()
+    log(f"  (a) fit {out['fit_s']:.1f} s ({out['fit_launches']['bpr_epoch']} bpr_epoch "
+        f"launches); recall of "
+        f"{len(users)} users {out['recall_s']:.2f} s, {len(sample)} held against the plain "
+        f"top-k; ranker.type = llm: {served} users, {completions} completions in "
+        f"{out['llm_s']:.2f} s ({out['llm_users_per_s']:.1f} users/s), launches "
+        f"{json.dumps(out['llm_launches'])}, every list its recall reversed; (b) the reranker "
+        f"API: {LLM_API_USERS} users in {out['api_s']:.2f} s, reversed")
+    return out, master, data
+
+
+class MemoClient:
+    """An OpenAI client's chat completions and embeddings, each input asked
+    once: the CPU run of (c) reuses the card run's answers of the
+    deterministic mock."""
+
+    def __init__(self, client) -> None:
+        self.client, self.memo, self.calls = client, {}, 0
+
+    def enabled(self) -> bool:
+        return self.client.enabled()
+
+    def _ask(self, kind: str, text: str):
+        if (kind, text) not in self.memo:
+            self.calls += 1
+            fn = self.client.chat_completion if kind == "chat" else self.client.embedding
+            self.memo[kind, text] = fn(text)
+        return self.memo[kind, text]
+
+    def chat_completion(self, prompt: str) -> str:
+        return self._ask("chat", prompt)
+
+    def embedding(self, text: str):
+        return self._ask("embedding", text)
+
+
+def hold_chat(card: list, cpu: list) -> float:
+    """Chat item-to-item lists from the card and the CPU: the same items;
+    each neighbour id equal except where two distances lie within
+    ``CHAT_TIE`` of each other; scores within ``CHAT_RTOL`` (relative).
+    Returns the largest relative score difference."""
+    check([i for i, _ in card] == [i for i, _ in cpu], "chat item-to-item: the same items")
+    worst = 0.0
+    for (item, got), (_, want) in zip(card, cpu):
+        check(len(got) == len(want) > 0, f"chat item-to-item {item}: {len(got)} neighbours")
+        dist = [1.0 / s.score - 1.0 for s in want]
+        for r, (a, b) in enumerate(zip(got, want)):
+            rel = abs(a.score - b.score) / abs(b.score)
+            worst = max(worst, rel)
+            check(rel <= CHAT_RTOL, f"chat item-to-item {item} #{r}: score within {CHAT_RTOL}")
+            if a.id != b.id:
+                check(any(abs(dist[r] - dist[j]) <= CHAT_TIE for j in (r - 1, r + 1)
+                          if 0 <= j < len(dist)),
+                      f"chat item-to-item {item} #{r}: {a.id} != {b.id} outside a tie")
+    return worst
+
+
+def surface_chat(dev, mock) -> dict:
+    """(c) ``ChatItemToItem`` with a client over ``CHAT_ITEMS`` items with
+    the mock's hash embeddings, on the card and on the CPU."""
+    import torch
+
+    from gorse_tpu_torch.llm.client import OpenAIClient
+    from gorse_tpu_torch.llm.mock import hash_embedding
+    from gorse_tpu_torch.logics.chat import ChatItemToItem
+    from gorse_tpu_torch.logics.item_to_item import ItemToItemConfig
+    from gorse_tpu_torch.parallel.ratelimit import RateLimiters
+    from gorse_tpu_torch.storage.types import Item
+
+    client = MemoClient(OpenAIClient(mock.base_url, mock.auth_token, chat_model="mock",
+                                     embedding_dimensions=CHAT_DIM,
+                                     limiters=RateLimiters(10**9, 10**12, 10**9, 10**12)))
+    items = [Item(f"i{k}", labels={"embedding": hash_embedding(f"item {k}", CHAT_DIM)})
+             for k in range(CHAT_ITEMS)]
+    cfg = ItemToItemConfig(name="chat", type="chat", column="embedding", prompt=CHAT_PROMPT)
+    lists, seconds = {}, {}
+    for where, device in (("card", dev), ("cpu", "cpu")):
+        engine = ChatItemToItem(cfg, CHAT_N, timestamp=0.0, openai_client=client, device=device)
+        for item in items:
+            engine.push(item, [])
+        t0 = time.perf_counter()
+        lists[where] = engine.pop_all()
+        torch.cuda.synchronize()
+        seconds[where] = time.perf_counter() - t0
+    worst = hold_chat(lists["card"], lists["cpu"])
+    out = {"items": CHAT_ITEMS, "dim": CHAT_DIM, "neighbours": CHAT_N, "card_s": seconds["card"],
+           "cpu_s": seconds["cpu"], "llm_calls": client.calls, "max_rel_score_diff": worst}
+    log(f"  (c) chat item-to-item over {CHAT_ITEMS} items x {CHAT_DIM}: card {seconds['card']:.2f} s"
+        f" ({client.calls} completions and embeddings asked), CPU {seconds['cpu']:.2f} s on the "
+        f"same answers; ids equal outside {CHAT_TIE} ties, scores within {worst:.2e} relative")
+    return out
+
+
+def http_raw(port: int, method: str, path: str, body: bytes | None = None,
+             headers: dict | None = None, timeout: float = 120) -> tuple[int, bytes]:
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=timeout)
+    try:
+        conn.request(method, path, body, headers or {})
+        resp = conn.getresponse()
+        return resp.status, resp.read()
+    finally:
+        conn.close()
+
+
+def surface_dump(dev, tmp: Path, master, data) -> dict:
+    """(d) ``/api/dump`` of (a)'s master, ``/api/restore`` into a second
+    master over an empty SQLite file, the CSV and JSONL round trips, and
+    the second master's fit and worker on the restored rows."""
+    import torch
+
+    from gorse_tpu_torch.ops import bpr_kernel
+    from gorse_tpu_torch.serve.dashboard import MasterRestServer
+    from gorse_tpu_torch.serve.master import Master
+    from gorse_tpu_torch.serve.worker import Worker
+    from gorse_tpu_torch.storage import cache as ck
+    from gorse_tpu_torch.storage.blob import BlobStore
+    from gorse_tpu_torch.storage.cache import MemoryCacheStore
+    from gorse_tpu_torch.storage.data import SQLiteDataStore
+    from gorse_tpu_torch.storage.meta import MetaStore
+
+    cfg = surface_config()
+    masters = [master] + [
+        Master(cfg, SQLiteDataStore(str(tmp / f"{name}.sqlite")), MemoryCacheStore(),
+               BlobStore(tmp / f"blob_{name}"), MetaStore(), device=dev)
+        for name in ("restored", "csv", "jsonl")]
+    rests = [MasterRestServer(m) for m in masters]
+    ports = [rest.serve("127.0.0.1", 0).server_address[1] for rest in rests]
+    out = {}
+    try:
+        t0 = time.perf_counter()
+        status, stream = http_raw(ports[0], "GET", "/api/dump")
+        out["dump_s"] = time.perf_counter() - t0
+        check(status == 200 and stream.startswith(b"GTPU1"), f"GET /api/dump: {status}")
+        rows = rows_of(data)
+        n_rows = sum(len(t) for t in rows)
+        t0 = time.perf_counter()
+        status, body = http_raw(ports[1], "POST", "/api/restore", stream,
+                                {"Content-Type": "application/octet-stream"})
+        out["restore_s"] = time.perf_counter() - t0
+        counts = json.loads(body)
+        check(status == 200 and counts == dict(zip(("users", "items", "feedback"),
+                                                   map(len, rows))),
+              f"POST /api/restore: {status} {counts}")
+        check(rows_of(masters[1].data) == rows, "every restored user, item and feedback row equal")
+        status, again = http_raw(ports[1], "GET", "/api/dump")
+        check(status == 200 and again == stream, "the restored master dumps the same bytes")
+        # the CSV and JSONL round trips: export, import into an empty store,
+        # export again
+        trips = {}
+        for fmt, port, get, post in (("csv", ports[2], "/api/export/", "/api/import/"),
+                                     ("jsonl", ports[3], "/api/bulk/", "/api/bulk/")):
+            for what in ("users", "items", "feedback"):
+                t0 = time.perf_counter()
+                status, first = http_raw(ports[0], "GET", get + what)
+                check(status == 200 and first.count(b"\n") > len(rows[0]) // 2 - 1,
+                      f"GET {get}{what}: {status}")
+                status, body = http_raw(port, "POST", post + what, first,
+                                        {"Content-Type": "application/octet-stream"})
+                check(status == 200, f"POST {post}{what}: {status} {body[:200]!r}")
+                status, second = http_raw(port, "GET", get + what)
+                check(status == 200 and second == first, f"{fmt} {what}: the round trip is "
+                      "byte-equal")
+                trips[f"{fmt}_{what}"] = {"bytes": len(first), "s": time.perf_counter() - t0}
+        out["round_trips"] = trips
+    finally:
+        for rest in rests:
+            rest.shutdown()
+    # ---- the restored master's fit and a worker on it
+    restored = masters[1]
+    zero_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    restored.train_collaborative_filtering(restored.load_dataset())
+    worker = Worker(cfg, restored.data, restored.cache, restored.blob, node_id="restored",
+                    device=dev)
+    refreshed = worker.sync_and_recommend(restored)
+    torch.cuda.synchronize()
+    out["cycle_s"] = time.perf_counter() - t0
+    out["launches"] = dict(topk_launches(), bpr_epoch=bpr_kernel.bpr_epoch.launches)
+    users = [u["user_id"] for u in rows[0]]
+    want = dict(want_launches(worker.cf_index, users, restored.data, cfg.recommend.cache_size),
+                bpr_epoch=MASTER_EPOCHS)
+    check(out["launches"] == want and want["block_max"] > 0,
+          f"the restored master's fit and worker launched {out['launches']}, want {want}")
+    check(refreshed == len(rows[0]), f"the restored worker refreshed {refreshed} users")
+    sample = [str(u) for u in sorted(np.random.default_rng(6).choice(
+        users, min(MASTER_SAMPLE_USERS, len(users)), replace=False))]
+    hold_recall("restored", worker.cf_index, restored.data, restored.cache, sample,
+                cfg.recommend.cache_size, dev)
+    check(all(restored.cache.search_scores(ck.RECOMMEND, u) for u in users),
+          "every restored user has a list")
+    for m in masters[1:]:
+        m.data.close()
+    out.update(bytes=len(stream), rows=n_rows, dump_mb_per_s=len(stream) / out["dump_s"] / 1e6,
+               restore_rows_per_s=n_rows / out["restore_s"])
+    log(f"  (d) /api/dump {len(stream):,} bytes ({n_rows:,} rows) in {out['dump_s']:.2f} s "
+        f"({out['dump_mb_per_s']:.1f} MB/s); /api/restore into an empty SQLite file in "
+        f"{out['restore_s']:.2f} s ({out['restore_rows_per_s']:,.0f} rows/s); every row equal, "
+        f"the second dump byte-equal; CSV and JSONL round trips byte-equal; the restored "
+        f"master's fit and worker {out['cycle_s']:.1f} s, launches {json.dumps(out['launches'])}")
+    return out
+
+
+def get_raw(url: str, cookie: str = "") -> tuple[int, dict, bytes]:
+    """GET without following a redirect: (status, headers, body)."""
+    import urllib.error
+    import urllib.request
+
+    class NoRedirect(urllib.request.HTTPRedirectHandler):
+        def redirect_request(self, *args, **kwargs):
+            return None
+
+    req = urllib.request.Request(url, headers={"Cookie": cookie} if cookie else {})
+    try:
+        with urllib.request.build_opener(NoRedirect()).open(req, timeout=30) as resp:
+            return resp.status, dict(resp.headers), resp.read()
+    except urllib.error.HTTPError as e:
+        return e.code, dict(e.headers), e.read()
+
+
+def surface_oidc(dev, seed: int, tmp: Path) -> dict:
+    """(e) The sign-on against the port's MockOIDCProvider, refused tokens,
+    and the dashboard's page."""
+    import random
+
+    from gorse_tpu_torch.serve.dashboard import MasterRestServer
+    from gorse_tpu_torch.serve.master import Master
+    from gorse_tpu_torch.serve.oidc import MockOIDCProvider, generate_rsa_key
+    from gorse_tpu_torch.storage.blob import BlobStore
+    from gorse_tpu_torch.storage.cache import MemoryCacheStore
+    from gorse_tpu_torch.storage.data import MemoryDataStore
+    from gorse_tpu_torch.storage.meta import MetaStore
+
+    t0 = time.perf_counter()
+    provider = MockOIDCProvider(client_id="gorse", client_secret="s3cret", seed=seed)
+    out = {"provider_key_s": time.perf_counter() - t0}
+    port = free_port()
+    base = f"http://127.0.0.1:{port}"
+    cfg = surface_config()
+    cfg.oidc.enable = True
+    cfg.oidc.issuer, cfg.oidc.client_id, cfg.oidc.client_secret = provider.issuer, "gorse", "s3cret"
+    cfg.oidc.redirect_url = base + "/callback/oauth2"
+    rest = MasterRestServer(Master(cfg, MemoryDataStore(), MemoryCacheStore(),
+                                   BlobStore(tmp / "blob_oidc"), MetaStore(), device=dev))
+    rest.serve("127.0.0.1", port)
+    try:
+        t0 = time.perf_counter()
+        check(get_raw(base + "/api/dashboard/stats")[0] == 401, "the dashboard wants a session")
+        status, headers, _ = get_raw(base + "/login")
+        check(status == 302 and headers["Location"].startswith(provider.issuer + "/auth"),
+              f"/login redirects to the provider: {status}")
+        status, headers, _ = get_raw(headers["Location"])
+        check(status == 302 and headers["Location"].startswith(base + "/callback/oauth2"),
+              f"the provider redirects to /callback/oauth2: {status}")
+        status, headers, _ = get_raw(headers["Location"])
+        check(status == 302 and "Set-Cookie" in headers, f"the callback sets a session: {status}")
+        cookie = headers["Set-Cookie"].split(";")[0]
+        status, _, body = get_raw(base + "/api/dashboard/userinfo", cookie)
+        info = json.loads(body)
+        check(status == 200 and info["Email"] == provider.user["email"]
+              and info["Name"] == provider.user["name"] and info["AuthType"] == "oidc",
+              f"/api/dashboard/userinfo returns the provider's claims: {info}")
+        check(get_raw(base + "/api/dashboard/stats", cookie)[0] == 200, "the session passes")
+        out["flow_s"] = time.perf_counter() - t0
+        other = generate_rsa_key(rng=random.Random(seed + 1))
+        for what, token in (("signed by another key", provider.sign_id_token(key=other)),
+                            ("past its exp", provider.sign_id_token({"exp": time.time() - 60}))):
+            try:
+                rest.oidc.verify_id_token(token)
+                check(False, f"a token {what} is refused")
+            except ValueError:
+                pass
+        status, headers, page = get_raw(base + "/")
+        check(status == 200 and page == (ROOT / "gorse_tpu_torch" / "serve"
+                                         / "dashboard.html").read_bytes(),
+              "GET / returns the port's dashboard.html")
+        out["page_bytes"] = len(page)
+    finally:
+        rest.shutdown()
+        provider.close()
+    log(f"  (e) OIDC: the provider's 2048-bit key in {out['provider_key_s']:.1f} s, /login -> "
+        f"provider -> /callback/oauth2 -> session -> userinfo in {out['flow_s']:.2f} s; tokens "
+        f"signed by another key or past exp refused; GET / {out['page_bytes']:,} bytes")
+    return out
+
+
+def hold_vector_rows(engine: str, got: list, want: list, queries, table: dict) -> float:
+    """A vector database's top-k against the card's exact store: recall 1.0
+    and the same order, except where two items' exact (f64) scores lie
+    within a relative 1e-6. Returns the recall."""
+    hits = total = 0
+    for q, g, w in zip(queries, got, want):
+        exact = {i: float(np.dot(q.astype(np.float64), table[i].astype(np.float64)))
+                 for i in {s.id for s in g} | {s.id for s in w}}
+        tol = 1e-6 * max(abs(v) for v in exact.values())
+        hits += len({s.id for s in g} & {s.id for s in w})
+        total += len(w)
+        check(len(g) == len(w), f"{engine}: {len(g)} hits, want {len(w)}")
+        for a, b in zip(g, w):
+            check(a.id == b.id or abs(exact[a.id] - exact[b.id]) <= tol,
+                  f"{engine}: {a.id} where the exact store has {b.id}, outside a tie")
+    return hits / max(total, 1)
+
+
+def surface_mocks(dev, seed: int, tmp: Path, master) -> dict:
+    """(f) The in-one node over ``mongodb://`` (the port's MiniMongo), and
+    ``qdrant://``, ``weaviate://``, ``milvus://`` against the card's exact
+    store."""
+    import torch
+
+    from gorse_tpu_torch.ops import bpr_kernel
+    from gorse_tpu_torch.serve.in_one import InOneNode
+    from gorse_tpu_torch.storage import cache as ck
+    from gorse_tpu_torch.storage.data import open_data_store
+    from gorse_tpu_torch.storage.minimongo import MiniMongo
+    from gorse_tpu_torch.storage.minivector import MiniMilvus, MiniQdrant, MiniWeaviate
+    from gorse_tpu_torch.storage.vectors import MemoryVectorStore, open_vector_store
+
+    out = {}
+    mongo = MiniMongo().start()
+    minis = {"qdrant": MiniQdrant().start(), "weaviate": MiniWeaviate().start(),
+             "milvus": MiniMilvus().start()}
+    try:
+        # ---- the in-one node over mongodb://
+        rows = first_users(phase10_rows(seed, MONGO_USERS), MONGO_USERS)
+        data_url, cache_url = mongo.url(database="gorse_data"), mongo.url(database="gorse_cache")
+        store = open_data_store(data_url)
+        t0 = time.perf_counter()
+        insert_rows(store, rows)
+        out["mongo_insert_s"] = time.perf_counter() - t0
+        store.close()
+        fresh = open_data_store(data_url)
+        check(rows_of(fresh) == rows, "mongodb://: every row reads back")
+        fresh.close()
+        cfg = surface_config()
+        cfg.database.data_store, cfg.database.cache_store = data_url, cache_url
+        node = InOneNode(cfg, workdir=str(tmp / "mongo_node"), device=dev)
+        check(type(node.data).__name__ == "MongoDataStore"
+              and type(node.cache).__name__ == "MongoCacheStore",
+              "the node opened mongodb:// for its data and cache")
+        zero_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        summary = node.run_once()
+        torch.cuda.synchronize()
+        out["mongo_cycle_s"] = time.perf_counter() - t0
+        out["mongo_launches"] = dict(topk_launches(), bpr_epoch=bpr_kernel.bpr_epoch.launches)
+        check(summary["users_refreshed"] == MONGO_USERS,
+              f"the worker refreshed {summary['users_refreshed']} of {MONGO_USERS} users")
+        index = node.worker.cf_index
+        # a catalog of 3 users' items: the ungated route (block_topk, merge_topk)
+        want = dict(want_launches(index, [u["user_id"] for u in rows[0]], node.data,
+                                  cfg.recommend.cache_size), bpr_epoch=MASTER_EPOCHS)
+        check(out["mongo_launches"] == want,
+              f"the cycle over mongodb:// launched {out['mongo_launches']}, want {want}")
+        for u in rows[0]:
+            uid = u["user_id"]
+            seen = [fb.item_id for fb in node.data.get_user_feedback(uid)]
+            want = index.search_users([uid], cfg.recommend.cache_size, exclude=[seen])[0]
+            got = node.cache.search_scores(ck.COLLABORATIVE, uid)
+            check(bool(got) and sorted((-s.score, s.id) for s in got)
+                  == sorted((-s.score, s.id) for s in want),
+                  f"{uid}: mongodb://'s collaborative list equals search_users on the card")
+        node.shutdown()
+        node.data.close()
+        node.cache.close()
+
+        # ---- the vector databases against the card's exact store
+        ids, table = master.cf_index.serving_items()
+        table = np.asarray(table, np.float32)
+        by_id = dict(zip(ids, table))
+        trained = np.flatnonzero(master.cf_index.user_predictable)[:VECTOR_QUERIES]
+        queries = master.cf_index.user_factors[torch.as_tensor(trained, device=dev)].cpu().numpy()
+        exact = MemoryVectorStore(device=dev)
+        exact.create_collection("items", table.shape[1], distance="dot")
+        exact.add("items", ids, table)
+        want = exact.query("items", queries, VECTOR_K)
+        vectors = {}
+        for engine, mini in minis.items():
+            url = (f"milvus://{mini.token}@127.0.0.1:{mini.port}" if engine == "milvus"
+                   else f"{engine}://:{mini.api_key}@127.0.0.1:{mini.port}")
+            store = open_vector_store(url, dev)
+            store.create_collection("items", table.shape[1], distance="dot")
+            t0 = time.perf_counter()
+            store.add("items", ids, table)
+            sync_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            got = store.query("items", queries, VECTOR_K)
+            query_s = time.perf_counter() - t0
+            recall = hold_vector_rows(f"{engine}://", got, want, queries, by_id)
+            check(recall == 1.0, f"{engine}://: recall@{VECTOR_K} {recall}, want 1.0")
+            vectors[engine] = {"rows": len(ids), "sync_s": sync_s, "query_s": query_s,
+                               "recall": recall}
+        out["vectors"] = vectors
+    finally:
+        mongo.stop()
+        for mini in minis.values():
+            mini.stop()
+    log(f"  (f) mongodb:// {sum(len(t) for t in rows):,} rows in {out['mongo_insert_s']:.2f} s, "
+        f"read back; the in-one cycle {out['mongo_cycle_s']:.1f} s, launches "
+        f"{json.dumps(out['mongo_launches'])}, {MONGO_USERS} lists equal search_users; "
+        + "; ".join(f"{k}:// {v['rows']:,} rows synced in {v['sync_s']:.2f} s, recall@{VECTOR_K} "
+                    f"{v['recall']:.1f}" for k, v in vectors.items()))
+    return out
+
+
+def phase_surface(dev, smi: str, seed: int) -> dict:
+    """Phase 16: the rest of the surface on the card."""
+    from gorse_tpu_torch.llm.mock import MockOpenAIServer
+
+    t_phase = time.perf_counter()
+    result = {"card": smi, "users": LLM_USERS}
+    steps = result["steps_s"] = {}
+    t_step = time.perf_counter()
+
+    def step(name: str) -> None:
+        nonlocal t_step
+        steps[name] = time.perf_counter() - t_step
+        t_step = time.perf_counter()
+
+    mock = MockOpenAIServer(dimensions=CHAT_DIM).start()
+    try:
+        with tempfile.TemporaryDirectory(prefix="gorse_surface_") as tmp_name:
+            tmp = Path(tmp_name)
+            result["llm"], master, data = surface_llm(dev, seed, tmp, mock)
+            step("llm")
+            result["chat"] = surface_chat(dev, mock)
+            step("chat")
+            result["dump"] = surface_dump(dev, tmp, master, data)
+            step("dump")
+            result["oidc"] = surface_oidc(dev, seed, tmp)
+            step("oidc")
+            result["mocks"] = surface_mocks(dev, seed, tmp, master)
+            step("mocks")
+            data.close()
+    finally:
+        mock.close()
+    llm, dump, mocks = result["llm"], result["dump"], result["mocks"]
+    result["launches"] = {name: (llm["recall_launches"][name] + llm["llm_launches"][name]
+                                 + llm["api_launches"][name] + dump["launches"][name]
+                                 + mocks["mongo_launches"][name]) for name in KERNELS}
+    result["launches"]["bpr_epoch"] = (llm["fit_launches"]["bpr_epoch"]
+                                       + dump["launches"]["bpr_epoch"]
+                                       + mocks["mongo_launches"]["bpr_epoch"])
+    result["seconds"] = time.perf_counter() - t_phase
+    log(f"  phase 16 in {result['seconds']:.1f} s ({smi}); steps (s): "
+        f"{json.dumps({k: round(v, 1) for k, v in steps.items()})}; launches "
+        f"{json.dumps(result['launches'])}")
+    check(result["seconds"] <= SURFACE_PHASE_S,
+          f"phase 16 took {result['seconds']:.1f} s of its {SURFACE_PHASE_S} s")
+    return result
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -6008,9 +6709,14 @@ def main() -> int:
         log("== phase 15: the gRPC plane: the nodes on the master's proxy over mutual TLS")
         out["grpc"] = phase_grpc(dev, smi, args.seed)
         log("  grpc: " + json.dumps(out["grpc"], default=str))
-    check("jax" not in sys.modules and "gorse_tpu" not in sys.modules
-          and "grpc" not in sys.modules and "google.protobuf" not in sys.modules,
-          "neither JAX, grpc, protobuf nor gorse_tpu was imported")
+    if "16" in phases:
+        log("== phase 16: the rest of the surface: LLM ranking, chat item-to-item, dump and "
+            "restore, OIDC, the mock servers")
+        out["surface"] = phase_surface(dev, smi, args.seed)
+        log("  surface: " + json.dumps(out["surface"], default=str))
+    check(not {"jax", "gorse_tpu", "grpc", "google.protobuf", "jinja2", "msgpack",
+                "cryptography"} & set(sys.modules),
+          "neither JAX, grpc, protobuf, jinja2, msgpack, cryptography nor gorse_tpu was imported")
     log(f"  total {time.perf_counter() - t_start:.1f} s")
     if len(phases) < len(PHASES):
         print(json.dumps({"partial": phases, **{key: out[key] for key in out if key != "errors"}},
@@ -6048,10 +6754,12 @@ def kernel_rows(out: dict) -> list[dict]:
     approx = out["approx"]
     remote = out["remote"]["launches"]  # the cycle over the remote stores (phase 14)
     grpc = out["grpc"]  # the worker and master processes on the proxy (phase 15)
+    surface = out["surface"]["launches"]  # the LLM, restored and mongodb:// paths (phase 16)
     kernels = [row(name, "topk.cu", REPLACES[name],
                    path["launches"][name] + out["ctr"]["worker_topk_launches"][name]
                    + in_one[name] + cluster[name] + remote[name] + grpc["launches"][name]
-                   + approx["worker"]["launches"].get(name, 0), out["errors"][name], rows[name])
+                   + surface[name] + approx["worker"]["launches"].get(name, 0),
+                   out["errors"][name], rows[name])
                for name in KERNELS]
     # the training path's launches of bpr_epoch (phase 5) with the in-one
     # nodes' fits and BPR search trials (phases 10 and 14); the sweeps' from their
@@ -6059,7 +6767,7 @@ def kernel_rows(out: dict) -> list[dict]:
     # epoch, so library_ms is null.
     bpr_launches = dict(out["training"]["launches"], **out["path_launches"])
     bpr_launches["bpr_epoch"] += (in_one["bpr_epoch"] + remote["bpr_epoch"]
-                                  + grpc["master_launches"]["bpr_epoch"])
+                                  + grpc["master_launches"]["bpr_epoch"] + surface["bpr_epoch"])
     # K3 on the sharded path: phase 12's epoch and the sharded master's fit
     bpr_launches["bpr_sweep_pairs"] += out["sharded"]["launches"]["bpr_sweep_pairs"]
     kernels += [row(name, "bpr.cu", BPR_REPLACES[name], bpr_launches[name],

@@ -9,8 +9,11 @@ throughput. The subcommands, flags and defaults are the reference's.
 CUDA chain (``dot_topk``: block_max, block_seeds, block_topk, merge_topk
 over a bf16 table) and ``--kernel xla`` its library route
 (``dot_topk_xla``: an f32 product and a sort); a chain of ``--batches``
-query batches is timed by CUDA events. ``reranker`` needs
-``logics/chat.py`` (jinja2), which is not ported: it raises.
+query batches is timed by CUDA events. ``reranker`` ranks each test
+user's held-out item among sampled negatives through ``LLMReranker``
+against the mock or a real OpenAI endpoint (no device work). ``cf`` and
+``ctr`` take the registry's built-in datasets (data/registry.py) as well as
+``synthetic`` ones.
 """
 
 from __future__ import annotations
@@ -55,16 +58,17 @@ def evaluate_cf(args) -> dict:
 
 def evaluate_ctr(args) -> dict:
     from ..data.ctr import synthetic_ctr
+    from ..data.loaders import load_built_in_ctr
     from ..models import FitConfig, Params
     from ..models.fm import AFM
 
-    if not args.dataset.startswith("synthetic"):
-        raise NotImplementedError(
-            f"ctr dataset {args.dataset!r}: the built-in dataset registry "
-            "(data/registry.py) is not ported yet (ROADMAP.md, M21); use 'synthetic'"
-        )
-    data = synthetic_ctr(n_samples=args.samples, seed=0)
-    train, test = data.split(0.2, seed=1)
+    if args.dataset.startswith("synthetic"):
+        data = synthetic_ctr(n_samples=args.samples, seed=0)
+        train, test = data.split(0.2, seed=1)
+    else:
+        # the registry's libFM datasets (frappe, ml-tag, criteo), from the
+        # dataset directory or its mirror
+        train, test = load_built_in_ctr(args.dataset)
     model = AFM(Params(n_factors=args.factors, n_epochs=args.epochs, lr=args.lr, reg=args.reg),
                 device=_device(args))
     t0 = time.time()
@@ -143,10 +147,60 @@ def evaluate_retrieval(args) -> dict:
 
 
 def evaluate_reranker(args) -> dict:
-    raise NotImplementedError(
-        "bench reranker: the LLM reranker (logics/chat.py, jinja2) is not ported yet "
-        "(ROADMAP.md, M21)"
-    )
+    """LLM-reranker offline evaluation (reference: EvaluateReranker,
+    cmd/gorse-bench/main.go:209): per test user, candidates = the held-out
+    positive + sampled negatives; AUC of the reranked position vs random.
+    Defaults to the embedded deterministic fake-OpenAI server; point
+    --api-url at a real OpenAI-compatible endpoint to benchmark a model."""
+    import numpy as np
+
+    from ..data.loaders import load_built_in
+    from ..llm.client import OpenAIClient
+    from ..logics.chat import LLMReranker
+    from ..storage.types import Item, Score, User
+
+    train, test = load_built_in(args.dataset)
+    mock = None
+    if args.api_url:
+        client = OpenAIClient(args.api_url, args.api_key, chat_model=args.model)
+    else:
+        from ..llm.mock import MockOpenAIServer
+
+        mock = MockOpenAIServer().start()
+        client = OpenAIClient(mock.base_url, mock.auth_token)
+    reranker = LLMReranker(client, prompt=args.prompt)
+    rng = np.random.default_rng(0)
+    aucs = []
+    users = [u for u in range(test.count_users()) if test.user_feedback[u]][: args.users]
+    for u in users:
+        pos = test.user_feedback[u][0]
+        negs = [
+            int(i) for i in rng.choice(train.count_items(), size=args.candidates)
+            if i not in set(train.user_feedback[u])
+        ][: args.candidates - 1]
+        cand_ids = [pos] + negs
+        rng.shuffle(cand_ids)
+        candidates = [Score(train.item_dict.to_name(int(i)), 0.0) for i in cand_ids]
+        items = {s.id: Item(s.id) for s in candidates}
+        feedback = [
+            ("like", Item(train.item_dict.to_name(int(i))))
+            for i in train.user_feedback[u][: args.context]
+        ]
+        ranked = reranker.rank(User(train.user_dict.to_name(u)), feedback, candidates, items)
+        ranked_ids = [s.id for s in ranked]
+        pos_name = train.item_dict.to_name(int(pos))
+        if pos_name in ranked_ids:
+            rank = ranked_ids.index(pos_name)
+            aucs.append(1.0 - rank / max(len(ranked_ids) - 1, 1))
+    if mock is not None:
+        mock.close()
+    return {
+        "dataset": args.dataset,
+        "api": args.api_url or "mock://deterministic",
+        "users": len(users),
+        "AUC": round(float(np.mean(aucs)) if aucs else 0.0, 4),
+        "note": "AUC 0.5 = random ordering",
+    }
 
 
 def evaluate_embedding(args) -> dict:
@@ -224,7 +278,7 @@ def main(argv: list[str] | None = None) -> int:
     p.add_argument("--verbose", type=int, default=10)
     p.add_argument("--device", default=None, help=device_help)
 
-    p = sub.add_parser("reranker", help="evaluate an LLM reranker (not ported: M21)")
+    p = sub.add_parser("reranker", help="evaluate an LLM reranker")
     p.add_argument("--dataset", default="synthetic://200,150,8,0.08,0")
     p.add_argument("--api-url", default="", help="OpenAI-compatible endpoint (default: embedded mock)")
     p.add_argument("--api-key", default="")

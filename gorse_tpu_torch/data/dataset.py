@@ -44,6 +44,8 @@ class Dataset:
         self.item_labels: list[list[int]] = []
         self.num_feedback = 0
         self._negatives: dict[int, np.ndarray] = {}
+        # fixed evaluation negatives of an NCF test file (data/loaders.py)
+        self.file_negatives: list[list[int]] | None = None
 
     # ------------------------------------------------------------------ build
 
@@ -244,12 +246,27 @@ class Dataset:
 
     def sample_user_negatives(self, exclude: "Dataset", num_candidates: int, seed: int = 0) -> np.ndarray:
         """``num_candidates`` negatives per user, excluding this set's and
-        ``exclude``'s positives, cached per width. Returns int32 [U, C]."""
+        ``exclude``'s positives, cached per width; a test file's own
+        negatives where it has them. Returns int32 [U, C]."""
         if num_candidates in self._negatives:
             return self._negatives[num_candidates]
         rng = np.random.default_rng(seed)
         n_items = self.count_items()
         out = np.zeros((self.count_users(), num_candidates), dtype=np.int32)
+        if self.file_negatives is not None:
+            # an NCF test file's negatives, as they are (gorse's
+            # dataset/dataset.go:246-257): the widest row's width (at most
+            # num_candidates), shorter rows padded with -1, which the
+            # evaluation masks
+            widths = [len(n) for n in self.file_negatives]
+            w = min(max(widths, default=0), num_candidates)
+            out = np.full((self.count_users(), max(w, 1)), -1, dtype=np.int32)
+            for u in range(min(len(self.file_negatives), out.shape[0])):
+                negs = self.file_negatives[u][:w]
+                if negs:
+                    out[u, : len(negs)] = np.asarray(negs, np.int32)
+            self._negatives[num_candidates] = out
+            return out
         for u in range(self.count_users()):
             excl = set(self.user_feedback[u])
             excl.update(exclude.user_feedback[u])

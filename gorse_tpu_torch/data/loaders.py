@@ -1,14 +1,113 @@
-"""Synthetic dataset generators (copy of the numpy generators of
-gorse_tpu/data/loaders.py). The same seed gives the same dataset in both
-packages. ``load_built_in`` resolves only ``synthetic://`` names: the file
-loaders of the built-in datasets are not ported yet.
+"""Dataset loaders and the built-in datasets (copy of gorse_tpu/data/
+loaders.py, less its power-law generator).
+
+gorse's model/built_in.go names ml-100k, ml-1m, pinterest-20 (NCF
+``train.txt``/``test.txt``, dataset/dataset.go:402-493) and ml-tag, frappe,
+criteo (libFM, model/ctr/data.go:270-339). They resolve through the
+registry (data/registry.py): the dataset directory, else the mirror of
+``GORSE_TPU_DATASET_MIRROR``. ``synthetic://n_users,n_items,rank,density,
+seed`` names low-rank ground-truth datasets; the same seed gives the same
+dataset in both packages.
 """
 
 from __future__ import annotations
 
+from pathlib import Path
+
 import numpy as np
 
 from .dataset import Dataset
+
+# name -> (subdir, format). Mirrors model/built_in.go:46-83.
+BUILT_IN = {
+    "ml-100k": ("ml-100k", "ncf"),
+    "ml-1m": ("ml-1m", "ncf"),
+    "pinterest-20": ("pinterest-20", "ncf"),
+    "ml-tag": ("ml-tag", "libfm"),
+    "frappe": ("frappe", "libfm"),
+    "criteo": ("criteo", "libfm"),
+}
+
+
+def dataset_dir() -> Path:
+    from .registry import dataset_dir as _dd
+
+    return _dd()
+
+
+
+def load_ncf_file(path: str | Path, dataset: Dataset | None = None) -> Dataset:
+    """Load the NCF format: ``user<TAB>item[<TAB>...]`` per line, or
+    ``(user,item)<TAB>label`` test format (reference: dataset/dataset.go:402-451)."""
+    d = dataset or Dataset()
+    with open(path) as f:
+        for line in f:
+            line = line.strip()
+            if not line:
+                continue
+            fields = line.split("\t")
+            if fields[0].startswith("("):
+                # test format: (user,item)\tlabel...
+                pair = fields[0].strip("()").split(",")
+                d.add_feedback(pair[0], pair[1])
+            else:
+                d.add_feedback(fields[0], fields[1])
+    return d
+
+
+def load_ncf(train_path: str | Path, test_path: str | Path) -> tuple[Dataset, Dataset]:
+    """Load an NCF-style train/test pair sharing one dictionary space.
+
+    Test lines carry the file's fixed evaluation negatives
+    (``(u,i)<TAB>neg1<TAB>neg2...``, 99 in the gorse zips); they are stored
+    on the test set and honored by ``sample_user_negatives`` exactly like the
+    reference's loaded ``d.negatives`` (dataset/dataset.go:246-257,472-493).
+    """
+    train = load_ncf_file(train_path)
+    test = train._empty_split()
+    test.num_feedback = 0
+    file_negatives: list[list[int]] = []
+    with open(test_path) as f:
+        for line in f:
+            line = line.strip()
+            if not line:
+                continue
+            fields = line.split("\t")
+            negs: list[str] = []
+            if fields[0].startswith("("):
+                pair = fields[0].strip("()").split(",")
+                uid, iid = pair[0], pair[1]
+                negs = fields[1:]
+            else:
+                uid, iid = fields[0], fields[1]
+            u = train.add_user(uid)
+            i = train.add_item(iid)
+            if negs:
+                while len(file_negatives) <= u:
+                    file_negatives.append([])
+                file_negatives[u] = [train.add_item(n) for n in negs]
+            while len(test.user_feedback) <= u:
+                test.user_feedback.append([])
+                test.timestamps.append([])
+            while len(test.item_feedback) <= i:
+                test.item_feedback.append([])
+            test.user_feedback[u].append(i)
+            test.item_feedback[i].append(u)
+            test.timestamps[u].append(0.0)
+            test.num_feedback += 1
+    # realign train's ragged arrays in case test introduced new entities
+    while len(train.user_feedback) < len(train.user_dict):
+        train.user_feedback.append([])
+        train.timestamps.append([])
+        train.user_labels.append([])
+    while len(train.item_feedback) < len(train.item_dict):
+        train.item_feedback.append([])
+        train.item_labels.append([])
+    if any(file_negatives):
+        while len(file_negatives) < len(train.user_dict):
+            file_negatives.append([])
+        test.file_negatives = file_negatives
+    return train, test
 
 
 def synthetic_cf(
@@ -74,15 +173,36 @@ def synthetic_cf_access(
 
 
 def load_built_in(name: str) -> tuple[Dataset, Dataset]:
-    """``synthetic://n_users,n_items,rank,density,seed`` -> the
-    leave-one-out (train, test) split of :func:`synthetic_cf`."""
-    if not name.startswith("synthetic://"):
-        raise NotImplementedError(
-            f"built-in dataset {name!r}: only synthetic:// names are ported yet"
+    """Load a built-in CF dataset by name; synthetic fallback via
+    ``synthetic://n_users,n_items,rank,density,seed``."""
+    if name.startswith("synthetic://"):
+        spec = name[len("synthetic://"):]
+        parts = [float(x) for x in spec.split(",")] if spec else []
+        defaults = [1000, 500, 8, 0.05, 42]
+        vals = parts + defaults[len(parts):]
+        data = synthetic_cf(int(vals[0]), int(vals[1]), int(vals[2]), vals[3], int(vals[4]))
+        return data.split_cf(seed=0)
+    if name not in BUILT_IN:
+        raise KeyError(f"unknown built-in dataset {name!r}")
+    _, fmt = BUILT_IN[name]
+    if fmt != "ncf":
+        raise ValueError(
+            f"dataset {name!r} is a CTR dataset; use load_built_in_ctr"
         )
-    spec = name[len("synthetic://"):]
-    parts = [float(x) for x in spec.split(",")] if spec else []
-    defaults = [1000, 500, 8, 0.05, 42]
-    vals = parts + defaults[len(parts):]
-    data = synthetic_cf(int(vals[0]), int(vals[1]), int(vals[2]), vals[3], int(vals[4]))
-    return data.split_cf(seed=0)
+    from .registry import locate_built_in
+
+    train_p, test_p = locate_built_in(name, "ncf")
+    return load_ncf(train_p, test_p)
+
+
+def load_built_in_ctr(name: str):
+    """Load a built-in libFM CTR dataset (frappe/ml-tag/criteo) through the
+    registry fetch layer (reference: model/ctr/data.go:270-339 +
+    model/built_in.go LocateBuiltInDataset(FormatLibFM))."""
+    from .ctr import load_libfm
+    from .registry import locate_built_in
+
+    if name not in BUILT_IN or BUILT_IN[name][1] != "libfm":
+        raise KeyError(f"unknown built-in CTR dataset {name!r}")
+    train_p, test_p = locate_built_in(name, "libfm")
+    return load_libfm(str(train_p), str(test_p))

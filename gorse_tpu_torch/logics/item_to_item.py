@@ -1,13 +1,13 @@
 """Item-to-item similarity recommenders (port of
 gorse_tpu/logics/item_to_item.py).
 
-Four similarity types: ``embedding`` (vector distance), ``tags``
-(IDF-weighted label sets), ``users`` (IDF-weighted co-consumption) and
-``auto`` (tags and users averaged). Items are pushed on the host;
+Five similarity types: ``embedding`` (vector distance), ``tags``
+(IDF-weighted label sets), ``users`` (IDF-weighted co-consumption),
+``auto`` (tags and users averaged) and ``chat`` (LLM-generated queries,
+then an embedding search: logics/chat.py). Items are pushed on the host;
 ``pop_all`` computes every item's neighbours in one blocked pass on the
 engine's device (ops/similarity.py) and emits them as Scores,
-``1 / (1 + distance)``. The ``chat`` type (LLM queries -> embedding search)
-is not ported: it needs jinja2 and an LLM client.
+``1 / (1 + distance)``.
 """
 
 from __future__ import annotations
@@ -238,9 +238,11 @@ def new_item_to_item(
     tag_idf: np.ndarray | None = None,
     user_idf: np.ndarray | None = None,
     label_index=None,
+    openai_client=None,
     device=None,
 ) -> BaseItemToItem:
-    """The engine of ``cfg.type`` on ``device`` (``None``: the card)."""
+    """The engine of ``cfg.type`` on ``device`` (``None``: the card);
+    ``chat`` asks ``openai_client``, and without one is the embedding type."""
     if cfg.type == "embedding":
         return EmbeddingItemToItem(cfg, n, timestamp, device)
     if cfg.type == "tags":
@@ -252,8 +254,8 @@ def new_item_to_item(
         return AutoItemToItem(cfg, n, timestamp, tag_idf=tag_idf, user_idf=user_idf,
                               label_index=label_index, device=device)
     if cfg.type == "chat":
-        raise NotImplementedError(
-            "item-to-item type 'chat' is not ported yet: it needs jinja2 and an LLM client "
-            "(ROADMAP.md, M21)"
-        )
+        from .chat import ChatItemToItem
+
+        return ChatItemToItem(cfg, n, timestamp, openai_client=openai_client, prompt=cfg.prompt,
+                              device=device)
     raise ValueError(f"unknown item-to-item type {cfg.type!r}")

@@ -13,20 +13,21 @@ gRPC Master service (GetMeta/PushProgress, master/rpc.go). The protected
 prefixes take the admin API key or a login session whenever either is
 configured.
 
-Not ported (ROADMAP.md, M21), so not registered and answered 404: dump and
-restore (``/api/dump``, ``/api/restore``: msgpack), the CSV and JSONL import
-and export (``/api/import/*``, ``/api/export/*``, ``/api/bulk/*``), purge
-(``/api/purge``), the chat proxy (``/api/chat/completions``), the
-``ranker/prompt`` preview (``/api/dashboard/ranker/prompt``: jinja2) and the
-dashboard's HTML page (``/``). OIDC sign-on needs ``cryptography``:
-``oidc.enable = true`` raises. The ``external`` preview
-(``/api/dashboard/external``) runs a source through logics/external.py.
+Also: OIDC sign-on (``oidc.enable``: ``/login`` redirects to the provider,
+``/callback/oauth2`` exchanges the code; serve/oidc.py), the dashboard's
+page (``GET /``, the port's copy of dashboard.html), dump and restore
+(``/api/dump``, ``/api/restore``), the CSV and JSONL import and export
+(``/api/import/*``, ``/api/export/*``, ``/api/bulk/*``, a multipart
+``file`` part accepted), purge (``/api/purge``, with its checklist), the
+chat proxy (``/api/chat/completions``), the ``ranker/prompt`` preview
+(utils/template.py) and the ``external`` preview (logics/external.py).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import html
+import io
 import json
 import time
 
@@ -35,8 +36,9 @@ from ..storage import cache as ck_mod
 from ..storage.cache import key
 from ..storage.meta import RECOMMEND_CONFIG, Node
 from ..utils.config import Config
+from . import dump as dump_mod
 from .metrics import MetricsRegistry
-from .oidc import SessionManager
+from .oidc import OIDCClient, SessionManager
 from .rest import HTTPError, RawResponse, Redirect, RestServer
 
 _LOGIN_FORM = """<!doctype html><html><body><h1>gorse-tpu dashboard</h1>
@@ -56,17 +58,22 @@ class MasterRestServer(RestServer):
         # share the master's registry so task-time gauges (gorse_master_*)
         # and request histograms render from one /metrics endpoint
         self.metrics = metrics or getattr(master, "metrics", None) or MetricsRegistry(namespace="gorse")
-        # login sessions (reference: master/rest.go:271-287); OIDC sign-on
-        # verifies RS256 tokens with cryptography, which the port does not use
+        # login sessions and the optional OIDC sign-on (reference:
+        # master/master.go:402-418, master/rest.go:271-287)
         self.sessions = SessionManager()
-        if master.config.oidc.enable:
-            raise NotImplementedError("OIDC sign-on (oidc.enable) is not ported yet: "
-                                      "ROADMAP.md M21")
+        oidc_cfg = master.config.oidc
+        self.oidc = (
+            OIDCClient(oidc_cfg.issuer, oidc_cfg.client_id, oidc_cfg.client_secret,
+                       oidc_cfg.redirect_url)
+            if oidc_cfg.enable
+            else None
+        )
         super().__init__(master.config, master.data, master.cache, api_key=api_key)
 
     def _register_routes(self) -> None:
         super()._register_routes()
         r = self.route
+        r("GET", "/", self.get_ui)  # /metrics comes from the base RestServer
         # dashboard (reference: master/rest.go:81-279)
         r("GET", "/api/dashboard/cluster", self.get_cluster)
         r("GET", "/api/dashboard/stats", self.get_stats)
@@ -78,6 +85,27 @@ class MasterRestServer(RestServer):
         r("GET", "/api/dashboard/config/schema", self.get_config_schema)
         r("GET", "/api/dashboard/categories", self.get_categories)
         r("POST", "/api/dashboard/schedule", self.post_schedule)
+        # node sync (replaces the gRPC Master service, master/rpc.go:29-98)
+        r("POST", "/api/admin/meta", self.post_meta)
+        r("POST", "/api/admin/progress", self.post_progress)
+        # bulk data (reference: master/rest.go:1280-1501, 1724, 1967)
+        r("GET", "/api/dump", self.get_dump)
+        r("POST", "/api/restore", self.post_restore)
+        r("GET", "/api/export/users", lambda req: self._export(dump_mod.export_users))
+        r("GET", "/api/export/items", lambda req: self._export(dump_mod.export_items))
+        r("GET", "/api/export/feedback", lambda req: self._export(dump_mod.export_feedback))
+        r("POST", "/api/import/users", lambda req: self._import(req, dump_mod.import_users))
+        r("POST", "/api/import/items", lambda req: self._import(req, dump_mod.import_items))
+        r("POST", "/api/import/feedback", lambda req: self._import(req, dump_mod.import_feedback))
+        # JSONL bulk import/export on one path, GET=export POST=import
+        # (reference: master/rest.go:275-277, 1280-1501)
+        for kind in ("users", "items", "feedback"):
+            r("GET", f"/api/bulk/{kind}", lambda req, k=kind: self._bulk_export(k))
+            r("POST", f"/api/bulk/{kind}", lambda req, k=kind: self._bulk_import(req, k))
+        # destructive purge with confirmation checklist (master/rest.go:1630-1670)
+        r("POST", "/api/purge", self.post_purge)
+        # OpenAI chat proxy for the dashboard playground (master/rest.go:2042-2127)
+        r("POST", "/api/chat/completions", self.post_chat_completions)
         # node sync (replaces the gRPC Master service, master/rpc.go:29-98)
         r("POST", "/api/admin/meta", self.post_meta)
         r("POST", "/api/admin/progress", self.post_progress)
@@ -97,6 +125,7 @@ class MasterRestServer(RestServer):
         r("GET", "/api/dashboard/item-to-item/{name}/{item-id}", self.get_dashboard_item_to_item)
         r("GET", "/api/dashboard/user-to-user/{name}/{user-id}", self.get_dashboard_user_to_user)
         r("GET", "/api/dashboard/external", self.get_dashboard_external)
+        r("GET", "/api/dashboard/ranker/prompt", self.get_ranker_prompt)
         # login (reference: master/rest.go:271-273,369-418)
         r("GET", "/login", self.get_login)
         r("POST", "/login", self.post_login)
@@ -288,6 +317,57 @@ class MasterRestServer(RestServer):
         except Exception as e:  # the dashboard shows the script's error
             raise HTTPError(400, f"external script failed: {e}")
 
+    def get_ranker_prompt(self, req) -> dict:
+        """Render the reranker prompt for inspection (reference:
+        getRankerPrompt master/rest.go:1157-1240): base64 templates over
+        the user's history and current recommendations, rendered by
+        utils/template.py."""
+        import base64
+
+        from ..utils import template
+        from ..utils.expression import match_any
+
+        q_b64 = req.query.get("query-template", "")
+        d_b64 = req.query.get("document-template", "")
+        user_id = req.query.get("user-id", "")
+        if not q_b64 or not d_b64:
+            raise HTTPError(400, "query-template and document-template are required")
+        if not user_id:
+            raise HTTPError(400, "user-id is required")
+        user = self.data.get_user(user_id)
+        if user is None:
+            raise HTTPError(404, "user not found")
+        try:
+            query_tpl = template.from_string(base64.b64decode(q_b64).decode())
+            doc_tpl = template.from_string(base64.b64decode(d_b64).decode())
+        except Exception as e:  # a bad template is the client's error
+            raise HTTPError(400, f"invalid template: {e}")
+        cfg = self.master.config.recommend
+        feedback = []
+        for f in self.data.get_user_feedback(user_id):
+            if len(feedback) >= cfg.context_size:
+                break
+            if match_any(cfg.data_source.positive_feedback_types, f.feedback_type, f.value):
+                item = self.data.get_item(f.item_id)
+                if item is not None:
+                    feedback.append((f.feedback_type, item))
+        scores = self.cache.search_scores(ck_mod.RECOMMEND, user_id)
+        items = self.data.batch_get_items([s.id for s in scores])
+        return {
+            "query": query_tpl.render(user=user, feedback=feedback),
+            "documents": [doc_tpl.render(item=it) for it in items],
+        }
+
+    def get_ui(self, req):
+        """The embedded single-file dashboard UI (reference: the gorse
+        dashboard frontend served by the master); the port's copy of
+        gorse_tpu/serve/dashboard.html. Its first line is the summary that
+        /apidocs.json gives, as in the reference."""
+        from pathlib import Path
+
+        html = (Path(__file__).parent / "dashboard.html").read_bytes()
+        return RawResponse(html, "text/html; charset=utf-8")
+
     # ---------------------------------------------------------------- login
 
     _public_paths = ("/", "/login", "/callback/oauth2", "/logout", "/apidocs.json")
@@ -310,7 +390,7 @@ class MasterRestServer(RestServer):
         # (reference: master/rest.go:344-366 + master.admin_api_key)
         hl = {k.lower(): v for k, v in headers.items()}
         mcfg = self.master.config.master
-        login_configured = bool(mcfg.dashboard_user_name)
+        login_configured = bool(mcfg.dashboard_user_name) or self.oidc is not None
         admin_key = mcfg.admin_api_key
         if (login_configured or admin_key) and path.startswith(self._PROTECTED_PREFIXES):
             authed = self._session_ok(hl) or (
@@ -328,6 +408,9 @@ class MasterRestServer(RestServer):
         return f"{SessionManager.COOKIE}={token}; Path=/; HttpOnly"
 
     def get_login(self, req):
+        if self.oidc is not None:
+            # OIDC enabled: send the browser to the provider (master/rest.go:355-358)
+            return Redirect(self.oidc.auth_url(self.oidc.new_state()))
         msg = req.query.get("msg", "")
         return RawResponse(
             _LOGIN_FORM.format(
@@ -352,8 +435,24 @@ class MasterRestServer(RestServer):
         return Redirect("/login?msg=incorrect")  # reference: master/rest.go:379
 
     def oauth2_callback(self, req):
-        # the OIDC callback; sign-on is not ported, as with it disabled
-        raise HTTPError(404, "OIDC is not enabled")
+        if self.oidc is None:
+            raise HTTPError(404, "OIDC is not enabled")
+        state = req.query.get("state", "")
+        if not self.oidc.check_state(state):
+            raise HTTPError(401, "invalid state")
+        try:
+            claims = self.oidc.exchange(req.query.get("code", ""))
+        except Exception as e:  # the provider's errors answer 401
+            raise HTTPError(401, f"token exchange failed: {e}")
+        token = self.sessions.issue(
+            {
+                "Name": claims.get("name", claims.get("sub", "")),
+                "Email": claims.get("email", ""),
+                "AuthType": "oidc",
+            }
+        )
+        return Redirect("/", set_cookie=self._session_cookie(token))
+
 
     def get_logout(self, req):
         expired = f"{SessionManager.COOKIE}=; Path=/; Max-Age=0"
@@ -532,3 +631,129 @@ class MasterRestServer(RestServer):
                 "master_memory_inuse_bytes", nbytes, labels={"data": comp}
             )
         return RawResponse(self.metrics.render().encode(), "text/plain; version=0.0.4")
+
+    # ------------------------------------------------------------ bulk data
+
+    def get_dump(self, req) -> RawResponse:
+        buf = io.BytesIO()
+        dump_mod.dump(self.data, buf)
+        return RawResponse(buf.getvalue())
+
+    def post_restore(self, req) -> dict:
+        if not isinstance(req.body, (bytes, bytearray)):
+            raise HTTPError(400, "restore expects a binary dump stream")
+        counts = dump_mod.restore(self.data, io.BytesIO(bytes(req.body)))
+        return counts
+
+    def _export(self, fn) -> RawResponse:
+        buf = io.StringIO()
+        fn(self.data, buf)
+        return RawResponse(buf.getvalue().encode(), "text/csv")
+
+    def _import(self, req, fn) -> dict:
+        if isinstance(req.body, (bytes, bytearray)):
+            text = bytes(req.body).decode()
+        elif isinstance(req.body, str):
+            text = req.body
+        else:
+            raise HTTPError(400, "import expects a CSV payload")
+        n = fn(self.data, io.StringIO(text))
+        return {"RowAffected": n}
+
+    _BULK = {
+        "users": ("export_users_jsonl", "import_users_jsonl"),
+        "items": ("export_items_jsonl", "import_items_jsonl"),
+        "feedback": ("export_feedback_jsonl", "import_feedback_jsonl"),
+    }
+
+    def _bulk_export(self, kind: str) -> RawResponse:
+        buf = io.StringIO()
+        getattr(dump_mod, self._BULK[kind][0])(self.data, buf)
+        return RawResponse(
+            buf.getvalue().encode(),
+            "application/jsonl",
+            headers={"Content-Disposition": f"attachment;filename={kind}.jsonl"},
+        )
+
+    @staticmethod
+    def _multipart_file(raw: bytes, content_type: str) -> bytes:
+        """Extract the `file` part from a multipart/form-data body (the
+        reference reads request.FormFile("file"), master/rest.go:1315)."""
+        import email.parser
+        import email.policy
+
+        msg = email.parser.BytesParser(policy=email.policy.default).parsebytes(
+            b"Content-Type: " + content_type.encode() + b"\r\n\r\n" + raw
+        )
+        for part in msg.iter_parts():
+            if part.get_param("name", header="content-disposition") == "file":
+                return part.get_payload(decode=True) or b""
+        raise HTTPError(400, "multipart body has no `file` part")
+
+    def _bulk_import(self, req, kind: str) -> dict:
+        raw = req.body
+        if not isinstance(raw, (bytes, bytearray)):
+            raise HTTPError(400, "import expects a JSONL payload")
+        ctype = req.headers.get("content-type", "")
+        if ctype.startswith("multipart/"):
+            raw = self._multipart_file(bytes(raw), ctype)
+        try:
+            n = getattr(dump_mod, self._BULK[kind][1])(
+                self.data, io.StringIO(bytes(raw).decode())
+            )
+        except ValueError as e:
+            raise HTTPError(400, str(e))
+        self.master.trigger()  # new data: re-run the task loop (rest.go:1361-1365)
+        return {"RowAffected": n}
+
+    _PURGE_CHECKLIST = frozenset(
+        {"delete_users", "delete_items", "delete_feedback", "delete_cache"}
+    )
+
+    def post_purge(self, req) -> dict:
+        """Wipe the data + cache stores after an explicit confirmation
+        checklist (reference: master/rest.go:1630-1670)."""
+        if not self.master.config.master.dashboard_password:
+            raise HTTPError(401, "purge is not allowed without dashboard password")
+        body = req.body if isinstance(req.body, dict) else {}
+        checked = set(filter(None, str(body.get("check_list", "")).split(",")))
+        if checked != self._PURGE_CHECKLIST:
+            raise HTTPError(401, "please confirm by checking all")
+        self.data.purge()
+        self.cache.purge()
+        return {"status": "ok"}
+
+    def post_chat_completions(self, req):
+        """Proxy a chat completion to the configured OpenAI endpoint
+        (reference: master/rest.go:2042-2127). `stream: true` responses come
+        back SSE-framed; the upstream call itself is buffered (stdlib server —
+        documented divergence from the reference's incremental flush)."""
+        from ..llm.client import OpenAIClient
+
+        cfg = self.master.config.openai
+        if not cfg.base_url:
+            raise HTTPError(400, "OpenAI endpoint is not configured")
+        body = req.body if isinstance(req.body, dict) else {}
+        client = OpenAIClient.from_config(cfg)
+        stream = bool(body.get("stream"))
+        try:
+            resp = client.chat_completion_raw(body)
+        except ValueError as e:
+            raise HTTPError(400, str(e))
+        if not stream:
+            return resp
+        chunk = dict(resp, object="chat.completion.chunk")
+        chunk["choices"] = [
+            {
+                "index": c.get("index", 0),
+                "delta": c.get("message", {}),
+                "finish_reason": c.get("finish_reason"),
+            }
+            for c in resp.get("choices", [])
+        ]
+        sse = f"data: {json.dumps(chunk)}\n\ndata: [DONE]\n\n"
+        return RawResponse(
+            sse.encode(),
+            "text/event-stream",
+            headers={"Cache-Control": "no-cache, no-transform"},
+        )

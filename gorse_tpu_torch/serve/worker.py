@@ -9,7 +9,10 @@ whole shard goes through ``MatrixFactorizationIndex.search_users`` in
 256-user chunks on the card. Ranking: ``ranker.type = "none"`` sorts the
 candidates by score; ``fm`` scores every (user, candidate) row of the shard
 with the AFM in one ``batch_predict`` on the card (sorted by score when no
-model is fitted yet); ``llm`` raises (ROADMAP.md, M21).
+model is fitted yet); ``llm`` asks the reranker API of
+``[recommend.ranker.reranker_api]`` when it has a URL, else the chat model
+of ``[openai]`` through ``LLMReranker`` (logics/chat.py), each user's
+candidates in one prompt; without either it sorts by score.
 """
 
 from __future__ import annotations
@@ -57,6 +60,7 @@ class Worker:
         blob_store: BlobStore,
         node_id: str = "worker-0",
         device=None,
+        openai_client=None,
     ) -> None:
         self.config = config
         self.data = data_store
@@ -72,6 +76,11 @@ class Worker:
         self.ctr_model: AFM | None = None
         self.ctr_model_id = ""
         self.items = ItemCache(data_store)
+        if openai_client is None and config.openai.base_url:
+            from ..llm.client import OpenAIClient
+
+            openai_client = OpenAIClient.from_config(config.openai)
+        self.openai_client = openai_client
 
     # ------------------------------------------------------------- syncing
 
@@ -292,12 +301,15 @@ class Worker:
         with a fitted model: every (user, candidate) row of the shard in one
         ``batch_predict`` on the model's device, each row the user, the
         user's labels, the item and the item's labels in the model's index;
-        otherwise the candidates' own scores."""
+        otherwise the candidates' own scores. ``llm`` with a reranker API or
+        an OpenAI client: ``_rank_llm``."""
         cfg = self.config.recommend
-        if cfg.ranker.type == "llm":
-            raise NotImplementedError(
-                "ranker.type 'llm': the LLM reranker is not ported yet (ROADMAP.md, M21)"
-            )
+        # the reranker-API path needs no OpenAI client (reference:
+        # NewChatReranker only takes RerankerAPIConfig + templates)
+        if cfg.ranker.type == "llm" and (
+            cfg.ranker.reranker_api.url or self.openai_client is not None
+        ):
+            return self._rank_llm(candidates)
         if cfg.ranker.type != "fm" or self.ctr_model is None or not self.ctr_model.is_fitted():
             return {u: sorted(s, key=lambda x: -x.score) for u, s in candidates.items()}
         with gc_paused():
@@ -345,6 +357,76 @@ class Worker:
         for (user_id, s), p in zip(owners, preds.tolist()):
             ranked[user_id].append(Score(s.id, p, s.categories, s.timestamp))
         return {u: sorted(s, key=lambda x: -x.score) for u, s in ranked.items()}
+
+    # ------------------------------------------------------------ main loop
+
+    def _rank_llm(self, candidates: dict[str, list[Score]]) -> dict[str, list[Score]]:
+        """LLM reranking (reference: rankByLLM worker/pipeline.go:472-540).
+
+        With [recommend.ranker.reranker_api] configured, candidates go through
+        the reranker HTTP API with the config's query/document templates
+        (reference: NewChatReranker worker/pipeline.go:234-238); otherwise the
+        chat-completions reranker prompts the OpenAI endpoint directly."""
+        from ..logics.chat import ChatReranker, LLMReranker, RerankerClient
+
+        cfg = self.config.recommend
+        api = cfg.ranker.reranker_api
+        if api.url:
+            chat_reranker = ChatReranker(
+                RerankerClient(api.url, auth_token=api.auth_token, model=api.model),
+                cfg.ranker.query_template or "{{ user.user_id }}",
+                cfg.ranker.document_template or "{{ item.item_id }}",
+            )
+            return self._rank_reranker_api(candidates, chat_reranker)
+        reranker = LLMReranker(self.openai_client, prompt=cfg.ranker.prompt)
+        out: dict[str, list[Score]] = {}
+        for user_id, scores in candidates.items():
+            user = self.data.get_user(user_id)
+            history: list[tuple[str, object]] = []
+            for fb in self.data.get_user_feedback(user_id):
+                if len(history) >= cfg.context_size:
+                    break
+                if match_any(cfg.data_source.positive_feedback_types, fb.feedback_type, fb.value):
+                    item = self.items.get(fb.item_id)
+                    if item is not None:
+                        history.append((fb.feedback_type, item))
+            self.items.prefetch([s.id for s in scores])
+            items = {
+                s.id: it
+                for s in scores
+                if (it := self.items.get(s.id)) is not None
+            }
+            out[user_id] = reranker.rank(user, history, scores, items)
+        return out
+
+    def _rank_reranker_api(self, candidates: dict[str, list[Score]], reranker) -> dict[str, list[Score]]:
+        """Rank through the reranker HTTP API (reference: rankByLLM
+        worker/pipeline.go:472-540 with logics.ChatReranker)."""
+        cfg = self.config.recommend
+        out: dict[str, list[Score]] = {}
+        for user_id, scores in candidates.items():
+            user = self.data.get_user(user_id)
+            history: list[tuple[str, object]] = []
+            for fb in self.data.get_user_feedback(user_id):
+                if len(history) >= cfg.context_size:
+                    break
+                if match_any(cfg.data_source.positive_feedback_types, fb.feedback_type, fb.value):
+                    item = self.items.get(fb.item_id)
+                    if item is not None:
+                        history.append((fb.feedback_type, item))
+            self.items.prefetch([s.id for s in scores])
+            items = [it for s in scores if (it := self.items.get(s.id)) is not None]
+            try:
+                ranked = reranker.rank(user, history, items)
+            except Exception as e:  # the user keeps the unranked candidates
+                logger.error("reranker API failed for %s: %s", user_id, e)
+                out[user_id] = scores
+                continue
+            ts = {s.id: s.timestamp for s in scores}
+            out[user_id] = [
+                Score(r.id, r.score, r.categories, ts.get(r.id)) for r in ranked
+            ]
+        return out
 
     # ------------------------------------------------------------ main loop
 

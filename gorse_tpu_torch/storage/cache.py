@@ -8,8 +8,8 @@ times), FIFO queues and time-series points. Key and collection names and
 the SQLite schema are the reference's, so both packages read each other's
 entries and ``cache.sqlite``. As in the reference, each write of the SQLite
 store commits. ``open_cache_store`` also opens Redis (redis.py), the server
-SQL stores (sqlstores.py) and MongoDB (mongo.py); only the gRPC proxy is
-not ported (ROADMAP.md, M21).
+SQL stores (sqlstores.py), MongoDB (mongo.py) and the master's gRPC proxy
+(``proxy://``, proxy.py).
 """
 
 from __future__ import annotations

@@ -5,8 +5,8 @@ reference's schema, statements and indexes (its FTS5 item-search index
 included), so either package reads the other's ``data.sqlite``. Streams are
 Python iterators; scan options (begin id, feedback types, time ranges) are
 keyword arguments. ``open_data_store`` also opens the server SQL stores
-(sqlstores.py) and MongoDB (mongo.py); only the gRPC proxy is not ported
-(ROADMAP.md, M21).
+(sqlstores.py), MongoDB (mongo.py) and the master's gRPC proxy
+(``proxy://``, proxy.py).
 """
 
 from __future__ import annotations

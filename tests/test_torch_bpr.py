@@ -200,8 +200,14 @@ def test_init_takes_numpy_factors_and_checks_their_shape():
     assert float(model.item_factors.std()) == pytest.approx(0.001, rel=0.1)
 
 
-def test_what_is_not_ported_raises():
+def test_what_is_not_ported_raises(tmp_path, monkeypatch):
+    """An unknown model raises; a built-in dataset (ported since, through
+    data/registry.py) that is neither cached nor on a mirror raises the
+    reference's FileNotFoundError naming the mirror variable."""
     with pytest.raises(KeyError):
         create_mf_model("nope", device="cpu")
-    with pytest.raises(NotImplementedError):
-        load_built_in("ml-1m")
+    monkeypatch.setenv("GORSE_TPU_DATASET_DIR", str(tmp_path))
+    monkeypatch.delenv("GORSE_TPU_DATASET_MIRROR", raising=False)
+    for load in (load_built_in, ref_load_built_in):
+        with pytest.raises(FileNotFoundError, match="GORSE_TPU_DATASET_MIRROR"):
+            load("ml-1m")

@@ -14,7 +14,12 @@ held against gorse_tpu's (tests/test_cli.py):
   and samples, so only the quality is comparable: NDCG@10 within 0.1 of
   the reference's, AUC within 0.1); ``embedding`` against the mock server
   equal to the reference's exactly (hash embeddings, exact neighbours);
-  ``retrieval`` on both routes; ``reranker`` raising, naming M21.
+  ``retrieval`` on both routes; ``reranker`` against the mock equal to the
+  reference's exactly (the same prompts, the same echo);
+- the port's ``dump``, ``restore`` and ``export`` against the port's
+  master: a dump restored into a second node gives the same rows and dumps
+  to the same bytes, and the CSV exports equal the reference CLI's against
+  the reference's node.
 """
 
 import json
@@ -119,6 +124,49 @@ def test_cli_model_answers(nodes, capsys, argv, n):
         assert set(outs["port"]) == set(outs["ref"])
     else:
         assert len(outs["port"]) == len(outs["ref"]) == n
+
+
+def test_cli_dump_restore_export(nodes, capsys, tmp_path):
+    """The port's ``dump``, ``restore`` and ``export`` against the port's
+    master (routes that answered 404 before): the dump equals the reference
+    CLI's dump of the reference's node byte for byte; restored into an
+    empty port node it gives the same rows, which dump to the same bytes;
+    each CSV export equals the reference's and the restored node's."""
+    from gorse_tpu_torch.serve.in_one import InOneNode
+    from gorse_tpu_torch.utils.config import Config
+
+    dumps = {}
+    for name, cli in CLIS.items():
+        dumps[name] = tmp_path / f"{name}.dump"
+        assert "dumped to" in _run(capsys, cli, nodes[name], "dump", str(dumps[name]))
+    first = dumps["port"].read_bytes()
+    assert first.startswith(b"GTPU1") and first == dumps["ref"].read_bytes()
+    config = Config()
+    config.recommend.collaborative.type = "mf"
+    fresh = InOneNode(config, workdir=str(tmp_path / "fresh"), device="cpu")
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    fresh.serve("127.0.0.1", port, background_loop=False)
+    fresh_base = f"http://127.0.0.1:{port}"
+    try:
+        counts = json.loads(_run(capsys, port_cli, fresh_base, "restore", str(dumps["port"])))
+        assert counts == {"users": 6, "items": 12, "feedback": 40}
+        again = tmp_path / "again.dump"
+        _run(capsys, port_cli, fresh_base, "dump", str(again))
+        assert again.read_bytes() == first
+        for what in ("users", "items", "feedback"):
+            paths = {}
+            for name, base in (("port", nodes["port"]), ("ref", nodes["ref"]),
+                               ("fresh", fresh_base)):
+                paths[name] = tmp_path / f"{name}-{what}.csv"
+                cli = CLIS["ref"] if name == "ref" else port_cli
+                assert "exported to" in _run(capsys, cli, base, "export", what, str(paths[name]))
+            got = paths["port"].read_bytes()
+            assert got.count(b"\n") > 1 and got == paths["ref"].read_bytes() \
+                == paths["fresh"].read_bytes(), what
+    finally:
+        fresh.shutdown()
 
 
 def test_cli_pipeline_patch_and_reset(nodes, capsys):
@@ -250,8 +298,11 @@ def test_bench_retrieval_runs(kernel):
 
 
 def test_bench_reranker_names_m21():
-    with pytest.raises(NotImplementedError, match="M21"):
-        port_bench.main(["reranker"])
+    """``bench reranker`` (once raising, naming M21) prints the reference's
+    result: the same users, candidates and prompts against the echoing
+    mock."""
+    argv = ["reranker", "--users", "8", "--candidates", "6"]
+    assert _bench(port_bench, argv) == _bench(ref_bench, argv)
 
 
 def test_bench_defaults_to_the_card(monkeypatch):

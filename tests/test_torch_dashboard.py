@@ -1,10 +1,11 @@
 """The master's dashboard and admin routes (gorse_tpu_torch/serve/dashboard.py,
 ``MasterRestServer``) and the login sessions (serve/oidc.py), held on the
-CPU: tests/test_dashboard.py's and tests/test_oidc.py's cases for the routes
-this package ports, each run over both packages (the port's in-one node on
-``device="cpu"``); the reference's ROADMAP.md M21 routes answer 404 in the
-port; ``oidc.enable`` raises. Assertions are the reference tests' own:
-exact values, no tolerance."""
+CPU: tests/test_dashboard.py's and tests/test_oidc.py's cases, each run
+over both packages (the port's in-one node on ``device="cpu"``); every
+route that the reference registers is routed in the port and answers alike
+on an empty master; ``oidc.enable`` builds the OIDC client as the
+reference's does (the sign-on itself: tests/test_torch_oidc.py).
+Assertions are the reference tests' own: exact values, no tolerance."""
 
 import importlib
 import json
@@ -201,8 +202,8 @@ def test_admin_meta_sync(node):
 
 
 def test_dashboard_previews(node):
-    """tests/test_dashboard.py's previews less the ranker prompt (M21; the
-    external preview is held in tests/test_torch_external.py)."""
+    """tests/test_dashboard.py's previews (the external preview is held in
+    tests/test_torch_external.py)."""
     n, base = node
     status, users = _get(base, "/api/dashboard/users?n=3")
     assert status == 200 and len(users["Users"]) == 3 and users["Cursor"]
@@ -229,6 +230,15 @@ def test_dashboard_previews(node):
     status, latest = _get(base, "/api/dashboard/latest?n=4")
     assert status == 200 and len(latest) == 4
     assert latest[0]["Score"] >= latest[-1]["Score"]
+    import base64
+
+    q = base64.b64encode(b"history: {% for t, item in feedback %}{{ item.item_id }} {% endfor %}").decode()
+    d = base64.b64encode(b"doc {{ item.item_id }}").decode()
+    status, prompt = _get(
+        base, f"/api/dashboard/ranker/prompt?query-template={q}&document-template={d}&user-id=u1"
+    )
+    assert status == 200 and prompt["query"].startswith("history: i")
+    assert prompt["documents"] and prompt["documents"][0].startswith("doc i")
 
 
 def test_typed_feedback_route(node):
@@ -391,14 +401,14 @@ M21_PATHS = (
 
 
 # listed above before their port; now routed in both packages alike
-PORTED_SINCE = {("GET", "/api/dashboard/external")}
+PORTED_SINCE = set(M21_PATHS)
 
 
 @pytest.mark.parametrize("method,path", M21_PATHS)
 def test_m21_routes_are_not_found(method, path, tmp_path):
-    """Routes left to ROADMAP.md M21 are not registered: 404 in the port,
-    where the reference routes them. Those of ``PORTED_SINCE`` are routed in
-    both and answer alike."""
+    """Routes once left to ROADMAP.md M21 (404 in the port): those of
+    ``PORTED_SINCE``, now all of them, are routed in both packages and
+    answer alike."""
     answers = {}
     for name in PACKAGES:
         p = _pkg(name)
@@ -407,7 +417,11 @@ def test_m21_routes_are_not_found(method, path, tmp_path):
                                  p.meta.MetaStore(), **p.kw)
         rest = p.dashboard.MasterRestServer(master)
         routed = any(m == method and pattern.match(path) for m, pattern, _, _ in rest._routes)
-        answers[name] = routed, rest.dispatch(method, path, {}, None, {})
+        # rendered (status, body bytes, content type, headers): a raw
+        # response compares by what goes on the wire
+        data, ctype, extra, status = rest.render_payload(*rest.dispatch(method, path, {},
+                                                                        None, {}))
+        answers[name] = routed, (status, data, ctype, extra)
     if (method, path) in PORTED_SINCE:
         assert answers["ref"][0] and answers["port"][0]
         assert answers["port"][1] == answers["ref"][1]
@@ -416,10 +430,23 @@ def test_m21_routes_are_not_found(method, path, tmp_path):
 
 
 def test_oidc_enable_raises(tmp_path):
-    p = _pkg("port")
-    config = p.config.Config()
-    config.oidc.enable = True
-    master = p.master.Master(config, p.data.MemoryDataStore(), p.cache.MemoryCacheStore(),
-                             p.blob.BlobStore(tmp_path), p.meta.MetaStore(), device="cpu")
-    with pytest.raises(NotImplementedError, match="M21"):
-        p.dashboard.MasterRestServer(master)
+    """``oidc.enable`` no longer raises: both packages build the same OIDC
+    client from the config, and only a login session passes the protected
+    prefixes."""
+    clients = {}
+    for name in PACKAGES:
+        p = _pkg(name)
+        config = p.config.Config()
+        config.oidc.enable = True
+        config.oidc.issuer = "http://127.0.0.1:1/"
+        config.oidc.client_id, config.oidc.client_secret = "gorse", "s3cret"
+        config.oidc.redirect_url = "http://127.0.0.1:2/callback/oauth2"
+        master = p.master.Master(config, p.data.MemoryDataStore(), p.cache.MemoryCacheStore(),
+                                 p.blob.BlobStore(tmp_path / name), p.meta.MetaStore(), **p.kw)
+        rest = p.dashboard.MasterRestServer(master)
+        o = rest.oidc
+        clients[name] = (o.issuer, o.client_id, o.client_secret, o.redirect_url,
+                         rest.dispatch("GET", "/api/dashboard/stats", {}, None, {}),
+                         rest.dispatch("GET", "/callback/oauth2", {"state": "forged"}, None, {}))
+    assert clients["port"] == clients["ref"]
+    assert clients["port"][4][0] == 401 and clients["port"][5][0] == 401

@@ -43,7 +43,9 @@ def test_port_imports_no_jax_and_no_reference():
                  "storage.mongowire", "storage.mysqlwire", "storage.pgwire", "storage.redis",
                  "storage.resp", "storage.sqlstores", "storage.vectordb", "protocol",
                  "protocol.pb", "protocol.h2", "protocol.grpcwire", "protocol.rpc",
-                 "storage.proxy", "utils.tls", "utils.tracing", "utils.events", "utils.log"):
+                 "storage.proxy", "utils.tls", "utils.tracing", "utils.events", "utils.log",
+                 "utils.template", "utils.msgpack", "logics.chat", "serve.dump",
+                 "data.registry", "storage.minimongo", "storage.minivector"):
         assert f"gorse_tpu_torch.{name}" in modules
     code = (
         "import importlib, json, sys\n"
@@ -84,6 +86,51 @@ def test_grpc_plane_imports_neither_grpc_nor_protobuf():
         timeout=120, check=True,
     )
     assert json.loads(out.stdout.strip().splitlines()[-1]) == []
+
+
+BLOCKED = ("jax", "jinja2", "msgpack", "cryptography", "grpc", "google.protobuf",
+           "gorse_tpu")
+
+
+def test_new_surface_imports_with_the_reference_packages_blocked():
+    """In a fresh interpreter where ``jax``, ``jinja2``, ``msgpack``,
+    ``cryptography``, ``grpc``, ``google.protobuf`` and ``gorse_tpu`` cannot
+    be imported (``sys.modules[name] = None``), every module of the port
+    imports, so does chip_smoke.py's import graph, and the new surface
+    works: a template renders, msgpack round-trips, an RSA key signs and
+    verifies, a dump restores."""
+    code = (
+        "import importlib, io, json, random, sys\n"
+        f"for name in {BLOCKED!r}: sys.modules[name] = None\n"
+        "sys.argv = ['chip_smoke.py']\n"
+        "import chip_smoke\n"
+        "import gorse_tpu_torch, pkgutil\n"
+        "mods = ['gorse_tpu_torch'] + [m.name for m in pkgutil.walk_packages("
+        "gorse_tpu_torch.__path__, 'gorse_tpu_torch.')]\n"
+        "for m in mods: importlib.import_module(m)\n"
+        "from gorse_tpu_torch.utils import msgpack, template\n"
+        "from gorse_tpu_torch.serve import dump, oidc\n"
+        "from gorse_tpu_torch.storage.data import MemoryDataStore\n"
+        "from gorse_tpu_torch.storage.types import User\n"
+        "assert template.from_string('{{ a|join(\"-\") }}').render(a=[1, 2]) == '1-2'\n"
+        "assert msgpack.unpackb(msgpack.packb({'k': [1, 2.5, None]})) == {'k': [1, 2.5, None]}\n"
+        "key = oidc.generate_rsa_key(1024, rng=random.Random(0))\n"
+        "assert oidc.rs256_verify(key.n, key.e, b'm', key.sign(b'm'))\n"
+        "a, b, buf = MemoryDataStore(), MemoryDataStore(), io.BytesIO()\n"
+        "a.insert_users([User('u1')]); dump.dump(a, buf); buf.seek(0)\n"
+        "assert dump.restore(b, buf) == {'users': 1, 'items': 0, 'feedback': 0}\n"
+        "print(json.dumps([len(mods), sorted(n for n in sys.modules if sys.modules[n] is not None"
+        " and (n.split('.')[0] in ('jax', 'jinja2', 'msgpack', 'cryptography', 'grpc',"
+        " 'gorse_tpu', 'markupsafe') or n.startswith('google.protobuf')))]))\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run(
+        [sys.executable, "-c", code], cwd=ROOT, env=env, capture_output=True, text=True,
+        timeout=120,
+    )
+    assert out.returncode == 0, out.stderr[-3000:]
+    n_modules, loaded = json.loads(out.stdout.strip().splitlines()[-1])
+    assert n_modules > 100 and loaded == []
 
 
 def test_chip_smoke_imports_no_jax_and_no_reference():

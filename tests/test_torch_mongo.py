@@ -1,6 +1,8 @@
 """The port's MongoDB layer (gorse_tpu_torch/storage/bson.py, mongowire.py,
-mongo.py) against gorse_tpu's, on gorse_tpu's ``MiniMongo`` (the port has
-no Mongo server of its own). The stores' contract cases run in
+mongo.py) against gorse_tpu's, on the port's ``MiniMongo``
+(storage/minimongo.py) and, each case again, on gorse_tpu's, so that the
+port's client stays held against the reference's server semantics. The
+stores' contract cases run in
 tests/test_torch_sql_stores.py; here the BSON codec byte for byte, the wire
 client's SCRAM refusal and cursor batching, the URL grammar and the
 collection prefix."""
@@ -12,12 +14,14 @@ import gorse_tpu.storage.bson as RB
 import gorse_tpu.storage.mongowire as RW
 import gorse_tpu_torch.storage.bson as PB
 import gorse_tpu_torch.storage.mongowire as PW
-from gorse_tpu.storage.minimongo import MiniMongo
+import gorse_tpu.storage.minimongo as RMM
+import gorse_tpu_torch.storage.minimongo as PMM
 
 
-@pytest.fixture(scope="module")
-def mini():
-    server = MiniMongo().start()
+@pytest.fixture(scope="module", params=["port", "ref"])
+def mini(request):
+    """The port's MiniMongo, and the reference's copy."""
+    server = {"port": PMM, "ref": RMM}[request.param].MiniMongo().start()
     yield server
     server.stop()
 

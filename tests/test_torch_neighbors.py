@@ -228,8 +228,10 @@ def test_tags_without_an_index_number_labels_in_push_order():
 
 
 def test_small_catalogs_and_what_is_not_ported():
-    """One item gives empty lists; ``chat`` raises and names its roadmap
-    item; an unknown type raises as the reference does."""
+    """One item gives empty lists; ``chat`` without a client is the
+    ``embedding`` type, as the reference's (its client case:
+    tests/test_torch_chat.py); an unknown type raises as the reference
+    does."""
     eng = new_item_to_item(ItemToItemConfig(name="t", type="users"), 5, device="cpu")
     eng.push(types.Item("only"), [1])
     assert eng.pop_all() == [("only", [])]
@@ -237,9 +239,16 @@ def test_small_catalogs_and_what_is_not_ported():
                            device="cpu")
     emb.push(types.Item("novec", labels={"v": "text"}), [])
     assert emb.pop_all() == []
-    with pytest.raises(NotImplementedError, match="M21"):
-        new_item_to_item(ItemToItemConfig(name="c", type="chat", prompt="{{ item }}"), 5,
-                         device="cpu")
+    chat = new_item_to_item(ItemToItemConfig(name="c", type="chat", column="v",
+                                             prompt="{{ item }}"), 5, timestamp=1.0,
+                            device="cpu")
+    emb = new_item_to_item(ItemToItemConfig(name="c", type="embedding", column="v"), 5,
+                           timestamp=1.0, device="cpu")
+    for k in range(4):
+        item = types.Item(f"c{k}", labels={"v": [float(k), float(k * k % 3)]})
+        chat.push(item, [])
+        emb.push(item, [])
+    assert type(chat).__name__ == "ChatItemToItem" and chat.pop_all() == emb.pop_all()
     with pytest.raises(ValueError):
         new_item_to_item(ItemToItemConfig(name="x", type="nope"), 5, device="cpu")
     with pytest.raises(ValueError):

@@ -2,26 +2,26 @@
 routes of serve/dashboard.py) held against gorse_tpu's on the CPU:
 
 - the reference's REST cases (tests/test_serve.py and
-  tests/test_rest_surface.py, less the CSV routes, which are ROADMAP.md
-  M21), each run over both packages, the port's in-one node on
-  ``device="cpu"``;
+  tests/test_rest_surface.py), each run over both packages, the port's
+  in-one node on ``device="cpu"``;
 - route by route: both packages' ``MasterRestServer`` on memory stores
   seeded alike take one script of requests through ``dispatch``, covering
   every route the port registers with its 400, 401 and 404 cases, and
   answer with equal status and body. Normalised, and nothing else: numbers
   (or numeric strings) that fall inside the script's own run window, which
   are ``time.time()`` stamps (auto-inserted rows, modify times, node and
-  span times); the session cookie's token (signed with a key drawn per
-  process); the M21 routes taken out of the reference's
-  ``/apidocs.json``; and ``/metrics``,
-  compared by its series (their values are durations and the process's
-  memory);
+  span times), also inside a dump's records and the CSV and JSONL rows;
+  the session cookie's token (signed with a key drawn per process); and
+  ``/metrics``, compared by its series (their values are durations and the
+  process's memory);
 - both front ends (the event loop and the threaded server) of each package
   over sockets: the same status, content type and body for every method.
 """
 
+import csv
 import http.client
 import importlib
+import io
 import json
 import re
 import socket
@@ -431,6 +431,19 @@ def test_item_category_add_remove(surface):
     assert e.value.code == 404
 
 
+def test_http_csv_export_import(surface):
+    n, base = surface
+    _, csv_users = _req(base, "/api/export/users")
+    assert csv_users.decode().count("\n") >= 8
+    _, csv_items = _req(base, "/api/export/items")
+    assert b"i1" in csv_items
+    # import new users through the HTTP surface
+    extra = "user_id,labels\nnew-user-a,\nnew-user-b,\n"
+    _, out = _req(base, "/api/import/users", method="POST",
+                  data=extra.encode(), content_type="text/csv")
+    assert out == {"RowAffected": 2} and n.data.get_user("new-user-a") is not None
+
+
 def test_dashboard_previews(surface):
     _, base = surface
     _, i2i = _req(base, "/api/dashboard/item-to-item/similar/i1")
@@ -490,17 +503,24 @@ def test_visibility_end_to_end(pkg, tmp_path):
 
 # ------------------------------------------------------- route by route
 
-# the reference's master routes that the port leaves to ROADMAP.md M21
-M21_ROUTES = {
-    ("GET", "/"), ("GET", "/api/dump"), ("POST", "/api/restore"),
-    ("GET", "/api/export/users"), ("GET", "/api/export/items"),
-    ("GET", "/api/export/feedback"), ("POST", "/api/import/users"),
-    ("POST", "/api/import/items"), ("POST", "/api/import/feedback"),
-    ("GET", "/api/bulk/users"), ("POST", "/api/bulk/users"), ("GET", "/api/bulk/items"),
-    ("POST", "/api/bulk/items"), ("GET", "/api/bulk/feedback"),
-    ("POST", "/api/bulk/feedback"), ("POST", "/api/purge"),
-    ("POST", "/api/chat/completions"), ("GET", "/api/dashboard/ranker/prompt"),
-}
+def _restore_stream() -> bytes:
+    """A dump of fixed rows (the port's ``dump``), restored by both."""
+    from gorse_tpu_torch.serve import dump
+    from gorse_tpu_torch.storage.data import MemoryDataStore
+    from gorse_tpu_torch.storage.types import Feedback, Item, User
+
+    store = MemoryDataStore()
+    store.insert_users([User("r1", labels={"a": [1, 2.5]}, comment="c"), User("r2")])
+    store.insert_items([Item("ri", categories=["even"], timestamp=3.0, labels=["x"])])
+    store.insert_feedback([Feedback("like", "r1", "ri", timestamp=4.0)])
+    buf = io.BytesIO()
+    dump.dump(store, buf)
+    return buf.getvalue()
+
+
+_MULTIPART = (b"--XyZ\r\nContent-Disposition: form-data; name=\"file\"; filename=\"u.jsonl\"\r\n"
+              b"Content-Type: application/octet-stream\r\n\r\n"
+              b'{"UserId": "mp1"}\n{"UserId": "mp2", "Labels": {"k": "v"}}\n\r\n--XyZ--\r\n')
 
 
 def seed_master(p, tmp):
@@ -592,8 +612,16 @@ def _comparable(rest, status, payload, norm):
                        if line and not line.startswith("#")})
     elif ctype == "application/json":
         body = norm(json.loads(data))
+    elif data.startswith(b"GTPU1"):
+        from gorse_tpu_torch.utils.msgpack import Unpacker
+
+        body = norm(list(Unpacker(data[5:])))
+    elif ctype == "text/csv":
+        body = [norm(row) for row in csv.reader(io.StringIO(data.decode()))]
+    elif ctype == "application/jsonl":
+        body = [norm(json.loads(line)) for line in data.decode().splitlines()]
     else:
-        body = data.decode()
+        body = data
     return status, ctype, headers, body
 
 
@@ -749,6 +777,55 @@ def _script():
         ("GET", "/logout", {}, None, {}),
         ("GET", "/api/dashboard/userinfo", {}, None, {}),
         ("GET", "/metrics", {}, None, {}),
+        # the dashboard's page, the prompt preview and the chat proxy
+        # without an endpoint
+        ("GET", "/", {}, None, {}),
+        ("GET", "/api/dashboard/ranker/prompt",
+         {"query-template": _b64("{{ user.user_id }}: {% for t, item in feedback %}"
+                                 "{{ t }}/{{ item.item_id }} {% endfor %}"),
+          "document-template": _b64("doc {{ item.item_id }} {{ item.categories|join(',') }}"),
+          "user-id": "u1"}, None, {}),
+        ("GET", "/api/dashboard/ranker/prompt", {"query-template": _b64("q"),
+                                                 "document-template": _b64("d")}, None, {}),
+        ("GET", "/api/dashboard/ranker/prompt", {"query-template": _b64("q"),
+                                                 "document-template": _b64("d"),
+                                                 "user-id": "ghost"}, None, {}),
+        ("GET", "/api/dashboard/ranker/prompt", {}, None, {}),
+        ("POST", "/api/chat/completions", {}, {"messages": [{"role": "user", "content": "x"}]},
+         {}),
+        # bulk data: dump, restore, CSV and JSONL both ways, purge refused
+        ("GET", "/api/dump", {}, None, {}),
+        ("POST", "/api/restore", {}, _restore_stream(), {}),
+        ("POST", "/api/restore", {}, {"not": "a stream"}, {}),
+        ("GET", "/api/export/users", {}, None, {}),
+        ("GET", "/api/export/items", {}, None, {}),
+        ("GET", "/api/export/feedback", {}, None, {}),
+        ("POST", "/api/import/users", {}, b"user_id,labels\ncu1,\ncu2,\"{\"\"k\"\": 1}\"\n", {}),
+        ("POST", "/api/import/items", {},
+         b"item_id,is_hidden,categories,timestamp,labels,description\n"
+         b"ci1,true,a|b,5.5,[],hello\nci2,false,,,,\n", {}),
+        ("POST", "/api/import/feedback", {},
+         b"feedback_type,user_id,item_id,timestamp\nlike,cu1,ci1,7\n", {}),
+        ("POST", "/api/import/users", {}, None, {}),
+        ("GET", "/api/bulk/users", {}, None, {}),
+        ("GET", "/api/bulk/items", {}, None, {}),
+        ("GET", "/api/bulk/feedback", {}, None, {}),
+        ("POST", "/api/bulk/users", {}, _MULTIPART,
+         {"Content-Type": "multipart/form-data; boundary=XyZ"}),
+        ("POST", "/api/bulk/items", {}, b'{"ItemId": "bi1", "Categories": ["c"]}\n\n'
+         b'{"ItemId": "bi2"}\n', {}),
+        ("POST", "/api/bulk/feedback", {},
+         b'{"FeedbackType": "like", "UserId": "cu2", "ItemId": "bi1", "Timestamp": 8}\n', {}),
+        ("POST", "/api/bulk/items", {}, b'{"ItemId": "ok"}\n{not json\n', {}),
+        ("POST", "/api/bulk/users", {}, b'{"UserId": "a/b"}\n', {}),
+        ("POST", "/api/bulk/feedback", {}, b'{"FeedbackType": "x", "UserId": " ", '
+         b'"ItemId": "i1"}\n', {}),
+        ("POST", "/api/bulk/users", {}, b"--XyZ--\r\n",
+         {"Content-Type": "multipart/form-data; boundary=XyZ"}),
+        ("POST", "/api/bulk/users", {}, {"json": "body"}, {}),
+        ("POST", "/api/purge", {}, {"check_list": "delete_users,delete_items,"
+                                                  "delete_feedback,delete_cache"}, {}),
+        ("GET", "/api/dump", {}, None, {}),
         # the neighbour aliases and CF without their configuration: 404
         ("do", lambda m: setattr(m.config.recommend, "item_to_item", [])),
         ("do", lambda m: setattr(m.config.recommend, "user_to_user", [])),
@@ -779,6 +856,13 @@ def _script():
         ("GET", "/api/dashboard/userinfo", {}, None, {"Cookie": "<session>"}),
         ("GET", "/api/dashboard/stats", {}, None, {"Cookie": "<session>"}),
         ("GET", "/login", {"msg": "<b>x</b>"}, None, {}),
+        # purge with the password set: the checklist, then everything gone
+        ("POST", "/api/purge", {}, {"check_list": "delete_users"}, {"Cookie": "<session>"}),
+        ("POST", "/api/purge", {}, {}, {"Cookie": "<session>"}),
+        ("POST", "/api/purge", {}, {"check_list": "delete_users,delete_items,delete_feedback,"
+                                                  "delete_cache"}, {"Cookie": "<session>"}),
+        ("GET", "/api/dump", {}, None, {"Cookie": "<session>"}),
+        ("GET", "/api/users", {}, None, key),
     ]
 
 
@@ -786,7 +870,7 @@ def test_every_route_equals_the_reference(tmp_path):
     """One script through both packages' ``MasterRestServer.dispatch``:
     every status and body equal (normalised as the module says), every
     route the port registers reached, and the port's route table the
-    reference's less the M21 routes."""
+    reference's."""
     servers = {}
     for name in PACKAGES:
         p = _pkg(name)
@@ -794,7 +878,7 @@ def test_every_route_equals_the_reference(tmp_path):
         servers[name] = SimpleNamespace(master=master, rest=rest, config=master.config)
     want_routes = {(m, pat) for m, pat, _ in servers["ref"].rest._route_templates}
     got_routes = {(m, pat) for m, pat, _ in servers["port"].rest._route_templates}
-    assert got_routes == want_routes - M21_ROUTES
+    assert got_routes == want_routes
     t0 = time.time()
     script = _script()
     reached = set()
@@ -825,10 +909,6 @@ def test_every_route_equals_the_reference(tmp_path):
                                                                      answers["port"]):
         want = _comparable(servers["ref"].rest, s_want, p_want, norm)
         got = _comparable(servers["port"].rest, s_got, p_got, norm)
-        if path == "/apidocs.json":
-            for m, pattern in M21_ROUTES:
-                want[3]["paths"].get(pattern, {}).pop(m.lower(), None)
-            want[3]["paths"] = {k: v for k, v in want[3]["paths"].items() if v}
         assert got == want, (method, path)
         statuses.add(got[0])
     assert {200, 302, 400, 401, 404, 500} <= statuses

@@ -7,8 +7,7 @@ The cases of tests/test_torch_storage.py run, as cases of one parametrised
 contract test, on each backend: MySQL, Postgres and ClickHouse (data;
 ClickHouse is no cache store in the reference either), MySQL, Postgres,
 Redis, a three-node Redis Cluster and MongoDB (cache), MongoDB (data), each
-store on the port's server (Mongo: gorse_tpu's ``MiniMongo``, the port has
-no Mongo server); each records what every call returned, and the records
+store on the port's server (Mongo: the port's ``MiniMongo``); each records what every call returned, and the records
 must be equal. A case a backend then crosses packages: the port's store on
 gorse_tpu's server and gorse_tpu's on the port's give the same. Then the
 SQL layer itself: ``sql_literal``/``sql_interpolate`` against the
@@ -16,6 +15,7 @@ reference's on the same values, MySQL's backslash rule, each wire client's
 refusal of a bad password on either package's server, and the dialects'
 DDL."""
 
+import importlib
 import threading
 
 import pytest
@@ -45,9 +45,9 @@ class _Server:
     def __init__(self, backend: str, pkg: str) -> None:
         minisql, resp = SERVERS[pkg]
         if backend == "mongodb":
-            from gorse_tpu.storage.minimongo import MiniMongo
-
-            self._mini = MiniMongo().start()
+            minimongo = importlib.import_module(
+                {"port": "gorse_tpu_torch", "ref": "gorse_tpu"}[pkg] + ".storage.minimongo")
+            self._mini = minimongo.MiniMongo().start()
             self.url, self.close = self._mini.url(), self._mini.stop
         elif backend in ("redis", "redis-cluster"):
             self._mini = resp.MiniRedis() if backend == "redis" else resp.MiniRedisCluster(3)
@@ -104,7 +104,8 @@ def test_remote_store_case_is_the_reference(servers, backend, case):
 CROSS = [("mysql", "data_feedback_insert_and_query"), ("postgres", "data_items_crud"),
          ("clickhouse", "data_feedback_insert_and_query"), ("mysql", "cache_scores"),
          ("postgres", "cache_kv_and_queue"), ("redis", "cache_scores"),
-         ("redis-cluster", "cache_scores")]
+         ("redis-cluster", "cache_scores"), ("mongodb", "data_items_crud"),
+         ("mongodb", "cache_scores")]
 
 
 @pytest.mark.parametrize("backend,case", CROSS, ids=[f"{b}-{c}" for b, c in CROSS])

@@ -1,7 +1,8 @@
 """The port's vector-database stores (gorse_tpu_torch/storage/vectordb.py:
 Qdrant, Weaviate, Milvus over one stdlib REST client) against gorse_tpu's,
-each on gorse_tpu's engine-semantics server (storage/minivector.py; the
-port has none of its own).
+each on the port's engine-semantics server (storage/minivector.py); one
+case per engine also on gorse_tpu's copy of the servers, so that the
+port's clients stay held against the reference's engine semantics.
 
 The same calls on the same rows, made from a seed with numpy, give the same
 records from both packages' stores, per engine and distance, quantization
@@ -16,16 +17,29 @@ import pytest
 import gorse_tpu.storage.vectordb as RDB
 import gorse_tpu.storage.vectors as RV
 import gorse_tpu_torch.storage.vectordb as PDB
-from gorse_tpu.storage.minivector import MiniMilvus, MiniQdrant, MiniWeaviate
+import gorse_tpu.storage.minivector as RMV
+import gorse_tpu_torch.storage.minivector as PMV
 from gorse_tpu_torch.storage import vectors as PV
 
 ENGINES = ("qdrant", "weaviate", "milvus")
 
 
+def _start(mv) -> dict:
+    return {"qdrant": mv.MiniQdrant().start(), "weaviate": mv.MiniWeaviate().start(),
+            "milvus": mv.MiniMilvus().start()}
+
+
 @pytest.fixture(scope="module")
 def servers():
-    minis = {"qdrant": MiniQdrant().start(), "weaviate": MiniWeaviate().start(),
-             "milvus": MiniMilvus().start()}
+    minis = _start(PMV)
+    yield minis
+    for mini in minis.values():
+        mini.stop()
+
+
+@pytest.fixture(scope="module")
+def ref_servers():
+    minis = _start(RMV)
     yield minis
     for mini in minis.values():
         mini.stop()
@@ -78,6 +92,18 @@ def test_store_is_the_reference(servers, engine, distance, quantization, bits):
                  quantization, bits)
     want = _calls(RV.open_vector_store(_url(engine, mini)), name, distance, quantization, bits)
     assert got == want
+
+
+@pytest.mark.parametrize("engine", ENGINES)
+def test_store_on_the_reference_server(servers, ref_servers, engine):
+    """The reference's copy of each server: the port's store gives there
+    what the reference's store gives there, and what it gives on the
+    port's server."""
+    args = ("c_ref", "euclidean", "sq", 0)
+    got = _calls(PV.open_vector_store(_url(engine, ref_servers[engine]), device="cpu"), *args)
+    want = _calls(RV.open_vector_store(_url(engine, ref_servers[engine])), *args)
+    own = _calls(PV.open_vector_store(_url(engine, servers[engine]), device="cpu"), *args)
+    assert got == want == own
     assert got[0] and got[-1] is False and got[1] and len(got[2][0]) == 10
 
 

@@ -212,10 +212,10 @@ def test_config_defaults_and_digest_match_reference(variant):
 
 @pytest.mark.parametrize("part", ["llm_ranker", "external_source"])
 def test_unported_parts_raise(part, tmp_path):
-    """What the slice does not port yet raises NotImplementedError naming its
-    ROADMAP item, instead of serving something else. The external source,
-    ported since, answers as the reference does: an unconfigured name
-    yields nothing."""
+    """Parts once left unported, now answering as the reference does: the
+    external source yields nothing for an unconfigured name, and the
+    ``llm`` ranker without a reranker API or an OpenAI endpoint sorts the
+    candidates by score (its configured routes: tests/test_torch_chat.py)."""
     from gorse_tpu.logics.recommend import Recommender as RefRecommender
     from gorse_tpu.utils.config import Config as RefConfig
     from gorse_tpu_torch.logics.recommend import Recommender
@@ -233,9 +233,24 @@ def test_unported_parts_raise(part, tmp_path):
                               user_id="u0").parse("external/x")()
         assert got == want == ([], "")
         return
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        cfg.recommend.ranker.type = part.split("_")[0]
-        worker._rank({"u0": []})
+    from gorse_tpu.serve.worker import Worker as RefWorker
+    from gorse_tpu.storage.blob import BlobStore as RefBlobStore
+    from gorse_tpu.storage.types import Score as RefScore
+    from gorse_tpu_torch.storage.types import Score
+
+    cfg.recommend.ranker.type = "llm"
+    ref_cfg = RefConfig()
+    ref_cfg.recommend.ranker.type = "llm"
+    ref_data = __import__("gorse_tpu.storage.data", fromlist=["MemoryDataStore"])
+    ref_cache = __import__("gorse_tpu.storage.cache", fromlist=["MemoryCacheStore"])
+    ref_worker = RefWorker(ref_cfg, ref_data.MemoryDataStore(), ref_cache.MemoryCacheStore(),
+                           RefBlobStore(tmp_path / "ref"))
+    assert worker.openai_client is None and ref_worker.openai_client is None
+    rows = [("i1", 0.5), ("i2", 2.0), ("i3", 1.0)]
+    got = worker._rank({"u0": [Score(i, s) for i, s in rows]})
+    want = ref_worker._rank({"u0": [RefScore(i, s) for i, s in rows]})
+    assert [(s.id, s.score) for s in got["u0"]] == [(s.id, s.score) for s in want["u0"]] == [
+        ("i2", 2.0), ("i3", 1.0), ("i1", 0.5)]
 
 
 # ------------------------------------------------------------ the fm ranker
