@@ -265,7 +265,12 @@ kernel's own block maxima.
    epoch on its ``global_mesh``. With more than one card visible, the
    epoch and the master again on the mesh over every card (the master's
    own ``training_mesh``), and one process a card over NCCL against it.
-13. The approximate tier, external sources, the bench and the CLI. (a) On
+13. The approximate tier, external sources, the bench and the CLI. (a)
+   ``bin_max`` and ``bin_max_sq`` equal to ``bin_max_plain`` at
+   ``BIN_EDGES`` (integer-valued, so exact): keys stored and merged, more
+   units than SMs, 300 queries (two launches, one on a single consumer
+   warpgroup), 128 and 192 dimensions, L = n = 101, L = 37, bins without
+   items; dot and euclidean. On
    phase 3's 1M x 64 bf16 table and 256 of its users, at k = 10 and the
    worker's fetch, at recall targets 0.9, 0.95 and 0.99: ``bin_max`` held
    against ``bin_max_plain`` (``hold_bins``: the same bins empty; where the
@@ -275,7 +280,10 @@ kernel's own block maxima.
    point ``dot_topk_approx`` equal to the kernels' lists, mean recall@k
    against the exact ``dot_topk`` at or above the target; at 0.99 the
    times (median and queued), the bound (one table stream plus the keys),
-   the plain time, the extra device memory (no ``[B, N]`` matrix), the
+   the plain time, the yardstick (``bin_library``: a bf16 ``torch.matmul``
+   into a score matrix padded to whole rows of L and ``.max(dim=1)`` over
+   its ``[b, rows, L]`` view; for SQ the affine epilogue between), the
+   work plan, the extra device memory (no ``[B, N]`` matrix), the
    route's time beside the exact chain's on the same chunk. The same for
    ``bin_max_sq`` on the table's codes at k = 10 (dot at each target,
    euclidean at 0.99), and ``sq_topk_approx``'s launches from 0. (b) Phase
@@ -4673,6 +4681,104 @@ def hold_bins(what: str, keys, keys_p, scores_p, tol, b: int, n_bins: int):
     return resolved, err, int(tied.sum())
 
 
+# bin_max's edge shapes: (name, n_items, dim, b, n_bins, sq metric or None).
+# Integer-valued inputs, so every partial sum is exact and the kernel is held
+# equal to its plain version, tie order included. Together they reach every
+# path of the kernel's plan: keys stored (one unit owns its bins) and merged
+# (rows split), more units than SMs (the persistent grid's second round), a
+# second 256-query slice and a slice on one consumer warpgroup, 128
+# dimensions (two resident passes) and 192 (the queries streamed in the
+# stages), L = n <= 128 odd, L below a unit's 64 bins.
+BIN_EDGES = (
+    ("d128 split", 5000, 100, 200, 1024, None),
+    ("d128 split sq", 5000, 100, 200, 1024, "dot"),
+    ("d128 split sq euclidean", 5000, 100, 200, 1024, "euclidean"),
+    ("L = n = 101", 101, 16, 300, 101, None),
+    ("L = n = 101 sq euclidean", 101, 16, 300, 101, "euclidean"),
+    ("L = 37", 3000, 16, 40, 37, None),
+    ("L = 128 over 100 items", 100, 16, 40, 128, None),
+    ("unsplit, two rounds", 100_000, 16, 300, 9000, None),
+    ("unsplit, two rounds sq", 100_000, 16, 300, 9000, "dot"),
+    ("unsplit, two rounds sq euclidean", 100_000, 16, 200, 9000, "euclidean"),
+    ("d192 streamed", 20_000, 150, 200, 1024, None),
+    ("d192 streamed sq", 20_000, 150, 300, 1024, "euclidean"),
+)
+
+
+def hold_bin_edges(dev) -> list:
+    """``bin_max`` / ``bin_max_sq`` equal to ``bin_max_plain`` on the card at
+    ``BIN_EDGES``; fails unless the cases reach the plan's every path."""
+    import torch
+
+    from gorse_tpu_torch.ops import topk
+
+    rng = np.random.default_rng(23)
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    rows, reached = [], set()
+    for name, n, d, b, n_bins, metric in BIN_EDGES:
+        items = rng.integers(-2, 3, size=(n, d)).astype(np.float32)
+        q = torch.as_tensor(rng.integers(-2, 3, size=(b, d)).astype(np.float32), device=dev)
+        b_pad = topk._round_up(b, topk.QUERY_TILE)
+        if metric is None:
+            table = topk.prepare_items(items, device=dev).table
+            qp, aff = topk._pad_queries(q, topk.PreparedItems(table, n, d), b_pad), None
+            keys = topk.bin_max(qp, table, n, n_bins)
+        else:
+            codes, scale, lo, norms2 = sq_table(items)
+            prep = topk.prepare_sq_items(codes, scale, lo, norms2, device=dev)
+            table = prep.table
+            qp, aff = topk._sq_operands(q, prep, b_pad, metric)
+            keys = topk.bin_max_sq(qp, table, aff, n, n_bins)
+        want = topk.bin_max_plain(qp, table, n, n_bins, aff)
+        torch.cuda.synchronize()
+        check(torch.equal(keys, want), f"bin_max edge {name}: equal to bin_max_plain")
+        plan = topk.bin_plan(n, n_bins, b_pad, n_sm)
+        reached |= {"merged" if plan.merge else "stored",
+                    "two rounds" if len(plan.units) > plan.grid else "one round",
+                    "two slices" if len(plan.slices) > 1 else "one slice",
+                    "resident" if table.shape[1] <= 128 else "streamed"}
+        reached |= {"one warpgroup" for _, nq in plan.slices if nq <= 128}
+        reached |= {f"d_pad {table.shape[1]}", "sq" if aff is not None else "bf16"}
+        rows.append({"case": name, "units": len(plan.units), "grid": plan.grid,
+                     "merge": plan.merge, "slices": len(plan.slices),
+                     "empty_bins": int((keys[:b] == topk._INT64_MIN).sum())})
+    log("  bin_max edges: " + json.dumps(rows))
+    need = {"merged", "stored", "two rounds", "one round", "two slices", "one slice",
+            "resident", "streamed", "one warpgroup", "d_pad 128", "sq", "bf16"}
+    check(need <= reached, f"bin_max edges reach every path: missing {sorted(need - reached)}")
+    return rows
+
+
+def bin_library(qp, table, n: int, n_bins: int, aff=None):
+    """``bin_max``'s yardstick, timed and never called by the port: one bf16
+    ``torch.matmul`` of the chunk against the table (the codes as bf16 for
+    SQ, then the affine epilogue in f32) into a score matrix padded to whole
+    rows of ``n_bins`` (pad items score ``-inf``), and ``.max(dim=1)`` over
+    its ``[b, rows, n_bins]`` view. Returns the call; the padded table is
+    made here, outside it."""
+    import torch
+
+    rows = -(-n // n_bins)
+    t_pad = torch.zeros((rows * n_bins, table.shape[1]), dtype=torch.bfloat16,
+                        device=table.device)
+    t_pad[:n] = table[:n].to(torch.bfloat16)
+    mask = torch.zeros(rows * n_bins, device=table.device,
+                       dtype=torch.bfloat16 if aff is None else torch.float32)
+    mask[n:] = float("-inf")
+    if aff is not None:
+        scale, minv = torch.zeros_like(mask), torch.zeros_like(mask)
+        scale[:n], minv[:n] = aff.affine[0, :n], aff.affine[1, :n]
+        qsum = aff.qstats[0][:, None]
+
+    def call():
+        s = torch.matmul(qp, t_pad.T)
+        if aff is not None:
+            s = s.float() * scale + qsum * minv
+        return (s + mask).view(qp.shape[0], rows, n_bins).max(dim=1)
+
+    return call
+
+
 def approx_recall(got, want) -> float:
     """Mean share of each exact list's ids that the approximate list holds."""
     g, w = got.cpu().numpy(), want.cpu().numpy()
@@ -4733,10 +4839,15 @@ def hold_approx(name: str, queries, table, n: int, k: int, target: float, operan
         extra = torch.cuda.max_memory_allocated() - base
         check(extra < b_pad * table.shape[0] * 4 // 4,
               f"{name} k={k}: no [B, N] score matrix ({extra} bytes above the inputs)")
+        lib = bin_library(qp, table, n, n_bins, aff)
+        plan = topk.bin_plan(n, n_bins, b_pad, torch.cuda.get_device_properties(
+            qp.device).multi_processor_count)
         row.update(
             ms=median_ms(bins, 20), queued_ms=queued_ms(bins),
             plain_ms=median_ms(lambda: topk.bin_max_plain(qp, table, n, n_bins, aff), 3),
-            bound_ms=bms, bound_by=by, library_ms=None, extra_bytes=extra,
+            bound_ms=bms, bound_by=by, library_ms=median_ms(lib, 10),
+            library_queued_ms=queued_ms(lib, 10), extra_bytes=extra,
+            plan={"units": len(plan.units), "grid": plan.grid, "merge": plan.merge},
             keys_bytes=b_pad * n_bins * 8,
             merge=merge_timing(keys, count, b, k),
             route_ms=median_ms(lambda: approx_fn(queries, k, target), 10),
@@ -4757,7 +4868,7 @@ def phase_approx_tier(user_factors, item_factors, histories, dev) -> dict:
 
     from gorse_tpu_torch.ops import topk
 
-    out = {"bf16": [], "sq": []}
+    out = {"bf16": [], "sq": [], "edges": hold_bin_edges(dev)}
     chunk = torch.as_tensor(user_factors[:APPROX_QUERIES], device=dev)
     fetch = min(100 + max(len(h) for h in histories[:APPROX_QUERIES]), N_ITEMS)
     prep = topk.prepare_items(torch.as_tensor(item_factors, device=dev), device=dev)

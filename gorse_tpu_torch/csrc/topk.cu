@@ -79,9 +79,12 @@
 // in each of L strided bins (item j in bin j mod L), the PartialReduce
 // step of jax.lax.approx_max_k, which merge_topk then reduces to the top k.
 
+#include <cuda.h>
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -356,10 +359,7 @@ struct Affine {
 // The epilogue of gorse_tpu/ops/topk.py _block_scores (:353-357) on a
 // round's fragments: dots = raw * scale + qsum * minv, and for euclidean
 // 2 * dots - norms2 - q2, each op rounded on its own.
-// The tile's items are item0 + [0, 256); one past the table (bin_max's
-// last rows) reads the last item's affine, and its score is discarded.
-__device__ __forceinline__ void apply_affine_at(const Affine& af, size_t item0, int q0, int nq,
-                                                Acc& acc) {
+__device__ __forceinline__ void apply_affine(const Affine& af, int blk, int q0, int nq, Acc& acc) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int wq = warp >> 2, wn = warp & 3, g = lane >> 2, tq = lane & 3;
 #pragma unroll
@@ -376,8 +376,7 @@ __device__ __forceinline__ void apply_affine_at(const Affine& af, size_t item0, 
     for (int nt = 0; nt < 8; ++nt) {
 #pragma unroll
       for (int e1 = 0; e1 < 2; ++e1) {
-        const size_t at = item0 + wn * 64 + nt * 8 + tq * 2 + e1, last = (size_t)af.n_pad - 1;
-        const size_t idx = at < last ? at : last;
+        const int idx = blk * BLOCK_N + wn * 64 + nt * 8 + tq * 2 + e1;
         const float scale = __ldg(af.affine + idx), minv = __ldg(af.affine + af.n_pad + idx);
         const float n2 = __ldg(af.affine + 2 * af.n_pad + idx);
 #pragma unroll
@@ -389,10 +388,6 @@ __device__ __forceinline__ void apply_affine_at(const Affine& af, size_t item0, 
       }
     }
   }
-}
-
-__device__ __forceinline__ void apply_affine(const Affine& af, int blk, int q0, int nq, Acc& acc) {
-  apply_affine_at(af, (size_t)blk * BLOCK_N, q0, nq, acc);
 }
 
 // this block's share of the n item blocks: a contiguous range
@@ -1215,177 +1210,390 @@ __global__ void __launch_bounds__(SEED_THREADS, 2) merge_topk_kernel(
 // item j into bin j mod L, and each query keeps each bin's maximum. The
 // result is the maximum key (score descending, index ascending) of every
 // (query, bin), [b_pad, L] int64 in candidate order; a bin with no item
-// below n_items keeps INT64_MIN, which the wrapper writes first. merge_topk
-// takes the top k of the L keys. It replaces no Pallas kernel: on the TPU
-// the reduction is one XLA op that the hardware runs, and the [B, N] score
-// matrix never exists; here it never exists either.
+// below n_items holds INT64_MIN. merge_topk takes the top k of the L keys.
+// It replaces no Pallas kernel: on the TPU the reduction is one XLA op that
+// the hardware runs, and the [B, N] score matrix never exists; here it
+// never exists either.
 //
 // Bound on this card: one table stream (1M x 64 bf16: 128 MB, ~38 us at
 // 3.35 TB/s) against the dots (33.6 GFLOP at 256 queries, ~34 us on the bf16
-// tensor cores), plus the keys written (256 x L x 8 bytes: 2 MB at L =
-// 1,024, 64 MB at L = 31,360).
+// tensor cores), plus the keys written once (256 x L x 8 bytes: 2 MB at
+// L = 1,024, 64 MB at L = 31,360).
 //
 // Design: view the items as rows of L, row r holding items r L + [0, L).
-// The L bins cut into chunks of 256; a thread block owns one chunk, one
-// round of 64 queries and a contiguous range of rows, and for each row
-// scores the 256 items r L + chunk + [0, 256) (a slab at any item offset,
-// through the same cp.async ring and mma.sync tile as block_max). A score
-// lands in the same fragment slot for every row, so each thread keeps its
-// slots' running maxima in registers and the winners' indices in shared
-// memory (its own slots only: no barrier). Rows are taken in ascending
-// order and a score replaces the maximum only when larger, so equal scores
-// keep the lower index. At the end each slot's key goes to the output by a
-// 64-bit atomicMax, which merges the blocks that split a chunk's rows.
-// Items past n_items (and rows past the table, read clamped) never count.
-constexpr int BIN_WIN_BYTES = RQ * BLOCK_N * 4;  // [RQ][256] winner indices
+// A work unit is a chunk of BIN_W = 64 bins and a range of rows; the plan
+// of units comes from ops/topk.py bin_plan, one (bin0, r_lo, r_hi) triple
+// each, and a persistent grid walks it (block b takes units b, b + grid,
+// ...). A block holds all of the launch's queries (up to 256) resident in
+// shared memory, so each item slab (64 items r L + bin0 + [0, 64), 64
+// dimensions) is staged once a launch:
+// - a producer warpgroup, one thread of it at work, keeps a ring of
+//   BIN_STAGES slabs in flight by TMA, one mbarrier per stage for "full"
+//   (the transaction bytes landed) and one for "empty" (every consumer warp
+//   is done with it); the loop has no __syncthreads;
+// - two consumer warpgroups, 128 queries each, score a slab in two query
+//   halves of 64, each four wgmma m64n64k16 (items on M, queries on N; A and
+//   B K-major in shared memory with the 128-byte swizzle that TMA writes).
+//   The uint8 table's codes (0-255, exact in bf16) are converted in
+//   registers and fed as the A fragment, so no converted copy is staged;
+// - a half's 64 x 64 products sit in 32 registers a thread; each thread
+//   keeps its 64 slots' running maxima and winning rows in 128 more
+//   (setmaxnreg gives the consumers 232 registers and the producer 40).
+//   Rows are taken in ascending order and a score replaces the maximum only
+//   when larger, so equal scores keep the lower index. The fold is four
+//   instructions a score: +0 (a sum of -0 products reads +0, as the plain
+//   sum from +0 does), one comparison as 0/1, max, and one FMA on the
+//   winner's row kept relative to the current one.
+// At the end of a unit each (query, bin) key goes to the output: a plain
+// store where the unit owns its bins' every row (the wrapper then allocates
+// the keys with torch.empty: no fill, no atomic), a 64-bit atomicMax over
+// INT64_MIN-filled keys where the plan splits rows over several units. A
+// thread's stores for one register run along 8 consecutive bins of 4
+// queries: 64-byte runs, whole 32-byte sectors. Items past n_items (and
+// rows past the table, which TMA fills with zeros) never count.
+// Tables wider than 128 dimensions carry each slab's 64-dimension query pass
+// in its stage (the queries stream from L2 beside the items), staged once
+// for each query half.
+// What bounds it: the consumer warps' latency. A warp's half waits for its
+// four products, then folds 32 scores (the comparison and the max at half
+// rate), so neither the tensor cores nor the memory stream stays busy.
+// Running a half's products under the previous half's fold (two
+// accumulators) measured no faster; across rows, with the accumulator in
+// flight over the loop, ptxas serialized the wgmma.
+constexpr int BIN_W = 64;                 // bins a unit owns: the wgmma tile's M
+constexpr int BIN_QRES = 2;               // passes whose queries stay resident
+constexpr int BIN_STAGES = 8;             // ring depth with resident queries
+constexpr int BIN_STAGES_WIDE = 4;        // ... when a stage carries its query pass
+constexpr int BIN_THREADS = 384;          // two consumer warpgroups, one producer
+constexpr int BIN_QBYTES = QSLICE * 128;  // one 64-dimension pass of 256 queries
+constexpr int BIN_PRODUCER_REGS = 40;    // setmaxnreg: the producer warpgroup gives
+constexpr int BIN_CONSUMER_REGS = 232;   // registers to the consumers' running maxima
+
+// byte offsets into the 1024-aligned dynamic shared memory
+struct BinLayout {
+  int n_pass, resident, n_stages, stage_bits, slab, stage, ring, stats, bars, total;
+};
 
 template <typename T>
-__host__ __device__ constexpr int bin_smem_bytes() {
-  return RQ * 128 + NSTAGE * slab_bytes<T>() + (sizeof(T) == 1 ? BLOCK_N * DC * 2 : 0) +
-         BIN_WIN_BYTES;
+__host__ __device__ inline BinLayout bin_layout(int d_pad) {
+  BinLayout l;
+  l.n_pass = d_pad / DC;
+  l.resident = l.n_pass <= BIN_QRES;
+  l.n_stages = l.resident ? BIN_STAGES : BIN_STAGES_WIDE;  // powers of two
+  l.stage_bits = l.resident ? 3 : 2;
+  l.slab = BIN_W * DC * (int)sizeof(T);
+  l.stage = l.slab + (l.resident ? 0 : BIN_QBYTES);  // [query pass][slab]
+  l.ring = l.resident ? l.n_pass * BIN_QBYTES : 0;
+  l.stats = l.ring + l.n_stages * l.stage;  // qsum[256], q2[256]
+  l.bars = l.stats + 2 * QSLICE * 4;        // full[8], empty[8], the queries'
+  l.total = l.bars + (2 * BIN_STAGES + 1) * 8;
+  return l;
 }
 
-// items item0 .. item0 + 255, dims c0 .. c0 + 63, rows past the table read
-// as its last row
-__device__ __forceinline__ void stage_slab(const __nv_bfloat16* __restrict__ table, size_t item0,
-                                           size_t n_pad, int c0, int d_pad, uint8_t* dst) {
-  for (int id = threadIdx.x; id < BLOCK_N * 8; id += THREADS) {
-    const int r = id >> 3, c = id & 7;
-    const size_t row = item0 + r < n_pad ? item0 + r : n_pad - 1;
-    cp_async16(dst + swz(r, c), table + row * d_pad + c0 + c * 8);
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
+}
+
+// until the phase of parity ``parity`` has completed
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
+  uint32_t done = 0;
+  while (!done)
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_u32(bar)), "r"(parity)
+        : "memory");
+}
+
+// the box at (c0, c1) of a 2D tensor map into shared memory, completing
+// its bytes on ``bar``
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, uint64_t* bar, int c0,
+                                         int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+// wgmma's shared-memory operand: K-major rows of 128 bytes, 8-row groups
+// 1,024 bytes apart, the 128-byte swizzle; + 2 per 16-element k step
+__device__ __forceinline__ uint64_t sw128_desc(const void* p) {
+  return (uint64_t)((smem_u32(p) & 0x3FFFF) >> 4) | (1ull << 16) | ((uint64_t)(1024 >> 4) << 32) |
+         (1ull << 62);
+}
+
+// keeps the compiler from moving reads or writes of an operand of an
+// asynchronous wgmma across the fences around it
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+template <int N>
+__device__ __forceinline__ void fence_regs(uint32_t (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
+}
+
+// D[64 items][64 queries] (+)= A[64][16] B[16][64] on the tensor cores, B
+// (and A for wgmma_ss) in shared memory, K-major with the 128-byte swizzle;
+// ``add`` 0 overwrites D.
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t a, uint64_t b, int add) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(add));
+}
+
+// A from registers: the warpgroup's m64k16 fragment (warp w holds rows
+// 16 w + [0, 16), laid out as mma.sync's m16n8k16 A fragment)
+__device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4], uint64_t b,
+                                         int add) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(add));
+}
+
+// The A fragment of k step ks from a raw [64][64] code slab (64-byte rows,
+// unswizzled): rows 16 w + g and + 8, dimensions 16 ks + 2 tq + {0, 1} and
+// + 8, each pair of codes as a bf16 pair. A 16-byte load a row (no bank
+// conflict: a quarter warp reads two rows).
+__device__ __forceinline__ void code_frag(const uint8_t* slab, int w, int g, int tq, int ks,
+                                          uint32_t (&a)[4]) {
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const uint4 v = *reinterpret_cast<const uint4*>(slab + (16 * w + g + 8 * h) * DC + 16 * ks);
+    const uint32_t lo = (tq & 2) ? v.y : v.x, hi = (tq & 2) ? v.w : v.z;
+    a[h] = bf16x2_of_codes(lo, 2 * (tq & 1));
+    a[2 + h] = bf16x2_of_codes(hi, 2 * (tq & 1));
   }
 }
 
-__device__ __forceinline__ void stage_slab(const uint8_t* __restrict__ table, size_t item0,
-                                           size_t n_pad, int c0, int d_pad, uint8_t* dst) {
-  for (int id = threadIdx.x; id < BLOCK_N * 4; id += THREADS) {
-    const int r = id >> 2, c = id & 3;
-    const size_t row = item0 + r < n_pad ? item0 + r : n_pad - 1;
-    cp_async16(dst + id * 16, table + row * d_pad + c0 + c * 16);
-  }
+// 1.0f unless x beats m (NaN never does): one comparison, its result as f32
+__device__ __forceinline__ float keep_of(float x, float m) {
+  float k;
+  asm("set.leu.f32.f32 %0, %1, %2;\n" : "=f"(k) : "f"(x), "f"(m));
+  return k;
 }
 
 template <typename T>
-__global__ void __launch_bounds__(THREADS) bin_max_kernel(
-    const __nv_bfloat16* __restrict__ q, const T* __restrict__ table, Affine af,
-    long long* __restrict__ out, int nq, int d_pad, int n_items, int n_pad, int n_bins,
-    int n_rows, int n_seg) {
-  extern __shared__ __align__(128) uint8_t dsm[];
-  uint8_t* qbuf = dsm;
-  uint8_t* stages = qbuf + RQ * 128;
-  uint8_t* conv = stages + NSTAGE * slab_bytes<T>();
-  int* win = reinterpret_cast<int*>(conv + (sizeof(T) == 1 ? BLOCK_N * DC * 2 : 0));
-  const bool codes = sizeof(T) == 1;
-  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
-  const int wq = warp >> 2, wn = warp & 3, g = lane >> 2, tq = lane & 3;
-  const int n_rounds = (nq + RQ - 1) / RQ, n_chunks = (n_bins + BLOCK_N - 1) / BLOCK_N;
-  // the round varies fastest: the blocks that read the same slabs run together
-  const int rq = blockIdx.x % n_rounds, cc = (blockIdx.x / n_rounds) % n_chunks;
-  const int seg = blockIdx.x / (n_rounds * n_chunks);
-  const int r_lo = (int)((long long)seg * n_rows / n_seg);
-  const int r_hi = (int)((long long)(seg + 1) * n_rows / n_seg);
-  const int q0 = rq * RQ, bin0 = cc * BLOCK_N, n_list = r_hi - r_lo;
-  const unsigned live = rows_live(0, nq - q0);
-  const auto item0 = [&](int i) { return (size_t)(r_lo + i) * n_bins + bin0; };
+__global__ void __launch_bounds__(BIN_THREADS, 1) bin_max_kernel(
+    const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUtensorMap tmap,
+    Affine af, long long* __restrict__ out, const int* __restrict__ units, int n_units, int q0,
+    int nq, int d_pad, int n_items, int n_pad, int n_bins, int merge) {
+  constexpr bool codes = sizeof(T) == 1;
+  extern __shared__ uint8_t bin_smem[];
+  uint8_t* sm = bin_smem + ((1024 - (smem_u32(bin_smem) & 1023)) & 1023);  // 1,024-aligned
+  const BinLayout lay = bin_layout<T>(d_pad);
+  uint64_t* full = reinterpret_cast<uint64_t*>(sm + lay.bars);
+  uint64_t* empty = full + BIN_STAGES;
+  uint64_t* qbar = empty + BIN_STAGES;
+  const int wg = threadIdx.x >> 7, n_cwg = nq > 128 ? 2 : 1;
+  // a row's slabs in ring order: its passes, read by both query halves;
+  // streamed queries: the passes again for the second half
+  const int n_seq = lay.resident ? lay.n_pass : 2 * lay.n_pass;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < lay.n_stages; ++s) {
+      mbar_init(full + s, 1);
+      mbar_init(empty + s, 4 * n_cwg);  // one arrival a consumer warp
+    }
+    mbar_init(qbar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
 
-  Acc acc, best;
+  if (wg == 2) {
+    // ------------------------------------------------------ producer
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(BIN_PRODUCER_REGS));
+    if (threadIdx.x != 256) return;
+    if (lay.resident) {
+      mbar_expect_tx(qbar, lay.n_pass * BIN_QBYTES);
+      for (int p = 0; p < lay.n_pass; ++p) tma_load(sm + p * BIN_QBYTES, &qmap, qbar, p * DC, q0);
+    }
+    uint32_t it = 0;  // slabs staged
+    for (int u = blockIdx.x; u < n_units; u += gridDim.x) {
+      const int bin0 = units[3 * u], r_lo = units[3 * u + 1], r_hi = units[3 * u + 2];
+      for (int r = r_lo; r < r_hi; ++r)
+        for (int k = 0; k < n_seq; ++k, ++it) {
+          const int s = it & (lay.n_stages - 1), p = k % lay.n_pass;
+          mbar_wait(empty + s, ((it >> lay.stage_bits) & 1) ^ 1);  // round 0: the ring is empty
+          uint8_t* st = sm + lay.ring + s * lay.stage;
+          mbar_expect_tx(full + s, lay.stage);
+          if (!lay.resident) tma_load(st, &qmap, full + s, p * DC, q0);
+          tma_load(st + lay.stage - lay.slab, &tmap, full + s, p * DC, r * n_bins + bin0);
+        }
+    }
+    return;
+  }
+  // ------------------------------------------------------ consumers
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(BIN_CONSUMER_REGS));
+  if (wg >= n_cwg) return;
+  const int t = threadIdx.x & 127, w = t >> 5, lane = t & 31, g = lane >> 2, tq = lane & 3;
+  const int qw = wg * 128;  // the warpgroup's first query of the launch
+  float* s_qsum = reinterpret_cast<float*>(sm + lay.stats);
+  float* s_q2 = s_qsum + QSLICE;
+  if constexpr (codes) {
+    s_qsum[qw + t] = qw + t < nq ? af.qsum[qw + t] : 0.0f;
+    s_q2[qw + t] = qw + t < nq ? af.q2[qw + t] : 0.0f;
+    asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg) : "memory");
+  }
+  if (lay.resident) mbar_wait(qbar, 0);
+
+  // acc: the products of one query half (queries qw + 64 hf + [0, 64)) with
+  // a slab. Slot b = 32 hf + i: best the maximum, lag its row less the
+  // current row (an integer in f32), so a row updates it with one FMA.
+  float acc[32], best[64], lag[64];
+  uint32_t it = 0;  // slabs consumed
+  // half hf of the row at ring position row_it into acc, pass by pass, each
+  // stage released after its last reader's products complete
+  auto products = [&](auto hf_c, uint32_t row_it) {
+    constexpr int hf = decltype(hf_c)::value;
+    for (int p = 0; p < lay.n_pass; ++p) {
+      const uint32_t at = row_it + (lay.resident ? p : hf * lay.n_pass + p);
+      const int s = at & (lay.n_stages - 1);
+      if (hf == 0 || !lay.resident) mbar_wait(full + s, (at >> lay.stage_bits) & 1);
+      const uint8_t* st = sm + lay.ring + s * lay.stage;
+      const uint64_t bdesc =
+          sw128_desc((lay.resident ? sm + p * BIN_QBYTES : st) + (qw + 64 * hf) * 128);
+      const uint8_t* slab = st + lay.stage - lay.slab;
+      if constexpr (!codes) {
+        const uint64_t adesc = sw128_desc(slab);
+        fence_regs(acc);
+        asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 #pragma unroll
-  for (int mt = 0; mt < 2; ++mt)
+        for (int ks = 0; ks < DC / 16; ++ks) wgmma_ss(acc, adesc + 2 * ks, bdesc + 2 * ks, p + ks);
+        asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+        asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+      } else {
+        uint32_t a[DC / 16][4];  // written before the fence, live until the wait
 #pragma unroll
-    for (int nt = 0; nt < 8; ++nt)
+        for (int ks = 0; ks < DC / 16; ++ks) code_frag(slab, w, g, tq, ks, a[ks]);
+        fence_regs(acc);
+        asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        best[mt][nt][e] = __int_as_float(0xff800000);
-        win[(wq * 32 + mt * 16 + g + 8 * (e >> 1)) * BLOCK_N + wn * 64 + nt * 8 + tq * 2 +
-            (e & 1)] = -1;
+        for (int ks = 0; ks < DC / 16; ++ks) wgmma_rs(acc, a[ks], bdesc + 2 * ks, p + ks);
+        asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+        asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+#pragma unroll
+        for (int ks = 0; ks < DC / 16; ++ks) fence_regs(a[ks]);
       }
-  auto zero = [&acc]() {
-#pragma unroll
-    for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-      for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0.0f;
+      fence_regs(acc);
+      if (hf == 1 || !lay.resident) {  // the stage's last reader
+        __syncwarp();
+        if (lane == 0) mbar_arrive(empty + s);
+      }
+    }
   };
-  // fold one row's scores into the running maxima
-  auto fold = [&](int i) {
-    const size_t i0 = item0(i);
-    if (af.affine != nullptr) apply_affine_at(af, i0, q0, nq, acc);
+
+  for (int u = blockIdx.x; u < n_units; u += gridDim.x) {
+    const int bin0 = units[3 * u], r_lo = units[3 * u + 1], r_hi = units[3 * u + 2];
 #pragma unroll
-    for (int mt = 0; mt < 2; ++mt)
+    for (int b = 0; b < 64; ++b) {
+      best[b] = __int_as_float(0xff800000);  // -inf: any item beats it
+      lag[b] = 0.0f;
+    }
+    for (int r = r_lo; r < r_hi; ++r, it += n_seq) {
+      // the thread's items: bins bin0 + 16 w + g (h = 0) and + 8 (h = 1)
+      const long long item0 = (long long)r * n_bins + bin0 + 16 * w + g;
+      const bool whole = bin0 + BIN_W <= n_bins && (long long)r * n_bins + bin0 + BIN_W <= n_items;
+      bool ok[2];
+      float scale[2], minv[2], n2[2];
 #pragma unroll
-      for (int nt = 0; nt < 8; ++nt)
+      for (int h = 0; h < 2; ++h) {
+        ok[h] = bin0 + 16 * w + g + 8 * h < n_bins && item0 + 8 * h < n_items;
+        if constexpr (codes) {
+          const long long at = item0 + 8 * h;
+          const size_t idx = (size_t)(at < n_pad - 1 ? at : n_pad - 1);
+          scale[h] = __ldg(af.affine + idx);
+          minv[h] = __ldg(af.affine + af.n_pad + idx);
+          n2[h] = __ldg(af.affine + 2 * (size_t)af.n_pad + idx);
+        }
+      }
+      // fold half hf of row r: acc[4 j + e] is item h = e / 2, query
+      // qw + 64 hf + 8 j + 2 tq + e % 2
+      auto fold = [&](auto hf_c) {
+        constexpr int hf = decltype(hf_c)::value;
+        auto each = [&](auto masked) {
 #pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int col = wn * 64 + nt * 8 + tq * 2 + (e & 1);
-          const size_t item = i0 + col;
-          if (bin0 + col < n_bins && item < (size_t)n_items && acc[mt][nt][e] > best[mt][nt][e]) {
-            best[mt][nt][e] = acc[mt][nt][e];
-            win[(wq * 32 + mt * 16 + g + 8 * (e >> 1)) * BLOCK_N + col] = (int)item;
+          for (int i = 0; i < 32; ++i) {
+            const int h = (i >> 1) & 1, b = 32 * hf + i;
+            float x = __fadd_rn(acc[i], 0.0f);  // -0 reads +0, as the plain sum from +0
+            if constexpr (codes) {
+              // gorse_tpu/ops/topk.py _block_scores (:353-357): raw * scale +
+              // qsum * minv, for euclidean 2 * that - norms2 - q2, each rounded
+              const int qi = qw + 64 * hf + 8 * (i >> 2) + 2 * tq + (i & 1);
+              const float d = __fadd_rn(__fmul_rn(x, scale[h]), __fmul_rn(s_qsum[qi], minv[h]));
+              x = af.euclid ? __fsub_rn(__fsub_rn(__fmul_rn(2.0f, d), n2[h]), s_q2[qi]) : d;
+            }
+            if (decltype(masked)::value && !ok[h]) x = __int_as_float(0xff800000);
+            const float keep = keep_of(x, best[b]);
+            best[b] = fmaxf(best[b], x);
+            lag[b] = __fmaf_rn(keep, lag[b], -keep);  // 0 where x won, else one less
           }
-        }
-  };
-
-  if (d_pad == DC) {
-    stage_rows(q, q0, min(RQ, nq - q0), 0, d_pad, qbuf);
+        };
+        if (whole)
+          each(std::false_type{});
+        else
+          each(std::true_type{});
+      };
+      products(std::integral_constant<int, 0>{}, it);
+      fold(std::integral_constant<int, 0>{});
+      products(std::integral_constant<int, 1>{}, it);
+      fold(std::integral_constant<int, 1>{});
+    }
+    // the unit's keys: slot b is bin bin0 + 16 w + g (+ 8), query
+    // qw + 64 (b / 32) + 8 (b % 32 / 4) + 2 tq + b % 2
 #pragma unroll
-    for (int s = 0; s < NSTAGE - 1; ++s) {
-      if (s < n_list) stage_slab(table, item0(s), n_pad, 0, d_pad, stages + s * slab_bytes<T>());
-      cp_async_commit();
-    }
-    for (int i = 0; i < n_list; ++i) {
-      cp_async_wait<NSTAGE - 2>();
-      __syncthreads();  // slab i landed; the slab read at i - 1 is free
-      const int nx = i + NSTAGE - 1;
-      if (nx < n_list)
-        stage_slab(table, item0(nx), n_pad, 0, d_pad, stages + (nx % NSTAGE) * slab_bytes<T>());
-      cp_async_commit();
-      const uint8_t* items = stages + (i % NSTAGE) * slab_bytes<T>();
-      if (codes) {
-        convert_codes(items, conv);
-        __syncthreads();
-        items = conv;
-      }
-      zero();
-      mma_pass(qbuf, items, live, acc);
-      fold(i);
-    }
-  } else {
-    for (int i = 0; i < n_list; ++i) {
-      zero();
-      for (int c0 = 0; c0 < d_pad; c0 += DC) {
-        __syncthreads();  // the previous pass's readers are done
-        stage_rows(q, q0, min(RQ, nq - q0), c0, d_pad, qbuf);
-        stage_slab(table, item0(i), n_pad, c0, d_pad, stages);
-        cp_async_commit();
-        cp_async_wait<0>();
-        __syncthreads();
-        const uint8_t* items = stages;
-        if (codes) {
-          convert_codes(items, conv);
-          __syncthreads();
-          items = conv;
+    for (int b = 0; b < 64; ++b) {
+      const int i = b & 31;
+      const int bin = bin0 + 16 * w + g + 8 * ((i >> 1) & 1);
+      const int qi = qw + 64 * (b >> 5) + 8 * (i >> 2) + 2 * tq + (i & 1);
+      if (bin < n_bins && qi < nq) {
+        long long* o = out + (size_t)qi * n_bins + bin;
+        if (best[b] != __int_as_float(0xff800000)) {
+          const int row = r_hi - 1 + (int)lag[b];
+          const long long key = (long long)(make_key(best[b], row * n_bins + bin) ^ SIGN64);
+          if (merge)
+            atomicMax(o, key);
+          else
+            *o = key;
+        } else if (!merge) {
+          *o = (long long)SIGN64;  // INT64_MIN: no item in the bin
         }
-        mma_pass(qbuf, items, live, acc);
       }
-      fold(i);
     }
   }
-  cp_async_wait<0>();
-
-#pragma unroll
-  for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int row = wq * 32 + mt * 16 + g + 8 * (e >> 1);
-        const int col = wn * 64 + nt * 8 + tq * 2 + (e & 1);
-        const int w = win[row * BLOCK_N + col];
-        if (w >= 0 && q0 + row < nq)
-          atomicMax(out + (size_t)(q0 + row) * n_bins + bin0 + col,
-                    (long long)(make_key(best[mt][nt][e], w) ^ SIGN64));
-      }
 }
 
 // A persistent grid: as many blocks as fit on the card at once, at most
@@ -1448,34 +1656,79 @@ int launch_block_topk(const void* q, const void* table, const void* affine, cons
 }
 
 
+// cuTensorMapEncodeTiled, looked up through the CUDA runtime (no -lcuda)
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t e = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                                           cudaEnableDefault, &found);
+#else
+    const cudaError_t e =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (e == cudaSuccess && found == cudaDriverEntryPointSuccess) fn = (EncodeTiled)p;
+  }
+  return fn;
+}
+
+// a row-major [rows, cols] table read in boxes of 64 columns by box_rows
+// rows: bf16 with the 128-byte swizzle that wgmma reads, uint8 as it lies
+bool tile_map(CUtensorMap* map, const void* base, bool bf16, int rows, int cols, int box_rows) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)cols * (bf16 ? 2 : 1)};
+  const cuuint32_t box[2] = {(cuuint32_t)DC, (cuuint32_t)box_rows}, step[2] = {1, 1};
+  return encode(map, bf16 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 : CU_TENSOR_MAP_DATA_TYPE_UINT8, 2,
+                const_cast<void*>(base), dims, strides, box, step, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                bf16 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_NONE,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// One launch over queries q0 .. q0 + nq - 1 (nq <= 256) of the plan's
+// ``n_units`` units (int32 triples) on ``grid`` blocks; ``merge``: keys are
+// INT64_MIN-filled and combined by atomicMax, else stored.
 template <typename T>
 int launch_bin_max(const void* q, const void* table, const void* affine, const void* qstats,
-                   void* out, int b_pad, int d_pad, int n_items, int n_pad, int n_bins,
-                   int euclid, cudaStream_t stream) {
-  if (n_bins < 1 || n_items < 1 || n_items > n_pad) return (int)cudaErrorInvalidValue;
-  const int n_rows = (int)(((long long)n_items + n_bins - 1) / n_bins);
-  const int smem = bin_smem_bytes<T>();
-  int dev = 0, n_sm = 0, occ = 0;
+                   void* out, const void* units, int n_units, int grid, int merge, int q0, int nq,
+                   int b_pad, int d_pad, int n_items, int n_pad, int n_bins, int euclid,
+                   cudaStream_t stream) {
+  if (n_bins < 1 || n_items < 1 || n_items > n_pad || n_units < 1 || grid < 1 || nq < 1 ||
+      nq > QSLICE || q0 < 0 || q0 + nq > b_pad || d_pad % DC != 0)
+    return (int)cudaErrorInvalidValue;
+  CUtensorMap qmap, tmap;
+  if (!tile_map(&qmap, q, true, b_pad, d_pad, QSLICE) ||
+      !tile_map(&tmap, table, sizeof(T) == 2, n_pad, d_pad, BIN_W))
+    return (int)cudaErrorNotSupported;
+  const Affine af{(const float*)affine, qstats ? (const float*)qstats + q0 : nullptr,
+                  qstats ? (const float*)qstats + b_pad + q0 : nullptr, n_pad, euclid};
+  const int smem = bin_layout<T>(d_pad).total + 1024;  // + the 1,024-byte alignment
+  // over 48 KB of dynamic shared memory needs the attribute: set once a
+  // device, to the most either layout takes
+  static unsigned long long opted = 0;
+  int dev = 0;
   cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev);
-  cudaFuncSetAttribute(bin_max_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occ, bin_max_kernel<T>, THREADS, smem);
-  for (int s = 0; s < b_pad; s += QSLICE) {
-    const int nq = min(QSLICE, b_pad - s);
-    // (round, chunk) pairs, each split over rows until about two waves fill the card
-    const long long base = (long long)((nq + RQ - 1) / RQ) * ((n_bins + BLOCK_N - 1) / BLOCK_N);
-    const long long want = 2LL * max(occ, 1) * n_sm, split = (want + base - 1) / base;
-    const int n_seg = split < 1 ? 1 : split > n_rows ? n_rows : (int)split;
-    if (base * n_seg > 0x7FFFFFFFLL) return (int)cudaErrorInvalidValue;
-    const Affine af{(const float*)affine, qstats ? (const float*)qstats + s : nullptr,
-                    qstats ? (const float*)qstats + b_pad + s : nullptr, n_pad, euclid};
-    bin_max_kernel<T><<<(int)(base * n_seg), THREADS, smem, stream>>>(
-        (const __nv_bfloat16*)q + (size_t)s * d_pad, (const T*)table, af,
-        (long long*)out + (size_t)s * n_bins, nq, d_pad, n_items, n_pad, n_bins, n_rows, n_seg);
-    const int rc = (int)cudaGetLastError();
-    if (rc != 0) return rc;
+  if (dev < 64 && !((opted >> dev) & 1ull)) {
+    const int most =
+        max(bin_layout<T>(BIN_QRES * DC).total, bin_layout<T>((BIN_QRES + 1) * DC).total);
+    const cudaError_t e = cudaFuncSetAttribute(
+        bin_max_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, most + 1024);
+    if (e != cudaSuccess) return (int)e;
+    opted |= 1ull << dev;
   }
-  return 0;
+  bin_max_kernel<T><<<grid, BIN_THREADS, smem, stream>>>(
+      qmap, tmap, af, (long long*)out + (size_t)q0 * n_bins, (const int*)units, n_units, q0, nq,
+      d_pad, n_items, n_pad, n_bins, merge);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -1570,15 +1823,19 @@ extern "C" int gt_merge_topk_paths(unsigned int* blocks) {
   return (int)e;
 }
 
-extern "C" int gt_bin_max(const void* q, const void* table, void* out, int b_pad, int d_pad,
+extern "C" int gt_bin_max(const void* q, const void* table, void* out, const void* units,
+                          int n_units, int grid, int merge, int q0, int nq, int b_pad, int d_pad,
                           int n_items, int n_pad, int n_bins, void* stream) {
-  return launch_bin_max<__nv_bfloat16>(q, table, nullptr, nullptr, out, b_pad, d_pad, n_items,
-                                       n_pad, n_bins, 0, (cudaStream_t)stream);
+  return launch_bin_max<__nv_bfloat16>(q, table, nullptr, nullptr, out, units, n_units, grid,
+                                       merge, q0, nq, b_pad, d_pad, n_items, n_pad, n_bins, 0,
+                                       (cudaStream_t)stream);
 }
 
 extern "C" int gt_bin_max_sq(const void* q, const void* codes, const void* affine,
-                             const void* qstats, void* out, int b_pad, int d_pad, int n_items,
-                             int n_pad, int n_bins, int euclid, void* stream) {
-  return launch_bin_max<uint8_t>(q, codes, affine, qstats, out, b_pad, d_pad, n_items, n_pad,
-                                 n_bins, euclid, (cudaStream_t)stream);
+                             const void* qstats, void* out, const void* units, int n_units,
+                             int grid, int merge, int q0, int nq, int b_pad, int d_pad,
+                             int n_items, int n_pad, int n_bins, int euclid, void* stream) {
+  return launch_bin_max<uint8_t>(q, codes, affine, qstats, out, units, n_units, grid, merge, q0,
+                                 nq, b_pad, d_pad, n_items, n_pad, n_bins, euclid,
+                                 (cudaStream_t)stream);
 }

@@ -65,6 +65,7 @@ BLOCK_N = 256  # items per block (csrc/topk.cu BLOCK_N)
 GROUP = 4  # items per group maximum (csrc/topk.cu GROUP)
 QUERY_TILE = 32  # query padding: a warp of the score tile holds 32 query rows
 DIM_CHUNK = 64  # dimensions per staged pass (csrc/topk.cu DC)
+BIN_W = 64  # bins a bin_max work unit owns (csrc/topk.cu BIN_W)
 MERGE_SLICE = 4096  # most output ranks one merge_topk block sorts (csrc/topk.cu)
 MERGE_SLICE_MIN = 1024  # merge_slice halves the slice down to this
 # the paths of merge_topk's blocks, in csrc/topk.cu MergePath's order
@@ -341,8 +342,8 @@ def _lib() -> ctypes.CDLL:
         lib.gt_block_topk_sq.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, p]
         lib.gt_merge_topk.argtypes = [p, p, p, p, i, i, i, i, p]
         lib.gt_merge_topk_paths.argtypes = [p]
-        lib.gt_bin_max.argtypes = [p, p, p, i, i, i, i, i, p]
-        lib.gt_bin_max_sq.argtypes = [p, p, p, p, p, i, i, i, i, i, i, p]
+        lib.gt_bin_max.argtypes = [p, p, p, p, i, i, i, i, i, i, i, i, i, i, p]
+        lib.gt_bin_max_sq.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, i, i, i, i, i, p]
         for fn in (lib.gt_block_max, lib.gt_block_max_sq, lib.gt_block_seeds,
                    lib.gt_block_seeds_branches, lib.gt_block_topk, lib.gt_block_topk_sq,
                    lib.gt_merge_topk, lib.gt_merge_topk_paths, lib.gt_bin_max,
@@ -587,10 +588,73 @@ def merge_topk_paths() -> dict[str, int]:
     return {name: blocks[i] for i, name in enumerate(MERGE_PATHS) if blocks[i]}
 
 
-def _bin_keys(qp, n_bins: int) -> torch.Tensor:
-    """bin_max's output, every key ``INT64_MIN`` until the kernel's
-    atomicMax raises it."""
-    return torch.full((qp.shape[0], n_bins), _INT64_MIN, dtype=torch.int64, device=qp.device)
+class BinPlan(NamedTuple):
+    """How :func:`bin_max` spreads over the card (csrc/topk.cu bin_max_kernel):
+    ``units`` of work, each ``(bin0, r_lo, r_hi)``: the ``BIN_W`` bins
+    ``bin0 + [0, BIN_W)`` (those below ``n_bins``) over the rows
+    ``[r_lo, r_hi)`` of ``n_bins`` items; ``grid`` persistent blocks, block
+    b taking units b, b + grid, ...; ``merge``: units share bins (the keys
+    are filled with ``INT64_MIN`` and combined by atomicMax) rather than
+    each bin's key written once by a plain store; ``slices``: the launches,
+    ``(q0, nq)`` over at most 256 queries each."""
+
+    units: tuple
+    grid: int
+    merge: bool
+    slices: tuple
+
+
+@functools.lru_cache(maxsize=256)
+def bin_plan(n_items: int, n_bins: int, b_pad: int, n_sm: int) -> BinPlan:
+    """The work plan of :func:`bin_max` over ``n_items`` items in ``n_bins``
+    strided bins for ``b_pad`` queries on ``n_sm`` SMs. A unit owns a chunk
+    of ``BIN_W`` bins; its rows are split into segments only when the chunks
+    are fewer than the SMs, and then into as many as fill one wave (a block
+    an SM: the kernel's registers hold the running maxima of 64 bins x 256
+    queries). With more chunks than SMs every unit owns its bins' rows and
+    the persistent grid takes ceil(chunks / n_sm) rounds; the last round
+    holds the remainder."""
+    n_chunks = -(-n_bins // BIN_W)
+    n_rows = -(-n_items // n_bins)
+    n_seg = 1 if n_chunks >= n_sm else max(1, min(n_rows, n_sm // n_chunks))
+    units = tuple((c * BIN_W, s * n_rows // n_seg, (s + 1) * n_rows // n_seg)
+                  for s in range(n_seg) for c in range(n_chunks))
+    slices = tuple((q0, min(_CHUNK_B, b_pad - q0)) for q0 in range(0, b_pad, _CHUNK_B))
+    return BinPlan(units, min(len(units), n_sm), n_seg > 1, slices)
+
+
+@functools.lru_cache(maxsize=64)
+def _bin_units(n_items: int, n_bins: int, n_sm: int, device: torch.device) -> torch.Tensor:
+    """The plan's units as the kernel reads them, ``[n_units, 3]`` int32 on
+    ``device`` (they do not depend on the queries)."""
+    plan = bin_plan(n_items, n_bins, _CHUNK_B, n_sm)
+    return torch.tensor(plan.units, dtype=torch.int32, device=device)
+
+
+def _bin_launch(name: str, qp, table, n_items: int, n_bins: int, aff: Affine | None):
+    """bin_max (or bin_max_sq with ``aff``) on the card by :func:`bin_plan`:
+    one launch a slice of 256 queries, the keys written once (``torch.empty``)
+    or merged over an ``INT64_MIN`` fill."""
+    b_pad, d_pad = qp.shape
+    n_sm = _sm_count(qp.device.index)
+    plan = bin_plan(n_items, n_bins, b_pad, n_sm)
+    units = _bin_units(n_items, n_bins, n_sm, qp.device)
+    keys = (torch.full((b_pad, n_bins), _INT64_MIN, dtype=torch.int64, device=qp.device)
+            if plan.merge else torch.empty((b_pad, n_bins), dtype=torch.int64, device=qp.device))
+    wrapper = bin_max if aff is None else bin_max_sq
+    with torch.cuda.device(qp.device):  # the tensors' card
+        for q0, nq in plan.slices:
+            common = (keys.data_ptr(), units.data_ptr(), len(plan.units), plan.grid,
+                      int(plan.merge), q0, nq, b_pad, d_pad, n_items, table.shape[0], n_bins)
+            if aff is None:
+                rc = _lib().gt_bin_max(qp.data_ptr(), table.data_ptr(), *common, _stream(qp))
+            else:
+                rc = _lib().gt_bin_max_sq(qp.data_ptr(), table.data_ptr(), aff.affine.data_ptr(),
+                                          aff.qstats.data_ptr(), *common, int(aff.euclidean),
+                                          _stream(qp))
+            _raise_on(rc, name)
+            wrapper.launches += 1
+    return keys
 
 
 def bin_max(qp: torch.Tensor, table: torch.Tensor, n_items: int, n_bins: int) -> torch.Tensor:
@@ -598,20 +662,12 @@ def bin_max(qp: torch.Tensor, table: torch.Tensor, n_items: int, n_bins: int) ->
     of ``n_bins`` strided bins, ``[b_pad, n_bins]`` int64 candidate keys
     (``INT64_MIN`` where a bin holds no item): the PartialReduce step of
     ``jax.lax.approx_max_k`` in gorse_tpu/ops/topk.py dot_topk_approx, in
-    one read of the table and without the ``[B, N]`` score matrix."""
+    one read of the table a launch and without the ``[B, N]`` score
+    matrix."""
     if qp.device.type == "cpu":
         return bin_max_plain(qp, table, n_items, n_bins)
     _check_operands(qp, table)
-    b_pad, d_pad = qp.shape
-    keys = _bin_keys(qp, n_bins)
-    with torch.cuda.device(qp.device):  # the tensors' card
-        rc = _lib().gt_bin_max(
-            qp.data_ptr(), table.data_ptr(), keys.data_ptr(), b_pad, d_pad, n_items,
-            table.shape[0], n_bins, _stream(qp),
-        )
-    _raise_on(rc, "bin_max")
-    bin_max.launches += 1
-    return keys
+    return _bin_launch("bin_max", qp, table, n_items, n_bins, None)
 
 
 def bin_max_sq(qp: torch.Tensor, table: torch.Tensor, aff: Affine, n_items: int,
@@ -622,17 +678,7 @@ def bin_max_sq(qp: torch.Tensor, table: torch.Tensor, aff: Affine, n_items: int,
         return bin_max_plain(qp, table, n_items, n_bins, aff)
     _check_operands(qp, table, torch.uint8)
     _check_affine(aff, qp, table)
-    b_pad, d_pad = qp.shape
-    keys = _bin_keys(qp, n_bins)
-    with torch.cuda.device(qp.device):  # the tensors' card
-        rc = _lib().gt_bin_max_sq(
-            qp.data_ptr(), table.data_ptr(), aff.affine.data_ptr(), aff.qstats.data_ptr(),
-            keys.data_ptr(), b_pad, d_pad, n_items, table.shape[0], n_bins,
-            int(aff.euclidean), _stream(qp),
-        )
-    _raise_on(rc, "bin_max_sq")
-    bin_max_sq.launches += 1
-    return keys
+    return _bin_launch("bin_max_sq", qp, table, n_items, n_bins, aff)
 
 
 block_max.launches = 0

@@ -719,22 +719,32 @@ class Connection:
         # PRIORITY and unknown types are ignored (RFC 9113 §5.5)
 
     def _on_settings(self, payload: bytes) -> None:
+        """Apply the peer's settings and acknowledge them under the write
+        lock: the ACK reaches the wire before any frame that uses the new
+        values, as a peer holds frames to the settings it has seen
+        acknowledged (grpcio answers a DATA frame above 16,384 bytes that
+        precedes the ACK of its larger MAX_FRAME_SIZE with GOAWAY)."""
         if len(payload) % 6:
             raise ValueError("SETTINGS length not a multiple of 6")
-        for off in range(0, len(payload), 6):
-            key, value = struct.unpack(">HI", payload[off:off + 6])
-            if key == HEADER_TABLE_SIZE:
-                self.encoder.set_max_table_size(value)
-            elif key == INITIAL_WINDOW_SIZE:
-                with self._flow:
-                    delta = value - self.peer_initial_window
-                    self.peer_initial_window = value
-                    for stream in self.streams.values():
-                        stream.send_window += delta
-                    self._flow.notify_all()
-            elif key == MAX_FRAME_SIZE:
-                self.peer_max_frame = value
-        self.send_frame(SETTINGS, ACK, 0)
+        try:
+            with self._write_lock:
+                for off in range(0, len(payload), 6):
+                    key, value = struct.unpack(">HI", payload[off:off + 6])
+                    if key == HEADER_TABLE_SIZE:
+                        self.encoder.set_max_table_size(value)
+                    elif key == INITIAL_WINDOW_SIZE:
+                        with self._flow:
+                            delta = value - self.peer_initial_window
+                            self.peer_initial_window = value
+                            for stream in self.streams.values():
+                                stream.send_window += delta
+                            self._flow.notify_all()
+                    elif key == MAX_FRAME_SIZE:
+                        self.peer_max_frame = value
+                self.transport.sendall(frame(SETTINGS, ACK, 0))
+        except OSError as e:
+            self._fail(f"write failed: {e}")
+            raise ConnectionLost(str(e)) from e
 
     def _on_data(self, flags: int, sid: int, payload: bytes) -> None:
         self._recv_unacked += len(payload)

@@ -18,6 +18,10 @@ versions on the CPU) held against gorse_tpu.ops.topk's
   sum differs).
 - ``bin_max_plain``, the version the card holds the kernel against, equals
   a numpy model of the strided bins, padding and empty bins included.
+- ``bin_plan``, the work plan the card's ``bin_max`` launches take as
+  arguments, covers every (bin, row) of the table once in each launch and
+  every query once, and stores keys by plain writes only where one unit
+  owns a bin's rows.
 """
 
 import jax
@@ -281,6 +285,53 @@ def test_bin_max_plain_against_a_model(n_items, n_bins):
     s, i = port.merge_topk(keys, torch.full((32,), n_bins, dtype=torch.int32), 5,
                            min(7, n_items))
     assert np.all(i.numpy() < n_items)
+
+
+@pytest.mark.parametrize("n_items,n_bins,b,n_sm", [
+    (1_000_000, 31_360, 256, 132),  # phase 13: the worker's fetch (k = 298)
+    (1_000_000, 1024, 256, 132),  # phase 13: k = 10, rows split
+    (1_000_003, 1024, 300, 132),  # n_items not a multiple of L, two slices
+    (100_000, 9000, 200, 132),  # more units than SMs: two rounds
+    (101, 101, 1, 132),  # L = n <= 128, n odd: one row
+    (127, 127, 33, 132),
+    (3000, 37, 40, 132),  # L below a unit's 64 bins
+    (1000, 16, 257, 132),
+    (500, 500, 64, 132),  # one row
+    (100, 128, 128, 132),  # bins without items
+    (50_000, 1024, 300, 4),  # few SMs: chunks outnumber them, no split
+    (50_000, 256, 64, 16),  # 4 chunks on 16 SMs: 4 segments
+])
+def test_bin_plan_covers_each_bin_and_row_once(n_items, n_bins, b, n_sm):
+    """Each (bin, row) of the ``ceil(n_items / L)`` rows is in exactly one
+    unit; each unit is ``BIN_W`` bins from a multiple of ``BIN_W`` over a
+    non-empty range of rows; ``merge`` exactly where a bin's rows are split
+    over units (the plan splits only when the chunks of bins are fewer than
+    the SMs, and then into one wave); the persistent grid's walk (block b:
+    units b, b + grid, ...) takes every unit once; the launches cover the
+    padded queries once, at most 256 each."""
+    b_pad = port._round_up(b, port.QUERY_TILE)
+    plan = port.bin_plan(n_items, n_bins, b_pad, n_sm)
+    n_rows = -(-n_items // n_bins)
+    n_chunks = -(-n_bins // port.BIN_W)
+    cover = np.zeros((n_rows, n_chunks * port.BIN_W), np.int64)
+    owners = np.zeros(n_chunks * port.BIN_W, np.int64)
+    for bin0, r_lo, r_hi in plan.units:
+        assert bin0 % port.BIN_W == 0 and 0 <= r_lo < r_hi <= n_rows
+        cover[r_lo:r_hi, bin0:bin0 + port.BIN_W] += 1
+        owners[bin0:bin0 + port.BIN_W] += 1
+    assert np.all(cover[:, :n_bins] == 1)
+    assert plan.merge == bool(np.any(owners[:n_bins] > 1))
+    if not plan.merge:
+        assert all((r_lo, r_hi) == (0, n_rows) for _, r_lo, r_hi in plan.units)
+    assert plan.merge == (n_chunks < n_sm and n_rows > 1 and n_sm // n_chunks > 1)
+    if plan.merge:
+        assert len(plan.units) <= n_sm
+    assert 1 <= plan.grid <= min(n_sm, len(plan.units))
+    walked = sorted(u for blk in range(plan.grid) for u in range(blk, len(plan.units), plan.grid))
+    assert walked == list(range(len(plan.units)))
+    queries = [q for q0, nq in plan.slices for q in range(q0, q0 + nq)]
+    assert queries == list(range(b_pad))
+    assert all(1 <= nq <= 256 for _, nq in plan.slices)
 
 
 def test_worker_index_recall_matches_reference(tmp_path, monkeypatch):

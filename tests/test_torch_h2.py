@@ -349,3 +349,71 @@ def test_server_preface_ping_frame_size_and_windows(tmp_path):
     finally:
         client.close()
         server.stop(None)
+
+
+def _read_frame(sock, buf: bytearray):
+    while True:
+        if len(buf) >= 9:
+            length = int.from_bytes(buf[:3], "big")
+            if len(buf) >= 9 + length:
+                head = bytes(buf[:9 + length])
+                del buf[:9 + length]
+                return head[3], head[4], int.from_bytes(head[5:9], "big"), head[9:]
+        data = sock.recv(1 << 16)
+        assert data, "the client closed the connection"
+        buf += data
+
+
+def test_settings_ack_precedes_frames_that_use_them():
+    """A client stalled on a zero window gets the server's SETTINGS that
+    raise MAX_FRAME_SIZE and INITIAL_WINDOW_SIZE to 4 MiB: its ACK reaches
+    the wire before any DATA frame above the default 16,384 bytes (grpcio's
+    server holds frames to the settings it has seen acknowledged and closes
+    the connection with GOAWAY "Failed parsing HTTP/2" otherwise). The
+    reader stalls for 0.2 s on the HEADER_TABLE_SIZE that follows, as a
+    descheduled thread would, while the woken sender is free to write."""
+    import threading
+    import time
+
+    listener = socket.create_server(("127.0.0.1", 0))
+    listener.settimeout(10)
+    conn = h2.Connection(h2.Transport(socket.create_connection(listener.getsockname()[:2],
+                                                               timeout=10)), client=True)
+    resize = conn.encoder.set_max_table_size
+    conn.encoder.set_max_table_size = lambda size: (time.sleep(0.2), resize(size))
+    conn.start()
+    server, _ = listener.accept()
+    server.settimeout(10)
+    buf = bytearray()
+    try:
+        assert bytes(server.recv(len(h2.PREFACE), socket.MSG_WAITALL)) == h2.PREFACE
+        server.sendall(h2.frame(h2.SETTINGS, 0, 0, struct.pack(">HI", h2.INITIAL_WINDOW_SIZE, 0)))
+        acks = 0
+        while not acks:  # acknowledged: the zero window applies to the stream
+            ftype, flags, _, body = _read_frame(server, buf)
+            acks += ftype == h2.SETTINGS and bool(flags & h2.ACK)
+        stream = conn.open_stream([(":method", "POST"), (":scheme", "http"), (":path", "/t"),
+                                   (":authority", "x")])
+        sender = threading.Thread(target=conn.send_data,
+                                  args=(stream, b"x" * 100_000, True), daemon=True)
+        sender.start()
+        assert _read_frame(server, buf)[0] == h2.HEADERS
+        # the sender waits on the zero window; now raise both settings
+        server.sendall(h2.frame(h2.SETTINGS, 0, 0, struct.pack(
+            ">HIHIHI", h2.MAX_FRAME_SIZE, 1 << 22, h2.INITIAL_WINDOW_SIZE, 1 << 22,
+            h2.HEADER_TABLE_SIZE, 4096)))
+        sent, order = 0, []
+        while sent < h2.DEFAULT_WINDOW:  # the connection's window stays at its default
+            ftype, flags, _, body = _read_frame(server, buf)
+            if ftype == h2.SETTINGS and flags & h2.ACK:
+                acks += 1
+            elif ftype == h2.DATA:
+                sent += len(body)
+                order.append((len(body), acks))
+        assert acks == 2 and sent == h2.DEFAULT_WINDOW
+        assert all(ack == 2 for size, ack in order), order
+        assert max(size for size, _ in order) > h2.DEFAULT_MAX_FRAME
+    finally:
+        conn.close()
+        server.close()
+        listener.close()
