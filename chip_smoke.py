@@ -373,6 +373,20 @@ kernel's own block maxima.
    top-10 equal to the card's exact ``MemoryVectorStore`` (recall 1.0).
    Printed: each step's s, LLM-ranked users/s, dump MB/s, restore rows/s;
    the phase within ``SURFACE_PHASE_S``.
+17. Full-set negative rejection in the single-card fit:
+   ``synthetic_cf_access(120000, 4000, nnz=2000000, seed=1)`` at k = 64,
+   where the reference's gate holds (the history cap binds, the bitset of
+   every user's positives within 64 MiB). The sampled ``bpr_sweep`` with
+   the bitset: its pairs equal the plain version's for every user, p_new
+   and delta within tolerance; ``bpr_epoch`` with it over 1, 3 and 5 steps
+   within ``EPOCH_TOL``, a whole epoch of the fit's init within
+   ``FIRST_EPOCH_TOL``. ``BPR.fit`` for 2 epochs: one ``bpr_epoch`` launch
+   an epoch, each with the bitset (its launch count and the fit's log
+   line). Over one epoch's pairs, the capped users' negatives that lie in
+   their full positive sets: with the bitset only the draws whose every
+   candidate does, against the capped rows more. K1's CUDA-event medians
+   at this shape with and without the bitset, in turns, beside their
+   bounds; the phase within ``BITSET_PHASE_S``.
 
 The last three lines of standard output are the kernels' JSON record, the
 card's ``name, power.limit`` as nvidia-smi gives them, and
@@ -570,7 +584,14 @@ SHARDED_EPOCH_TOL = {"p": FIRST_EPOCH_TOL, "q": 2e-4}
 # runs read at most 1.6e-6, twelve times under this limit
 SYNC4_TOL = 2e-5
 PHASES = ("2", "2b", "2c", "3", "4", "5", "6", "7", "7c", "8", "9", "10", "11", "12", "13",
-          "14", "15", "16")
+          "14", "15", "16", "17")
+# phase 17: full-set negative rejection in the single-card fit, at the main
+# path's BPR width on a corpus where the reference's gate holds: 120k users
+# over 4k items, so the padded rows (120k x widest) pass 96 MB and the
+# history cap binds, while the bitset (120k x 125 words) stays within 64 MiB
+BITSET_USERS, BITSET_ITEMS, BITSET_NNZ, BITSET_SEED = 120_000, 4_000, 2_000_000, 1
+BITSET_EPOCHS = 2
+BITSET_PHASE_S = 60  # the phase's own limit
 # phase 14: the in-one node over the remote stores (the port's MiniMySQL,
 # MiniRedis and MiniS3 on 127.0.0.1, and hnsw://) on phase 10's rows for the
 # first REMOTE_USERS users. Cut from phase 10's 2,000 (time: the phase must
@@ -1662,6 +1683,7 @@ def zero_counts() -> list:
     wrappers += [getattr(bpr_kernel, n) for n in BPR_KERNELS]
     for w in wrappers:
         w.launches = 0
+    bpr_kernel.bpr_epoch.bits_launches = 0
     return wrappers
 
 
@@ -1705,9 +1727,10 @@ def within(name: str, got, want, extra=0.0) -> float:
     return float(err.max())
 
 
-def hold_bpr(name, p, q, padded, counts, step_key, mm_dtype, n_tries=4) -> dict:
-    """Both sweep modes against their plain versions on the card. Returns
-    the largest absolute difference seen per kernel."""
+def hold_bpr(name, p, q, padded, counts, step_key, mm_dtype, n_tries=4, bits=None) -> dict:
+    """Both sweep modes against their plain versions on the card (the
+    sampled one against ``bits`` when given). Returns the largest absolute
+    difference seen per kernel."""
     import torch
 
     from gorse_tpu_torch.ops import bpr_kernel as bk
@@ -1726,9 +1749,9 @@ def hold_bpr(name, p, q, padded, counts, step_key, mm_dtype, n_tries=4) -> dict:
     dk, ck = fresh()
     dp, cp = fresh()
     pk, posk, negk = bk.bpr_sweep_sampled(p, q, dk, ck, padded, counts, step_key, n_items,
-                                          LR, REG, n_tries, mm_dtype)
+                                          LR, REG, n_tries, mm_dtype, bits)
     pp, posp, negp = bk.bpr_sweep_sampled_plain(p, q, dp, cp, padded, counts, step_key,
-                                                n_items, LR, REG, n_tries, mm_dtype)
+                                                n_items, LR, REG, n_tries, mm_dtype, bits)
     torch.cuda.synchronize()
     check(torch.equal(posk, posp) and torch.equal(negk, negp),
           f"{name}: sampled pos and neg equal their plain version")
@@ -1751,9 +1774,10 @@ def hold_bpr(name, p, q, padded, counts, step_key, mm_dtype, n_tries=4) -> dict:
     return err
 
 
-def hold_epoch(name, p, q, padded, counts, keys, mm_dtype, n_tries=4) -> float:
-    """bpr_epoch against its plain version on the card: every step's pos
-    and neg equal, delta zero after the fold. One step: p to the sweep's
+def hold_epoch(name, p, q, padded, counts, keys, mm_dtype, n_tries=4, bits=None) -> float:
+    """bpr_epoch against its plain version on the card (both against
+    ``bits`` when given): every step's pos and neg equal, delta zero after
+    the fold. One step: p to the sweep's
     tolerance, q to it plus ``order_bound``, the cost as the sweep's. More
     steps: each table and the cost within EPOCH_TOL of its largest
     magnitude. Returns the largest absolute difference."""
@@ -1767,7 +1791,7 @@ def hold_epoch(name, p, q, padded, counts, keys, mm_dtype, n_tries=4) -> float:
         qs, delta, cost = q.clone(), torch.zeros_like(q), torch.zeros((1,), device=dev)
         pairs = torch.full((2, n_steps, p.shape[0]), -7, dtype=torch.int32, device=dev)
         ps = fn(p, qs, delta, cost, padded, counts, keys, n_items, LR, REG, n_tries, mm_dtype,
-                pairs=pairs)
+                pairs=pairs, bits=bits)
         got[side] = (ps, qs, cost, pairs, delta)
     torch.cuda.synchronize()
     (pk, qk, ck, pairs_k, dk), (pp, qp, cp, pairs_p, _) = got["kernel"], got["plain"]
@@ -2065,10 +2089,11 @@ def phase_pairs_path(csr, dev) -> dict:
 # ---------------------------------------------------------------- phase 5
 
 
-def hold_first_epoch(train, csr, dev, n_steps: int) -> dict:
-    """The fit's first epoch (its init, its keys) through the kernel against
-    the plain version on the card: every step's pos and neg equal, p and q
-    within 5e-3 of each table's largest magnitude. At this shape the Zipf
+def hold_first_epoch(train, csr, dev, n_steps: int, bits=None) -> dict:
+    """The fit's first epoch (its init, its keys; against ``bits`` when
+    given) through the kernel against the plain version on the card: every
+    step's pos and neg equal, p and q within 5e-3 of each table's largest
+    magnitude. At this shape the Zipf
     head's rows grow about fourfold a step (the reference's dense sweep does
     the same), and the growth amplifies every reordered f32 sum: beside the
     hold, both are measured against the plain epoch evaluated in f64, which
@@ -2096,7 +2121,8 @@ def hold_first_epoch(train, csr, dev, n_steps: int) -> dict:
         q = init.item_factors.to(dt, copy=True)  # the epoch updates q in place
         pairs = torch.empty((2, n_steps, padded.shape[0]), dtype=torch.int32, device=dev)
         p = fn(init.user_factors.to(dt), q, torch.zeros_like(q), torch.zeros((1,), dtype=dt,
-               device=dev), padded, counts, keys, n_items, LR, REG, n_tries, pairs=pairs)
+               device=dev), padded, counts, keys, n_items, LR, REG, n_tries, pairs=pairs,
+               bits=bits)
         got[side] = (p.double(), q.double(), pairs)
     torch.cuda.synchronize()
     check(torch.equal(got["kernel"][2], got["plain"][2]),
@@ -3096,6 +3122,18 @@ def table_shares(got, want) -> dict:
     magnitude (``got`` on any device, ``want`` on the CPU)."""
     a, b = got.to_numpy(), want.to_numpy()
     return {k: float(np.abs(a[k] - b[k]).max() / max(np.abs(b[k]).max(), 1e-30)) for k in b}
+
+
+def worst_entry(got, want, name: str, tol: float) -> str:
+    """For a failed hold's message: where AFM table ``name`` of ``got`` and
+    ``want`` differ most (its index and both values) and how many entries
+    differ by more than ``tol`` of the table's largest magnitude."""
+    a, b = got.to_numpy()[name], want.to_numpy()[name]
+    d = np.abs(a - b)
+    i = np.unravel_index(int(d.argmax()), d.shape)
+    n = int((d > tol * np.abs(b).max()).sum())
+    return (f"; worst entry {tuple(int(x) for x in i)}: {a[i]:.7g} against {b[i]:.7g}, "
+            f"{n} entries past the tolerance")
 
 
 def step_launches(fn) -> tuple[int | None, float | None]:
@@ -4471,7 +4509,9 @@ def hold_sharded_master(dev, mesh, smi: str, patch: bool) -> dict:
                                                             single.ctr_model.model_params).items()}}
         for name, s in shares.items():
             tol = FIRST_EPOCH_TOL if name.startswith("bpr") else AFM_TOL
-            check(s <= tol, f"sharded master: {name} off by {s:.3g} of the single card's")
+            where = "" if s <= tol or name.startswith("bpr") else worst_entry(
+                sharded.ctr_model.model_params, single.ctr_model.model_params, name[4:], tol)
+            check(s <= tol, f"sharded master: {name} off by {s:.3g} of the single card's{where}")
         for g in ("master_collaborative_filtering_ndcg_10", "master_ranking_model_auc"):
             check(abs(gauges["sharded"][g] - gauges["single"][g]) <= 0.01,
                   f"sharded master: {g} {gauges['sharded'][g]} vs {gauges['single'][g]}")
@@ -6694,6 +6734,244 @@ def phase_surface(dev, smi: str, seed: int) -> dict:
     return result
 
 
+# ---------------------------------------------------------------- phase 17
+
+
+def bitset_draws(bits, counts_full, cap: int, keys, n_items: int, n_tries: int) -> dict:
+    """Over the step keys, for the users the cap cuts: the draws whose
+    ``n_tries`` candidates all lie in the user's full positive set, and the
+    bitset words the first-free rule needs (each candidate up to the first
+    free one, every one when all collide) over every active user."""
+    import torch
+
+    from gorse_tpu_torch.ops import sampling
+
+    n_users = bits.shape[0]
+    uids = torch.arange(n_users, device=bits.device)
+    rows = uids[:, None]
+    capped = counts_full > cap
+    active = counts_full > 0
+    all_collide = words = 0
+    for step in keys:
+        u01 = sampling.per_user_uniforms(step, uids, 1 + n_tries)[:, 1:]
+        cand = (u01 * float(n_items)).to(torch.int32)
+        member = ((bits[rows, (cand >> 5).long()] >> (cand & 31)) & 1).bool()  # [U, n_tries]
+        every = member.all(dim=1)
+        all_collide += int((every & capped).sum())
+        first_free = torch.argmax((~member).to(torch.int8), dim=1)
+        words += int(torch.where(every, n_tries, first_free + 1)[active].sum())
+    return {"all_collide": all_collide, "words": words}
+
+
+def full_set_negatives(bits, counts_full, cap: int, neg) -> int:
+    """The negatives ``neg`` ``[S, U]`` of the users the cap cuts that lie
+    in the user's full positive set."""
+    import torch
+
+    rows = torch.arange(bits.shape[0], device=bits.device)[None, :]
+    member = ((bits[rows, (neg >> 5).long()] >> (neg & 31)) & 1).bool()
+    return int((member & (counts_full > cap)[None, :]).sum())
+
+
+def phase_bitset(dev, smi: str) -> dict:
+    """Phase 17: full-set negative rejection in the single-card fit, on a
+    corpus where the reference's gate holds (the history cap binds, the
+    bitset within 64 MiB). The sampled sweep and the epoch with the bitset
+    against their plain versions; ``BPR.fit`` through ``bpr_epoch`` with
+    the bitset; the capped users' negatives in their full positive sets,
+    with and without it; K1's time at this shape both ways."""
+    import logging
+
+    import torch
+
+    from gorse_tpu_torch.data.loaders import synthetic_cf_access
+    from gorse_tpu_torch.models import BPR, FitConfig, Params
+    from gorse_tpu_torch.models import bpr as bpr_model
+    from gorse_tpu_torch.ops import bpr_kernel as bk
+    from gorse_tpu_torch.ops import sampling
+
+    t_phase = time.perf_counter()
+    data = synthetic_cf_access(BITSET_USERS, BITSET_ITEMS, nnz=BITSET_NNZ, seed=BITSET_SEED)
+    train, test = data.split_cf(seed=0)
+    cap, widest = bpr_model.history_cap(train)
+    csr = train.padded_user_positives(max_len=cap, seed=0)
+    bits_np = bpr_model.rejection_bitset(train, cap, widest)
+    n_users, n_items, k = train.count_users(), train.count_items(), TRAIN_DIM
+    check(cap < widest and bits_np is not None
+          and bits_np.nbytes <= bpr_model.BITSET_MAX_BYTES,
+          f"phase 17: cap {cap}, widest {widest}: the gate must hold")
+    counts_full = torch.as_tensor(np.fromiter((len(fb) for fb in train.user_feedback),
+                                              dtype=np.int64, count=n_users), device=dev)
+    bits = torch.from_numpy(bits_np.view(np.int32)).to(dev)
+    padded = torch.as_tensor(csr.padded, device=dev)
+    counts = torch.as_tensor(csr.counts, device=dev)
+    n_active = max(int((csr.counts > 0).sum()), 1)
+    n_steps = max(round(train.count_feedback() / n_active), 1)
+    n_tries = bpr_model.adaptive_neg_tries(float(np.mean(csr.counts)) / n_items)
+    result = {"users": n_users, "items": n_items, "train_feedback": train.count_feedback(),
+              "k": k, "cap": cap, "widest": widest, "bitset_bytes": int(bits_np.nbytes),
+              "capped_users": int((counts_full > cap).sum()), "n_steps": n_steps,
+              "n_tries": n_tries, "data_s": time.perf_counter() - t_phase}
+    log(f"  {n_users} users, {n_items} items, {train.count_feedback()} train feedback: cap "
+        f"{cap} < widest {widest}, {result['capped_users']} users capped, bitset "
+        f"{bits_np.nbytes / 1e6:.1f} MB; made in {result['data_s']:.1f} s")
+
+    # the sampled sweep and the epoch, kernel against plain, both with bits.
+    # The sweep from 0.1-scale factors, as phase 4's full width; the epochs
+    # from the fit's init: from 0.1-scale factors at lr 0.05 the dense sweep
+    # diverges at this shape (p 0.1 -> 4.3 in 5 steps) and the growth
+    # carries the atomics' reordered sums past EPOCH_TOL (1.6e-4 at 5 steps)
+    rng = np.random.default_rng(17)
+    p = torch.as_tensor(rng.normal(scale=0.1, size=(n_users, k)).astype(np.float32), device=dev)
+    q = torch.as_tensor(rng.normal(scale=0.1, size=(n_items, k)).astype(np.float32), device=dev)
+    key = sampling.raw_step_keys(sampling.prng_key(17), 1)[0]
+    errors = hold_bpr("bitset sweep", p, q, padded, counts, key, torch.float32, n_tries, bits)
+    init = BPR(Params(n_factors=k), device=dev)
+    init.init(train, seed=0)
+    p, q = init.user_factors, init.item_factors
+    errors["bpr_epoch"] = 0.0
+    for steps in EPOCH_STEPS:
+        keys = sampling.raw_step_keys(sampling.prng_key(18), steps)
+        errors["bpr_epoch"] = max(errors["bpr_epoch"], hold_epoch(
+            f"bitset epoch of {steps}", p, q, padded, counts, keys, torch.float32, n_tries, bits))
+    result["errors"] = errors
+    result["first_epoch_rel_err"] = hold_first_epoch(train, csr, dev, n_steps, bits)
+    log(f"  with the bitset: the sweep's pairs equal, the epoch over {EPOCH_STEPS} steps within "
+        f"EPOCH_TOL, a whole epoch within FIRST_EPOCH_TOL; errors {json.dumps(errors)}")
+
+    # the fit: every epoch one bpr_epoch launch with the bitset
+    records = []
+    handler = logging.Handler()
+    handler.emit = records.append
+    fit_logger = logging.getLogger(bpr_model.__name__)
+    fit_logger.addHandler(handler)
+    level = fit_logger.level
+    fit_logger.setLevel(logging.INFO)
+    try:
+        model = BPR(Params(n_factors=k, n_epochs=BITSET_EPOCHS, lr=LR, reg=REG), device=dev)
+        zero_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        score = model.fit(train, test, FitConfig())
+        torch.cuda.synchronize()
+        result["fit_s"] = time.perf_counter() - t0
+        launches = {n: getattr(bk, n).launches for n in BPR_KERNELS}
+        bits_launches = bk.bpr_epoch.bits_launches
+    finally:
+        fit_logger.removeHandler(handler)
+        fit_logger.setLevel(level)
+    said = [r.getMessage() for r in records if "full positive sets" in r.getMessage()]
+    want = dict(bpr_sweep_sampled=0, bpr_sweep_pairs=0, bpr_epoch=BITSET_EPOCHS)
+    check(launches == want and bits_launches == BITSET_EPOCHS,
+          f"bitset fit: {launches} launches, {bits_launches} with the bitset; want {want}, "
+          "each with it")
+    check(len(said) == 1, f"bitset fit: the gate's log line ({len(said)} found)")
+    result.update(launches=launches, bits_launches=bits_launches, fit_log=said[0],
+                  epoch_s=model.epoch_seconds, ndcg=score.ndcg,
+                  finite=bool(torch.isfinite(model.user_factors).all()
+                              and torch.isfinite(model.item_factors).all()))
+    log(f"  fit: {json.dumps(launches)}, {bits_launches} with the bitset; log: {said[0]}")
+    del model
+
+    # the negatives of one epoch's pairs, with the bitset and without
+    keys = sampling.raw_step_keys(sampling.prng_key(19), n_steps)
+    in_full = {}
+    for side, b in (("bits", bits), ("rows", None)):
+        pairs = torch.empty((2, n_steps, n_users), dtype=torch.int32, device=dev)
+        bk.bpr_epoch(p, q.clone(), torch.zeros_like(q), torch.zeros((1,), device=dev), padded,
+                     counts, keys, n_items, LR, REG, n_tries, pairs=pairs, bits=b)
+        in_full[side] = full_set_negatives(bits, counts_full, cap, pairs[1])
+    draws = bitset_draws(bits, counts_full, cap, keys, n_items, n_tries)
+    check(in_full["bits"] == draws["all_collide"],
+          f"bitset: {in_full['bits']} capped users' negatives in their full sets, "
+          f"{draws['all_collide']} draws with every candidate in it")
+    check(in_full["rows"] > in_full["bits"],
+          f"rows: {in_full['rows']} full-set negatives, the bitset's {in_full['bits']}")
+    result["full_set_negatives"] = dict(in_full, all_collide=draws["all_collide"],
+                                        steps=n_steps, capped_users=result["capped_users"])
+    log(f"  one epoch ({n_steps} steps): capped users' negatives in their full sets "
+        f"{in_full['bits']} with the bitset (all-collide draws {draws['all_collide']}), "
+        f"{in_full['rows']} against the capped rows")
+
+    # K1 at this shape, both ways, in turns; the bounds of one epoch
+    delta, cost = torch.zeros_like(q), torch.zeros((1,), device=dev)
+    _, pos, neg = bk.bpr_sweep_sampled(p, q, delta, cost, padded, counts, keys[0], n_items,
+                                       LR, REG, n_tries, bits=bits)
+    act = counts > 0
+    touched = int(torch.unique(torch.cat([pos[act], neg[act]])).numel())
+    user_bytes = 2 * n_users * k * 4  # p read, p_new written
+    row_bytes = touched * 3 * k * 4  # q rows read once, delta rows read and written
+    flops = n_active * 16 * k
+    hist_bytes = int(counts.sum()) * 4 + n_users * 4  # the rows' valid entries, the counts
+    # what a step reads to sample: with the bitset a positive and a count a
+    # user and one word a candidate the first-free rule tests; against the
+    # rows every valid entry. By the rule (each input read once) the epoch
+    # reads the rows once and at most the whole bitset.
+    sample_bytes = {"bits": n_users * 8 + draws["words"] * 4 / n_steps, "rows": hist_bytes}
+    once_bytes = {"bits": hist_bytes + min(draws["words"] * 4, bits_np.nbytes),
+                  "rows": hist_bytes}
+    q_epoch = q.clone()
+
+    def epoch(b):
+        return lambda: bk.bpr_epoch_fused(p, q_epoch, padded, counts, keys, n_items, LR, REG,
+                                          mm_dtype=torch.float32, n_tries=n_tries, bits=b)
+
+    times = {"rows": [], "bits": []}
+    for side in ("rows", "bits", "bits", "rows"):
+        times[side].append(median_ms(epoch(bits if side == "bits" else None), 20))
+    queued = {side: queued_ms(epoch(bits if side == "bits" else None), 10)
+              for side in ("rows", "bits")}
+    plain_ms = median_ms(lambda: bk.bpr_epoch_plain(
+        p, q_epoch, torch.zeros_like(q), cost, padded, counts, keys, n_items, LR, REG, n_tries,
+        bits=bits), 2)
+    timing = {}
+    for side in ("bits", "rows"):
+        rule = bound(user_bytes + 2 * q.numel() * 4 + once_bytes[side] + n_steps * 8 + 4,
+                     n_steps * flops, F32_FLOP_S)
+        # p a round trip a step, the sampling's reads, the touched q / delta rows
+        trip = n_steps * bound(user_bytes + sample_bytes[side] + row_bytes, flops,
+                               F32_FLOP_S)[0]
+        timing[side] = dict(ms=times[side], queued_ms=queued[side], bound_ms=rule[0],
+                            bound_by=rule[1], round_trip_bound_ms=trip)
+    timing["bits"].update(plain_ms=plain_ms, library_ms=None, touched_rows=touched,
+                          words_read=draws["words"])
+
+    # K2, one sampled sweep (the first step's key), both ways, in turns; its
+    # bound as phase 4's with this sweep's sampling reads, pos and neg written
+    step_words = bitset_draws(bits, counts_full, cap, keys[:1], n_items, n_tries)["words"]
+    sweep_sample = {"bits": n_users * 8 + step_words * 4, "rows": hist_bytes}
+
+    def sweep(b):
+        return lambda: bk.bpr_sweep_sampled(p, q, delta, cost, padded, counts, keys[0], n_items,
+                                            LR, REG, n_tries, bits=b)
+
+    sweep_ms = {"rows": [], "bits": []}
+    for side in ("rows", "bits", "bits", "rows"):
+        sweep_ms[side].append(median_ms(sweep(bits if side == "bits" else None), 50))
+    for side in ("bits", "rows"):
+        s_bound = bound(user_bytes + row_bytes + sweep_sample[side] + n_users * 8 + 4, flops,
+                        F32_FLOP_S)
+        timing[f"sweep_{side}"] = dict(
+            ms=sweep_ms[side], queued_ms=queued_ms(sweep(bits if side == "bits" else None)),
+            bound_ms=s_bound[0], bound_by=s_bound[1])
+    timing["sweep_bits"].update(
+        plain_ms=median_ms(lambda: bk.bpr_sweep_sampled_plain(
+            p, q, delta, cost, padded, counts, keys[0], n_items, LR, REG, n_tries, bits=bits), 5),
+        library_ms=None, words_read=step_words)
+    result["timing"] = timing
+    result["card"] = smi
+    for side, row in timing.items():
+        what = "bpr_sweep_sampled" if side.startswith("sweep") else f"bpr_epoch, {n_steps} steps"
+        log(f"  time {what} ({side.removeprefix('sweep_')}): " + json.dumps(row))
+    del p, q, init, q_epoch, delta, bits, padded, counts
+    torch.cuda.empty_cache()
+    result["seconds"] = time.perf_counter() - t_phase
+    log(f"  phase 17 in {result['seconds']:.1f} s ({smi})")
+    check(result["seconds"] <= BITSET_PHASE_S,
+          f"phase 17 took {result['seconds']:.1f} s of its {BITSET_PHASE_S} s")
+    return result
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -6825,6 +7103,10 @@ def main() -> int:
             "restore, OIDC, the mock servers")
         out["surface"] = phase_surface(dev, smi, args.seed)
         log("  surface: " + json.dumps(out["surface"], default=str))
+    if "17" in phases:
+        log("== phase 17: full-set negative rejection in the single-card fit")
+        out["bitset"] = phase_bitset(dev, smi)
+        log("  bitset: " + json.dumps(out["bitset"], default=str))
     check(not {"jax", "gorse_tpu", "grpc", "google.protobuf", "jinja2", "msgpack",
                 "cryptography"} & set(sys.modules),
           "neither JAX, grpc, protobuf, jinja2, msgpack, cryptography nor gorse_tpu was imported")
@@ -6851,11 +7133,11 @@ def kernel_rows(out: dict) -> list[dict]:
     log(f"  kernel time per chunk {rows['topk_gated']['ms']:.3f} ms = "
         f"{100 * rows['topk_gated']['ms'] / path['ms_per_chunk']:.1f}% of a chunk's search_users")
 
-    def row(name, source, replaces, launches, err, timing):
+    def row(name, source, replaces, launches, err, timing, **extra):
         return {"name": name, "route": "cuda", "source": f"gorse_tpu_torch/csrc/{source}",
                 "replaces": replaces, "launches": launches, "max_abs_err": err,
                 **{key: timing[key] for key in ("ms", "plain_ms", "bound_ms", "bound_by",
-                                                "library_ms")}}
+                                                "library_ms")}, **extra}
 
     # the serving path's launches (phase 3) with the fm worker's recall
     # (phase 9), the in-one node's cycles (phases 10 and 14) and the card
@@ -6881,8 +7163,29 @@ def kernel_rows(out: dict) -> list[dict]:
                                   + grpc["master_launches"]["bpr_epoch"] + surface["bpr_epoch"])
     # K3 on the sharded path: phase 12's epoch and the sharded master's fit
     bpr_launches["bpr_sweep_pairs"] += out["sharded"]["launches"]["bpr_sweep_pairs"]
+    # the single-card fit with the full-set bitset (phase 17): its launches
+    # count with bpr_epoch's, and the row carries the variant's own numbers
+    # at 120k x 4k (median of its timings in turns, its bounds)
+    bitset = out["bitset"]
+    bpr_launches["bpr_epoch"] += bitset["launches"]["bpr_epoch"]
+
+    def with_bits(kernel: str, side: str, launches: int) -> dict:
+        t = bitset["timing"]
+        return {"bits": {
+            "launches": launches, "max_abs_err": bitset["errors"][kernel],
+            "ms": statistics.median(t[side]["ms"]), "plain_ms": t[side]["plain_ms"],
+            "bound_ms": t[side]["bound_ms"], "bound_by": t[side]["bound_by"],
+            "library_ms": None,
+            "rows_ms": statistics.median(t[side.replace("bits", "rows")]["ms"]),
+        }}
+
+    # K2's bitset launches are phase 17's holds and timings only: no path
+    # of the system launches the sampled sweep on its own
+    extra = {"bpr_epoch": with_bits("bpr_epoch", "bits", bitset["bits_launches"]),
+             "bpr_sweep_sampled": with_bits("bpr_sweep_sampled", "sweep_bits", 0)}
     kernels += [row(name, "bpr.cu", BPR_REPLACES[name], bpr_launches[name],
-                    out["bpr_errors"][name], out["bpr_timings"][name]) for name in BPR_KERNELS]
+                    out["bpr_errors"][name], out["bpr_timings"][name], **extra.get(name, {}))
+                for name in BPR_KERNELS]
     # the SQ kernels: launches from the store path (phase 7b), times at the
     # 1M x 64 dot shape (phase 7a)
     kernels += [row(name, "topk.cu", SQ_REPLACES[name], out["store"]["launches"][name],

@@ -22,11 +22,17 @@
 // _per_user_uniforms in gorse_tpu/parallel/sharded.py; slot = int(u0 *
 // max(count, 1)), pos = max(row[slot], 0) (0 past the row's max_len
 // entries); candidates int(u_t * n_items), the first not in the user's
-// capped row wins (else the first); diff =
-// sum(p*qi) - sum(p*qj) over the sweep's snapshot of q, cost softplus(-diff),
-// grad sigmoid(-diff); p_new = p + lr * (grad * (qi - qj) - reg * p); adds of
-// lr * (grad * p - reg * qi) into delta[pos] and lr * (-grad * p - reg * qj)
-// into delta[neg].
+// rejection set wins (else the first). The rejection set is the capped row
+// (the first min(count, max_len) entries), as on the reference's Pallas
+// paths, or, given a full-set bitset (bits: [n_users, words] uint32, bit
+// c % 32 of word c / 32 set when item c is among the user's positives,
+// Dataset.positives_bitset), the user's whole positive set, as the
+// reference's single-device epoch under its gate (gorse_tpu/models/bpr.py
+// :66-113, :398-409); the positive comes from the capped row either way.
+// diff = sum(p*qi) - sum(p*qj) over the sweep's snapshot of q, cost
+// softplus(-diff), grad sigmoid(-diff); p_new = p + lr * (grad * (qi - qj) -
+// reg * p); adds of lr * (grad * p - reg * qi) into delta[pos] and lr *
+// (-grad * p - reg * qj) into delta[neg].
 //
 // Bound: bytes. At the training shape (138k users x 27k items, k = 64) a
 // step reads and writes p (70.7 MB), reads the rows' 1.6M items and the
@@ -42,15 +48,20 @@
 //   lane; only what spans a factor row (dots, gradient, payloads) runs a
 //   user at a time, on 16 lanes where k <= 64 (PAIRS: two users in one
 //   instruction stream).
-// - SCAN: the rejection test reads the first min(count, max_len) entries of
-//   a row only, not the padded row: past the count a row holds -1 and
-//   candidates lie in [0, n_items), so the answer is the same. Its lines are
-//   touched once, behind the draws (TOUCH), and read again from L1.
+// - SCAN: against the capped row, the rejection test reads the first
+//   min(count, max_len) entries of a row only, not the padded row: past the
+//   count a row holds -1 and candidates lie in [0, n_items), so the answer
+//   is the same. Its lines are touched once, behind the draws (TOUCH), and
+//   read again from L1. BITS: against the full set, a candidate costs one
+//   4-byte word of the user's bitset row; a lane issues the words of its
+//   first min(n_tries, MAXC) candidates before it tests any, and reads its
+//   row at the positive's slot only (no TOUCH).
 // - HEAD: the Zipf head's item rows (the hottest takes ~9,000 adds a step
 //   at the training shape, all on the same addresses) are staged per thread
 //   block in shared memory and flushed with one global add an element.
 // - STREAM: p and the padded rows pass through with evict-first hints, so q
-//   and delta stay in L2.
+//   and delta stay in L2; the bitset's words, scattered 4-byte reads, go
+//   through the read-only path (__ldg).
 // - VEC: with k a multiple of 4 (2 for k <= 32) and aligned rows, a lane's
 //   elements are contiguous and move, and add into delta, as float4/float2.
 //
@@ -151,6 +162,8 @@ struct SweepArgs {
   const int* padded;
   const int* counts;
   int max_len;
+  const uint32_t* bits;  // BITS: [n_users, words] full-set bitset; null: reject against the row
+  int words;
   uint32_t key0, key1;
   int n_items, n_tries;
   int* pos_out;
@@ -322,8 +335,8 @@ __device__ __forceinline__ void sweep_users(const SweepArgs& a, const float* p_i
       // TOUCH: one load in each 128-byte line of the row's first `valid`
       // entries, all in flight at once and behind the draws; the positive
       // and the scan then read the row from L1 (an OR of ids >= 0 and -1 is
-      // never INT_MIN)
-      if (scan) {
+      // never INT_MIN). With BITS the row is read at the slot only.
+      if (scan && a.bits == nullptr) {
         for (int i = 0; i < valid; i += 32) touch |= row[i];
         if (valid > 0) touch |= row[valid - 1];
       }
@@ -362,22 +375,34 @@ __device__ __forceinline__ void sweep_users(const SweepArgs& a, const float* p_i
       active = live && a.active_in[u] != 0;
     }
 
-    // ---- lane-parallel: the rejection scan over the first min(count,
+    // ---- lane-parallel: rejection, the first free candidate wins. BITS:
+    // the words of the first min(n_tries, MAXC) candidates, all loads in
+    // flight before any test. Else the scan over the first min(count,
     // max_len) entries of the lane's row (past the count a row holds -1 and
     // candidates lie in [0, n_items), so the full row gives the same
-    // answer), touched above; each entry is held against every candidate,
-    // the first free one wins.
+    // answer), touched above; each entry is held against every candidate.
     if (SAMPLED && scan && live) {
       const int* row = a.padded + (size_t)u * a.max_len;
       const int valid = min(count, a.max_len);
       const int nt = min(a.n_tries, MAXC);
-      unsigned hit = touch == INT_MIN ? 1u : 0u;  // waits for the touches
-#pragma unroll 4
-      for (int i = 0; i < valid; ++i) {
-        const int v = row[i];
+      const uint32_t* brow = a.bits != nullptr ? a.bits + (size_t)u * a.words : nullptr;
+      unsigned hit = 0u;
+      if (brow != nullptr) {
+        uint32_t word[MAXC];
+#pragma unroll
+        for (int t = 0; t < MAXC; ++t) word[t] = t < nt ? __ldg(brow + (cand[t] >> 5)) : 0u;
 #pragma unroll
         for (int t = 0; t < MAXC; ++t)
-          if (t < nt && v == cand[t]) hit |= 1u << t;
+          if ((word[t] >> (cand[t] & 31)) & 1u) hit |= 1u << t;
+      } else {
+        hit = touch == INT_MIN ? 1u : 0u;  // waits for the touches
+#pragma unroll 4
+        for (int i = 0; i < valid; ++i) {
+          const int v = row[i];
+#pragma unroll
+          for (int t = 0; t < MAXC; ++t)
+            if (t < nt && v == cand[t]) hit |= 1u << t;
+        }
       }
       const unsigned free = ~hit & ((1u << nt) - 1u);
       if (free != 0u) {
@@ -390,7 +415,11 @@ __device__ __forceinline__ void sweep_users(const SweepArgs& a, const float* p_i
           const int c = (int)__fmul_rn(bits_to_uniform(draw(key0, key1, u, 1 + t)),
                                        (float)a.n_items);
           bool collides = false;
-          for (int i = 0; i < valid; ++i) collides |= row[i] == c;
+          if (brow != nullptr) {
+            collides = (__ldg(brow + (c >> 5)) >> (c & 31)) & 1u;
+          } else {
+            for (int i = 0; i < valid; ++i) collides |= row[i] == c;
+          }
           if (!collides) {
             neg = c;
             break;
@@ -711,10 +740,13 @@ bool rows_vectorized(int k, std::initializer_list<const void*> ptrs) {
 
 }  // namespace
 
-// hot_slot / hot_items / n_hot: the staged Zipf head (null / 0: none)
+// bits / words: the full-set rejection bitset, [n_users, words] (null / 0:
+// reject against the rows); hot_slot / hot_items / n_hot: the staged Zipf
+// head (null / 0: none)
 extern "C" int gt_bpr_sweep(int sampled, int bf16, const void* p, void* p_out, const void* q,
                             void* delta, void* cost, int n_users, int k, const void* padded,
-                            const void* counts, int max_len, unsigned key0, unsigned key1,
+                            const void* counts, int max_len, const void* bits, int words,
+                            unsigned key0, unsigned key1,
                             int n_items, int n_tries, void* pos_out,
                             void* neg_out, const void* pos_in, const void* neg_in,
                             const void* active_in, float lr, float reg, const void* hot_slot,
@@ -731,6 +763,8 @@ extern "C" int gt_bpr_sweep(int sampled, int bf16, const void* p, void* p_out, c
   a.padded = (const int*)padded;
   a.counts = (const int*)counts;
   a.max_len = max_len;
+  a.bits = (const uint32_t*)bits;
+  a.words = words;
   a.key0 = key0;
   a.key1 = key1;
   a.n_items = n_items;
@@ -755,12 +789,13 @@ extern "C" int gt_bpr_sweep(int sampled, int bf16, const void* p, void* p_out, c
   return (int)err;
 }
 
-// keys: [n_steps, 2] int32 step key words on the device; pos_out / neg_out
-// null or [n_steps, n_users] int32; hot_slot / hot_items / n_hot: the staged
-// Zipf head (null / 0: none)
+// bits / words: as gt_bpr_sweep; keys: [n_steps, 2] int32 step key words on
+// the device; pos_out / neg_out null or [n_steps, n_users] int32; hot_slot /
+// hot_items / n_hot: the staged Zipf head (null / 0: none)
 extern "C" int gt_bpr_epoch(int bf16, const void* p, void* p_out, void* q, void* delta,
                             void* cost, int n_users, int k, int n_rows, const void* padded,
-                            const void* counts, int max_len, const void* keys, int n_steps,
+                            const void* counts, int max_len, const void* bits, int words,
+                            const void* keys, int n_steps,
                             int n_items, int n_tries, void* pos_out, void* neg_out, float lr,
                             float reg, int ablate, const void* hot_slot,
                             const void* hot_items, int n_hot, void* stream) {
@@ -777,6 +812,8 @@ extern "C" int gt_bpr_epoch(int bf16, const void* p, void* p_out, void* q, void*
   a.padded = (const int*)padded;
   a.counts = (const int*)counts;
   a.max_len = max_len;
+  a.bits = (const uint32_t*)bits;
+  a.words = words;
   a.n_items = n_items;
   a.n_tries = n_tries;
   a.pos_out = (int*)pos_out;

@@ -3,15 +3,17 @@ gorse_tpu/data/dataset.py, the parts the port reads).
 
 Host-side bookkeeping in numpy: per-user and per-item feedback as ragged
 int32 lists with string dictionaries, the leave-one-out split, sampled
-evaluation negatives, the padded positives matrices the trainers read and
-the IDF weights of the similarity recommenders. Every random draw is
-numpy's ``default_rng(seed)`` in the reference's order, so both packages
-build the same splits, padded rows and candidates.
+evaluation negatives, the padded positives matrices the trainers read, the
+full-set positives bitset and the IDF weights of the similarity
+recommenders. Every random draw is numpy's ``default_rng(seed)`` in the
+reference's order, so both packages build the same splits, padded rows and
+candidates.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import itertools
 
 import numpy as np
 
@@ -201,6 +203,23 @@ class Dataset:
     ) -> _PaddedCSR:
         """Padded [I, L] matrix of each item's positive user ids (pad=-1)."""
         return self._pad(self.item_feedback, pad_to, max_len, seed)
+
+    def positives_bitset(self) -> np.ndarray:
+        """``[U, ceil(I/32)]`` uint32 membership bitset of each user's whole
+        positive set: bit ``i % 32`` of word ``i // 32`` is set when item
+        ``i`` is among the user's feedback, whatever the cap of the padded
+        rows. BPR rejects negatives against it as gorse does
+        (model/cf/model.go:460-468). One ``bitwise_or.at`` over every row."""
+        n_users, words = self.count_users(), -(-self.count_items() // 32)
+        counts = np.fromiter((len(fb) for fb in self.user_feedback), dtype=np.int64,
+                             count=n_users)
+        items = np.fromiter(itertools.chain.from_iterable(self.user_feedback), dtype=np.int64,
+                            count=int(counts.sum()))
+        users = np.repeat(np.arange(n_users, dtype=np.int64), counts)
+        bits = np.zeros(n_users * words, np.uint32)
+        np.bitwise_or.at(bits, users * words + (items >> 5),
+                         np.left_shift(np.uint32(1), (items & 31).astype(np.uint32)))
+        return bits.reshape(n_users, words)
 
     # ---------------------------------------------------------------- splits
 

@@ -21,13 +21,19 @@ epoch, the evaluation cadence, early stopping and checkpoints. Dropped as
 TPU tuning: the 128-lane item packing and the VMEM crossovers between the
 resident, fused and XLA epochs.
 
-Two differences from the reference, by design:
-- negatives are rejected against the capped padded rows, as on the
-  reference's Pallas paths; its XLA path's full-set bitset
-  (gorse_tpu/models/bpr.py:400-409) is not ported yet;
-- the sweep computes in f32 (``mm_dtype`` f32), as the reference's XLA and
-  sharded epochs do; the bf16 rounding of the TPU kernels is a kernel
-  option (``mm_dtype=torch.bfloat16``) that the fit does not take.
+Negatives are rejected as the reference rejects them. The single-card fit
+holds each candidate against the user's whole positive set, a bitset
+(``Dataset.positives_bitset``), under the reference's gate
+(gorse_tpu/models/bpr.py:398-409, :func:`rejection_bitset`): the history cap
+binds and the bitset takes at most 64 MiB. Otherwise, and in the sharded
+epochs, against the capped padded rows, as on the reference's Pallas and
+sharded paths. The gate's constants decide which negatives are drawn, so
+they are the reference's, not tuned for the card.
+
+One difference from the reference, by design: the sweep computes in f32
+(``mm_dtype`` f32), as the reference's XLA and sharded epochs do; the bf16
+rounding of the TPU kernels is a kernel option
+(``mm_dtype=torch.bfloat16``) that the fit does not take.
 """
 
 from __future__ import annotations
@@ -57,6 +63,22 @@ def history_cap(train) -> tuple[int, int]:
     if train.count_users() * widest * 4 <= 96 * 1024 * 1024:
         return max(widest, 1), widest
     return max(int(np.percentile(lengths, 99)), 64), widest
+
+
+# the most bytes the full-set rejection bitset may take (the reference's 64 MiB)
+BITSET_MAX_BYTES = 64 * 1024 * 1024
+
+
+def rejection_bitset(train, cap: int, widest: int, mesh=None) -> np.ndarray | None:
+    """The full-set rejection bitset the fit's epochs take, or None: built
+    only for a fit on one card (``mesh`` None or of one shard) whose history
+    cap binds (``cap < widest``) and whose ``[U, ceil(I/32)]`` uint32 words
+    take at most :data:`BITSET_MAX_BYTES`, the reference's gate."""
+    words = -(-train.count_items() // 32)
+    if ((mesh is None or mesh.size == 1) and cap < widest
+            and train.count_users() * words * 4 <= BITSET_MAX_BYTES):
+        return train.positives_bitset()
+    return None
 
 
 def adaptive_neg_tries(mean_density: float, eps: float = 1e-4) -> int:
@@ -106,8 +128,13 @@ class BPR(MatrixFactorization):
     def fit(self, train: Dataset, test: Dataset, config: FitConfig | None = None) -> Score:
         config = config or FitConfig()
         self.init(train, seed=config.seed)
-        cap, _ = history_cap(train)
+        cap, widest = history_cap(train)
         csr = train.padded_user_positives(max_len=cap, seed=config.seed)
+        bits = rejection_bitset(train, cap, widest, config.mesh)
+        if bits is not None:
+            logger.info("fit bpr: negatives rejected against the full positive sets (bitset "
+                        "%d x %d words, %.1f MB; history cap %d < widest %d)",
+                        bits.shape[0], bits.shape[1], bits.nbytes / 1e6, cap, widest)
         n_items = train.count_items()
         n_active = max(int(np.sum(csr.counts > 0)), 1)
         # each step visits every user once: nnz pairwise updates per epoch
@@ -120,7 +147,8 @@ class BPR(MatrixFactorization):
         history = [(0, metrics["NDCG"])]
         logger.info("fit bpr 0/%d NDCG@%d=%.4f", self.n_epochs, config.top_k, metrics["NDCG"])
 
-        run, p, q, rows, dense, devices = self._epochs(config, csr, n_steps, n_items, n_tries)
+        run, p, q, rows, dense, devices = self._epochs(config, csr, n_steps, n_items, n_tries,
+                                                       bits)
         self.epoch_seconds = []
         for epoch in range(1, self.n_epochs + 1):
             t0 = time.perf_counter()
@@ -158,23 +186,29 @@ class BPR(MatrixFactorization):
         metrics = evaluate_mf(p, q, *eval_cands, config.top_k)
         return Score(ndcg=metrics["NDCG"], precision=metrics["Precision"], recall=metrics["Recall"])
 
-    def _epochs(self, config: FitConfig, csr, n_steps: int, n_items: int, n_tries: int):
+    def _epochs(self, config: FitConfig, csr, n_steps: int, n_items: int, n_tries: int,
+                bits: np.ndarray | None = None):
         """The fit's epoch and its state: ``(run, p, q, rows, dense,
         devices)``, ``run(p, q, *rows, epoch_key) -> (p, q, cost)``,
         ``dense(p, q)`` the factor tables on the model's device, ``devices``
         the ones an epoch runs on. A mesh of more than one shard takes the
         user-sharded epoch (K3 a shard and step), with ``shard_table`` the
         catalog-sharded one (its drops in ``catalog_drop_count``); otherwise
-        one ``bpr_epoch`` launch (K1) an epoch on the model's device."""
+        one ``bpr_epoch`` launch (K1) an epoch on the model's device,
+        rejecting against ``bits`` (:func:`rejection_bitset`) when given."""
         dev, mesh = self.device, config.mesh
         p, q = self.user_factors, self.item_factors
         n_users = p.shape[0]
         self.catalog_drop_count = None
         if mesh is None or mesh.size == 1:
+            # the uint32 words' bits as int32, the type the kernel takes
+            bits_t = None if bits is None else torch.from_numpy(bits.view(np.int32)).to(dev)
+
             def run(p, q, padded_pos, pos_counts, epoch_key):
                 return bpr_epoch_fused(
                     p, q, padded_pos, pos_counts, sampling.raw_step_keys(epoch_key, n_steps),
-                    n_items, self.lr, self.reg, mm_dtype=torch.float32, n_tries=n_tries)
+                    n_items, self.lr, self.reg, mm_dtype=torch.float32, n_tries=n_tries,
+                    bits=bits_t)
 
             rows = (torch.as_tensor(csr.padded, device=dev), torch.as_tensor(csr.counts, device=dev))
             return run, p, q, rows, lambda p, q: (p, q), [dev]

@@ -30,7 +30,11 @@ TPU's 128-lane packing is dropped), and sampling takes step key words
 samples are the sharded reference's, bit for bit. Negatives are rejected
 against the capped padded rows, as on the reference's Pallas paths: the
 kernels scan the first ``count`` entries of a row, so every entry past a
-row's count must be -1, as ``Dataset._pad`` builds the rows.
+row's count must be -1, as ``Dataset._pad`` builds the rows. With ``bits``
+(``Dataset.positives_bitset`` as int32, ``[U, ceil(n_items / 32)]``) the
+sampled sweeps reject against each user's whole positive set instead, one
+word a candidate, as the reference's single-device XLA epoch does when the
+history cap binds; the positive still comes from the capped row.
 
 ``mm_dtype=torch.bfloat16`` rounds the gathered q rows and the scatter
 payloads to bf16 where the TPU kernels cast them; everything else is f32.
@@ -43,7 +47,7 @@ import ctypes
 import torch
 
 from . import _build
-from .sampling import per_user_uniforms, sample_pair
+from .sampling import check_bits, per_user_uniforms, sample_pair
 
 MAX_K = 256  # factor width the sweep takes (8 elements a lane)
 MAX_TRIES = 62  # rejection draws (1 + n_tries words from <= 32 lanes)
@@ -139,26 +143,26 @@ def bpr_sweep_pairs_plain(p, q, delta, cost, pos, neg, active, lr: float, reg: f
 
 
 def bpr_sweep_sampled_plain(p, q, delta, cost, padded_pos, pos_counts, step_key, n_items,
-                            lr, reg, n_tries=4, mm_dtype=torch.float32):
+                            lr, reg, n_tries=4, mm_dtype=torch.float32, bits=None):
     uids = torch.arange(p.shape[0], device=p.device)
-    pos, neg = sample_pair(padded_pos, pos_counts, uids, step_key, n_items, n_tries)
+    pos, neg = sample_pair(padded_pos, pos_counts, uids, step_key, n_items, n_tries, bits)
     p_new = bpr_sweep_pairs_plain(p, q, delta, cost, pos, neg, pos_counts > 0, lr, reg,
                                   mm_dtype)
     return p_new, pos, neg
 
 
 def sample_pair_ablated(padded_pos, pos_counts, step_key, n_items: int, n_tries: int,
-                        ablate: str = ""):
+                        ablate: str = "", bits=None):
     """The epoch's pairs under ``ablate``, as the reference's lines define
     them (gorse_tpu/ops/bpr_kernel.py:83-93, 361-363): "nosample" pos =
     max(row[0], 0), neg = (pos + 37) % n_items; "samp_nopos" that pos with
     the sampled neg; "samp_norej" the sampled pos with the first candidate;
-    otherwise :func:`.sampling.sample_pair`."""
+    otherwise :func:`.sampling.sample_pair` (against ``bits`` when given)."""
     first = torch.clamp(padded_pos[:, 0], min=0).to(torch.int32)
     if ablate == "nosample":
         return first, ((first + 37) % n_items).to(torch.int32)
     uids = torch.arange(padded_pos.shape[0], device=padded_pos.device)
-    pos, neg = sample_pair(padded_pos, pos_counts, uids, step_key, n_items, n_tries)
+    pos, neg = sample_pair(padded_pos, pos_counts, uids, step_key, n_items, n_tries, bits)
     if ablate == "samp_nopos":
         pos = first
     elif ablate == "samp_norej":
@@ -176,16 +180,17 @@ def bpr_fold_plain(q, delta):
 
 def bpr_epoch_plain(p, q, delta, cost, padded_pos, pos_counts, step_keys, n_items: int,
                     lr: float, reg: float, n_tries: int = 4, mm_dtype=torch.float32,
-                    ablate: str = "", pairs=None):
+                    ablate: str = "", pairs=None, bits=None):
     """:func:`bpr_epoch`'s plain version: for each step key a sampled sweep
     from the epoch's running p, then the fold. Updates ``q`` in place, adds
     into ``cost``, leaves ``delta`` zero, fills ``pairs`` ``[2, n_steps, U]``
     with each step's pos and neg when given. Returns p_new."""
     _ablate_code(ablate)
+    check_bits(bits, padded_pos.shape[0], n_items)
     active = pos_counts > 0
     for s, step_key in enumerate(step_keys):
         pos, neg = sample_pair_ablated(padded_pos, pos_counts, step_key, n_items, n_tries,
-                                       ablate)
+                                       ablate, bits)
         if pairs is not None:
             pairs[0, s], pairs[1, s] = pos, neg
         p = _sweep_math(p, q, delta, cost, pos, neg, active, lr, reg, mm_dtype, ablate)
@@ -201,10 +206,11 @@ def _lib() -> ctypes.CDLL:
     if not getattr(lib, "_gt_typed", False):
         p, i, u, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_float
         lib.gt_bpr_sweep.argtypes = [
-            i, i, p, p, p, p, p, i, i, p, p, i, u, u, i, i, p, p, p, p, p, f, f, p, p, i, p,
+            i, i, p, p, p, p, p, i, i, p, p, i, p, i, u, u, i, i, p, p, p, p, p, f, f, p, p, i,
+            p,
         ]
         lib.gt_bpr_epoch.argtypes = [
-            i, p, p, p, p, p, i, i, i, p, p, i, p, i, i, i, p, p, f, f, i, p, p, i, p,
+            i, p, p, p, p, p, i, i, i, p, p, i, p, i, p, i, i, i, p, p, f, f, i, p, p, i, p,
         ]
         lib.gt_bpr_sweep.restype = lib.gt_bpr_epoch.restype = ctypes.c_int
         lib._gt_typed = True
@@ -245,29 +251,42 @@ def _check_factors(p, q, delta, cost, mm_dtype) -> None:
         raise TypeError(f"mm_dtype {mm_dtype}: f32 or bf16")
 
 
-def _check_rows(p, q, padded_pos, pos_counts, n_items: int, n_tries: int) -> None:
-    _check({"padded_pos": padded_pos, "pos_counts": pos_counts}, torch.int32, p.device)
+def _check_rows(p, q, padded_pos, pos_counts, n_items: int, n_tries: int, bits) -> None:
+    """The rows, and ``bits`` when given: ``[U, ceil(n_items / 32)]`` int32
+    on the tensors' card. A wrong bitset raises; the kernel never falls back
+    to the rows."""
+    rows = {"padded_pos": padded_pos, "pos_counts": pos_counts}
+    _check(rows if bits is None else dict(rows, bits=bits), torch.int32, p.device)
     n_users = p.shape[0]
     if padded_pos.dim() != 2 or padded_pos.shape[0] != n_users or pos_counts.shape != (n_users,):
         raise ValueError("padded_pos must be [U, L] and pos_counts [U], one row per user")
     if not 0 < n_items <= q.shape[0] or not 0 < n_tries <= MAX_TRIES:
         raise ValueError(f"n_items {n_items} (table {q.shape[0]}), n_tries {n_tries}")
+    check_bits(bits, n_users, n_items)
+
+
+def _bits_args(bits) -> tuple:
+    """The C entries' (bits, words) arguments: null and 0 without a bitset."""
+    return (None, 0) if bits is None else (bits.data_ptr(), bits.shape[1])
 
 
 def bpr_sweep_sampled(p, q, delta, cost, padded_pos, pos_counts, step_key, n_items: int,
-                      lr: float, reg: float, n_tries: int = 4, mm_dtype=torch.float32):
+                      lr: float, reg: float, n_tries: int = 4, mm_dtype=torch.float32,
+                      bits=None):
     """One sweep over every user with in-kernel sampling. ``step_key`` is a
     step's two key words; user ``u`` draws with counter ``u``.
     ``padded_pos`` ``[U, L]`` holds each user's positives in its first
     ``pos_counts[u]`` entries (every entry when the count exceeds L, as
-    :func:`.sampling.sample_pair` reads it) and -1 after them. Returns
-    ``(p_new, pos, neg)``; adds the item payloads into ``delta`` ``[I, k]``
-    and the cost into ``cost`` ``[1]`` (both f32, in place)."""
+    :func:`.sampling.sample_pair` reads it) and -1 after them. ``bits``,
+    when given, is the full-set rejection bitset (``[U, ceil(n_items /
+    32)]`` int32). Returns ``(p_new, pos, neg)``; adds the item payloads
+    into ``delta`` ``[I, k]`` and the cost into ``cost`` ``[1]`` (both f32,
+    in place)."""
     if p.device.type == "cpu":
         return bpr_sweep_sampled_plain(p, q, delta, cost, padded_pos, pos_counts, step_key,
-                                       n_items, lr, reg, n_tries, mm_dtype)
+                                       n_items, lr, reg, n_tries, mm_dtype, bits)
     _check_factors(p, q, delta, cost, mm_dtype)
-    _check_rows(p, q, padded_pos, pos_counts, n_items, n_tries)
+    _check_rows(p, q, padded_pos, pos_counts, n_items, n_tries, bits)
     n_users = p.shape[0]
     p_new = torch.empty_like(p)
     pos = torch.empty((n_users,), dtype=torch.int32, device=p.device)
@@ -276,8 +295,8 @@ def bpr_sweep_sampled(p, q, delta, cost, padded_pos, pos_counts, step_key, n_ite
         rc = _lib().gt_bpr_sweep(
             1, int(mm_dtype == torch.bfloat16), p.data_ptr(), p_new.data_ptr(), q.data_ptr(),
             delta.data_ptr(), cost.data_ptr(), n_users, p.shape[1], padded_pos.data_ptr(),
-            pos_counts.data_ptr(), padded_pos.shape[1], int(step_key[0]), int(step_key[1]),
-            n_items, n_tries, pos.data_ptr(), neg.data_ptr(), None, None, None,
+            pos_counts.data_ptr(), padded_pos.shape[1], *_bits_args(bits), int(step_key[0]),
+            int(step_key[1]), n_items, n_tries, pos.data_ptr(), neg.data_ptr(), None, None, None,
             lr, reg, *_head(padded_pos, q.shape[0]), _stream(p),
         )
     _raise_on(rc, "bpr_sweep (sampled)")
@@ -302,8 +321,8 @@ def bpr_sweep_pairs(p, q, delta, cost, pos, neg, active, lr: float, reg: float,
     with torch.cuda.device(p.device):  # the tensors' card
         rc = _lib().gt_bpr_sweep(
             0, int(mm_dtype == torch.bfloat16), p.data_ptr(), p_new.data_ptr(), q.data_ptr(),
-            delta.data_ptr(), cost.data_ptr(), n_users, p.shape[1], None, None, 0, 0, 0,
-            q.shape[0], 0, None, None, pos.data_ptr(), neg.data_ptr(), active.data_ptr(),
+            delta.data_ptr(), cost.data_ptr(), n_users, p.shape[1], None, None, 0, None, 0, 0,
+            0, q.shape[0], 0, None, None, pos.data_ptr(), neg.data_ptr(), active.data_ptr(),
             lr, reg, None, None, 0, _stream(p),
         )
     _raise_on(rc, "bpr_sweep (pairs)")
@@ -313,21 +332,22 @@ def bpr_sweep_pairs(p, q, delta, cost, pos, neg, active, lr: float, reg: float,
 
 def bpr_epoch(p, q, delta, cost, padded_pos, pos_counts, step_keys, n_items: int, lr: float,
               reg: float, n_tries: int = 4, mm_dtype=torch.float32, ablate: str = "",
-              pairs=None):
+              pairs=None, bits=None):
     """A whole epoch in one cooperative launch: for each step key the
     sampled sweep (as :func:`bpr_sweep_sampled`, from the epoch's running
-    p), a grid barrier, the fold ``q += delta; delta = 0``, a grid barrier.
-    ``delta`` must be zero on entry and is zero on return; ``q`` is updated
-    in place and the cost added into ``cost``. ``pairs``, when given, is
-    ``[2, n_steps, U]`` int32 and receives each step's pos and neg.
-    Returns p_new. A launch that cannot be cooperative (the grid does not
-    fit the card) raises."""
+    p, against ``bits`` when given), a grid barrier, the fold ``q +=
+    delta; delta = 0``, a grid barrier. ``delta`` must be zero on entry and
+    is zero on return; ``q`` is updated in place and the cost added into
+    ``cost``. ``pairs``, when given, is ``[2, n_steps, U]`` int32 and
+    receives each step's pos and neg. Returns p_new. A launch that cannot
+    be cooperative (the grid does not fit the card) raises. Launches with
+    ``bits`` are also counted in ``bpr_epoch.bits_launches``."""
     code = _ablate_code(ablate)
     if p.device.type == "cpu":
         return bpr_epoch_plain(p, q, delta, cost, padded_pos, pos_counts, step_keys, n_items,
-                               lr, reg, n_tries, mm_dtype, ablate, pairs)
+                               lr, reg, n_tries, mm_dtype, ablate, pairs, bits)
     _check_factors(p, q, delta, cost, mm_dtype)
-    _check_rows(p, q, padded_pos, pos_counts, n_items, n_tries)
+    _check_rows(p, q, padded_pos, pos_counts, n_items, n_tries, bits)
     keys = step_key_tensor(step_keys, p.device)
     n_steps, n_users = keys.shape[0], p.shape[0]
     if pairs is not None:
@@ -341,19 +361,22 @@ def bpr_epoch(p, q, delta, cost, padded_pos, pos_counts, step_keys, n_items: int
         rc = _lib().gt_bpr_epoch(
             int(mm_dtype == torch.bfloat16), p.data_ptr(), p_new.data_ptr(), q.data_ptr(),
             delta.data_ptr(), cost.data_ptr(), n_users, p.shape[1], q.shape[0],
-            padded_pos.data_ptr(), pos_counts.data_ptr(), padded_pos.shape[1], keys.data_ptr(),
-            n_steps, n_items, n_tries, None if pairs is None else pairs[0].data_ptr(),
+            padded_pos.data_ptr(), pos_counts.data_ptr(), padded_pos.shape[1], *_bits_args(bits),
+            keys.data_ptr(), n_steps, n_items, n_tries,
+            None if pairs is None else pairs[0].data_ptr(),
             None if pairs is None else pairs[1].data_ptr(), lr, reg, code,
             *_head(padded_pos, q.shape[0]), _stream(p),
         )
     _raise_on(rc, "bpr_epoch")
     bpr_epoch.launches += 1
+    bpr_epoch.bits_launches += bits is not None
     return p_new
 
 
 bpr_sweep_sampled.launches = 0
 bpr_sweep_pairs.launches = 0
 bpr_epoch.launches = 0
+bpr_epoch.bits_launches = 0  # of those, the launches with a full-set bitset
 
 
 # ------------------------------------------------ the reference's entries
@@ -370,26 +393,27 @@ def bpr_fused_step(p, q, pos, neg, active, lr: float, reg: float, mm_dtype=torch
 
 
 def bpr_fully_fused_step(p, q, padded_pos, pos_counts, step_key, n_items: int, lr: float,
-                         reg: float, mm_dtype=torch.float32, n_tries: int = 4):
+                         reg: float, mm_dtype=torch.float32, n_tries: int = 4, bits=None):
     """One sweep with in-kernel sampling (K2, ``_fully_fused_kernel``).
     Returns ``(p_new, q_delta [I, k], cost, pos, neg)``."""
     delta = torch.zeros_like(q)
     cost = torch.zeros((1,), dtype=torch.float32, device=p.device)
     p_new, pos, neg = bpr_sweep_sampled(p, q, delta, cost, padded_pos, pos_counts, step_key,
-                                        n_items, lr, reg, n_tries, mm_dtype)
+                                        n_items, lr, reg, n_tries, mm_dtype, bits)
     return p_new, delta, cost[0], pos, neg
 
 
 def bpr_epoch_fused(p, q, padded_pos, pos_counts, step_keys, n_items: int, lr: float,
-                    reg: float, mm_dtype=torch.bfloat16, n_tries: int = 4, ablate: str = ""):
+                    reg: float, mm_dtype=torch.bfloat16, n_tries: int = 4, ablate: str = "",
+                    bits=None):
     """A whole epoch (K1, ``_epoch_resident_kernel``) in one launch of
-    :func:`bpr_epoch`. ``q`` is updated in place (it is the epoch's only
-    item table). Returns ``(p_new, q, cost)``. ``ablate`` is the reference's
-    cost-attribution switch (:data:`ABLATE`; "scatter_dim0", the TPU's
-    transposed scatter, raises): the results of an ablated epoch are wrong
-    by design."""
+    :func:`bpr_epoch`, rejecting against ``bits`` when given. ``q`` is
+    updated in place (it is the epoch's only item table). Returns ``(p_new,
+    q, cost)``. ``ablate`` is the reference's cost-attribution switch
+    (:data:`ABLATE`; "scatter_dim0", the TPU's transposed scatter, raises):
+    the results of an ablated epoch are wrong by design."""
     delta = torch.zeros_like(q)
     cost = torch.zeros((1,), dtype=torch.float32, device=p.device)
     p = bpr_epoch(p, q, delta, cost, padded_pos, pos_counts, step_keys, n_items, lr, reg,
-                  n_tries, mm_dtype, ablate)
+                  n_tries, mm_dtype, ablate, bits=bits)
     return p, q, cost[0]

@@ -114,6 +114,7 @@ def sample_pairs(
     step_keys,  # S step keys
     n_items: int,
     n_tries: int = 4,
+    bits: torch.Tensor | None = None,  # [U, ceil(n_items / 32)] int32
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """:func:`sample_pair` under each of ``step_keys`` at once: ``[S, U]``
     pos and neg, row s bit-equal to ``sample_pair(..., step_keys[s], ...)``
@@ -121,12 +122,17 @@ def sample_pairs(
     so an epoch's can be drawn before its sweeps: a few hundred small ops a
     chunk of steps rather than a step."""
     n_users, max_len = padded_pos.shape
+    check_bits(bits, n_users, n_items)
     if isinstance(step_keys, torch.Tensor):
         keys = step_keys.to(torch.int64).reshape(-1, 2)
     else:
         keys = torch.tensor([[int(k0), int(k1)] for k0, k1 in step_keys], dtype=torch.int64)
     keys = keys.to(uids.device)
-    chunk = max(_COMPARE_ELEMENTS // max(n_users * n_tries * max_len, 1), 1)
+    # a step's bools of the row comparison, or the bitset test's bytes (an
+    # int64 word index and an int32 word a candidate) in bools' stead
+    per_step = n_users * n_tries * (max_len if bits is None else 16)
+    chunk = max(_COMPARE_ELEMENTS // max(per_step, 1), 1)
+    rows_of = torch.arange(n_users, device=padded_pos.device)[None, :, None]
     counts = torch.clamp(pos_counts, min=1).to(torch.float32)
     out_pos, out_neg = [], []
     for start in range(0, keys.shape[0], chunk):
@@ -136,7 +142,11 @@ def sample_pairs(
         picked = torch.gather(rows, 2, torch.clamp(slot, max=max_len - 1)[..., None])[..., 0]
         out_pos.append(torch.where(slot < max_len, torch.clamp(picked, min=0), 0))
         cand = (rand[..., 1:] * float(n_items)).to(torch.int32)  # [S, U, K]
-        free = ~(padded_pos[None, :, None, :] == cand[..., None]).any(dim=3)  # [S, U, K]
+        if bits is None:  # the capped row
+            free = ~(padded_pos[None, :, None, :] == cand[..., None]).any(dim=3)  # [S, U, K]
+        else:  # the whole positive set: bit c % 32 of word c // 32
+            word = bits[rows_of, (cand >> 5).long()]
+            free = ((word >> (cand & 31)) & 1) == 0
         first_free = torch.argmax(free.to(torch.int8), dim=2)
         out_neg.append(torch.where(free.any(dim=2),
                                    torch.gather(cand, 2, first_free[..., None])[..., 0],
@@ -151,11 +161,29 @@ def sample_pair(
     step_key: tuple[int, int],
     n_items: int,
     n_tries: int = 4,
+    bits: torch.Tensor | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """One (pos, neg) pair per user, int32. The positive is slot
     ``int(u0 * max(count, 1))`` of the padded row (0 for a user with no
     positives); the negative is the first of ``n_tries`` candidates
     ``int(u_t * n_items)`` that is not in the user's padded row, else the
-    first candidate. Both products are single f32 multiplies."""
-    pos, neg = sample_pairs(padded_pos, pos_counts, uids, [step_key], n_items, n_tries)
+    first candidate. Both products are single f32 multiplies. With
+    ``bits`` (the int32 view of ``Dataset.positives_bitset``, a row per
+    padded row) a candidate is held against the user's whole positive set
+    instead of the capped row: the same negatives as the row test on
+    uncapped rows."""
+    pos, neg = sample_pairs(padded_pos, pos_counts, uids, [step_key], n_items, n_tries, bits)
     return pos[0], neg[0]
+
+
+def check_bits(bits: torch.Tensor | None, n_users: int, n_items: int) -> None:
+    """A positives bitset must be ``[U, ceil(n_items / 32)]`` int32 (the
+    bits of the uint32 words); anything else raises."""
+    if bits is None:
+        return
+    words = -(-n_items // 32)
+    if bits.dtype != torch.int32:
+        raise TypeError(f"bits must be int32 (the uint32 words' bits), is {bits.dtype}")
+    if tuple(bits.shape) != (n_users, words):
+        raise ValueError(f"bits is {tuple(bits.shape)}, need [{n_users}, {words}]: a row a "
+                         f"user, ceil({n_items} / 32) words")
