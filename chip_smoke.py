@@ -261,7 +261,8 @@ kernel's own block maxima.
    AFM), a single-card master's fits of the same loaded data, then both
    fit eALS; BPR within ``FIRST_EPOCH_TOL``, eALS within ``EALS_TOL``, the
    AFM within ``AFM_TOL``, NDCG and AUC within 0.01; each fit's gauge beside
-   the single card's. ``init_multihost`` at world size 1 over NCCL and the
+   the single card's; on every run, a line for each AFM table with its
+   share and its worst entry. ``init_multihost`` at world size 1 over NCCL and the
    epoch on its ``global_mesh``. With more than one card visible, the
    epoch and the master again on the mesh over every card (the master's
    own ``training_mesh``), and one process a card over NCCL against it.
@@ -387,6 +388,20 @@ kernel's own block maxima.
    candidate does, against the capped rows more. K1's CUDA-event medians
    at this shape with and without the bitset, in turns, beside their
    bounds; the phase within ``BITSET_PHASE_S``.
+18. The reference's ml-1m-scale quality gate (tests/test_oracle.py):
+   ``synthetic_cf_powerlaw(seed=42)`` at its defaults (6,040 x 3,706, 1M
+   ratings), ``split_cf(seed=0)``, then on the card ``BPR`` (k = 8, 30
+   epochs, lr 0.05, reg 0.01) and ``ALS`` (k = 8, 15 epochs, reg 0.015,
+   alpha 0.05). Held: each NDCG@10 at least 0.55; BPR's fit one
+   ``bpr_epoch`` launch an epoch, with the full-set bitset exactly when the
+   reference's gate (``rejection_bitset``) takes it; ``evaluate_model`` on
+   each model's factors equal, within 1e-6 a metric, to the same on their
+   copy on the CPU. Printed: both NDCGs and their difference, which gate
+   decided the bitset, each fit's seconds, the generator's and the split's
+   seconds on the host. Then K1 at this shape from the fit's init against
+   the rows and against the full-set bitset, which reject alike here (cap
+   = widest: every step's pairs equal), timed in turns beside the epoch's
+   bound; the phase within ``POWERLAW_PHASE_S``.
 
 The last three lines of standard output are the kernels' JSON record, the
 card's ``name, power.limit`` as nvidia-smi gives them, and
@@ -584,7 +599,15 @@ SHARDED_EPOCH_TOL = {"p": FIRST_EPOCH_TOL, "q": 2e-4}
 # runs read at most 1.6e-6, twelve times under this limit
 SYNC4_TOL = 2e-5
 PHASES = ("2", "2b", "2c", "3", "4", "5", "6", "7", "7c", "8", "9", "10", "11", "12", "13",
-          "14", "15", "16", "17")
+          "14", "15", "16", "17", "18")
+# phase 18: the reference's ml-1m-scale quality gate (tests/test_oracle.py):
+# synthetic_cf_powerlaw at its defaults (6,040 x 3,706, 1M ratings, rank 16)
+# from seed 42, split_cf(seed=0), each fit's NDCG@10 at least 0.55
+POWERLAW_SEED, POWERLAW_NDCG = 42, 0.55
+POWERLAW_BPR = dict(n_factors=8, n_epochs=30, lr=0.05, reg=0.01)
+POWERLAW_ALS = dict(n_factors=8, n_epochs=15, reg=0.015, alpha=0.05)
+POWERLAW_EVAL_TOL = 1e-6  # evaluate_model on the card against the same factors on the CPU
+POWERLAW_PHASE_S = 90  # the phase's own limit
 # phase 17: full-set negative rejection in the single-card fit, at the main
 # path's BPR width on a corpus where the reference's gate holds: 120k users
 # over 4k items, so the padded rows (120k x widest) pass 96 MB and the
@@ -3125,14 +3148,14 @@ def table_shares(got, want) -> dict:
 
 
 def worst_entry(got, want, name: str, tol: float) -> str:
-    """For a failed hold's message: where AFM table ``name`` of ``got`` and
-    ``want`` differ most (its index and both values) and how many entries
-    differ by more than ``tol`` of the table's largest magnitude."""
+    """Where AFM table ``name`` of ``got`` and ``want`` differ most (its
+    index and both values) and how many entries differ by more than ``tol``
+    of the table's largest magnitude."""
     a, b = got.to_numpy()[name], want.to_numpy()[name]
     d = np.abs(a - b)
     i = np.unravel_index(int(d.argmax()), d.shape)
     n = int((d > tol * np.abs(b).max()).sum())
-    return (f"; worst entry {tuple(int(x) for x in i)}: {a[i]:.7g} against {b[i]:.7g}, "
+    return (f"worst entry {tuple(int(x) for x in i)}: {a[i]:.7g} against {b[i]:.7g}, "
             f"{n} entries past the tolerance")
 
 
@@ -4453,7 +4476,8 @@ def hold_sharded_master(dev, mesh, smi: str, patch: bool) -> dict:
     same loaded data; then both fit eALS. Held: BPR and eALS factors within
     ``FIRST_EPOCH_TOL`` and ``EALS_TOL`` of each table's largest magnitude,
     NDCG and AUC within 0.01, the AFM's tables within ``AFM_TOL`` (one
-    epoch). Printed: each fit's gauge beside the single card's."""
+    epoch). Printed: each fit's gauge beside the single card's, and on a
+    line of its own each AFM table's share with its worst entry."""
     import torch
 
     from gorse_tpu_torch.ops import bpr_kernel as bk
@@ -4507,10 +4531,17 @@ def hold_sharded_master(dev, mesh, smi: str, patch: bool) -> dict:
                   "bpr_q": share(sharded.cf_model.item_factors, single.cf_model.item_factors),
                   **{f"afm_{k}": v for k, v in table_shares(sharded.ctr_model.model_params,
                                                             single.ctr_model.model_params).items()}}
+        # every AFM table's share and worst entry on every run, failed or not
+        # (ROADMAP C9: the hold failed once in a run that left no more)
+        worst = {name: worst_entry(sharded.ctr_model.model_params, single.ctr_model.model_params,
+                                   name[4:], AFM_TOL)
+                 for name in shares if name.startswith("afm_")}
+        for name, where in worst.items():
+            log(f"  AFM share {name[4:]}: {shares[name]:.3g} of the single card's largest "
+                f"(AFM_TOL {AFM_TOL}), {where}")
         for name, s in shares.items():
             tol = FIRST_EPOCH_TOL if name.startswith("bpr") else AFM_TOL
-            where = "" if s <= tol or name.startswith("bpr") else worst_entry(
-                sharded.ctr_model.model_params, single.ctr_model.model_params, name[4:], tol)
+            where = f"; {worst[name]}" if name in worst else ""
             check(s <= tol, f"sharded master: {name} off by {s:.3g} of the single card's{where}")
         for g in ("master_collaborative_filtering_ndcg_10", "master_ranking_model_auc"):
             check(abs(gauges["sharded"][g] - gauges["single"][g]) <= 0.01,
@@ -4532,7 +4563,7 @@ def hold_sharded_master(dev, mesh, smi: str, patch: bool) -> dict:
         gauges["sharded"]["als_fit_seconds"], gauges["single"]["als_fit_seconds"] = fa, fb
         gauges["sharded"]["als_ndcg_10"], gauges["single"]["als_ndcg_10"] = na, nb
     result.update(shards=used.size, k3_launches=launches, shares=shares, gauges=gauges,
-                  epochs=SHARDED_MASTER_EPOCHS)
+                  epochs=SHARDED_MASTER_EPOCHS, afm_worst=worst)
     log(f"  master on {used.size} shards ({[str(x) for x in used.devices]}): K3 launched "
         f"{launches}; against the single card, shares {json.dumps(shares)}; gauges sharded "
         f"{json.dumps(gauges['sharded'])}, single {json.dumps(gauges['single'])} ({smi})")
@@ -6972,6 +7003,166 @@ def phase_bitset(dev, smi: str) -> dict:
     return result
 
 
+def bitset_gate(train, cap: int, widest: int, bits) -> str:
+    """Which rejection ``BPR.fit`` takes on ``train`` and the inputs of the
+    reference's gate (``rejection_bitset``) that chose it."""
+    rows_mb = train.count_users() * widest * 4 / 1e6
+    bits_mb = train.count_users() * -(-train.count_items() // 32) * 4 / 1e6
+    return (f"{'bitset' if bits is not None else 'rows'} (rejection_bitset: history cap {cap}, "
+            f"widest {widest}, the padded rows {rows_mb:.1f} MB, the bitset {bits_mb:.1f} MB)")
+
+
+def time_powerlaw_epoch(train, cap: int, dev) -> dict:
+    """K1 at the quality gate's shape: one epoch from the fit's init against
+    the padded rows (the fit's route here) and against the full-set bitset.
+    Where the cap does not bind the rows are the full sets, so both reject
+    the same candidates: every step's pairs equal. CUDA-event medians in
+    turns (rows, bits, bits, rows), beside the epoch's bound by the rule."""
+    import torch
+
+    from gorse_tpu_torch.models import BPR, Params
+    from gorse_tpu_torch.models import bpr as bpr_model
+    from gorse_tpu_torch.ops import bpr_kernel as bk
+    from gorse_tpu_torch.ops import sampling
+
+    csr = train.padded_user_positives(max_len=cap, seed=0)
+    padded = torch.as_tensor(csr.padded, device=dev)
+    counts = torch.as_tensor(csr.counts, device=dev)
+    bits = torch.from_numpy(train.positives_bitset().view(np.int32)).to(dev)
+    n_users, n_items, k = train.count_users(), train.count_items(), POWERLAW_BPR["n_factors"]
+    n_active = max(int((csr.counts > 0).sum()), 1)
+    n_steps = max(round(train.count_feedback() / n_active), 1)
+    n_tries = bpr_model.adaptive_neg_tries(float(np.mean(csr.counts)) / n_items)
+    lr, reg = POWERLAW_BPR["lr"], POWERLAW_BPR["reg"]
+    init = BPR(Params(POWERLAW_BPR), device=dev)
+    init.init(train, seed=0)
+    p, q = init.user_factors, init.item_factors
+    keys = sampling.raw_step_keys(sampling.prng_key(18), n_steps)
+    pairs = {}
+    for side, b in (("rows", None), ("bits", bits)):
+        pairs[side] = torch.empty((2, n_steps, n_users), dtype=torch.int32, device=dev)
+        bk.bpr_epoch(p, q.clone(), torch.zeros_like(q), torch.zeros((1,), device=dev), padded,
+                     counts, keys, n_items, lr, reg, n_tries, pairs=pairs[side], bits=b)
+    same = bool(torch.equal(pairs["rows"], pairs["bits"]))
+    check(same or cap < int(csr.counts.max()),
+          "phase 18: at cap = widest the bitset must reject as the rows do (pairs differ)")
+    q_epoch = q.clone()
+    times = {"rows": [], "bits": []}
+    for side in ("rows", "bits", "bits", "rows"):
+        b = bits if side == "bits" else None
+        times[side].append(median_ms(lambda: bk.bpr_epoch_fused(
+            p, q_epoch, padded, counts, keys, n_items, lr, reg, mm_dtype=torch.float32,
+            n_tries=n_tries, bits=b), 5))
+    rows_read = int(counts.sum()) * 4 + n_users * 4
+    rule = bound(2 * n_users * k * 4 + 2 * q.numel() * 4 + rows_read + n_steps * 8 + 4,
+                 n_steps * n_active * 16 * k, F32_FLOP_S)
+    out = {"n_steps": n_steps, "n_tries": n_tries, "widest": int(csr.counts.max()),
+           "pairs_equal": same, "rows_ms": times["rows"], "bits_ms": times["bits"],
+           "bound_ms": rule[0], "bound_by": rule[1]}
+    log(f"  K1 at this shape, {n_steps} steps an epoch (CUDA events, in turns): against the rows "
+        f"{times['rows']} ms, against the bitset {times['bits']} ms; pairs equal: {same}; "
+        f"bound {rule[0]:.4f} ms ({rule[1]})")
+    return out
+
+
+def phase_powerlaw(dev, smi: str) -> dict:
+    """Phase 18: the reference's ml-1m-scale quality gate on the card, BPR
+    through ``bpr_epoch`` and eALS, each model's ``evaluate_model`` held
+    against the same factors on the CPU."""
+    import logging
+
+    import torch
+
+    from gorse_tpu_torch.data.loaders import synthetic_cf_powerlaw
+    from gorse_tpu_torch.models import ALS, BPR, FitConfig, Params, evaluate_model
+    from gorse_tpu_torch.models import bpr as bpr_model
+    from gorse_tpu_torch.ops import bpr_kernel as bk
+
+    t_phase = time.perf_counter()
+    data = synthetic_cf_powerlaw(seed=POWERLAW_SEED)
+    gen_s = time.perf_counter() - t_phase
+    t0 = time.perf_counter()
+    train, test = data.split_cf(seed=0)
+    split_s = time.perf_counter() - t0
+    cap, widest = bpr_model.history_cap(train)
+    bits = bpr_model.rejection_bitset(train, cap, widest)
+    gate = bitset_gate(train, cap, widest, bits)
+    result = {"users": train.count_users(), "items": train.count_items(),
+              "ratings": data.count_feedback(), "train_feedback": train.count_feedback(),
+              "generator_s": gen_s, "split_s": split_s, "cap": cap, "widest": widest,
+              "bitset": bits is not None, "gate": gate}
+    log(f"  synthetic_cf_powerlaw(seed={POWERLAW_SEED}): {result['users']} users, "
+        f"{result['items']} items, {result['ratings']} ratings in {gen_s:.2f} s on the host; "
+        f"split_cf in {split_s:.2f} s; negatives rejected against the {gate}")
+    del bits
+
+    records = []
+    handler = logging.Handler()
+    handler.emit = records.append
+    fit_logger = logging.getLogger(bpr_model.__name__)
+    fit_logger.addHandler(handler)
+    level = fit_logger.level
+    fit_logger.setLevel(logging.INFO)
+    fits = {}
+    try:
+        for name, cls, params, verbose in (("bpr", BPR, POWERLAW_BPR, 10),
+                                           ("als", ALS, POWERLAW_ALS, 5)):
+            model = cls(Params(params), device=dev)
+            zero_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            score = model.fit(train, test, FitConfig(verbose=verbose, patience=0))
+            torch.cuda.synchronize()
+            fit_s = time.perf_counter() - t0
+            fits[name] = dict(model=model, ndcg=score.ndcg, fit_s=fit_s,
+                              epoch_s=getattr(model, "epoch_seconds", None),
+                              launches={n: getattr(bk, n).launches for n in BPR_KERNELS},
+                              bits_launches=bk.bpr_epoch.bits_launches)
+    finally:
+        fit_logger.removeHandler(handler)
+        fit_logger.setLevel(level)
+    # evaluate_model on the card's factors and on their copy on the CPU
+    for name, fit in fits.items():
+        model = fit.pop("model")
+        cpu = type(model)(Params(POWERLAW_BPR if name == "bpr" else POWERLAW_ALS), device="cpu")
+        cpu.user_factors, cpu.item_factors = model.user_factors.cpu(), model.item_factors.cpu()
+        on_card, on_cpu = evaluate_model(model, test, train), evaluate_model(cpu, test, train)
+        fit.update(evaluate_card=on_card, evaluate_cpu=on_cpu,
+                   evaluate_max_diff=max(abs(on_card[m] - on_cpu[m]) for m in on_cpu))
+        del model, cpu
+    bpr, als = fits["bpr"], fits["als"]
+    said = [r.getMessage() for r in records if "full positive sets" in r.getMessage()]
+    result.update(bpr=bpr, als=als, ndcg_diff=bpr["ndcg"] - als["ndcg"], fit_log=said)
+    log(f"  NDCG@10 BPR {bpr['ndcg']:.4f} ({bpr['fit_s']:.2f} s, {json.dumps(bpr['launches'])}, "
+        f"{bpr['bits_launches']} with the bitset), eALS {als['ndcg']:.4f} ({als['fit_s']:.2f} s); "
+        f"difference {result['ndcg_diff']:+.4f}; gate {POWERLAW_NDCG}")
+    log(f"  evaluate_model card against CPU: BPR {bpr['evaluate_max_diff']:.3g}, eALS "
+        f"{als['evaluate_max_diff']:.3g} (tolerance {POWERLAW_EVAL_TOL}); on the card BPR "
+        f"{json.dumps(bpr['evaluate_card'])}, eALS {json.dumps(als['evaluate_card'])}")
+
+    epochs = POWERLAW_BPR["n_epochs"]
+    want = dict(bpr_sweep_sampled=0, bpr_sweep_pairs=0, bpr_epoch=epochs)
+    check(bpr["launches"] == want, f"phase 18 BPR fit: {bpr['launches']} launches, want {want}")
+    check(bpr["bits_launches"] == (epochs if result["bitset"] else 0),
+          f"phase 18 BPR fit: {bpr['bits_launches']} launches with the bitset ({gate})")
+    check(len(said) == result["bitset"], f"phase 18 BPR fit: the gate's log lines {said}")
+    check(als["launches"] == dict.fromkeys(BPR_KERNELS, 0), "phase 18 eALS fit: no BPR kernel")
+    for name, fit in fits.items():
+        check(fit["ndcg"] >= POWERLAW_NDCG,
+              f"phase 18 {name}: NDCG@10 {fit['ndcg']:.4f} < {POWERLAW_NDCG}")
+        check(fit["evaluate_max_diff"] <= POWERLAW_EVAL_TOL,
+              f"phase 18 {name}: evaluate_model on the card {fit['evaluate_card']} against the "
+              f"CPU {fit['evaluate_cpu']}")
+    result["k1"] = time_powerlaw_epoch(train, cap, dev)
+    torch.cuda.empty_cache()
+    result["card"] = smi
+    result["seconds"] = time.perf_counter() - t_phase
+    log(f"  phase 18 in {result['seconds']:.1f} s ({smi})")
+    check(result["seconds"] <= POWERLAW_PHASE_S,
+          f"phase 18 took {result['seconds']:.1f} s of its {POWERLAW_PHASE_S} s")
+    return result
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -7107,6 +7298,10 @@ def main() -> int:
         log("== phase 17: full-set negative rejection in the single-card fit")
         out["bitset"] = phase_bitset(dev, smi)
         log("  bitset: " + json.dumps(out["bitset"], default=str))
+    if "18" in phases:
+        log("== phase 18: the reference's ml-1m-scale quality gate")
+        out["powerlaw"] = phase_powerlaw(dev, smi)
+        log("  powerlaw: " + json.dumps(out["powerlaw"], default=str))
     check(not {"jax", "gorse_tpu", "grpc", "google.protobuf", "jinja2", "msgpack",
                 "cryptography"} & set(sys.modules),
           "neither JAX, grpc, protobuf, jinja2, msgpack, cryptography nor gorse_tpu was imported")
@@ -7168,6 +7363,8 @@ def kernel_rows(out: dict) -> list[dict]:
     # at 120k x 4k (median of its timings in turns, its bounds)
     bitset = out["bitset"]
     bpr_launches["bpr_epoch"] += bitset["launches"]["bpr_epoch"]
+    # the quality gate's BPR fit (phase 18), one launch an epoch
+    bpr_launches["bpr_epoch"] += out["powerlaw"]["bpr"]["launches"]["bpr_epoch"]
 
     def with_bits(kernel: str, side: str, launches: int) -> dict:
         t = bitset["timing"]

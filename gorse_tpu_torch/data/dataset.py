@@ -1,11 +1,11 @@
 """Implicit-feedback dataset for collaborative filtering (copy of
-gorse_tpu/data/dataset.py, the parts the port reads).
+gorse_tpu/data/dataset.py).
 
 Host-side bookkeeping in numpy: per-user and per-item feedback as ragged
-int32 lists with string dictionaries, the leave-one-out split, sampled
-evaluation negatives, the padded positives matrices the trainers read, the
-full-set positives bitset and the IDF weights of the similarity
-recommenders. Every random draw is numpy's ``default_rng(seed)`` in the
+int32 lists with string dictionaries, the edge arrays, the leave-one-out
+and temporal splits, sampled evaluation negatives, the padded positives
+matrices the trainers read, the full-set positives bitset and the IDF
+weights of the similarity recommenders. Every random draw is numpy's ``default_rng(seed)`` in the
 reference's order, so both packages build the same splits, padded rows and
 candidates.
 """
@@ -167,6 +167,14 @@ class Dataset:
 
     # ------------------------------------------------------------ padded rows
 
+    def edge_arrays(self) -> tuple[np.ndarray, np.ndarray]:
+        """The (user, item) feedback edges, user-major, as int32 arrays."""
+        counts = np.fromiter((len(fb) for fb in self.user_feedback), np.int64,
+                             len(self.user_feedback))
+        users = np.repeat(np.arange(len(counts), dtype=np.int32), counts)
+        items = np.fromiter((i for fb in self.user_feedback for i in fb), np.int32, len(users))
+        return users, items
+
     @staticmethod
     def _pad(
         ragged: list[list[int]],
@@ -261,6 +269,25 @@ class Dataset:
                     train.item_feedback[item].append(u)
                     train.timestamps[u].append(ts[i])
                     train.num_feedback += 1
+        return train, test
+
+    def split_latest(self, shots: int) -> tuple["Dataset", "Dataset"]:
+        """Temporal split (gorse's dataset/dataset.go:325-355): each user's
+        newest feedback goes to the test set, the next ``shots`` newest to
+        the train set. Equal time stamps keep the earlier feedback first
+        (a stable sort, newest first)."""
+        train, test = self._empty_split(), self._empty_split()
+        for u in range(self.count_users()):
+            fb, ts = self.user_feedback[u], self.timestamps[u]
+            if not fb:
+                continue
+            order = sorted(range(len(fb)), key=lambda i: ts[i], reverse=True)
+            for split, slots in ((test, order[:1]), (train, order[1 : shots + 1])):
+                for i in slots:
+                    split.user_feedback[u].append(fb[i])
+                    split.item_feedback[fb[i]].append(u)
+                    split.timestamps[u].append(ts[i])
+                    split.num_feedback += 1
         return train, test
 
     def sample_user_negatives(self, exclude: "Dataset", num_candidates: int, seed: int = 0) -> np.ndarray:

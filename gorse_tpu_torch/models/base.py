@@ -23,8 +23,6 @@ from ..data.dict import FreqDict
 from ..ops.metrics import rank_metrics
 from .params import Params
 
-_EVAL_CHUNK = 8192  # users scored per gather in evaluate_mf
-
 
 @dataclasses.dataclass
 class Score:
@@ -33,6 +31,9 @@ class Score:
     ndcg: float
     precision: float
     recall: float
+
+    def to_dict(self) -> dict:
+        return dataclasses.asdict(self)
 
 
 class MatrixFactorization:
@@ -86,6 +87,9 @@ class MatrixFactorization:
         pu = self.user_factors[torch.as_tensor(user_indices, device=self.device).long()]
         qi = self.item_factors[torch.as_tensor(item_indices, device=self.device).long()]
         return (pu * qi).sum(dim=-1)
+
+    def is_fitted(self) -> bool:
+        return self.user_factors is not None
 
     # ------------------------------------------------------------- serialize
 
@@ -160,16 +164,32 @@ def evaluate_mf(
     valid: np.ndarray,
     top_k: int = 10,
 ) -> dict[str, float]:
-    """Sampled-candidate evaluation on the factors' device: each user's
-    candidate rows gathered and dotted (a plain gather + product, in chunks
-    of users), then :func:`rank_metrics`."""
+    """Sampled-candidate evaluation on the factors' device, then
+    :func:`rank_metrics`. A candidate's score is its k products summed in
+    factor order, each product and each sum rounded by an op of its own: the
+    card and the CPU give the same bits, where a reduction's order (which
+    differs between them) can swap two candidates a unit in the last place
+    apart."""
     dev = user_factors.device
     cand = torch.as_tensor(candidates, device=dev).long()
-    scores = torch.cat([
-        (item_factors[cand[lo : lo + _EVAL_CHUNK]] * user_factors[lo : lo + _EVAL_CHUNK, None, :])
-        .sum(dim=-1)
-        for lo in range(0, cand.shape[0], _EVAL_CHUNK)
-    ]) if cand.shape[0] else torch.zeros(cand.shape, device=dev)
+    items_t = item_factors.t()  # [k, I]: column j of the items
+    scores = torch.zeros(cand.shape, device=dev)
+    for j in range(item_factors.shape[1]):
+        scores += user_factors[:, j, None] * items_t[j][cand]
     out = rank_metrics(scores, torch.as_tensor(is_target, device=dev),
                        torch.as_tensor(valid, device=dev), top_k=top_k)
     return {k: float(v) for k, v in out.items()}
+
+
+def evaluate_model(
+    model: MatrixFactorization,
+    test: Dataset,
+    train: Dataset,
+    top_k: int = 10,
+    n_candidates: int = 100,
+) -> dict[str, float]:
+    """A fitted model's sampled-candidate metrics (NDCG, Precision, Recall
+    at ``top_k``) on ``test``, over ``n_candidates`` negatives a user drawn
+    with seed 0, on the factors' device."""
+    cands, is_target, valid = build_eval_candidates(test, train, n_candidates)
+    return evaluate_mf(model.user_factors, model.item_factors, cands, is_target, valid, top_k)

@@ -25,6 +25,7 @@ from __future__ import annotations
 
 import logging
 import os
+import signal
 import sys
 import tempfile
 import threading
@@ -170,9 +171,16 @@ def main() -> None:
         config.recommend.data_source.positive_feedback_types = ["star"]
         node.seed_playground()
         node.run_once()
+    # the server answers from the moment it listens, before the handler
+    # below is in place: a SIGINT until then is held and raised inside it
+    held = []
+    signal.signal(signal.SIGINT, lambda *_: held.append(True))
     node.serve(args.host, args.port, background_loop=True)
     logger.info("in-one node ready at http://%s:%d/api/", args.host, args.port)
     try:
+        signal.signal(signal.SIGINT, signal.default_int_handler)
+        if held:
+            raise KeyboardInterrupt
         threading.Event().wait()
     except KeyboardInterrupt:
         if not node.shutdown():

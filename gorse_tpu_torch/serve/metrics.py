@@ -1,9 +1,19 @@
-"""Prometheus-style metrics (``MetricsRegistry`` of gorse_tpu/serve/metrics.py):
-gauges, counters and histograms rendered in the text exposition format."""
+"""Prometheus-style metrics and the online evaluator (port of
+gorse_tpu/serve/metrics.py): ``MetricsRegistry``'s gauges, counters and
+histograms rendered in the text exposition format, and
+``OnlineEvaluator``, the positive-feedback ratio over a 30-day window as
+time-series points for the dashboard (gorse's master/metrics.go:218-305)."""
 
 from __future__ import annotations
 
 import threading
+import time
+
+from ..storage.cache import POSITIVE_FEEDBACK_RATIO
+from ..storage.types import TimeSeriesPoint
+from ..utils.expression import FeedbackTypeExpression, match_any
+
+_DAY = 86400.0
 
 
 class MetricsRegistry:
@@ -123,3 +133,64 @@ class MetricsRegistry:
                     lines.append(f"{full}_sum{lbl} {total}")
                     lines.append(f"{full}_count{lbl} {n_total}")
             return "\n".join(lines) + "\n"
+
+
+class OnlineEvaluator:
+    """The positive-feedback ratio over a sliding window of
+    ``window_size`` days ending today (UTC): for each positive type (and
+    any positive, ``""``) and each day, the mean over users who read items
+    that day of the share of those items they also gave positive
+    feedback."""
+
+    def __init__(
+        self,
+        positive_types: list[str] | list[FeedbackTypeExpression],
+        read_types: list[str] | list[FeedbackTypeExpression],
+        window_size: int = 30,
+    ) -> None:
+        def parse(ts):
+            return [
+                t if isinstance(t, FeedbackTypeExpression) else FeedbackTypeExpression.parse(t)
+                for t in ts
+            ]
+
+        self.positive_types = parse(positive_types)
+        self.read_types = parse(read_types)
+        self.window_size = window_size
+        self.window_end = (time.time() // _DAY) * _DAY
+        # day of the window -> user -> read items
+        self.read_feedback: list[dict[int, set[int]]] = [dict() for _ in range(window_size)]
+        # positive expression ("" = any) -> user -> items
+        self.positive_feedback: dict[str, dict[int, set[int]]] = {"": {}}
+
+    def add(self, feedback_type: str, value: float, user_index: int, item_index: int,
+            timestamp: float) -> None:
+        if match_any(self.read_types, feedback_type, value):
+            window_index = int((self.window_end - (timestamp // _DAY) * _DAY) // _DAY)
+            if 0 <= window_index < self.window_size:
+                self.read_feedback[window_index].setdefault(user_index, set()).add(item_index)
+        is_positive = False
+        for expr in self.positive_types:
+            if expr.match(feedback_type, value):
+                is_positive = True
+                self.positive_feedback.setdefault(str(expr), {}).setdefault(
+                    user_index, set()).add(item_index)
+        if is_positive:
+            self.positive_feedback[""].setdefault(user_index, set()).add(item_index)
+
+    def evaluate(self) -> list[TimeSeriesPoint]:
+        points = []
+        for name, positives in self.positive_feedback.items():
+            metric = POSITIVE_FEEDBACK_RATIO + (f"_{name}" if name else "")
+            for i in range(self.window_size):
+                ratio_sum, user_count = 0.0, 0
+                for user_index, read_items in self.read_feedback[i].items():
+                    pos_items = positives.get(user_index)
+                    if pos_items is None or not read_items:
+                        continue
+                    ratio_sum += len(read_items & pos_items) / len(read_items)
+                    user_count += 1
+                if user_count > 0:
+                    points.append(TimeSeriesPoint(name=metric, timestamp=self.window_end - i * _DAY,
+                                                  value=ratio_sum / user_count))
+        return points

@@ -64,6 +64,7 @@ CF_RECALL = "cf_recall"
 CTR_PRECISION = "ctr_precision"
 CTR_RECALL = "ctr_recall"
 CTR_AUC = "ctr_auc"
+POSITIVE_FEEDBACK_RATIO = "positive_feedback_ratio"
 
 
 def key(*parts: str) -> str:

@@ -1,11 +1,13 @@
-"""Entity types shared across the storage layer (copy of the User, Item,
-Feedback, Score and TimeSeriesPoint of gorse_tpu/storage/types.py): JSON
-dataclasses with the reference's Go-style wire names."""
+"""Entity types shared across the storage layer (copy of
+gorse_tpu/storage/types.py): User, Item, Feedback, Score and
+TimeSeriesPoint as JSON dataclasses with the reference's Go-style wire
+names, and ``now``."""
 
 from __future__ import annotations
 
 import dataclasses
 import datetime
+import time
 from typing import Any
 
 
@@ -140,3 +142,7 @@ class TimeSeriesPoint:
     name: str
     timestamp: float
     value: float
+
+
+def now() -> float:
+    return time.time()

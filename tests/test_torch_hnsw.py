@@ -7,13 +7,16 @@ so with the same source, flags and insertion order the port's graph is the
 reference's: labels and distances are held exactly, not by recall, on the
 same rows made from a seed with numpy, through batched adds, deletes,
 upserts and several ``ef``. An index saved by either package loads in the
-other. The exact fallback (no ``g++``) is held the same way. The store:
+other. The exact fallback (no ``g++``) is held the same way; a worker
+that lost the reference's build race loads its library again first
+(``reference_native``, tests/test_torch_native.py). The store:
 the same calls give the same lists, quantization is refused with the
 reference's text, cosine rows are normalised, scores are ``-distance``.
 Needs ``g++``."""
 
 import numpy as np
 import pytest
+from test_torch_native import reference_native  # noqa: F401 - autouse
 
 import gorse_tpu.native.hnsw as RH
 import gorse_tpu.storage.vectors as RV

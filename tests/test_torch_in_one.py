@@ -343,23 +343,48 @@ def test_tracing_and_the_card(tmp_path):
         tracing.configure(enabled=False)
 
 
-def test_the_entry_point_serves_and_stops_on_sigint(nodes, tmp_path):
-    """``python -m gorse_tpu_torch.serve.in_one`` (its device mapped to the
-    CPU, as the tests run it) answers from the node's files and ends on
-    SIGINT with exit code 0, its first cycle running or not."""
+# the entry point with its device mapped to the CPU, as the tests run it
+ENTRY = """
+import os, sys, time, torch
+import gorse_tpu_torch.serve.in_one as m
+m.resolve_device = lambda d=None: torch.device("cpu")
+if os.environ.get("SIGNALLED"):
+    serve = m.InOneNode.serve
+
+    def serve_then_wait(self, *args, **kwargs):
+        # hold main() between the server's first answer and its handler
+        # until the test has sent SIGINT
+        httpd = serve(self, *args, **kwargs)
+        deadline = time.time() + 60
+        while not os.path.exists(os.environ["SIGNALLED"]) and time.time() < deadline:
+            time.sleep(0.05)
+        return httpd
+
+    m.InOneNode.serve = serve_then_wait
+sys.argv = ["gorse-tpu-torch-in-one"] + sys.argv[1:]
+m.main()
+"""
+
+
+def _serve_then_sigint(config: Path, workdir: Path, signalled: Path | None = None) -> int:
+    """Start the entry point, wait up to 120 s for its answer to ``GET
+    /api/recommend/u1`` (ids of the catalog), send SIGINT (then create
+    ``signalled``, when given) and return its exit code, waiting up to 60
+    s. Its output goes to a file, shown when an assertion fails."""
     import http.client
+    import os
     import socket
 
-    _, _, path = nodes["port"]
     with socket.socket() as sock:
         sock.bind(("127.0.0.1", 0))
         port = sock.getsockname()[1]
-    code = ("import sys, torch, gorse_tpu_torch.serve.in_one as m;"
-            "m.resolve_device = lambda d=None: torch.device('cpu');"
-            "sys.argv = ['gorse-tpu-torch-in-one'] + sys.argv[1:]; m.main()")
-    proc = subprocess.Popen(
-        [sys.executable, "-c", code, "--config", str(path), "--port", str(port), "--workdir",
-         str(tmp_path)], cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+    env = dict(os.environ, SIGNALLED=str(signalled)) if signalled else None
+    log = workdir / "entry.log"
+    with open(log, "wb") as out:
+        proc = subprocess.Popen(
+            [sys.executable, "-c", ENTRY, "--config", str(config), "--port", str(port),
+             "--workdir", str(workdir)], cwd=ROOT, stdout=out, stderr=subprocess.STDOUT,
+            env=env)
     try:
         body = None
         deadline = time.time() + 120
@@ -373,10 +398,34 @@ def test_the_entry_point_serves_and_stops_on_sigint(nodes, tmp_path):
                 break
             except OSError:
                 time.sleep(0.2)
-        assert body and set(body) <= {f"i{i}" for i in range(N_ITEMS)}
+        assert body and set(body) <= {f"i{i}" for i in range(N_ITEMS)}, log.read_text()
         proc.send_signal(signal.SIGINT)
-        assert proc.wait(timeout=60) == 0
+        if signalled:
+            signalled.touch()
+        try:
+            return proc.wait(timeout=60)
+        except subprocess.TimeoutExpired:
+            raise AssertionError("no exit 60 s after SIGINT:\n" + log.read_text()) from None
     finally:
         if proc.poll() is None:
             proc.kill()
             proc.wait()
+
+
+def test_the_entry_point_serves_and_stops_on_sigint(nodes, tmp_path):
+    """``python -m gorse_tpu_torch.serve.in_one`` (its device mapped to the
+    CPU, as the tests run it) answers from the node's files and ends on
+    SIGINT with exit code 0, its first cycle running or not."""
+    _, _, path = nodes["port"]
+    assert _serve_then_sigint(path, tmp_path) == 0, (tmp_path / "entry.log").read_text()
+
+
+def test_a_sigint_before_the_handler_is_in_place_is_held(nodes, tmp_path):
+    """The server answers before ``main()`` has reached its SIGINT handler.
+    Held in that window until the signal has been sent, the entry point
+    still ends with exit code 0: the signal waits for the handler. (Raised
+    in the window, ``KeyboardInterrupt`` left ``main()`` with exit code 1 or
+    -2, -6 where a running cycle's threads were torn down at exit.)"""
+    _, _, path = nodes["port"]
+    rc = _serve_then_sigint(path, tmp_path, signalled=tmp_path / "signalled")
+    assert rc == 0, (tmp_path / "entry.log").read_text()

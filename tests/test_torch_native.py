@@ -4,15 +4,57 @@ build give the reference's arrays exactly, on the same inputs made from a
 seed with numpy, natively and with the fallback forced; ``load_libfm_file``
 (data/ctr.py) gives the reference's dataset either way. The build lands in
 the checkout's ``build/gorse_tpu_torch/``, never the reference's
-directory. Needs ``g++``."""
+directory. Needs ``g++``.
+
+The reference builds into one shared directory through a fixed temporary
+name, so test workers that build at once can lose the race: such a worker
+keeps ``_lib = None`` with ``_tried`` set and parses nothing natively.
+``reference_native`` (autouse here and in tests/test_torch_hnsw.py) loads
+the reference's library again before each comparison: the winner's file,
+else a build in a directory of the worker's own."""
+
+import os
 
 import numpy as np
 import pytest
 
 import gorse_tpu.data.ctr as ref_ctr
 import gorse_tpu.native as RN
+import gorse_tpu.native.hnsw as RH
 import gorse_tpu_torch.data.ctr as port_ctr
 import gorse_tpu_torch.native as PN
+
+# each reference library: its module and its loader
+REFERENCE_LIBS = {"fastdata": (RN, RN.load_native), "hnsw": (RH, RH._load)}
+
+
+def load_reference(name: str, own_dir) -> None:
+    """Give the reference's ``name`` library (``REFERENCE_LIBS``) a loaded
+    ``_lib``: as it is, else loaded again from the reference's directory
+    (the file a winning worker built), else built into ``own_dir``
+    (``GORSE_TPU_NATIVE_DIR`` for that load only)."""
+    mod, load = REFERENCE_LIBS[name]
+    if mod._lib is not None:
+        return
+    mod._tried = False
+    if load() is None:
+        before = os.environ.get("GORSE_TPU_NATIVE_DIR")
+        os.environ["GORSE_TPU_NATIVE_DIR"] = str(own_dir)
+        try:
+            mod._tried = False
+            load()
+        finally:
+            if before is None:
+                del os.environ["GORSE_TPU_NATIVE_DIR"]
+            else:
+                os.environ["GORSE_TPU_NATIVE_DIR"] = before
+    assert mod._lib is not None, f"g++ must build the reference's {name}"
+
+
+@pytest.fixture(autouse=True)
+def reference_native(tmp_path_factory):
+    for name in REFERENCE_LIBS:
+        load_reference(name, tmp_path_factory.getbasetemp() / "reference_native")
 
 
 def _libfm_text(seed: int, rows: int = 400) -> bytes:
@@ -135,3 +177,43 @@ def test_native_and_fallback_datasets_agree(tmp_path, monkeypatch):
     for (ni, nv), (pi, pv) in zip(native[1], python[1]):
         assert ni == pi
         np.testing.assert_array_equal(np.float32(nv), np.float32(pv))
+
+
+@pytest.mark.parametrize("shared", ["built", "corrupt"])
+def test_a_worker_that_lost_the_reference_build_compares_natively(
+        tmp_path, monkeypatch, shared):
+    """Both reference libraries in a losing worker's state (``_lib = None``,
+    ``_tried`` set: it loads nothing more by itself), with the reference's
+    directory holding the winner's files or files cut short: after
+    ``load_reference`` the comparisons run the native code on both sides,
+    libFM, NCF and HNSW alike."""
+    if shared == "corrupt":
+        import hashlib
+
+        shared_dir = tmp_path / "shared"
+        shared_dir.mkdir()
+        for name, (mod, _) in REFERENCE_LIBS.items():
+            tag = hashlib.md5(mod._SRC.read_bytes()).hexdigest()[:12]
+            (shared_dir / f"{name}_{tag}.so").write_bytes(b"\x7fELF cut short")
+        monkeypatch.setenv("GORSE_TPU_NATIVE_DIR", str(shared_dir))
+    for name, (mod, load) in REFERENCE_LIBS.items():
+        monkeypatch.setattr(mod, "_lib", None)
+        monkeypatch.setattr(mod, "_tried", True)
+        assert load() is None
+        load_reference(name, tmp_path / "own")
+        assert mod._lib is not None
+    for buf, parse in ((_libfm_text(4), "parse_libfm_bytes"), (_ncf_text(4), "parse_ncf_bytes")):
+        want = getattr(RN, parse)(buf)
+        assert want is not None
+        _equal(getattr(PN, parse)(buf), want)
+    import gorse_tpu_torch.native.hnsw as PH
+
+    rng = np.random.default_rng(4)
+    vecs, queries = rng.normal(size=(500, 8)).astype(np.float32), rng.normal(size=(5, 8))
+    found = []
+    for mod in (PH, RH):
+        ix = mod.HNSWIndex(8, space="l2", seed=1)
+        assert ix._lib is not None
+        ix.add(np.arange(500, dtype=np.int64), vecs)
+        found.append(ix.search(queries.astype(np.float32), 5, ef=20))
+    assert np.array_equal(found[0][0], found[1][0]) and np.array_equal(found[0][1], found[1][1])
