@@ -16,7 +16,9 @@ poll the master over HTTP and open the stores by the URLs in its config:
 ``proxy://`` where the master proxies them, over TLS with ``--ssl-mode``
 (gorse's ``--ssl-*`` flags). The master and the server install the
 config's tracer; each process, on SIGTERM or SIGINT, stops its work,
-flushes the tracer, logs its kernels' launches and exits 0.
+flushes the tracer, logs its kernels' launches and exits 0. Both signals
+are held from the start of a process until its handlers are in place, so
+one sent while its servers start (they answer at once) waits for them.
 """
 
 from __future__ import annotations
@@ -28,6 +30,7 @@ import os
 import signal
 import tempfile
 import threading
+import time
 
 from .. import resolve_device
 
@@ -72,19 +75,39 @@ def kernel_launches() -> dict:
             for name in group}
 
 
+_SIGNALS = (signal.SIGTERM, signal.SIGINT)
+
+
+def hold_signals() -> None:
+    """Hold SIGTERM and SIGINT in the calling thread, and in every thread it
+    starts from now on, until :func:`_serve_until_signal` has its handlers
+    in place: a signal sent meanwhile stays pending and lands there. Only
+    the main thread releases them. The threads started meanwhile (the REST
+    and gRPC servers, the master's loop, the config watcher, the worker's
+    cycle) keep both held for good, so the process's signals reach the main
+    thread, and so do the processes such a thread starts: an ``nvcc`` build
+    of the kernels at their first use ignores both until it ends."""
+    signal.pthread_sigmask(signal.SIG_BLOCK, _SIGNALS)
+
+
 def _serve_until_signal(stop, work: threading.Thread | None = None) -> None:
-    """Wait for SIGTERM or SIGINT, then ``stop()``, flush the tracer, log
-    the kernels' launches and exit 0; exit 1 if ``work`` ends first."""
+    """Install the SIGTERM and SIGINT handlers, release the signals
+    :func:`hold_signals` held, wait for one, then ``stop()``, flush the
+    tracer, log the kernels' launches and exit 0; exit 1 if ``work`` ends
+    first. The handler only sets a plain flag (it takes no lock the main
+    thread may hold); the loop reads it every 0.1 s."""
     from ..utils.tracing import tracer
 
-    signalled = threading.Event()
-    for sig in (signal.SIGTERM, signal.SIGINT):
-        signal.signal(sig, lambda *_: signalled.set())
+    signalled = []
+    for sig in _SIGNALS:
+        signal.signal(sig, lambda *_: signalled.append(True))
+    signal.pthread_sigmask(signal.SIG_UNBLOCK, _SIGNALS)  # a held signal lands here
     code = 0
-    while not signalled.wait(1.0):
+    while not signalled:
         if work is not None and not work.is_alive():
             code = 1
             break
+        time.sleep(0.1)
     try:
         stop()
         tracer().flush()
@@ -116,6 +139,7 @@ def serve_grpc_plane(master, config):
 
 
 def master_main() -> None:
+    hold_signals()  # until _serve_until_signal's handlers are in place
     from .. import __version__
     from ..serve.dashboard import MasterRestServer
     from ..utils.config import ConfigWatcher, default_config, load_config
@@ -169,6 +193,7 @@ def _tls_of(args):
 
 
 def server_main() -> None:
+    hold_signals()  # until _serve_until_signal's handlers are in place
     from .. import __version__
     from ..serve.nodes import ServerNode
 
@@ -194,6 +219,7 @@ def server_main() -> None:
 
 
 def worker_main() -> None:
+    hold_signals()  # until _serve_until_signal's handlers are in place
     from .. import __version__
     from ..serve.nodes import WorkerNode
 

@@ -17,18 +17,20 @@
 // scatter-adds with atomics, so the table stays row-major [n_items, k] f32
 // and a sweep's cost scales with the users, not with the catalog.
 //
-// The sweep's arithmetic, per active user: 1 + n_tries uniforms from
-// threefry-2x32 keyed by (step key, global user id, column pair), as
-// _per_user_uniforms in gorse_tpu/parallel/sharded.py; slot = int(u0 *
-// max(count, 1)), pos = max(row[slot], 0) (0 past the row's max_len
-// entries); candidates int(u_t * n_items), the first not in the user's
-// rejection set wins (else the first). The rejection set is the capped row
-// (the first min(count, max_len) entries), as on the reference's Pallas
-// paths, or, given a full-set bitset (bits: [n_users, words] uint32, bit
-// c % 32 of word c / 32 set when item c is among the user's positives,
-// Dataset.positives_bitset), the user's whole positive set, as the
-// reference's single-device epoch under its gate (gorse_tpu/models/bpr.py
-// :66-113, :398-409); the positive comes from the capped row either way.
+// The sweep's arithmetic, per active user: the draws of the reference's
+// one-device epoch (_sample_pairs, gorse_tpu/models/bpr.py:66-104), built on
+// jax.random: ks, kn = split(step key); slot = randint(ks, (U,), 0,
+// max(count, 1))[u], candidate t = randint(kn, (U, n_tries), 0,
+// n_items)[u, t]. Each warp derives, a step, the two keys each randint
+// splits its key into (KEYS below); pos = max(row[slot], 0) (0 past the row's
+// max_len entries); the first candidate not in the user's rejection set wins
+// (else the first). The rejection set is the capped row
+// (the first min(count, max_len) entries), or, given a full-set bitset
+// (bits: [n_users, words] uint32, bit c % 32 of word c / 32 set when item c
+// is among the user's positives, Dataset.positives_bitset), the user's
+// whole positive set, as the reference's single-device epoch under its gate
+// (gorse_tpu/models/bpr.py:398-409); the positive comes from the capped row
+// either way.
 // diff = sum(p*qi) - sum(p*qj) over the sweep's snapshot of q, cost
 // softplus(-diff), grad sigmoid(-diff); p_new = p + lr * (grad * (qi - qj) -
 // reg * p); adds of lr * (grad * p - reg * qi) into delta[pos] and lr *
@@ -41,6 +43,15 @@
 // the design does about it:
 // - HOST: an epoch is one launch; its step keys are an [n_steps, 2] device
 //   array, so the host does no work between steps.
+// - KEYS: a step's four randint keys are two levels of splits of its key,
+//   six threefry blocks; each warp computes them on its lanes 0-3 (two
+//   dependent blocks deep) and shuffles them to every lane, so the host
+//   derives nothing (numpy took 0.35-0.8 ms a launch for it, more than K2
+//   itself).
+// - RANDINT: jax's randint takes 64 random bits an element, two threefry
+//   blocks under two keys, and reduces them modulo the span in uint32 with
+//   wrapping products: two blocks for the slot, two a candidate, eight a
+//   user a step at n_tries = 3, all in registers.
 // - BATCHES: a warp per user would repeat each user's scalar steps on 32
 //   lanes and chain them. A warp owns a contiguous range of users and takes
 //   them 32 at a time: the count, the draws, the positive, the rejection
@@ -79,8 +90,8 @@
 //     delta and the cost match the plain version to a tolerance. See ATOMICS.
 // (4) transcendentals: expf / log1pf differ from torch's CPU sigmoid and
 //     log1p by a few ulps; another reason p_new is held to a tolerance. The
-//     sampled pos and neg are integers and are exact: both f32 products are
-//     __fmul_rn, never contracted into an FMA. See SAMPLING.
+//     sampled pos and neg are exact: their draws are integer arithmetic
+//     only. See SAMPLING.
 // (5) inactive users (count 0, or active 0): pos = max(row[0], 0) is still
 //     written out, but p_out = p, and nothing goes into delta or the cost.
 //     See INACTIVE.
@@ -126,8 +137,55 @@ __device__ __forceinline__ void threefry2x32(uint32_t k0, uint32_t k1, uint32_t&
   }
 }
 
-__device__ __forceinline__ float bits_to_uniform(uint32_t bits) {
-  return __uint_as_float((bits >> 9) | 0x3F800000u) - 1.0f;  // exact: [1, 2) - 1
+// jax.random's 32 random bits of element i (the flat index) under key (k0,
+// k1): the two words of threefry2x32(key, (hi(i), lo(i))) xor-ed, as with
+// jax_threefry_partitionable on
+__device__ __forceinline__ uint32_t random_bits(uint32_t k0, uint32_t k1, unsigned long long i) {
+  uint32_t x0 = (uint32_t)(i >> 32), x1 = (uint32_t)i;
+  threefry2x32(k0, k1, x0, x1);
+  return x0 ^ x1;
+}
+
+// RANDINT: jax.random.randint's reduction of 64 bits into [0, span): m =
+// (2^16 % span)^2 % span, then (hi % span * m + lo % span) % span, every
+// product and sum wrapping at 32 bits as in jax (for spans above 2^16, m
+// wraps to 0)
+__device__ __forceinline__ uint32_t randint_mult(uint32_t span) {
+  const uint32_t m = 65536u % span;
+  return (m * m) % span;
+}
+
+__device__ __forceinline__ uint32_t randint_reduce(uint32_t hi, uint32_t lo, uint32_t span,
+                                                   uint32_t mult) {
+  return (hi % span * mult + lo % span) % span;
+}
+
+// A step's keys: the two keys randint splits ks into (the slot's higher and
+// lower bits), then kn's two (the candidates'), two words each
+struct StepKey {
+  uint32_t w[8];
+};
+
+// KEYS: ks, kn = split(step key), then split(ks) and split(kn) (split(k)[i]
+// is threefry2x32(k, (0, i))), on every lane of the warp. Lane j computes
+// block j & 1 of the first split, then block j & 1 of the split of ks (j <
+// 2) or kn (2 <= j < 4); lanes 0-3 hold the four keys. The whole warp must
+// call it.
+__device__ __forceinline__ StepKey step_keys(uint32_t key0, uint32_t key1) {
+  const int lane = threadIdx.x & 31;
+  uint32_t x0 = 0u, x1 = (uint32_t)(lane & 1);
+  threefry2x32(key0, key1, x0, x1);  // lane 0: ks, lane 1: kn
+  const int half = (lane >> 1) & 1;
+  const uint32_t h0 = __shfl_sync(FULL, x0, half), h1 = __shfl_sync(FULL, x1, half);
+  uint32_t y0 = 0u, y1 = (uint32_t)(lane & 1);
+  threefry2x32(h0, h1, y0, y1);
+  StepKey key;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    key.w[2 * j] = __shfl_sync(FULL, y0, j);
+    key.w[2 * j + 1] = __shfl_sync(FULL, y1, j);
+  }
+  return key;
 }
 
 __device__ __forceinline__ float round_bf16(float x) {
@@ -164,7 +222,7 @@ struct SweepArgs {
   int max_len;
   const uint32_t* bits;  // BITS: [n_users, words] full-set bitset; null: reject against the row
   int words;
-  uint32_t key0, key1;
+  uint32_t key0, key1;  // bpr_sweep's step key (bpr_epoch reads its keys from an array)
   int n_items, n_tries;
   int* pos_out;
   int* neg_out;
@@ -185,11 +243,13 @@ constexpr int STAGE_FLOATS = HOT_ITEMS * 64;    // 16 KB: every row to k = 64, f
 
 constexpr int MAXC = 8;  // candidates each lane draws ahead (more are drawn as needed)
 
-// column c of user u's draws: word c % 2 of threefry block c / 2
-__device__ __forceinline__ uint32_t draw(uint32_t key0, uint32_t key1, int u, int c) {
-  uint32_t w0 = (uint32_t)u, w1 = (uint32_t)(c >> 1);
-  threefry2x32(key0, key1, w0, w1);
-  return (c & 1) ? w1 : w0;
+// candidate t of user u: element u * n_tries + t of randint(kn, (U, n_tries),
+// 0, n_items)
+__device__ __forceinline__ int candidate(const StepKey& key, int u, int t, int n_tries,
+                                         uint32_t n_items, uint32_t mult) {
+  const unsigned long long i = (unsigned long long)u * (unsigned)n_tries + (unsigned)t;
+  return (int)randint_reduce(random_bits(key.w[4], key.w[5], i), random_bits(key.w[6], key.w[7], i),
+                             n_items, mult);
 }
 
 // A user's factor row and the two q rows it gathers, EPL elements a lane of
@@ -310,6 +370,7 @@ __device__ __forceinline__ void sweep_users(const SweepArgs& a, const float* p_i
                                             uint32_t key1, int* pos_out, int* neg_out,
                                             float& warp_cost, float* stage, int* touched) {
   const int lane = threadIdx.x & 31;
+  const StepKey key = SAMPLED ? step_keys(key0, key1) : StepKey{};  // KEYS, the whole warp
   const int k = a.k;
   const int n_warps = gridDim.x * WARPS;
   const int per_warp = (a.n_users + n_warps - 1) / n_warps;
@@ -317,6 +378,8 @@ __device__ __forceinline__ void sweep_users(const SweepArgs& a, const float* p_i
   const int first = warp * per_warp;
   const int last = min(first + per_warp, a.n_users);
   const bool staged = a.hot_slot != nullptr;
+  const uint32_t n_items = (uint32_t)a.n_items;
+  const uint32_t items_mult = SAMPLED ? randint_mult(n_items) : 0u;  // the candidates' m
   for (int base = first; base < last; base += 32) {
     const int n_here = min(32, last - base);
     const int u = base + lane;  // this lane's user
@@ -328,7 +391,7 @@ __device__ __forceinline__ void sweep_users(const SweepArgs& a, const float* p_i
     int cand[MAXC] = {};
     const bool scan = a.ablate != ABLATE_NOSAMPLE && a.ablate != ABLATE_SAMP_NOREJ;
     if (SAMPLED) {
-      // SAMPLING: bit-equal to _sample_pair (gorse_tpu/parallel/sharded.py)
+      // SAMPLING: bit-equal to _sample_pairs (gorse_tpu/models/bpr.py)
       const int* row = a.padded + (size_t)u * a.max_len;
       count = live ? a.counts[u] : 0;  // 552 KB at the training shape: stays in L2
       const int valid = min(count, a.max_len);  // the entries the row holds
@@ -347,23 +410,17 @@ __device__ __forceinline__ void sweep_users(const SweepArgs& a, const float* p_i
         pos = row0;
         neg = (pos + 37) % a.n_items;
       } else {
-        const float fn = (float)a.n_items;
-        uint32_t w0 = (uint32_t)u, w1 = 0u;  // block 0: the slot and candidate 0
-        threefry2x32(key0, key1, w0, w1);
-        cand[0] = (int)__fmul_rn(bits_to_uniform(w1), fn);
 #pragma unroll
-        for (int j = 1; 2 * j - 1 < MAXC; ++j) {  // block j: candidates 2j - 1, 2j
-          if (2 * j - 1 < a.n_tries) {
-            uint32_t x0 = (uint32_t)u, x1 = (uint32_t)j;
-            threefry2x32(key0, key1, x0, x1);
-            cand[2 * j - 1] = (int)__fmul_rn(bits_to_uniform(x0), fn);
-            if (2 * j < MAXC) cand[2 * j] = (int)__fmul_rn(bits_to_uniform(x1), fn);
-          }
-        }
+        for (int t = 0; t < MAXC; ++t)
+          if (t < a.n_tries) cand[t] = candidate(key, u, t, a.n_tries, n_items, items_mult);
         if (a.ablate == ABLATE_SAMP_NOPOS) {
           pos = row0;
         } else {
-          const int slot = (int)__fmul_rn(bits_to_uniform(w0), (float)max(count, 1));
+          // the slot: element u of randint(ks, (U,), 0, max(count, 1))
+          const uint32_t span = (uint32_t)max(count, 1);
+          const int slot = (int)randint_reduce(random_bits(key.w[0], key.w[1], (unsigned)u),
+                                               random_bits(key.w[2], key.w[3], (unsigned)u), span,
+                                               randint_mult(span));
           pos = live && slot < a.max_len ? max(row[slot], 0) : 0;
         }
         neg = cand[0];  // every draw collides: keep the first
@@ -412,8 +469,7 @@ __device__ __forceinline__ void sweep_users(const SweepArgs& a, const float* p_i
           if (t == first_free) neg = cand[t];
       } else {
         for (int t = MAXC; t < a.n_tries; ++t) {  // more draws, one at a time
-          const int c = (int)__fmul_rn(bits_to_uniform(draw(key0, key1, u, 1 + t)),
-                                       (float)a.n_items);
+          const int c = candidate(key, u, t, a.n_tries, n_items, items_mult);
           bool collides = false;
           if (brow != nullptr) {
             collides = (__ldg(brow + (c >> 5)) >> (c & 31)) & 1u;
@@ -626,11 +682,35 @@ __device__ __forceinline__ void fold_all(float* q, float* delta, long long n, bo
   }
 }
 
+// OCCUPANCY: the co-resident blocks an SM keeps for the epoch, by factor
+// width. Left free, ptxas gives the draws' threefry chains and keys about
+// 120 registers at every width (2 blocks an SM); bounded to 3, 80 at k <=
+// 128 (none or a few bytes spilled). The epoch is bound by how many warps
+// hide its loads and barriers: on an H100 (tools/k1_occupancy_probe.py), 3
+// blocks took about 0.1 ms off a 1.4 ms epoch at 138k x 27k, k = 64 and 32;
+// 4 (64 registers) gained nothing at k = 32 and slowed the small epochs.
+__host__ __device__ constexpr int epoch_min_blocks(int kpl) {
+  return kpl <= 4 ? 3 : 2;
+}
+
+// GRID: the fewest users a warp takes in the epoch; it caps the grid only
+// where the users are fewer than 32 for every resident warp. The row scan
+// runs on a warp's lanes, a user each, for the widest row among them: a
+// full warp scans 32 rows for the cost of one. The bitset has no scan; the
+// pass then takes a warp's users G at a time, while every block more costs
+// at each grid barrier. Measured at the reference's ml-1m shape (6,040
+// users, k = 8) on an H100: against the rows 51 ms an epoch at 32 users a
+// warp, 76 with every block; with the bitset 1.9 ms at 4, 2.0-2.5 at 2, 8,
+// 16 or every block.
+int epoch_users(const SweepArgs& a) {
+  return a.bits != nullptr ? 4 : 32;
+}
+
 // K1: the whole epoch in one cooperative launch. Per step: the sampled sweep
 // (p in place after step 0), a grid barrier, the fold, a grid barrier.
 template <bool BF16, int KPL, bool VEC>
-__global__ void __launch_bounds__(THREADS) bpr_epoch_kernel(SweepArgs a, const int* keys,
-                                                           int n_steps, int vec) {
+__global__ void __launch_bounds__(THREADS, epoch_min_blocks(KPL))
+    bpr_epoch_kernel(SweepArgs a, const int* keys, int n_steps, int vec) {
   __shared__ float stage[STAGE_FLOATS];
   __shared__ int touched[HOT_ITEMS];
   cooperative_groups::grid_group grid = cooperative_groups::this_grid();
@@ -641,8 +721,8 @@ __global__ void __launch_bounds__(THREADS) bpr_epoch_kernel(SweepArgs a, const i
     int* pos_out = a.pos_out ? a.pos_out + (size_t)s * a.n_users : nullptr;
     int* neg_out = a.neg_out ? a.neg_out + (size_t)s * a.n_users : nullptr;
     sweep_users<true, BF16, KPL, VEC>(a, s == 0 ? a.p : a.p_out, (uint32_t)keys[2 * s],
-                                 (uint32_t)keys[2 * s + 1], pos_out, neg_out, warp_cost, stage,
-                                 touched);
+                                      (uint32_t)keys[2 * s + 1], pos_out, neg_out, warp_cost,
+                                      stage, touched);
     if (a.hot_slot != nullptr) flush_stage(a, stage, touched);
     grid.sync();
     fold_all(a.q, a.delta, n, vec != 0);
@@ -691,8 +771,8 @@ cudaError_t launch_sweep(const SweepArgs& a, bool vec, cudaStream_t stream) {
              : launch_sweep_vec<SAMPLED, BF16, false>(a, stream);
 }
 
-// the co-resident grid: every SM times the blocks that fit on it; a grid
-// the card cannot hold at once is refused (the wrapper raises)
+// the co-resident grid: every SM times the blocks that fit on it, capped by
+// GRID; a grid the card cannot hold at once is refused (the wrapper raises)
 template <bool BF16, int KPL, bool VEC>
 cudaError_t launch_epoch_kpl(SweepArgs a, const int* keys, int n_steps, int vec,
                              cudaStream_t stream) {
@@ -704,6 +784,10 @@ cudaError_t launch_epoch_kpl(SweepArgs a, const int* keys, int n_steps, int vec,
   if (err != cudaSuccess) return err;
   if (!coop) return cudaErrorNotSupported;
   if (grid < 1) return cudaErrorCooperativeLaunchTooLarge;
+  const int users = epoch_users(a);
+  const int need = (a.n_users + users * WARPS - 1) / (users * WARPS);
+  grid = grid < need ? grid : need;
+  grid = grid > 0 ? grid : 1;
   void* args[] = {(void*)&a, (void*)&keys, (void*)&n_steps, (void*)&vec};
   return cudaLaunchCooperativeKernel((const void*)kernel, dim3(grid), dim3(THREADS), args, 0,
                                      stream);
@@ -741,13 +825,12 @@ bool rows_vectorized(int k, std::initializer_list<const void*> ptrs) {
 }  // namespace
 
 // bits / words: the full-set rejection bitset, [n_users, words] (null / 0:
-// reject against the rows); hot_slot / hot_items / n_hot: the staged Zipf
-// head (null / 0: none)
+// reject against the rows); key0 / key1: the step key (sampled mode);
+// hot_slot / hot_items / n_hot: the staged Zipf head (null / 0: none)
 extern "C" int gt_bpr_sweep(int sampled, int bf16, const void* p, void* p_out, const void* q,
                             void* delta, void* cost, int n_users, int k, const void* padded,
                             const void* counts, int max_len, const void* bits, int words,
-                            unsigned key0, unsigned key1,
-                            int n_items, int n_tries, void* pos_out,
+                            unsigned key0, unsigned key1, int n_items, int n_tries, void* pos_out,
                             void* neg_out, const void* pos_in, const void* neg_in,
                             const void* active_in, float lr, float reg, const void* hot_slot,
                             const void* hot_items, int n_hot, void* stream) {

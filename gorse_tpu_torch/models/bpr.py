@@ -12,23 +12,31 @@ parallel/sharded.py (the explicit-pairs sweep, K3, once a shard and step),
 or with ``shard_table`` the catalog-sharded one of parallel/catalog.py, as
 the reference's fit branches.
 
-Kept from the reference because they decide the outputs: the history cap
+Kept from the reference because they decide the outputs: the init (its
+``jax.random.normal`` draws, :mod:`..ops.prng`), the history cap
 (:func:`history_cap`), the rejection depth (:func:`adaptive_neg_tries`),
 ``n_steps = max(round(nnz / n_active), 1)``, the per-fit random subset of
 capped histories, the key stream (``PRNGKey(seed + 1)``, split per epoch,
-split into step keys), the counter-based sampler of the reference's sharded
-epoch, the evaluation cadence, early stopping and checkpoints. Dropped as
-TPU tuning: the 128-lane item packing and the VMEM crossovers between the
-resident, fused and XLA epochs.
+split into step keys), the samplers, the evaluation cadence, early stopping
+and checkpoints. Dropped as TPU tuning: the 128-lane item packing and the
+VMEM crossovers between the resident, fused and XLA epochs.
 
-Negatives are rejected as the reference rejects them. The single-card fit
+The samplers are the reference's. The fit on one card (no mesh, or a mesh
+of one shard) draws the reference's one-device sampler
+(:func:`_sample_pairs`, ``jax.random.randint`` under each step key, inside
+``bpr_epoch``), so from the same seed it takes the pairs of the reference's
+one-device fit, draw for draw; the sharded epochs draw the counter sampler
+of the reference's sharded epoch (``sampling.sample_pairs``), as the
+reference's do.
+
+Negatives are rejected as the reference rejects them. The fit on one card
 holds each candidate against the user's whole positive set, a bitset
 (``Dataset.positives_bitset``), under the reference's gate
 (gorse_tpu/models/bpr.py:398-409, :func:`rejection_bitset`): the history cap
 binds and the bitset takes at most 64 MiB. Otherwise, and in the sharded
-epochs, against the capped padded rows, as on the reference's Pallas and
-sharded paths. The gate's constants decide which negatives are drawn, so
-they are the reference's, not tuned for the card.
+epochs, against the capped padded rows, as the reference does. The gate's
+constants decide which negatives are drawn, so they are the reference's,
+not tuned for the card.
 
 One difference from the reference, by design: the sweep computes in f32
 (``mm_dtype`` f32), as the reference's XLA and sharded epochs do; the bf16
@@ -192,10 +200,12 @@ class BPR(MatrixFactorization):
         devices)``, ``run(p, q, *rows, epoch_key) -> (p, q, cost)``,
         ``dense(p, q)`` the factor tables on the model's device, ``devices``
         the ones an epoch runs on. A mesh of more than one shard takes the
-        user-sharded epoch (K3 a shard and step), with ``shard_table`` the
-        catalog-sharded one (its drops in ``catalog_drop_count``); otherwise
-        one ``bpr_epoch`` launch (K1) an epoch on the model's device,
-        rejecting against ``bits`` (:func:`rejection_bitset`) when given."""
+        user-sharded epoch (K3 a shard and step, the counter sampler's
+        pairs), with ``shard_table`` the catalog-sharded one (its drops in
+        ``catalog_drop_count``); otherwise one ``bpr_epoch`` launch (K1) an
+        epoch on the model's device, drawing the reference's one-device
+        sampler and rejecting against ``bits`` (:func:`rejection_bitset`)
+        when given."""
         dev, mesh = self.device, config.mesh
         p, q = self.user_factors, self.item_factors
         n_users = p.shape[0]

@@ -30,9 +30,10 @@ Kept from the reference because they decide the model:
   count, or with ``shard_table`` the table-sharded epoch of
   parallel/catalog.py.
 
-The init draws ``init_mean + init_stddev * N(0, 1)`` from a CPU
-``torch.Generator`` seeded with ``seed`` (``jax.random.normal`` cannot be
-reproduced), so a fit on the card and one on the CPU start equal.
+The init is the reference's: ``kv, kw, *katt = split(PRNGKey(seed), 2 + 3 *
+max(len(embedding_dims), 1))``, each table ``jax.random.normal`` under its
+own key (:mod:`..ops.prng`, drawn on the host, so a fit on the card and one
+on the CPU start equal).
 ``afm_params_from_numpy`` carries the reference's parameters (the
 ``params.npz`` layout) into the port's module; ``load`` uses it.
 """
@@ -53,6 +54,7 @@ from torch import nn
 from .. import resolve_device
 from ..data.ctr import CTRDataset, PaddedCTR
 from ..ops.metrics import classification_metrics
+from ..ops.prng import normal, prng_key, split
 from .params import (
     ADAM,
     AUTO_SCALE,
@@ -229,22 +231,24 @@ class AFM:
         return self.model_params is not None
 
     def _init_params(self, n_features: int, embedding_dims: list[int], seed: int) -> AFMParams:
-        """``v`` and ``w`` ~ init_mean + init_stddev N(0, 1); each tower's
-        ``w``, ``h``, ``ew`` ~ 0.01 N(0, 1), its biases 0; drawn in that
-        order from one CPU generator seeded with ``seed``."""
-        gen = torch.Generator().manual_seed(seed)
+        """The reference's init (gorse_tpu/models/fm.py:177-196): ``kv, kw,
+        *katt = split(PRNGKey(seed), 2 + 3 * max(len(embedding_dims), 1))``;
+        ``v`` and ``w`` ``init_mean + init_stddev * normal`` under ``kv``
+        and ``kw``; tower c's ``w``, ``h``, ``ew`` ``0.01 * normal`` under
+        ``katt[3c : 3c + 3]``, its biases 0."""
+        kv, kw, *katt = split(prng_key(seed), 2 + 3 * max(len(embedding_dims), 1))
         flat = {
             "b": np.zeros((), np.float32),
-            "v": (self.init_mean + self.init_stddev
-                  * torch.randn(n_features, self.n_factors, generator=gen)).numpy(),
-            "w": (self.init_mean + self.init_stddev
-                  * torch.randn(n_features, 1, generator=gen)).numpy(),
+            "v": (self.init_mean
+                  + self.init_stddev * normal(kv, (n_features, self.n_factors))).numpy(),
+            "w": (self.init_mean + self.init_stddev * normal(kw, (n_features, 1))).numpy(),
         }
         for c, dim in enumerate(embedding_dims):
-            flat[f"att{c}_w"] = (0.01 * torch.randn(dim, self.n_factors, generator=gen)).numpy()
+            k1, k2, k3 = katt[3 * c:3 * c + 3]
+            flat[f"att{c}_w"] = (0.01 * normal(k1, (dim, self.n_factors))).numpy()
             flat[f"att{c}_wb"] = np.zeros(self.n_factors, np.float32)
-            flat[f"att{c}_h"] = (0.01 * torch.randn(self.n_factors, dim, generator=gen)).numpy()
-            flat[f"att{c}_ew"] = (0.01 * torch.randn(dim, self.n_factors, generator=gen)).numpy()
+            flat[f"att{c}_h"] = (0.01 * normal(k2, (self.n_factors, dim))).numpy()
+            flat[f"att{c}_ew"] = (0.01 * normal(k3, (dim, self.n_factors))).numpy()
             flat[f"att{c}_eb"] = np.zeros(self.n_factors, np.float32)
         return afm_params_from_numpy(flat, self.device)
 

@@ -5,12 +5,12 @@ kernels:
 
 - ``bpr_sweep`` in two modes, each behind its own wrapper and launch count:
   :func:`bpr_sweep_sampled` samples one (pos, neg) pair per user inside the
-  kernel with the counter-based sampler of :mod:`.sampling` (K2);
-  :func:`bpr_sweep_pairs` reads explicit pos / neg / active (K3). Both
-  gather q rows from one snapshot, apply the pairwise update of
-  ``_pairwise_math`` (``diff = sum(p*qi) - sum(p*qj)``, the TPU kernels'
-  order), write the users' new factors, and add the item payloads into a
-  delta buffer and the cost into an accumulator.
+  kernel with the reference's one-device sampler (K2,
+  :func:`.sampling._sample_pairs`); :func:`bpr_sweep_pairs` reads explicit
+  pos / neg / active (K3). Both gather q rows from one snapshot, apply the
+  pairwise update of ``_pairwise_math`` (``diff = sum(p*qi) - sum(p*qj)``,
+  the TPU kernels' order), write the users' new factors, and add the item
+  payloads into a delta buffer and the cost into an accumulator.
 - :func:`bpr_epoch` (K1): a whole epoch in one cooperative launch, each
   step the sampled sweep (the same device function) and the fold
   ``q += delta; delta = 0``, behind grid barriers.
@@ -26,15 +26,16 @@ counting launches in ``<wrapper>.launches``.
 The reference's entry points keep their names and results, with two
 differences in the arguments: the item table is row-major ``[I, k]`` (the
 TPU's 128-lane packing is dropped), and sampling takes step key words
-(:func:`.sampling.raw_step_keys`) instead of a hardware-PRNG seed, so the
-samples are the sharded reference's, bit for bit. Negatives are rejected
-against the capped padded rows, as on the reference's Pallas paths: the
-kernels scan the first ``count`` entries of a row, so every entry past a
-row's count must be -1, as ``Dataset._pad`` builds the rows. With ``bits``
-(``Dataset.positives_bitset`` as int32, ``[U, ceil(n_items / 32)]``) the
-sampled sweeps reject against each user's whole positive set instead, one
-word a candidate, as the reference's single-device XLA epoch does when the
-history cap binds; the positive still comes from the capped row.
+(:func:`.sampling.raw_step_keys`) instead of a hardware-PRNG seed. The
+samples are then those of the reference's one-device XLA epoch, bit for bit
+(its Pallas kernels draw from the TPU's hardware generator, which nothing
+else reproduces). Negatives are rejected against the capped padded rows:
+the kernels scan the first ``count`` entries of a row, so every entry past
+a row's count must be -1, as ``Dataset._pad`` builds the rows. With
+``bits`` (``Dataset.positives_bitset`` as int32, ``[U, ceil(n_items /
+32)]``) the sampled sweeps reject against each user's whole positive set
+instead, one word a candidate, as the reference's one-device epoch does
+when the history cap binds; the positive still comes from the capped row.
 
 ``mm_dtype=torch.bfloat16`` rounds the gathered q rows and the scatter
 payloads to bf16 where the TPU kernels cast them; everything else is f32.
@@ -47,10 +48,11 @@ import ctypes
 import torch
 
 from . import _build
-from .sampling import check_bits, per_user_uniforms, sample_pair
+from .prng import randint_batch
+from .sampling import _sample_pairs, check_bits, randint_keys, sample_epoch_pairs
 
 MAX_K = 256  # factor width the sweep takes (8 elements a lane)
-MAX_TRIES = 62  # rejection draws (1 + n_tries words from <= 32 lanes)
+MAX_TRIES = 62  # rejection draws the wrappers take
 HOT_ITEMS = 64  # the Zipf head the sampled sweeps stage: csrc/bpr.cu's HOT_ITEMS
 # bpr_epoch_fused's cost-attribution switch (the reference's ``ablate``):
 # the stage each value skips; results are wrong by design
@@ -69,7 +71,8 @@ def _ablate_code(ablate: str) -> int:
 
 def step_key_tensor(step_keys, device) -> torch.Tensor:
     """``[n_steps, 2]`` int32: row s holds step s's two key words, each as
-    the int32 of the same 32 bits."""
+    the int32 of the same 32 bits. The kernel derives the keys its draws
+    are made with (:func:`.sampling.randint_keys`) from them."""
     words = torch.tensor(list(step_keys), dtype=torch.int64).reshape(-1, 2)
     return torch.where(words >= 2**31, words - 2**32, words).to(torch.int32).to(device)
 
@@ -144,8 +147,7 @@ def bpr_sweep_pairs_plain(p, q, delta, cost, pos, neg, active, lr: float, reg: f
 
 def bpr_sweep_sampled_plain(p, q, delta, cost, padded_pos, pos_counts, step_key, n_items,
                             lr, reg, n_tries=4, mm_dtype=torch.float32, bits=None):
-    uids = torch.arange(p.shape[0], device=p.device)
-    pos, neg = sample_pair(padded_pos, pos_counts, uids, step_key, n_items, n_tries, bits)
+    pos, neg = _sample_pairs(padded_pos, pos_counts, n_items, step_key, n_tries, bits)
     p_new = bpr_sweep_pairs_plain(p, q, delta, cost, pos, neg, pos_counts > 0, lr, reg,
                                   mm_dtype)
     return p_new, pos, neg
@@ -157,17 +159,18 @@ def sample_pair_ablated(padded_pos, pos_counts, step_key, n_items: int, n_tries:
     them (gorse_tpu/ops/bpr_kernel.py:83-93, 361-363): "nosample" pos =
     max(row[0], 0), neg = (pos + 37) % n_items; "samp_nopos" that pos with
     the sampled neg; "samp_norej" the sampled pos with the first candidate;
-    otherwise :func:`.sampling.sample_pair` (against ``bits`` when given)."""
+    otherwise :func:`.sampling._sample_pairs` (against ``bits`` when
+    given)."""
     first = torch.clamp(padded_pos[:, 0], min=0).to(torch.int32)
     if ablate == "nosample":
         return first, ((first + 37) % n_items).to(torch.int32)
-    uids = torch.arange(padded_pos.shape[0], device=padded_pos.device)
-    pos, neg = sample_pair(padded_pos, pos_counts, uids, step_key, n_items, n_tries, bits)
+    pos, neg = _sample_pairs(padded_pos, pos_counts, n_items, step_key, n_tries, bits)
     if ablate == "samp_nopos":
         pos = first
     elif ablate == "samp_norej":
-        u = per_user_uniforms(step_key, uids, 1 + n_tries)
-        neg = (u[:, 1] * float(n_items)).to(torch.int32)
+        cand = randint_batch(randint_keys([step_key])[:, 2:4], (padded_pos.shape[0], n_tries),
+                             0, n_items, padded_pos.device)
+        neg = cand[0, :, 0].to(torch.int32)
     return pos, neg
 
 
@@ -188,9 +191,13 @@ def bpr_epoch_plain(p, q, delta, cost, padded_pos, pos_counts, step_keys, n_item
     _ablate_code(ablate)
     check_bits(bits, padded_pos.shape[0], n_items)
     active = pos_counts > 0
-    for s, step_key in enumerate(step_keys):
-        pos, neg = sample_pair_ablated(padded_pos, pos_counts, step_key, n_items, n_tries,
-                                       ablate, bits)
+    if ablate in ("", "nogather", "noscatter"):  # the sampler's pairs, every step at once
+        drawn = zip(*sample_epoch_pairs(padded_pos, pos_counts, n_items, step_keys, n_tries,
+                                        bits))
+    else:
+        drawn = (sample_pair_ablated(padded_pos, pos_counts, key, n_items, n_tries, ablate, bits)
+                 for key in step_keys)
+    for s, (pos, neg) in enumerate(drawn):
         if pairs is not None:
             pairs[0, s], pairs[1, s] = pos, neg
         p = _sweep_math(p, q, delta, cost, pos, neg, active, lr, reg, mm_dtype, ablate)
@@ -274,10 +281,10 @@ def bpr_sweep_sampled(p, q, delta, cost, padded_pos, pos_counts, step_key, n_ite
                       lr: float, reg: float, n_tries: int = 4, mm_dtype=torch.float32,
                       bits=None):
     """One sweep over every user with in-kernel sampling. ``step_key`` is a
-    step's two key words; user ``u`` draws with counter ``u``.
+    step's two key words; the users draw as :func:`.sampling._sample_pairs`.
     ``padded_pos`` ``[U, L]`` holds each user's positives in its first
     ``pos_counts[u]`` entries (every entry when the count exceeds L, as
-    :func:`.sampling.sample_pair` reads it) and -1 after them. ``bits``,
+    :func:`.sampling._sample_pairs` reads it) and -1 after them. ``bits``,
     when given, is the full-set rejection bitset (``[U, ceil(n_items /
     32)]`` int32). Returns ``(p_new, pos, neg)``; adds the item payloads
     into ``delta`` ``[I, k]`` and the cost into ``cost`` ``[1]`` (both f32,

@@ -160,6 +160,27 @@ def test_fit_matches_the_reference_fit(epochs, monkeypatch):
     assert np.array_equal(model.item_predictable, ref.item_predictable)
 
 
+@pytest.mark.parametrize("epochs", [1, 3])
+def test_fit_from_the_seed_matches_the_reference_fit(epochs):
+    """The port's fit on the CPU from the seed, nothing injected (its init
+    draws jax's normal factors, within 3 ulps), against the reference's
+    single-device ALS.fit, at the tolerances of the fit from the
+    reference's factors."""
+    r_train, r_test = ref_load_built_in(SPEC)
+    ref = RefALS(RefParams(n_factors=8, n_epochs=epochs))
+    r_score = ref.fit(r_train, r_test, RefFitConfig(verbose=1))
+    train, test = load_built_in(SPEC)
+    model = ALS(Params(n_factors=8, n_epochs=epochs), device="cpu")
+    score = model.fit(train, test, FitConfig(verbose=1))
+    for got, want in ((model.user_factors, ref.user_factors),
+                      (model.item_factors, ref.item_factors)):
+        want = np.asarray(want)
+        np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=2e-4 * np.abs(want).max())
+    for a, b in ((score.ndcg, r_score.ndcg), (score.precision, r_score.precision),
+                 (score.recall, r_score.recall)):
+        assert abs(a - b) <= 1e-3
+
+
 def test_defaults_and_registry():
     model = create_mf_model("als", device="cpu")
     assert isinstance(model, ALS) and model.name == "als"

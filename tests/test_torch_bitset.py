@@ -2,22 +2,20 @@
 against gorse_tpu on the CPU.
 
 The reference rejects a candidate negative against the user's whole
-positive set (``Dataset.positives_bitset``) in its single-device epoch when
+positive set (``Dataset.positives_bitset``) in its one-device epoch when
 the history cap binds and the bitset takes at most 64 MiB
-(gorse_tpu/models/bpr.py:66-113, :398-409). The port draws the samples of
-the reference's counter sampler (gorse_tpu/parallel/sharded.py
-``_sample_pair``), so the port's pairs with bits are composed from that
-function alone: for set membership, rejecting against the full bitset is
-rejecting against the uncapped row. So the negative is ``_sample_pair`` on
-the uncapped rows, the positive ``_sample_pair`` on the capped rows (the
-draws are keyed by step and user id only, the same in both calls).
+(gorse_tpu/models/bpr.py:66-113, :398-409). The port's fit on one card
+draws that epoch's sampler, so its pairs with bits are held against the
+reference's own ``_sample_pairs(..., bits)``, its epochs against the
+reference's ``_bpr_epoch(..., bits=...)`` and its fit against the
+reference's ``BPR.fit`` with the cap binding.
 
 Samples and bitsets must be equal. Factors: the epoch at the tolerances of
 tests/test_torch_bpr_epoch.py (rtol 2e-5 / atol 1e-7 over 0.01-scale
 factors, the cost rtol 1e-5); the fit at those of tests/test_torch_bpr.py
-(rtol 1e-4 / atol 1e-6 from the reference's init factors). The composed
-reference sums ``sum(p * (qi - qj))`` where the port sums ``sum(p*qi) -
-sum(p*qj)``: the two differ in rounding only.
+(rtol 1e-4 / atol 1e-6, from the seed). The reference sums ``sum(p * (qi -
+qj))`` where the port sums ``sum(p*qi) - sum(p*qj)``: the two differ in
+rounding only.
 """
 
 import logging
@@ -32,10 +30,12 @@ from gorse_tpu.data import load_built_in as ref_load_built_in
 from gorse_tpu.data.dataset import Dataset as RefDataset
 from gorse_tpu.data.loaders import synthetic_cf_access as ref_synthetic_cf_access
 from gorse_tpu.models import BPR as RefBPR
+from gorse_tpu.models import FitConfig as RefFitConfig
 from gorse_tpu.models import Params as RefParams
-from gorse_tpu.models.bpr import adaptive_neg_tries as ref_adaptive_neg_tries
+from gorse_tpu.models import bpr as ref_bpr
+from gorse_tpu.models.bpr import _bpr_epoch as ref_bpr_epoch
+from gorse_tpu.models.bpr import _sample_pairs as ref_sample_pairs
 from gorse_tpu.models.bpr import bpr_apply_pairs as ref_bpr_apply_pairs
-from gorse_tpu.parallel.sharded import _raw_step_keys, _sample_pair
 from gorse_tpu_torch.data.dataset import Dataset
 from gorse_tpu_torch.data.loaders import load_built_in, synthetic_cf_access
 from gorse_tpu_torch.models import BPR, FitConfig, Params
@@ -71,15 +71,16 @@ def _capped_corpus(seed=2):
     return mine, ref
 
 
-def _ref_pairs(capped, full, step, n_items, n_tries):
-    """The composed reference: the positive from the capped rows, the
-    negative from the uncapped ones."""
-    uids = jnp.arange(capped.padded.shape[0], dtype=jnp.int32)
-    kd = jnp.asarray(np.asarray(step, np.uint32))
-    pos, _ = _sample_pair(jnp.asarray(capped.padded), jnp.asarray(capped.counts), uids, kd,
-                          n_items, n_tries)
-    _, neg = _sample_pair(jnp.asarray(full.padded), jnp.asarray(full.counts), uids, kd,
-                          n_items, n_tries)
+def _key(step) -> jax.Array:
+    return jnp.asarray(np.asarray(step, np.uint32))
+
+
+def _ref_pairs(capped, bits, step, n_items, n_tries):
+    """The reference's one-device sampler: the positive from the capped
+    rows, the negative rejected against ``bits`` (uint32, or None: the
+    capped rows)."""
+    pos, neg = ref_sample_pairs(jnp.asarray(capped.padded), jnp.asarray(capped.counts), n_items,
+                                _key(step), n_tries, None if bits is None else jnp.asarray(bits))
     return np.asarray(pos), np.asarray(neg)
 
 
@@ -122,9 +123,10 @@ def test_bitset_is_the_reference(case):
 @pytest.mark.parametrize("n_tries", [2, 4, 12])
 @pytest.mark.parametrize("cap", [5, 20])
 def test_sampler_with_bits_is_the_composed_reference(n_tries, cap):
-    """For every user and every step key: the negative equals the
-    reference's ``_sample_pair`` on the uncapped rows, the positive the same
-    function on the capped rows."""
+    """For every user and every step key: the pairs with bits equal the
+    reference's ``_sample_pairs`` with its bitset, and, for set membership,
+    its pairs on the uncapped rows' negatives (rejecting against the full
+    bitset is rejecting against the uncapped row)."""
     mine, ref = _capped_corpus()
     widest = max(len(fb) for fb in mine.user_feedback)
     assert cap < widest
@@ -133,19 +135,20 @@ def test_sampler_with_bits_is_the_composed_reference(n_tries, cap):
     full = ref.padded_user_positives(max_len=widest, seed=3)
     assert np.array_equal(capped.padded, ref.padded_user_positives(max_len=cap, seed=3).padded)
     assert (full.counts > cap).sum() > 10  # users the cap cuts
-    bits = _bits_t(mine.positives_bitset())
-    uids = torch.arange(mine.count_users())
+    bits = mine.positives_bitset()
     steps = [tuple(int(w) for w in kd)
-             for kd in np.asarray(_raw_step_keys(jax.random.PRNGKey(n_tries + cap), 4))]
-    pos, neg = sampling.sample_pairs(torch.as_tensor(capped.padded), torch.as_tensor(capped.counts),
-                                     uids, steps, n_items, n_tries, bits)
+             for kd in np.asarray(jax.random.split(jax.random.PRNGKey(n_tries + cap), 4))]
+    padded, counts = torch.as_tensor(capped.padded), torch.as_tensor(capped.counts)
+    pos, neg = sampling.sample_epoch_pairs(padded, counts, n_items, steps, n_tries, _bits_t(bits))
     for s, step in enumerate(steps):
-        r_pos, r_neg = _ref_pairs(capped, full, step, n_items, n_tries)
+        r_pos, r_neg = _ref_pairs(capped, ref.positives_bitset(), step, n_items, n_tries)
         assert np.array_equal(pos[s].numpy(), r_pos)
         assert np.array_equal(neg[s].numpy(), r_neg)
-        one_pos, one_neg = sampling.sample_pair(torch.as_tensor(capped.padded),
-                                                torch.as_tensor(capped.counts), uids, step,
-                                                n_items, n_tries, bits)
+        _, full_neg = ref_sample_pairs(jnp.asarray(full.padded), jnp.asarray(full.counts),
+                                       n_items, _key(step), n_tries)
+        assert np.array_equal(r_neg, np.asarray(full_neg))
+        one_pos, one_neg = sampling._sample_pairs(padded, counts, n_items, step, n_tries,
+                                                  _bits_t(bits))
         assert torch.equal(one_pos, pos[s]) and torch.equal(one_neg, neg[s])
 
 
@@ -155,11 +158,10 @@ def test_bits_on_an_uncapped_corpus_change_nothing():
     mine, _ = _capped_corpus(seed=5)
     widest = max(len(fb) for fb in mine.user_feedback)
     full = mine.padded_user_positives(max_len=widest, seed=0)
-    args = (torch.as_tensor(full.padded), torch.as_tensor(full.counts),
-            torch.arange(mine.count_users()), sampling.raw_step_keys(sampling.prng_key(9), 5),
-            mine.count_items(), 4)
-    with_bits = sampling.sample_pairs(*args, bits=_bits_t(mine.positives_bitset()))
-    without = sampling.sample_pairs(*args)
+    args = (torch.as_tensor(full.padded), torch.as_tensor(full.counts), mine.count_items(),
+            sampling.raw_step_keys(sampling.prng_key(9), 5), 4)
+    with_bits = sampling.sample_epoch_pairs(*args, bits=_bits_t(mine.positives_bitset()))
+    without = sampling.sample_epoch_pairs(*args)
     assert torch.equal(with_bits[0], without[0]) and torch.equal(with_bits[1], without[1])
 
 
@@ -175,8 +177,7 @@ def test_a_wrong_bitset_raises(wrong):
     err = TypeError if wrong == "dtype" else ValueError
     padded, counts = torch.as_tensor(capped.padded), torch.as_tensor(capped.counts)
     with pytest.raises(err, match="bits"):
-        sampling.sample_pair(padded, counts, torch.arange(padded.shape[0]), (0, 1),
-                             mine.count_items(), 4, bad)
+        sampling._sample_pairs(padded, counts, mine.count_items(), (0, 1), 4, bad)
     p = torch.zeros((padded.shape[0], 4))
     q = torch.zeros((mine.count_items(), 4))
     with pytest.raises(err, match="bits"):
@@ -197,18 +198,17 @@ def test_with_bits_no_capped_users_negative_is_a_positive_but_all_collide():
     capped = mine.padded_user_positives(max_len=cap, seed=1)
     full_counts = np.array([len(r) for r in ragged])
     bits = _bits_t(mine.positives_bitset())
-    uids = torch.arange(len(ragged))
     steps = sampling.raw_step_keys(sampling.prng_key(3), 6)
-    args = (torch.as_tensor(capped.padded), torch.as_tensor(capped.counts), uids, steps,
-            n_items, n_tries)
-    _, neg_bits = sampling.sample_pairs(*args, bits=bits)
-    _, neg_rows = sampling.sample_pairs(*args)
+    args = (torch.as_tensor(capped.padded), torch.as_tensor(capped.counts), n_items, steps,
+            n_tries)
+    _, neg_bits = sampling.sample_epoch_pairs(*args, bits=bits)
+    _, neg_rows = sampling.sample_epoch_pairs(*args)
     capped_users = np.flatnonzero(full_counts > cap)
     in_full = {"bits": 0, "rows": 0}
     all_collide = 0
     for s, step in enumerate(steps):
-        u01 = sampling.per_user_uniforms(step, uids, 1 + n_tries)[:, 1:]
-        cand = (u01 * float(n_items)).to(torch.int32).numpy()
+        _, kn = jax.random.split(_key(step))
+        cand = np.asarray(jax.random.randint(kn, (len(ragged), n_tries), 0, n_items))
         for u in capped_users:
             full = set(ragged[u])
             collide = all(int(c) in full for c in cand[u])
@@ -235,14 +235,14 @@ def _epoch_setup(cap=8, k=16):
     return mine, capped, full, p0, q0
 
 
-def _ref_epoch(capped, full, p0, q0, steps, n_items, n_tries):
-    """The reference's single-device step with the counter sampler:
-    ``bpr_apply_pairs`` on the composed pairs, a step at a time."""
+def _ref_epoch(capped, bits, p0, q0, steps, n_items, n_tries):
+    """The reference's one-device step with its bitset: ``bpr_apply_pairs``
+    on its ``_sample_pairs``, a step at a time."""
     p, q = jnp.asarray(p0), jnp.asarray(q0)
     active = jnp.asarray(capped.counts > 0)[:, None]
     total = 0.0
     for step in steps:
-        pos, neg = _ref_pairs(capped, full, step, n_items, n_tries)
+        pos, neg = _ref_pairs(capped, bits, step, n_items, n_tries)
         p, q, cost = ref_bpr_apply_pairs(p, q, jnp.asarray(pos), jnp.asarray(neg), active, LR,
                                          REG)
         total += float(cost)
@@ -252,11 +252,13 @@ def _ref_epoch(capped, full, p0, q0, steps, n_items, n_tries):
 @pytest.mark.parametrize("n_steps", [1, 3, 5])
 def test_epoch_with_bits_is_the_composed_reference(n_steps):
     """bpr_epoch_plain (and bpr_epoch_fused, its entry on the CPU) with
-    bits, each step's pairs the composed reference's, against
+    bits, each step's pairs the reference's, against its one-device epoch
+    with its bitset (``_bpr_epoch(..., bits=...)``) from the same key, and
     ``bpr_apply_pairs`` step by step."""
     mine, capped, full, p0, q0 = _epoch_setup()
     n_items, n_tries = mine.count_items(), 4
-    bits = _bits_t(mine.positives_bitset())
+    ubits = mine.positives_bitset()
+    bits = _bits_t(ubits)
     steps = sampling.raw_step_keys(sampling.prng_key(n_steps), n_steps)
     padded, counts = torch.as_tensor(capped.padded), torch.as_tensor(capped.counts)
     q = torch.as_tensor(q0).clone()
@@ -265,14 +267,21 @@ def test_epoch_with_bits_is_the_composed_reference(n_steps):
     p = port.bpr_epoch_plain(torch.as_tensor(p0), q, delta, cost, padded, counts, steps, n_items,
                              LR, REG, n_tries, pairs=pairs, bits=bits)
     for s, step in enumerate(steps):
-        r_pos, r_neg = _ref_pairs(capped, full, step, n_items, n_tries)
+        r_pos, r_neg = _ref_pairs(capped, ubits, step, n_items, n_tries)
         assert np.array_equal(pairs[0, s].numpy(), r_pos)
         assert np.array_equal(pairs[1, s].numpy(), r_neg)
-    r_p, r_q, r_cost = _ref_epoch(capped, full, p0, q0, steps, n_items, n_tries)
+    r_p, r_q, r_cost = _ref_epoch(capped, ubits, p0, q0, steps, n_items, n_tries)
     np.testing.assert_allclose(p.numpy(), r_p, rtol=2e-5, atol=1e-7)
     np.testing.assert_allclose(q.numpy(), r_q, rtol=2e-5, atol=1e-7)
     np.testing.assert_allclose(float(cost), r_cost, rtol=1e-5)
     assert not delta.any()
+    e_p, e_q, e_cost = ref_bpr_epoch(jnp.array(p0), jnp.array(q0), jnp.asarray(capped.padded),
+                                     jnp.asarray(capped.counts), jax.random.PRNGKey(n_steps),
+                                     n_steps=n_steps, n_items=n_items, lr=LR, reg=REG,
+                                     n_tries=n_tries, bits=jnp.asarray(ubits))
+    np.testing.assert_allclose(p.numpy(), np.asarray(e_p), rtol=2e-5, atol=1e-7)
+    np.testing.assert_allclose(q.numpy(), np.asarray(e_q), rtol=2e-5, atol=1e-7)
+    np.testing.assert_allclose(float(cost), float(e_cost), rtol=1e-5)
 
     q2 = torch.as_tensor(q0).clone()
     p2, q2_out, cost2 = port.bpr_epoch_fused(torch.as_tensor(p0), q2, padded, counts, steps,
@@ -284,20 +293,21 @@ def test_epoch_with_bits_is_the_composed_reference(n_steps):
 
 def test_sweep_with_bits_is_the_composed_reference():
     """One sampled sweep (K2's plain version, and its wrapper on the CPU)
-    with bits: the composed reference's pairs, p_new and q + delta against
-    one ``bpr_apply_pairs``."""
+    with bits: the reference's pairs, p_new and q + delta against one
+    ``bpr_apply_pairs``."""
     mine, capped, full, p0, q0 = _epoch_setup(cap=6, k=8)
     n_items, n_tries = mine.count_items(), 3
-    bits = _bits_t(mine.positives_bitset())
+    ubits = mine.positives_bitset()
+    bits = _bits_t(ubits)
     step = sampling.raw_step_keys(sampling.prng_key(11), 1)[0]
     padded, counts = torch.as_tensor(capped.padded), torch.as_tensor(capped.counts)
     q = torch.as_tensor(q0)
     delta, cost = torch.zeros_like(q), torch.zeros(1)
     p_new, pos, neg = port.bpr_sweep_sampled(torch.as_tensor(p0), q, delta, cost, padded, counts,
                                              step, n_items, LR, REG, n_tries, bits=bits)
-    r_pos, r_neg = _ref_pairs(capped, full, step, n_items, n_tries)
+    r_pos, r_neg = _ref_pairs(capped, ubits, step, n_items, n_tries)
     assert np.array_equal(pos.numpy(), r_pos) and np.array_equal(neg.numpy(), r_neg)
-    r_p, r_q, r_cost = _ref_epoch(capped, full, p0, q0, [step], n_items, n_tries)
+    r_p, r_q, r_cost = _ref_epoch(capped, ubits, p0, q0, [step], n_items, n_tries)
     np.testing.assert_allclose(p_new.numpy(), r_p, rtol=2e-5, atol=1e-7)
     np.testing.assert_allclose((q + delta).numpy(), r_q, rtol=2e-5, atol=1e-7)
     np.testing.assert_allclose(float(cost), r_cost, rtol=1e-5)
@@ -310,35 +320,34 @@ def test_sweep_with_bits_is_the_composed_reference():
 # ------------------------------------------------------------------- the fit
 
 
-def _ref_init(n_factors):
-    r_train, _ = ref_load_built_in(SPEC)
-    ref0 = RefBPR(RefParams(n_factors=n_factors))
-    ref0.init(r_train, seed=0)
-    return np.asarray(ref0.user_factors), np.asarray(ref0.item_factors)
-
-
-def _composed_fit(epochs: int, full_set: bool, seed: int = 0):
-    """The reference's single-device fit with the counter sampler, composed
-    from reference functions: its key stream, cap, steps and rejection
-    depth; each step the composed pairs (the negative from the capped rows
-    when ``full_set`` is off) through ``bpr_apply_pairs``."""
-    r_train, _ = ref_load_built_in(SPEC)
+def _ref_fit(epochs: int, full_set: bool, monkeypatch, seed: int = 0):
+    """The reference's fit on one device with the cap at ``FIT_CAP``: its
+    ``BPR.fit`` itself when ``full_set`` (its gate takes the bitset), else
+    its one-device epoch (``_bpr_epoch``) without the bitset, on its key
+    stream, cap, steps and rejection depth from its init."""
+    r_train, r_test = ref_load_built_in(SPEC)
     widest = max(len(fb) for fb in r_train.user_feedback)
+    params = RefParams(n_factors=8, n_epochs=epochs, lr=LR, reg=REG)
+    if full_set:
+        model = RefBPR(params)
+        with monkeypatch.context() as patch:
+            patch.setattr(ref_bpr, "history_cap", lambda tr: (FIT_CAP, widest))
+            model.fit(r_train, r_test, RefFitConfig(verbose=epochs, seed=seed))
+        return np.asarray(model.user_factors), np.asarray(model.item_factors), widest
     capped = r_train.padded_user_positives(max_len=FIT_CAP, seed=seed)
-    full = r_train.padded_user_positives(max_len=widest, seed=seed) if full_set else capped
     n_items = r_train.count_items()
     n_active = max(int(np.sum(capped.counts > 0)), 1)
     n_steps = max(round(r_train.count_feedback() / n_active), 1)
-    n_tries = ref_adaptive_neg_tries(float(np.mean(capped.counts)) / max(n_items, 1))
-    p, q = (jnp.asarray(x) for x in _ref_init(8))
-    active = jnp.asarray(capped.counts > 0)[:, None]
+    n_tries = ref_bpr.adaptive_neg_tries(float(np.mean(capped.counts)) / max(n_items, 1))
+    init = RefBPR(params)
+    init.init(r_train, seed=seed)
+    p, q = init.user_factors, init.item_factors
     key = jax.random.PRNGKey(seed + 1)
     for _ in range(epochs):
         key, epoch_key = jax.random.split(key)
-        for kd in np.asarray(_raw_step_keys(epoch_key, n_steps)):
-            pos, neg = _ref_pairs(capped, full, tuple(int(w) for w in kd), n_items, n_tries)
-            p, q, _ = ref_bpr_apply_pairs(p, q, jnp.asarray(pos), jnp.asarray(neg), active, LR,
-                                          REG)
+        p, q, _ = ref_bpr_epoch(p, q, jnp.asarray(capped.padded), jnp.asarray(capped.counts),
+                                epoch_key, n_steps=n_steps, n_items=n_items, lr=LR, reg=REG,
+                                n_tries=n_tries)
     return np.asarray(p), np.asarray(q), widest
 
 
@@ -347,18 +356,16 @@ def _port_fit(epochs, monkeypatch, widest, config=None):
     assert max(len(fb) for fb in train.user_feedback) == widest > FIT_CAP
     monkeypatch.setattr(port_bpr, "history_cap", lambda tr: (FIT_CAP, widest))
     model = BPR(Params(n_factors=8, n_epochs=epochs, lr=LR, reg=REG), device="cpu")
-    init = model.init
-    monkeypatch.setattr(model, "init", lambda tr, seed=0: init(tr, seed, factors=_ref_init(8)))
     model.fit(train, test, config or FitConfig(verbose=epochs))
     return model
 
 
 @pytest.mark.parametrize("epochs", [1, 3])
 def test_fit_with_bits_is_the_composed_reference(epochs, monkeypatch, caplog):
-    """BPR.fit on the CPU with the cap binding, from the reference's init:
-    the gate builds the bitset, says so, and the factors are the composed
-    reference's full-set fit."""
-    r_p, r_q, widest = _composed_fit(epochs, full_set=True)
+    """BPR.fit on the CPU with the cap binding, from the seed: the gate
+    builds the bitset, says so, and the factors are those of the
+    reference's BPR.fit under its own gate."""
+    r_p, r_q, widest = _ref_fit(epochs, True, monkeypatch)
     with caplog.at_level(logging.INFO, logger="gorse_tpu_torch.models.bpr"):
         model = _port_fit(epochs, monkeypatch, widest)
     assert any("full positive sets" in r.getMessage() for r in caplog.records)
@@ -368,8 +375,9 @@ def test_fit_with_bits_is_the_composed_reference(epochs, monkeypatch, caplog):
 
 def test_fit_past_the_bitset_limit_rejects_against_the_rows(monkeypatch, caplog):
     """With the 64 MiB limit below this corpus's bitset, no bitset is built
-    and the fit is the composed reference on the capped rows alone."""
-    r_p, r_q, widest = _composed_fit(2, full_set=False)
+    and the fit is the reference's one-device epochs on the capped rows
+    alone."""
+    r_p, r_q, widest = _ref_fit(2, False, monkeypatch)
     train, _ = load_built_in(SPEC)
     need = train.count_users() * -(-train.count_items() // 32) * 4
     assert port_bpr.BITSET_MAX_BYTES == 64 * 1024 * 1024

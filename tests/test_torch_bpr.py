@@ -2,12 +2,20 @@
 against gorse_tpu on the CPU.
 
 Data and splits come from the same numpy seeds in both packages and must be
-equal. The fit is held against the reference's ``BPR.fit`` on the 8-device
-CPU mesh (tests/conftest.py), which is its user-sharded XLA epoch with the
-same counter sampler and key stream as the port; given the reference's init
-factors, the two differ only in the summation order of the dot products
-(sum(p*qi) - sum(p*qj) here, sum(p*(qi - qj)) there) and of the item sums,
-so factors agree to rtol 1e-4 / atol 1e-6 after 5 epochs and NDCG@10 to 1e-3.
+equal. The fits start from the seed in both packages (the port's init
+draws jax's normal factors, within 3 ulps) with nothing injected:
+
+- the port's fit on one device against the reference's ``BPR.fit`` on one
+  device (no mesh): its one-device epoch, the same sampler and key stream
+  (``_sample_pairs``), with and without its full-set bitset gate;
+- the port's fit on an 8-shard CPU mesh against the reference's on its
+  8-device CPU mesh (tests/conftest.py): the user-sharded epoch and its
+  counter sampler in both.
+
+The two differ only in the summation order of the dot products (sum(p*qi) -
+sum(p*qj) here, sum(p*(qi - qj)) there) and of the item sums, and in the
+init's last bits, so factors agree to rtol 1e-4 / atol 1e-6 and NDCG,
+precision and recall to 1e-3.
 """
 
 import json
@@ -24,17 +32,20 @@ from gorse_tpu.models import BPR as RefBPR
 from gorse_tpu.models import FitConfig as RefFitConfig
 from gorse_tpu.models import MatrixFactorization as RefMF
 from gorse_tpu.models import Params as RefParams
+from gorse_tpu.models import bpr as ref_bpr
 from gorse_tpu.models.base import build_eval_candidates as ref_build_eval_candidates
 from gorse_tpu.models.base import evaluate_mf as ref_evaluate_mf
 from gorse_tpu.models.bpr import adaptive_neg_tries as ref_adaptive_neg_tries
 from gorse_tpu.models.bpr import history_cap as ref_history_cap
 from gorse_tpu.ops.metrics import rank_metrics as ref_rank_metrics
-from gorse_tpu.parallel import make_mesh
+from gorse_tpu.parallel import make_mesh as ref_make_mesh
 from gorse_tpu_torch.data.loaders import load_built_in, synthetic_cf, synthetic_cf_access
 from gorse_tpu_torch.models import BPR, FitConfig, MatrixFactorization, Params, create_mf_model
+from gorse_tpu_torch.models import bpr as port_bpr
 from gorse_tpu_torch.models.base import build_eval_candidates, evaluate_mf
 from gorse_tpu_torch.models.bpr import adaptive_neg_tries, history_cap
 from gorse_tpu_torch.ops.metrics import rank_metrics
+from gorse_tpu_torch.parallel.mesh import make_mesh
 
 SPEC = "synthetic://400,300,8,0.08,1"
 
@@ -106,26 +117,14 @@ def test_evaluate_mf_matches():
         np.testing.assert_allclose(mine[name], v, rtol=1e-6, atol=1e-7, err_msg=name)
 
 
-def _ref_init(n_factors):
+def _ref_init(n_factors, seed=0, **params):
     r_train, _ = ref_load_built_in(SPEC)
-    ref0 = RefBPR(RefParams(n_factors=n_factors))
-    ref0.init(r_train, seed=0)
+    ref0 = RefBPR(RefParams(n_factors=n_factors, **params))
+    ref0.init(r_train, seed=seed)
     return np.asarray(ref0.user_factors), np.asarray(ref0.item_factors)
 
 
-@pytest.mark.parametrize("epochs", [1, 5])
-def test_fit_matches_the_reference_sharded_fit(epochs, monkeypatch):
-    """The port's fit on the CPU, started from the reference's init factors,
-    against the reference's BPR.fit on the 8-device mesh."""
-    r_train, r_test = ref_load_built_in(SPEC)
-    ref = RefBPR(RefParams(n_factors=8, n_epochs=epochs))
-    r_score = ref.fit(r_train, r_test, RefFitConfig(mesh=make_mesh(8), verbose=2))
-
-    train, test = load_built_in(SPEC)
-    model = BPR(Params(n_factors=8, n_epochs=epochs), device="cpu")
-    init = model.init
-    monkeypatch.setattr(model, "init", lambda tr, seed=0: init(tr, seed, factors=_ref_init(8)))
-    score = model.fit(train, test, FitConfig(verbose=2))
+def _assert_fits_agree(model, score, ref, r_score):
     np.testing.assert_allclose(model.user_factors.numpy(), np.asarray(ref.user_factors),
                                rtol=1e-4, atol=1e-6)
     np.testing.assert_allclose(model.item_factors.numpy(), np.asarray(ref.item_factors),
@@ -133,14 +132,79 @@ def test_fit_matches_the_reference_sharded_fit(epochs, monkeypatch):
     for a, b in ((score.ndcg, r_score.ndcg), (score.precision, r_score.precision),
                  (score.recall, r_score.recall)):
         assert abs(a - b) <= 1e-3
-    assert len(model.epoch_seconds) == epochs
     assert np.array_equal(model.user_predictable, ref.user_predictable)
     assert np.array_equal(model.item_predictable, ref.item_predictable)
 
 
+def _splits(data):
+    """Both packages' train/test splits: SPEC's, or a synthetic_cf corpus
+    (its arguments) split with seed 0."""
+    if data == SPEC:
+        return load_built_in(SPEC), ref_load_built_in(SPEC)
+    return synthetic_cf(**data).split_cf(seed=0), ref_synthetic_cf(**data).split_cf(seed=0)
+
+
+@pytest.mark.parametrize("epochs, data, params", [
+    pytest.param(1, SPEC, {}, id="1"),
+    pytest.param(5, SPEC, {}, id="5"),
+    pytest.param(20, dict(n_users=150, n_items=80, rank=4, density=0.2, seed=2),
+                 dict(lr=0.05, reg=0.01), id="20-synthetic"),
+])
+def test_fit_matches_the_reference_sharded_fit(epochs, data, params):
+    """The port's fit on an 8-shard CPU mesh from the seed against the
+    reference's BPR.fit on its 8-device mesh (the user-sharded epochs and
+    their counter sampler)."""
+    (train, test), (r_train, r_test) = _splits(data)
+    hp = dict(n_factors=8, n_epochs=epochs, **params)
+    ref = RefBPR(RefParams(hp))
+    r_score = ref.fit(r_train, r_test, RefFitConfig(mesh=ref_make_mesh(8), verbose=2))
+    model = BPR(Params(hp), device="cpu")
+    score = model.fit(train, test, FitConfig(mesh=make_mesh(8, devices=["cpu"]), verbose=2))
+    _assert_fits_agree(model, score, ref, r_score)
+    assert len(model.epoch_seconds) == epochs
+    if epochs == 20:
+        assert score.ndcg > 0.45
+
+
+@pytest.mark.parametrize("epochs", [1, 5, "5-bitset"])
+def test_fit_matches_the_reference_single_device_fit(epochs, monkeypatch):
+    """The port's fit on one device from the seed, with nothing injected,
+    against the reference's BPR.fit on one device (no mesh): the same
+    pairs draw for draw. ``5-bitset``: both histories capped below the
+    widest, so both gates take the full-set bitset."""
+    r_train, r_test = ref_load_built_in(SPEC)
+    train, test = load_built_in(SPEC)
+    n = 5 if epochs == "5-bitset" else epochs
+    if epochs == "5-bitset":
+        widest = max(len(fb) for fb in train.user_feedback)
+        monkeypatch.setattr(ref_bpr, "history_cap", lambda tr: (12, widest))
+        monkeypatch.setattr(port_bpr, "history_cap", lambda tr: (12, widest))
+        assert port_bpr.rejection_bitset(train, 12, widest) is not None
+    ref = RefBPR(RefParams(n_factors=8, n_epochs=n))
+    r_score = ref.fit(r_train, r_test, RefFitConfig(verbose=2))
+    model = BPR(Params(n_factors=8, n_epochs=n), device="cpu")
+    score = model.fit(train, test, FitConfig(verbose=2))
+    _assert_fits_agree(model, score, ref, r_score)
+    assert len(model.epoch_seconds) == n
+
+
+def test_init_is_the_references():
+    """MatrixFactorization.init from a seed: the reference's factors within
+    4 ulps (k1 for the users, k2 for the items)."""
+    train, _ = load_built_in(SPEC)
+    for seed, k in ((0, 8), (3, 16)):
+        model = BPR(Params(n_factors=k, init_mean=0.25), device="cpu")
+        model.init(train, seed=seed)
+        u, i = _ref_init(k, seed, init_mean=0.25)
+        for got, want in ((model.user_factors, u), (model.item_factors, i)):
+            ulps = np.abs(got.numpy().view(np.int32).astype(np.int64)
+                          - want.view(np.int32).astype(np.int64))
+            assert ulps.max() <= 4 and (ulps == 0).mean() >= 0.9
+
+
 def test_fit_learns_from_its_own_init():
-    """The torch-generator init: NDCG@10 well above random (~0.05) and in
-    the band the verify notes give for this spec (~0.35 and up)."""
+    """From its own init: NDCG@10 well above random (~0.05) and in the band
+    the verify notes give for this spec (~0.35 and up)."""
     train, test = load_built_in(SPEC)
     score = BPR(Params(n_factors=8, n_epochs=20), device="cpu").fit(train, test,
                                                                    FitConfig(verbose=5))
@@ -193,7 +257,7 @@ def test_init_takes_numpy_factors_and_checks_their_shape():
     assert np.array_equal(model.user_factors.numpy(), u)
     with pytest.raises(ValueError, match="factors"):
         model.init(train, factors=(u[:, :4], i))
-    model.init(train, seed=3)  # the generator init: reproducible from the seed
+    model.init(train, seed=3)  # the seeded init: reproducible from the seed
     again = BPR(Params(n_factors=8), device="cpu")
     again.init(train, seed=3)
     assert torch.equal(model.item_factors, again.item_factors)

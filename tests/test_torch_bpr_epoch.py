@@ -1,18 +1,21 @@
 """What bpr_epoch (gorse_tpu_torch/csrc/bpr.cu) decides, modelled in numpy
 on the CPU and held against the port's plain versions and gorse_tpu:
 
-- the sampler's count-bounded rejection scan (each lane reads its user's
-  first ``min(count, L)`` entries and holds each against the first MAXC
+- the sampler's draws (jax's random bits reduced into a slot and the
+  candidates by randint's uint32 arithmetic, lane by lane) and its
+  count-bounded rejection scan (each lane reads its user's first
+  ``min(count, L)`` entries and holds each against the first MAXC
   candidates, then draws any further ones one at a time) against the
-  full-row scan of ``sample_pair`` and the reference's ``_sample_pair``;
+  full-row scan of ``_sample_pairs`` and the reference's one-device
+  ``_sample_pairs`` (gorse_tpu/models/bpr.py);
 - the epoch with p carried in place from step to step against chained plain
-  sweeps and folds, and through them the reference's sharded fused epoch
-  (interpret mode);
+  sweeps and folds, and through them the reference's one-device epoch
+  composed from its sampler and its fused Pallas step (interpret mode);
 - the hot-item table the epoch stages in shared memory (its size the
   kernel's ``HOT_ITEMS``), and the staged sums against the unstaged ones
   (within chip_smoke.py's ``order_bound``);
 - the ``ablate`` switch's plain semantics against the reference's lines;
-- the step-key tensor the kernel reads.
+- the step-key tensor the kernel reads (it derives the randint keys itself).
 
 Samples and tables must be equal. Factors follow the tolerances of
 tests/test_torch_bpr_kernel.py (rtol 2e-5 / atol 1e-7 over an epoch of
@@ -31,14 +34,8 @@ import torch
 
 import chip_smoke
 from gorse_tpu.data.dataset import Dataset as RefDataset
-from gorse_tpu.ops.bpr_kernel import _kernel_block_update, pack_items, unpack_items
-from gorse_tpu.parallel import make_mesh
-from gorse_tpu.parallel.sharded import (
-    _per_user_uniforms,
-    _sample_pair,
-    make_sharded_bpr_epoch_fused,
-    shard_bpr_inputs,
-)
+from gorse_tpu.models.bpr import _sample_pairs as ref_sample_pairs
+from gorse_tpu.ops.bpr_kernel import _kernel_block_update, bpr_fused_step, pack_items, unpack_items
 from gorse_tpu_torch.data.dataset import Dataset
 from gorse_tpu_torch.ops import bpr_kernel as port
 from gorse_tpu_torch.ops import sampling
@@ -58,8 +55,42 @@ MAXC = _cu_const("MAXC")  # candidates each lane draws ahead of the scan
 # ------------------------------------------------------------ the numpy model
 
 
-def _uniforms(step, uids, n):
-    return sampling.per_user_uniforms(step, torch.as_tensor(uids), n).numpy()
+def _key(step) -> jax.Array:
+    return jnp.asarray(np.array(step, np.uint32))
+
+
+def _bits(step, n_users, n_tries):
+    """jax's random bits of a step's draws: the slot's higher and lower
+    words ``[U]``, then the candidates' ``[U, n_tries]`` (ks, kn =
+    split(step key); each randint splits its key once more)."""
+    ks, kn = jax.random.split(_key(step))
+    (s1, s2), (c1, c2) = jax.random.split(ks), jax.random.split(kn)
+
+    def bits(k, shape):
+        return np.asarray(jax.random.bits(k, shape, jnp.uint32))
+
+    return (bits(s1, (n_users,)), bits(s2, (n_users,)), bits(c1, (n_users, n_tries)),
+            bits(c2, (n_users, n_tries)))
+
+
+def _reduce(hi, lo, span):
+    """The kernel's RANDINT on uint32: m = (2^16 % span)^2 % span, then
+    (hi % span * m + lo % span) % span, wrapping at 32 bits."""
+    hi, lo = np.asarray(hi, np.uint32), np.asarray(lo, np.uint32)
+    span = np.asarray(span, np.uint32)
+    with np.errstate(over="ignore"):
+        m = np.uint32(65536) % span
+        m = (m * m) % span
+        return ((hi % span * m + lo % span) % span).astype(np.int64)
+
+
+def model_draws(step, counts, n_items, n_tries):
+    """The kernel's slot and candidates, lane by lane: ``(slot [U], cand
+    [U, n_tries])``."""
+    n_users = len(counts)
+    s_hi, s_lo, c_hi, c_lo = _bits(step, n_users, n_tries)
+    slot = np.array([_reduce(s_hi[u], s_lo[u], max(int(counts[u]), 1)) for u in range(n_users)])
+    return slot, _reduce(c_hi, c_lo, n_items)
 
 
 def model_sample(padded, counts, step, n_items, n_tries, late=None):
@@ -72,16 +103,16 @@ def model_sample(padded, counts, step, n_items, n_tries, late=None):
     candidate 0). ``late``, a list, receives the users that took the
     one-at-a-time draws. Returns (pos, neg)."""
     n_users, max_len = padded.shape
-    rand = _uniforms(step, np.arange(n_users), 1 + n_tries)
+    slots, cands_all = model_draws(step, counts, n_items, n_tries)
     pos = np.zeros(n_users, np.int32)
     neg = np.zeros(n_users, np.int32)
     for u in range(n_users):
         count, row = int(counts[u]), padded[u]
         valid = row[: min(count, max_len)]
-        slot = int(np.float32(rand[u, 0]) * np.float32(max(count, 1)))
+        slot = int(slots[u])
         assert slot < max(count, 1)
         pos[u] = max(row[slot], 0) if slot < max_len else 0
-        cands = (rand[u, 1:] * np.float32(n_items)).astype(np.int32)
+        cands = cands_all[u]
         ahead = cands[:MAXC]
         hit = np.zeros(ahead.size, bool)
         for v in valid:
@@ -98,6 +129,15 @@ def model_sample(padded, counts, step, n_items, n_tries, late=None):
     return pos, neg
 
 
+def _port_and_ref(padded, counts, step, n_items, n_tries):
+    """The port's ``_sample_pairs`` and the reference's, as numpy."""
+    pp, pn = sampling._sample_pairs(torch.as_tensor(padded), torch.as_tensor(counts), n_items,
+                                    step, n_tries)
+    rp, rn = ref_sample_pairs(jnp.asarray(padded), jnp.asarray(counts), n_items, _key(step),
+                              n_tries)
+    return pp.numpy(), pn.numpy(), np.asarray(rp), np.asarray(rn)
+
+
 def _rows(rng, n_users, n_items, cap, widths):
     """Ragged histories padded by both packages' Dataset._pad (the same
     cap and seed): empty rows, rows at the cap, rows past 32 entries."""
@@ -112,8 +152,8 @@ def _rows(rng, n_users, n_items, cap, widths):
 @pytest.mark.parametrize("cap", [10, 69])
 def test_count_bounded_scan_is_the_full_row_scan(n_tries, cap):
     """Rows with count 0, count = L (the cap binds) and counts on both sides
-    of 32: the model's samples equal sample_pair's (which scans every entry
-    of the padded row) and the reference's _sample_pair."""
+    of 32: the model's samples equal _sample_pairs' (which scans every entry
+    of the padded row) and the reference's _sample_pairs."""
     rng = np.random.default_rng(cap + n_tries)
     n_items = 120
     widths = np.concatenate([[0, 0, cap, cap + 5, 31, 32, 33, 1],
@@ -124,13 +164,9 @@ def test_count_bounded_scan_is_the_full_row_scan(n_tries, cap):
         assert (counts > 32).any()
     for step in sampling.raw_step_keys(sampling.prng_key(n_tries), 3):
         pos, neg = model_sample(padded, counts, step, n_items, n_tries)
-        pp, pn = sampling.sample_pair(torch.as_tensor(padded), torch.as_tensor(counts),
-                                      torch.arange(len(widths)), step, n_items, n_tries)
-        rp, rn = _sample_pair(jnp.asarray(padded), jnp.asarray(counts),
-                              jnp.arange(len(widths), dtype=jnp.int32),
-                              jnp.asarray(np.array(step, np.uint32)), n_items, n_tries)
-        assert np.array_equal(pos, pp.numpy()) and np.array_equal(neg, pn.numpy())
-        assert np.array_equal(pos, np.asarray(rp)) and np.array_equal(neg, np.asarray(rn))
+        pp, pn, rp, rn = _port_and_ref(padded, counts, step, n_items, n_tries)
+        assert np.array_equal(pos, pp) and np.array_equal(neg, pn)
+        assert np.array_equal(pos, rp) and np.array_equal(neg, rn)
 
 
 @pytest.mark.parametrize("last", [1, 31, 32, 33, 69])
@@ -142,18 +178,18 @@ def test_scan_rejects_a_candidate_equal_to_the_last_valid_entry(last):
     n_items, n_tries, L = 500, 4, 69
     step = sampling.raw_step_keys(sampling.prng_key(last), 1)[0]
     uids = np.arange(40)
-    cands = (_uniforms(step, uids, 1 + n_tries)[:, 1:] * np.float32(n_items)).astype(np.int32)
+    counts = np.full(40, last, np.int32)
+    _, cands = model_draws(step, counts, n_items, n_tries)
     rng = np.random.default_rng(last)
     padded = np.full((40, L), -1, np.int32)
-    counts = np.full(40, last, np.int32)
     for u in uids:
         others = np.setdiff1d(np.arange(n_items), cands[u])
         padded[u, :last] = rng.choice(others, size=last, replace=False)
         padded[u, last - 1] = cands[u, 0]
     pos, neg = model_sample(padded, counts, step, n_items, n_tries)
-    pp, pn = sampling.sample_pair(torch.as_tensor(padded), torch.as_tensor(counts),
-                                  torch.as_tensor(uids), step, n_items, n_tries)
-    assert np.array_equal(pos, pp.numpy()) and np.array_equal(neg, pn.numpy())
+    pp, pn, rp, rn = _port_and_ref(padded, counts, step, n_items, n_tries)
+    assert np.array_equal(pos, pp) and np.array_equal(neg, pn)
+    assert np.array_equal(pos, rp) and np.array_equal(neg, rn)
     want = [next(c for c in cands[u, 1:] if c != cands[u, 0]) for u in uids]
     assert (neg != cands[:, 0]).all() and np.array_equal(neg, want)
 
@@ -161,8 +197,8 @@ def test_scan_rejects_a_candidate_equal_to_the_last_valid_entry(last):
 def test_counts_past_the_row_read_the_row():
     """Counts above L (not built by Dataset._pad, but taken by the
     wrappers): the kernel reads the row's L entries only, and a slot past
-    them gives positive 0, as sample_pair and the reference's _sample_pair
-    do."""
+    them gives positive 0, as _sample_pairs and the reference's
+    _sample_pairs do."""
     rng = np.random.default_rng(21)
     n_users, n_items, L = 200, 60, 8
     padded = np.stack([rng.choice(n_items, size=L, replace=False) for _ in range(n_users)])
@@ -170,16 +206,12 @@ def test_counts_past_the_row_read_the_row():
     counts = rng.integers(L + 1, 3 * L, size=n_users).astype(np.int32)
     for step in sampling.raw_step_keys(sampling.prng_key(21), 3):
         pos, neg = model_sample(padded, counts, step, n_items, 4)
-        rand = _uniforms(step, np.arange(n_users), 1)[:, 0]
-        past = (np.float32(rand) * counts.astype(np.float32)).astype(np.int64) >= L
+        slot, _ = model_draws(step, counts, n_items, 4)
+        past = slot >= L
         assert past.any() and (pos[past] == 0).all()
-        pp, pn = sampling.sample_pair(torch.as_tensor(padded), torch.as_tensor(counts),
-                                      torch.arange(n_users), step, n_items, 4)
-        rp, rn = _sample_pair(jnp.asarray(padded), jnp.asarray(counts),
-                              jnp.arange(n_users, dtype=jnp.int32),
-                              jnp.asarray(np.array(step, np.uint32)), n_items, 4)
-        assert np.array_equal(pos, pp.numpy()) and np.array_equal(neg, pn.numpy())
-        assert np.array_equal(pos, np.asarray(rp)) and np.array_equal(neg, np.asarray(rn))
+        pp, pn, rp, rn = _port_and_ref(padded, counts, step, n_items, 4)
+        assert np.array_equal(pos, pp) and np.array_equal(neg, pn)
+        assert np.array_equal(pos, rp) and np.array_equal(neg, rn)
 
 
 @pytest.mark.parametrize("n_tries", [MAXC + 1, 12, port.MAX_TRIES])
@@ -187,7 +219,8 @@ def test_draws_past_the_first_candidates(n_tries):
     """Rows holding most of a 16-item catalog (some every item), so the
     first MAXC candidates often all collide: the model's one-at-a-time
     draws, reached by many users, some freed and some not, equal
-    sample_pair's choice among all n_tries candidates."""
+    _sample_pairs' choice among all n_tries candidates, and the
+    reference's."""
     rng = np.random.default_rng(n_tries)
     n_users, n_items = 400, 16
     counts = rng.integers(10, n_items + 1, size=n_users).astype(np.int32)
@@ -197,13 +230,12 @@ def test_draws_past_the_first_candidates(n_tries):
     step = sampling.raw_step_keys(sampling.prng_key(n_tries), 1)[0]
     late = []
     pos, neg = model_sample(padded, counts, step, n_items, n_tries, late)
-    cands = (_uniforms(step, np.arange(n_users), 1 + n_tries)[:, 1:]
-             * np.float32(n_items)).astype(np.int32)
+    _, cands = model_draws(step, counts, n_items, n_tries)
     freed = [u for u in late if neg[u] != cands[u, 0]]  # cands[u, 0] lies in the row
     assert len(late) > 20 and 0 < len(freed) < len(late)
-    pp, pn = sampling.sample_pair(torch.as_tensor(padded), torch.as_tensor(counts),
-                                  torch.arange(n_users), step, n_items, n_tries)
-    assert np.array_equal(pos, pp.numpy()) and np.array_equal(neg, pn.numpy())
+    pp, pn, rp, rn = _port_and_ref(padded, counts, step, n_items, n_tries)
+    assert np.array_equal(pos, pp) and np.array_equal(neg, pn)
+    assert np.array_equal(pos, rp) and np.array_equal(neg, rn)
 
 
 def test_chip_smoke_names_the_kernels_draws_ahead():
@@ -227,12 +259,30 @@ def _epoch_inputs(k=16):
     return p0, q0, padded, counts, n_items
 
 
+def _ref_epoch(p0, q0, padded, counts, keys, n_items, mm):
+    """The reference's one-device epoch with the fused step's rounding:
+    each step its ``_sample_pairs``, then ``bpr_fused_step`` (interpret
+    mode) on those pairs and ``q += delta``."""
+    p, qp = jnp.asarray(p0), pack_items(jnp.asarray(q0))
+    active = jnp.asarray(counts > 0)
+    total = 0.0
+    for step in keys:
+        pos, neg = ref_sample_pairs(jnp.asarray(padded), jnp.asarray(counts), n_items,
+                                    _key(step), 4)
+        p, qd, cost = bpr_fused_step(p, qp, pos, neg, active, LR, REG, block_u=32,
+                                     interpret=True, mm_dtype=getattr(jnp, mm))
+        qp = qp + qd
+        total += float(cost)
+    return np.asarray(p), np.asarray(unpack_items(qp, n_items, p0.shape[1])), total
+
+
 @pytest.mark.parametrize("n_steps", [1, 7])
 @pytest.mark.parametrize("mm", ["float32", "bfloat16"])
 def test_epoch_is_chained_sweeps_and_the_sharded_epoch(n_steps, mm):
     """bpr_epoch_fused (p carried in place from step to step, one launch on
     the card) equals the chained plain sweeps and folds exactly, and the
-    reference's sharded fused epoch on a 4-device mesh to rounding."""
+    reference's one-device epoch (its sampler, its fused step) to
+    rounding."""
     p0, q0, padded, counts, n_items = _epoch_inputs()
     dt = getattr(torch, mm)
     keys = sampling.raw_step_keys(sampling.prng_key(7), n_steps)
@@ -252,17 +302,10 @@ def test_epoch_is_chained_sweeps_and_the_sharded_epoch(n_steps, mm):
     assert torch.equal(p_new, p_c) and torch.equal(q_new, q_c)
     assert float(cost) == float(cost_c[0])
 
-    mesh = make_mesh(4)
-    p, _, pp, pc, uids, _ = shard_bpr_inputs(mesh, p0, q0, padded, counts)
-    qp = jax.device_put(pack_items(jnp.asarray(q0)),
-                        jax.sharding.NamedSharding(mesh, jax.sharding.PartitionSpec()))
-    epoch = make_sharded_bpr_epoch_fused(mesh, n_steps=n_steps, n_items=n_items, lr=LR, reg=REG,
-                                         interpret=True, mm_dtype=getattr(jnp, mm))
-    r_p, r_qp, r_cost = epoch(p, qp, pp, pc, uids, jax.random.PRNGKey(7))
-    np.testing.assert_allclose(p_new.numpy(), np.asarray(r_p), rtol=2e-5, atol=1e-7)
-    np.testing.assert_allclose(q_new.numpy(), np.asarray(unpack_items(r_qp, n_items, 16)),
-                               rtol=2e-5, atol=1e-7)
-    np.testing.assert_allclose(float(cost), float(r_cost[0]), rtol=1e-5)
+    r_p, r_q, r_cost = _ref_epoch(p0, q0, padded, counts, keys, n_items, mm)
+    np.testing.assert_allclose(p_new.numpy(), r_p, rtol=2e-5, atol=1e-7)
+    np.testing.assert_allclose(q_new.numpy(), r_q, rtol=2e-5, atol=1e-7)
+    np.testing.assert_allclose(float(cost), r_cost, rtol=1e-5)
 
 
 def test_epoch_pairs_are_each_steps_samples():
@@ -337,8 +380,8 @@ def test_staged_sums_are_within_the_order_bound():
     p = torch.as_tensor(rng.normal(size=(n_users, k)).astype(np.float32))
     q = torch.as_tensor(rng.normal(size=(n_items, k)).astype(np.float32))
     step = sampling.raw_step_keys(sampling.prng_key(4), 1)[0]
-    pos, neg = sampling.sample_pair(torch.as_tensor(padded), torch.as_tensor(counts),
-                                    torch.arange(n_users), step, n_items, 4)
+    pos, neg = sampling._sample_pairs(torch.as_tensor(padded), torch.as_tensor(counts), n_items,
+                                      step, 4)
     active = torch.ones(n_users, dtype=torch.bool)
     delta, cost = torch.zeros_like(q), torch.zeros(1)
     port.bpr_sweep_pairs_plain(p, q, delta, cost, pos, neg, active, LR, REG)
@@ -386,8 +429,8 @@ def test_ablate_scatter_dim0_raises():
 
 @pytest.mark.parametrize("ablate", ["nosample", "samp_nopos", "samp_norej"])
 def test_ablated_samples_follow_the_reference_lines(ablate):
-    """gorse_tpu/ops/bpr_kernel.py:83-93 and 361-363 on the counter
-    sampler's uniforms: nosample pos = max(row[0], 0), neg = (pos + 37) %
+    """gorse_tpu/ops/bpr_kernel.py:83-93 and 361-363 on the one-device
+    sampler's draws: nosample pos = max(row[0], 0), neg = (pos + 37) %
     n_items; samp_nopos that pos with the rejected neg; samp_norej the
     sampled pos with the first candidate."""
     p0, q0, padded, counts, n_items = _epoch_inputs()
@@ -395,17 +438,15 @@ def test_ablated_samples_follow_the_reference_lines(ablate):
     pos, neg = port.sample_pair_ablated(torch.as_tensor(padded), torch.as_tensor(counts), step,
                                         n_items, 4, ablate)
     pp = jnp.asarray(padded)
-    uids = jnp.arange(padded.shape[0], dtype=jnp.int32)
-    kd = jnp.asarray(np.array(step, np.uint32))
-    r_pos, r_neg = _sample_pair(pp, jnp.asarray(counts), uids, kd, n_items, 4)
+    r_pos, r_neg = ref_sample_pairs(pp, jnp.asarray(counts), n_items, _key(step), 4)
     first = jnp.maximum(pp[:, 0:1], 0)[:, 0]
     if ablate == "nosample":
         r_pos, r_neg = first, (first + 37) % jnp.int32(n_items)
     elif ablate == "samp_nopos":
         r_pos = first
     else:
-        u01 = _per_user_uniforms(kd, uids, 1 + 4)
-        r_neg = (u01[:, 1:] * jnp.float32(n_items)).astype(jnp.int32)[:, 0]
+        _, kn = jax.random.split(_key(step))
+        r_neg = jax.random.randint(kn, (padded.shape[0], 4), 0, n_items)[:, 0]
     assert np.array_equal(pos.numpy(), np.asarray(r_pos))
     assert np.array_equal(neg.numpy(), np.asarray(r_neg))
 
@@ -423,8 +464,8 @@ def test_ablated_update_follows_the_reference_block(ablate):
     p_new, q_new, cost = port.bpr_epoch_fused(torch.as_tensor(p0), q, torch.as_tensor(padded),
                                               torch.as_tensor(counts), step, n_items, LR, REG,
                                               mm_dtype=torch.float32, ablate=ablate)
-    pos, neg = sampling.sample_pair(torch.as_tensor(padded), torch.as_tensor(counts),
-                                    torch.arange(p0.shape[0]), step[0], n_items, 4)
+    pos, neg = sampling._sample_pairs(torch.as_tensor(padded), torch.as_tensor(counts), n_items,
+                                      step[0], 4)
     rows = q0.shape[0]
     r_p, r_qd, r_cost = _kernel_block_update(
         jnp.asarray(pos.numpy())[:, None], jnp.asarray(neg.numpy())[:, None],

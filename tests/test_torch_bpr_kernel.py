@@ -1,13 +1,16 @@
-"""The port's BPR sampler and sweep (gorse_tpu_torch.ops.sampling and
+"""The port's BPR samplers and sweep (gorse_tpu_torch.ops.sampling and
 .bpr_kernel, plain versions on the CPU) held against gorse_tpu: the key
-stream and the counter sampler of gorse_tpu/parallel/sharded.py, the fused
-Pallas step (interpret mode), the sharded fused epoch, and the XLA pair rule.
+stream, the counter sampler of gorse_tpu/parallel/sharded.py (the sharded
+epochs' draw), the one-device sampler of gorse_tpu/models/bpr.py (K1's and
+K2's draw), the fused Pallas step (interpret mode), the reference's
+one-device XLA epoch, and the XLA pair rule.
 
 Keys and samples must be bit-equal. The sweeps sum in the reference
 kernels' order but not its exact association (the Pallas kernel sums 128
-packed lanes, the port k factors), so factors and deltas are held to
-rtol 1e-5 / atol 1e-6 for N(0, 1) factors and 2e-5 / 1e-7 over an epoch of
-0.01-scale factors, as tests/test_sharded.py holds the two reference epochs.
+packed lanes, the port k factors; the XLA epoch sums ``sum(p * (qi -
+qj))``), so factors and deltas are held to rtol 1e-5 / atol 1e-6 for N(0,
+1) factors and 2e-5 / 1e-7 over an epoch of 0.01-scale factors, as
+tests/test_sharded.py holds the two reference epochs.
 """
 
 import jax
@@ -17,16 +20,15 @@ import pytest
 import torch
 
 from gorse_tpu.data.dataset import Dataset as RefDataset
+from gorse_tpu.models.bpr import _bpr_epoch as ref_bpr_epoch
+from gorse_tpu.models.bpr import _sample_pairs as ref_sample_pairs
 from gorse_tpu.models.bpr import bpr_apply_pairs as ref_apply_pairs
 from gorse_tpu.ops.bpr_kernel import bpr_fused_step as ref_fused_step
 from gorse_tpu.ops.bpr_kernel import pack_items, unpack_items
-from gorse_tpu.parallel import make_mesh
 from gorse_tpu.parallel.sharded import (
     _raw_step_keys,
     _sample_pair,
     _threefry2x32,
-    make_sharded_bpr_epoch_fused,
-    shard_bpr_inputs,
 )
 from gorse_tpu_torch.data.dataset import Dataset
 from gorse_tpu_torch.models.bpr import bpr_apply_pairs
@@ -122,20 +124,24 @@ def test_pairs_sweep_matches_fused_step(k, mm):
 
 @pytest.mark.parametrize("mm", ["float32", "bfloat16"])
 def test_sampled_sweep_is_pairs_sweep_on_its_samples(mm):
-    """K2 = the counter sampler + K3: the sampled step returns the
-    sampler's pairs and the pairs step's result on them."""
+    """K2 = the one-device sampler + K3: the sampled step returns the
+    sampler's pairs (the reference's ``_sample_pairs``) and the pairs
+    step's result on them."""
     padded, counts, n_items = _capped_rows(np.random.default_rng(5))
     rng = np.random.default_rng(6)
     p = torch.as_tensor(rng.normal(size=(padded.shape[0], 16)).astype(np.float32))
     q = torch.as_tensor(rng.normal(size=(n_items, 16)).astype(np.float32))
-    padded, counts = torch.as_tensor(padded), torch.as_tensor(counts)
     step = sampling.raw_step_keys(sampling.prng_key(9), 1)[0]
+    r_pos, r_neg = ref_sample_pairs(jnp.asarray(padded), jnp.asarray(counts), n_items,
+                                    jnp.asarray(np.array(step, np.uint32)), 3)
+    padded, counts = torch.as_tensor(padded), torch.as_tensor(counts)
     dt = getattr(torch, mm)
     p_s, qd_s, c_s, pos, neg = port.bpr_fully_fused_step(p, q, padded, counts, step, n_items,
                                                          LR, REG, mm_dtype=dt, n_tries=3)
-    want_pos, want_neg = sampling.sample_pair(padded, counts, torch.arange(p.shape[0]), step,
-                                              n_items, 3)
+    want_pos, want_neg = sampling._sample_pairs(padded, counts, n_items, step, 3)
     assert torch.equal(pos, want_pos) and torch.equal(neg, want_neg)
+    assert np.array_equal(pos.numpy(), np.asarray(r_pos))
+    assert np.array_equal(neg.numpy(), np.asarray(r_neg))
     p_p, qd_p, c_p = port.bpr_fused_step(p, q, pos, neg, counts > 0, LR, REG, mm_dtype=dt)
     assert torch.equal(p_s, p_p) and torch.equal(qd_s, qd_p) and float(c_s) == float(c_p)
     # inactive users keep their factors and add nothing
@@ -144,9 +150,9 @@ def test_sampled_sweep_is_pairs_sweep_on_its_samples(mm):
 
 
 def test_epoch_matches_sharded_fused_epoch():
-    """Five sampled sweeps + folds against make_sharded_bpr_epoch_fused on a
-    4-device mesh (interpret mode) from the same key: the same samples, the
-    same update, deltas combined by psum there and summed here."""
+    """Five sampled sweeps + folds against the reference's one-device XLA
+    epoch (``_bpr_epoch``) from the same key: the same samples (its
+    ``_sample_pairs``), the same update, item sums in another order."""
     n_users, n_items, k = 96, 64, 16
     rng = np.random.default_rng(3)
     counts = rng.integers(0, 12, size=n_users).astype(np.int32)
@@ -155,13 +161,9 @@ def test_epoch_matches_sharded_fused_epoch():
         padded[u, : counts[u]] = rng.choice(n_items, size=counts[u], replace=False)
     p0 = rng.normal(scale=0.01, size=(n_users, k)).astype(np.float32)
     q0 = rng.normal(scale=0.01, size=(n_items, k)).astype(np.float32)
-    mesh = make_mesh(4)
-    p, _, pp, pc, uids, _ = shard_bpr_inputs(mesh, p0, q0, padded, counts)
-    qp = jax.device_put(pack_items(jnp.asarray(q0)),
-                        jax.sharding.NamedSharding(mesh, jax.sharding.PartitionSpec()))
-    epoch = make_sharded_bpr_epoch_fused(mesh, n_steps=5, n_items=n_items, lr=LR, reg=REG,
-                                         interpret=True)
-    r_p, r_qp, r_cost = epoch(p, qp, pp, pc, uids, jax.random.PRNGKey(7))
+    r_p, r_q, r_cost = ref_bpr_epoch(jnp.array(p0), jnp.array(q0), jnp.asarray(padded),
+                                     jnp.asarray(counts), jax.random.PRNGKey(7), n_steps=5,
+                                     n_items=n_items, lr=LR, reg=REG)
 
     q = torch.as_tensor(q0).clone()
     p_new, q_new, cost = port.bpr_epoch_fused(
@@ -171,9 +173,8 @@ def test_epoch_matches_sharded_fused_epoch():
     )
     assert q_new is q  # the epoch updates q in place
     np.testing.assert_allclose(p_new.numpy(), np.asarray(r_p), rtol=2e-5, atol=1e-7)
-    np.testing.assert_allclose(q_new.numpy(), np.asarray(unpack_items(r_qp, n_items, k)),
-                               rtol=2e-5, atol=1e-7)
-    np.testing.assert_allclose(float(cost), float(r_cost[0]), rtol=1e-5)
+    np.testing.assert_allclose(q_new.numpy(), np.asarray(r_q), rtol=2e-5, atol=1e-7)
+    np.testing.assert_allclose(float(cost), float(r_cost), rtol=1e-5)
 
 
 def test_fold_adds_and_clears():

@@ -248,6 +248,22 @@ def test_own_init_draws_the_same_distribution():
     assert all(torch.equal(a, b) for a, b in zip(params.parameters(), again.parameters()))
 
 
+@pytest.mark.parametrize("dims", [[], [3], [5, 2]])
+def test_init_is_the_references(dims):
+    """Every table of the AFM's init from a seed, towers included: the
+    reference's within 4 ulps (its keys split as the reference's)."""
+    hp = {"n_factors": 8, "init_mean": 0.1, "init_stddev": 0.02}
+    want = ref_init(hp, 300, dims, seed=5)
+    got = fm.AFM(Params(hp), device="cpu")._init_params(300, dims, seed=5).to_numpy()
+    assert sorted(got) == sorted(want)
+    for name, w in want.items():
+        g = np.asarray(got[name], np.float32)
+        w = np.asarray(w, np.float32)
+        assert g.shape == w.shape, name
+        ulps = np.abs(g.view(np.int32).astype(np.int64) - w.view(np.int32).astype(np.int64))
+        assert ulps.max() <= 4, name
+
+
 # --------------------------------------------------------------------- fit
 
 
@@ -270,6 +286,24 @@ def test_fit_from_the_reference_init(monkeypatch, hp, dim):
     assert port.num_dimension == ref.num_dimension and port.embedding_dims == ref.embedding_dims
     assert {k: s.to_dict() for k, s in port.scalers.items()} == \
            {k: s.to_dict() for k, s in ref.scalers.items()} != {}
+
+
+@pytest.mark.parametrize("hp, dim", [
+    ({"n_factors": 8, "n_epochs": 4, "lr": 0.01, "batch_size": 128}, 0),
+    ({"n_factors": 4, "n_epochs": 3, "batch_size": 100}, 6),
+])
+def test_fit_from_the_seed(hp, dim):
+    """The port's fit from the seed, nothing injected, against the
+    reference's fit, at the tolerances of the fit from the reference's
+    init."""
+    ref_train, ref_test = _data(False, dim=dim, numerical=True).split(0.2, seed=1)
+    train, test = _data(True, dim=dim, numerical=True).split(0.2, seed=1)
+    ref = ref_fm.AFM(RefParams(hp))
+    want = ref.fit(ref_train, ref_test, RefFitConfig(verbose=1))
+    port = fm.AFM(Params(hp), device="cpu")
+    got = port.fit(train, test, FitConfig(verbose=1))
+    _assert_params(port.model_params, ref.model_params, FIT_TOL)
+    assert abs(got.auc - want.auc) <= AUC_TOL
 
 
 def _fit_messages(caplog, logger_name, fit):

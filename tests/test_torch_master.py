@@ -3,12 +3,13 @@ both packages' memory stores, gorse_tpu's Master against the port's
 (``load_dataset`` + ``train_collaborative_filtering``), then the port's
 Worker serving the port master's index.
 
-Under tests/conftest.py the reference Master trains on the 8-device CPU
-mesh, so its BPR is the user-sharded XLA epoch with the same counter sampler
-and key stream as the port's; the port's BPR is given the reference's init
-factors. Datasets, gauges, global-meta keys and time series must be equal;
-factors agree to rtol 1e-4 / atol 1e-6 and the score to 1e-3 (summation
-order only, as in tests/test_torch_bpr.py). The worker's lists must equal
+The reference Master trains on one device (its ``training_mesh`` set to
+none of tests/conftest.py's 8 CPU devices), so its BPR is the one-device
+XLA epoch, with the same sampler, key stream and init (within 3 ulps) as
+the port's fit on one device; nothing is injected. Datasets, gauges,
+global-meta keys and time series must be equal; factors agree to rtol
+1e-4 / atol 1e-6 and the score to 1e-3 (summation order only, as in
+tests/test_torch_bpr.py). The worker's lists must equal
 the reference index's bf16 kernel route (``search_users(use_pallas=True,
 interpret=True)``) on the port's saved index: ids exact, scores to 1e-6
 (the two sum the same bf16 products in another order).
@@ -108,23 +109,16 @@ def masters(tmp_path_factory):
     _fill(ref_data, ref_types)
     ref = RefMaster(_configure(RefConfig()), ref_data, ref_cache,
                     RefBlobStore(tmp / "ref_blobs"), RefMeta(), vector_store=RV.MemoryVectorStore())
+    ref.training_mesh = lambda: None  # one device: the reference's one-device fit
     ref_loaded = ref.load_dataset()
     ref.train_collaborative_filtering(ref_loaded)
-    ref_init = RefBPR({})
-    ref_init.init(ref_loaded.train, seed=0)
-    factors = (np.asarray(ref_init.user_factors), np.asarray(ref_init.item_factors))
 
     data, cache = MemoryDataStore(), MemoryCacheStore()
     _fill(data, types)
     port = Master(_configure(Config()), data, cache, BlobStore(tmp / "blobs"), MetaStore(),
                   device="cpu", vector_store=MemoryVectorStore(device="cpu"))
-    mp = pytest.MonkeyPatch()
-    init = port_bpr.BPR.init
-    mp.setattr(port_bpr.BPR, "init",
-               lambda self, train, seed=0, factors_=None: init(self, train, seed, factors))
     loaded = port.load_dataset()
     port.train_collaborative_filtering(loaded)
-    mp.undo()
     return ref, ref_loaded, port, loaded
 
 

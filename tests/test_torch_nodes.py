@@ -320,3 +320,102 @@ def test_master_process_raises_for_m21(section, name, tmp_path):
     assert master.device == torch.device("cpu")
     want = TLSConfig("ca", "cert", "key") if section == "master" else None
     assert grpc_tls(config) == want
+
+
+HELD_NODE = """
+import os, sys, time, torch
+import gorse_tpu_torch as g
+g.resolve_device = lambda d=None: torch.device('cpu' if d is None else d)
+from gorse_tpu_torch.serve import dashboard, nodes
+
+
+def wait_for_the_signal():
+    # hold the entry point after its servers have started and before its
+    # handlers are in place, until the test has sent the signal
+    open(os.environ["REACHED"], "w").close()
+    deadline = time.time() + 60
+    while not os.path.exists(os.environ["SIGNALLED"]) and time.time() < deadline:
+        time.sleep(0.05)
+
+
+def then_wait(serve):
+    def wrapped(self, *args, **kwargs):
+        out = serve(self, *args, **kwargs)
+        wait_for_the_signal()
+        return out
+    return wrapped
+
+
+dashboard.MasterRestServer.serve = then_wait(dashboard.MasterRestServer.serve)
+# the server node syncs from a master before it serves: none runs here
+nodes.ServerNode.serve = lambda self, *args, **kwargs: wait_for_the_signal()
+nodes.WorkerNode.serve_http = then_wait(nodes.WorkerNode.serve_http)
+from gorse_tpu_torch.cmd._spawn import main
+main()
+"""
+
+
+@pytest.mark.parametrize("role", ["master", "server", "worker"])
+@pytest.mark.parametrize("sig", ["SIGTERM", "SIGINT"])
+def test_a_signal_before_the_handlers_are_in_place_is_held(sig, role, tmp_path):
+    """Each node process reaches the point between starting its servers and
+    installing its handlers (the master and the worker after their HTTP
+    servers answer). Held there until the signal has been sent, the process
+    still stops as a signal stops it, with exit code 0 and its kernel
+    launches logged: the signal waits for the handlers. (Unheld, SIGTERM's
+    default action ended the process with -15 and SIGINT's
+    ``KeyboardInterrupt`` with 1.)"""
+    import os
+    import signal
+    import subprocess
+    import sys
+    import time
+    from pathlib import Path
+
+    http_port, grpc_port, master_port = _free_port(), _free_port(), _free_port()
+    cfg = tmp_path / "config.toml"
+    cfg.write_text(f"""
+[database]
+data_store = "sqlite://{tmp_path}/data.db"
+cache_store = "sqlite://{tmp_path}/cache.db"
+blob_store = "{tmp_path}/blobs"
+meta_store = "sqlite://{tmp_path}/meta.db"
+
+[master]
+host = "127.0.0.1"
+port = {grpc_port}
+http_host = "127.0.0.1"
+http_port = {http_port}
+""")
+    args = {"master": ["--config", str(cfg)],
+            # no master listens on master_port: the worker's cycles fail and retry
+            "server": ["--master-port", str(master_port), "--http-port", str(http_port)],
+            "worker": ["--master-port", str(master_port), "--http-port", str(http_port)]}[role]
+    reached, signalled, log = tmp_path / "reached", tmp_path / "signalled", tmp_path / "node.log"
+    env = dict(os.environ, PYTHONPATH=str(Path(__file__).resolve().parents[1]),
+               OMP_NUM_THREADS="1", REACHED=str(reached), SIGNALLED=str(signalled))
+    with open(log, "wb") as out:
+        proc = subprocess.Popen([sys.executable, "-c", HELD_NODE, role, *args],
+                                cwd=str(tmp_path), env=env, stdout=out, stderr=subprocess.STDOUT)
+    try:
+        deadline = time.time() + 90
+        while time.time() < deadline and proc.poll() is None and not reached.exists():
+            time.sleep(0.1)
+        if not reached.exists():
+            raise AssertionError(f"the {role} never reached its handlers:\n" + log.read_text())
+        if role != "server":
+            with urllib.request.urlopen(f"http://127.0.0.1:{http_port}/api/health/live",
+                                        timeout=10) as resp:
+                assert resp.status == 200
+        proc.send_signal(getattr(signal, sig))
+        signalled.touch()
+        try:
+            rc = proc.wait(timeout=60)
+        except subprocess.TimeoutExpired:
+            raise AssertionError("no exit 60 s after the signal:\n" + log.read_text()) from None
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    assert rc == 0, log.read_text()
+    assert "kernel launches" in log.read_text()

@@ -5,10 +5,13 @@ the counterparts of tests/test_sharded.py.
 The reference runs on its 8-device CPU mesh (tests/conftest.py), the port on
 a CPU ``Mesh`` of as many shards (``make_mesh(n, devices=["cpu"])``), from
 the same numpy inputs, the same key and, for fits, the reference's init.
+The BPR fit on a mesh is held in tests/test_torch_bpr.py
+(``test_fit_matches_the_reference_sharded_fit``), from the seed.
 
 Tolerances:
 - sampled pairs, top-k ids and their tie order: exact (the same counter
-  sampler over global user ids; bf16-exact integer scores);
+  sampler over global user ids, the sharded epochs' draw in both packages;
+  bf16-exact integer scores);
 - BPR epochs and fits: ``rtol=1e-4, atol=1e-6`` (the dot products and the
   item sums run in another order: ``sum(p*qi) - sum(p*qj)`` in the sweep,
   ``sum(p*(qi - qj))`` in the reference's XLA epoch), the cost ``rtol=1e-5``;
@@ -95,26 +98,20 @@ def _port_epoch(n_shards, setup, n_steps, key, sync_every=1, pairs=False,
 
 def test_sharded_epoch_matches_single_device(setup):
     """8 shards against the reference's 8-device epoch and the port's
-    single-device epoch (``bpr_epoch``): the same pairs every step, the
-    same factors up to summation order."""
-    n_items, padded, counts, p0, q0 = setup
+    user-sharded epoch on one shard (the counter sampler on one device; the
+    single-device fit draws the reference's one-device sampler instead):
+    the same pairs every step, the same factors up to summation order."""
     p8, q8, c8, pairs8 = _port_epoch(8, setup, 5, 7, pairs=True)
     rp, rq, rc = _ref_epoch(ref_make_mesh(8), setup, 5, 7)
     np.testing.assert_allclose(p8, rp, rtol=1e-4, atol=1e-6)
     np.testing.assert_allclose(q8, rq, rtol=1e-4, atol=1e-6)
     np.testing.assert_allclose(c8, rc, rtol=1e-5)
 
-    q1 = torch.as_tensor(q0).clone()
-    pairs1 = torch.zeros((2, 5, p0.shape[0]), dtype=torch.int32)
-    cost1 = torch.zeros(1)
-    p1 = bk.bpr_epoch(torch.as_tensor(p0), q1, torch.zeros_like(q1), cost1,
-                      torch.as_tensor(padded), torch.as_tensor(counts),
-                      sampling.raw_step_keys(sampling.prng_key(7), 5), n_items, LR, REG,
-                      pairs=pairs1)
+    p1, q1, c1, pairs1 = _port_epoch(1, setup, 5, 7, pairs=True)
     assert torch.equal(pairs8, pairs1)
-    np.testing.assert_allclose(p8, p1.numpy(), rtol=1e-4, atol=1e-6)
-    np.testing.assert_allclose(q8, q1.numpy(), rtol=1e-4, atol=1e-6)
-    np.testing.assert_allclose(c8, float(cost1), rtol=1e-5)
+    np.testing.assert_allclose(p8, p1, rtol=1e-4, atol=1e-6)
+    np.testing.assert_allclose(q8, q1, rtol=1e-4, atol=1e-6)
+    np.testing.assert_allclose(c8, c1, rtol=1e-5)
 
 
 def test_sharded_epoch_learns(setup):
@@ -312,19 +309,6 @@ def test_afm_fit_with_mesh_matches_single_device(monkeypatch, n_shards, batch):
     assert seen == [-(-batch // n_shards) * n_shards]
     _assert_params(model.model_params, ref.model_params, FIT_TOL)
     assert abs(got.auc - want.auc) <= AUC_TOL
-
-
-def test_bpr_fit_with_mesh(monkeypatch):
-    """BPR.fit on an 8-shard mesh from the reference's init against the
-    reference's fit on its 8-device mesh."""
-    params = dict(n_factors=8, n_epochs=20, lr=0.05, reg=0.01)
-    data = dict(n_users=150, n_items=80, rank=4, density=0.2, seed=2)
-    ref, r_score, model, score, _ = _mf_fit(BPR, RefBPR, params, data, 8, monkeypatch)
-    np.testing.assert_allclose(model.user_factors.numpy(), np.asarray(ref.user_factors),
-                               rtol=1e-4, atol=1e-6)
-    np.testing.assert_allclose(model.item_factors.numpy(), np.asarray(ref.item_factors),
-                               rtol=1e-4, atol=1e-6)
-    assert abs(score.ndcg - r_score.ndcg) <= 1e-3 and score.ndcg > 0.45
 
 
 @pytest.mark.parametrize("steps_a_chunk", [None, 3])
