@@ -164,9 +164,14 @@ kernel's own block maxima.
 9. CTR ranker and the master's cycle. The AFM at ``bench.py``
    ``stage_afm``'s shape (``synthetic_ctr`` of 2,000 users and items,
    131,072 samples: 4,050 features, 4 slots; 8 factors, batch 1024, 128
-   steps an epoch): its first epoch on the card held against the same epoch
-   on the CPU from the same init (``AFM_TOL`` of each table's largest
-   magnitude, and the loss), then epochs timed by CUDA events and by the
+   steps an epoch) on the card against the CPU from the same init:
+   ``afm_holds`` (Adam in lockstep, each step from the CPU's state: the
+   gradients within an f32 summation bound, the moments and the update
+   within what the gradients' difference allows; the SGD epoch within
+   ``AFM_TOL`` of each table's largest move), the free-running Adam epoch
+   (each table's share and worst entry printed; its loss within
+   ``AFM_TOL`` and its entries past ``AFM_TOL`` within one row's held by
+   ``hold_adam_epoch``), then epochs timed by CUDA events and by the
    host clock ending on a synchronise (padded examples/s, ms a step), the
    kernels of an epoch and their device time from a ``torch.profiler``
    trace; ``tests/test_fm.py``'s accuracy gate on the card (AUC > 0.75).
@@ -179,8 +184,9 @@ kernel's own block maxima.
    load step's gauge, the CTR dataset's size, the CTR fit's gauge and AUC,
    the memory accounting's seconds, ``collect_garbage`` leaving only the
    two live blobs; one epoch of the master's AFM by CUDA events; a card
-   master's one-epoch CTR fit held against a CPU master's on the same rows
-   (``AFM_TOL``). ``Worker.sync_and_recommend`` re-ranks the whole shard on
+   master's one-epoch CTR fit against a CPU master's on the same rows
+   (``hold_adam_epoch``), and ``afm_holds`` over the first
+   ``CTR_HOLD_STEPS`` steps on the masters' split and hyper-parameters. ``Worker.sync_and_recommend`` re-ranks the whole shard on
    the card (``block_max``, ``block_seeds``, ``block_topk`` and
    ``merge_topk`` each launch in the CF recall); the ranking step's seconds
    beside its ``batch_predict`` time by CUDA events (the rest is the
@@ -267,9 +273,11 @@ kernel's own block maxima.
    AFM), a single-card master's fits of the same loaded data, then both
    fit eALS; BPR within ``FIRST_EPOCH_TOL`` of a master's fit through the
    user-sharded epoch on a one-shard mesh, eALS within ``EALS_TOL``, the
-   AFM within ``AFM_TOL``, NDCG and AUC within 0.01; each fit's gauge beside
-   the single card's; on every run, a line for each AFM table with its
-   share and its worst entry. ``init_multihost`` at world size 1 over NCCL and the
+   masters' AFM tables by ``hold_adam_epoch``, the AFM on their split by
+   ``afm_holds`` over ``CTR_HOLD_STEPS`` steps (sharded against one card),
+   NDCG and AUC within 0.01; each fit's gauge beside the single card's; on
+   every run, a line for each AFM table with the masters' Adam epochs'
+   share, worst entry and entries past ``AFM_TOL``. ``init_multihost`` at world size 1 over NCCL and the
    epoch on its ``global_mesh``. With more than one card visible, the
    epoch and the master again on the mesh over every card (the master's
    own ``training_mesh``), and one process a card over NCCL against it.
@@ -550,11 +558,23 @@ CTR_EPOCHS = 3
 # phase 9's cycle keeps the first 2,000 of ml-1m's 6,040 users and their
 # rows (time)
 CTR_USERS = 2000
-# the card's AFM epoch against the port's on the CPU from the same init
-# (drawn on the host): the gather's backward adds by atomics and the sums
-# run in another order, and Adam divides each step's rounding by the root
-# of the second moment; held to this share of each table's largest magnitude
+# two AFM fits that sum their gradients in another order (the card's gather
+# backward adds by atomics, the CPU in sequence, shards in parts): under SGD
+# each table within this share of its largest move from the init (SGD's
+# step is linear in the gradient). Two free-running Adam epochs are held
+# only in the count of entries past it (`hold_adam_epoch`): where one side's
+# f32 logit of a row is exactly 0.0 and the other's is not, the loss's own
+# slope jumps by 0.5 (the reference's -t against sigmoid(0) - t), and Adam
+# carries that row's entries apart (on an H100, 2 of 200 data orders of
+# phase 12's pair: v 1.25e-3 and 4.81e-3 of its largest, 5 and 30 entries
+# past). Adam is held step by step in lockstep instead (`hold_afm_lockstep`)
 AFM_TOL = 1e-3
+# the master's AFM pairs (phases 9 and 12): the lockstep's and the SGD
+# epoch's steps, the first of the epoch's 507 (time: the CPU side's 507
+# steps took 52 s, the sharded pair's 34 s, of a whole run that must end
+# within 1,200 s); the masters' whole Adam fits are held by
+# `hold_adam_epoch`
+CTR_HOLD_STEPS = 128
 # the worker's fm scores against a CPU batch_predict: a logit sums at most
 # 8 x 8 products in another order
 RANK_TOL = 2.0**-14
@@ -3241,62 +3261,403 @@ def step_launches(fn) -> tuple[int | None, float | None]:
     return len(kernels), sum(e.device_time for e in kernels) / 1e3
 
 
+class AfmSide:
+    """One side of an AFM comparison: an AFM on ``device`` (over ``mesh``'s
+    shards when it has more than one) set up for ``train`` as its fit does,
+    or, with ``test`` None, as ``hold_afm`` runs stage_afm's epoch (the rows
+    padded to their widest, unscaled, the init of seed 0). Gradients and
+    epochs are the port's own."""
+
+    def __init__(self, device, mesh, hp: dict, train, test) -> None:
+        from gorse_tpu_torch.models.fm import AFM
+        from gorse_tpu_torch.models.params import FitConfig, Params
+        from gorse_tpu_torch.parallel.sharded import shard_afm_batches
+
+        self.mesh = mesh if mesh is not None and mesh.size > 1 else None
+        self.model = AFM(Params(hp), device=device)
+        if test is None:
+            pad = train.padded(train.max_dimension())
+            self.batches = self.model._batch(pad, self.model.batch_size)
+            self.model.model_params = self.model._init_params(train.num_features(), [], 0)
+        else:
+            self.batches = self.model._setup(train, test, FitConfig(mesh=self.mesh))[0]
+        self.init = self.model.model_params.to_numpy()
+        self.n_steps = int(self.batches[0].shape[0])
+        if self.mesh is not None:
+            self.shards = shard_afm_batches(self.mesh, self.batches)
+
+    def fresh(self):
+        """The init as a new ``AFMParams`` on the model's device."""
+        from gorse_tpu_torch.models.fm import afm_params_from_numpy
+
+        return afm_params_from_numpy(self.init, self.model.device)
+
+    def optimizer(self, name: str, params):
+        from gorse_tpu_torch.models.fm import make_optimizer
+
+        return make_optimizer(name, params.parameters(), self.model.lr, self.model.reg)
+
+    def gradients(self, params):
+        """``step -> loss``: that step's gradients into ``params``' grad."""
+        from gorse_tpu_torch.models.fm import afm_gradients
+        from gorse_tpu_torch.parallel.sharded import Replicas, make_data_parallel_afm_gradients
+
+        if self.mesh is None:
+            return lambda s: afm_gradients(params, self.batches, s)
+        self.replicas = Replicas(self.mesh, params)
+        grads = make_data_parallel_afm_gradients(self.mesh)
+        return lambda s: grads(params, self.replicas, *self.shards, s)
+
+    def logits(self, params, s: int):
+        """Step ``s``'s f32 logits as the side's gradients computed them
+        (shard by shard on the replicas, in the batch's row order), on
+        ``params``' device; after ``gradients(params)(s)``."""
+        import torch
+
+        from gorse_tpu_torch.models.fm import afm_forward
+
+        with torch.no_grad():
+            if self.mesh is None:
+                bi, bv, _, _, be = self.batches
+                return afm_forward(params, bi[s], bv[s], [e[s] for e in be])
+            bi, bv, _, _, be = self.shards
+            return torch.cat([afm_forward(self.replicas[j], bi[j][s], bv[j][s],
+                                          [e[j][s] for e in be]).to(params.v.device)
+                              for j in range(self.mesh.local_size)])
+
+    def epoch(self, params, optimizer, n_steps: int | None = None):
+        """One epoch from ``params`` (its first ``n_steps`` steps when
+        given): ``train_epoch`` or the data-parallel epoch; its summed
+        loss."""
+        from gorse_tpu_torch.models.fm import train_epoch
+        from gorse_tpu_torch.parallel.sharded import make_data_parallel_afm_epoch
+
+        if self.mesh is None:
+            *tensors, embeddings = self.batches
+            return train_epoch(params, optimizer, (*(x[:n_steps] for x in tensors),
+                                                   tuple(e[:n_steps] for e in embeddings)))
+        *per_shard, embeddings = self.shards
+        shards = [[x[:n_steps] for x in xs] for xs in per_shard]
+        shards.append(tuple([x[:n_steps] for x in xs] for xs in embeddings))
+        return make_data_parallel_afm_epoch(self.mesh)(params, optimizer, *shards)
+
+
+U32 = 2.0**-24
+
+
+def afm_grad_bound(p0: dict, batch, zero=None) -> tuple[dict, dict]:
+    """One AFM step's gradients (``v``, ``w``, ``b``; no embedding columns)
+    in f64, and how far an f32 evaluation that sums in another order may
+    lie from them, entry by entry: ``p0`` the parameters (f64, on the
+    batch's device), ``batch`` the step's indices, values, targets and weights.
+    Returns ``(gradients, bounds)``.
+
+    Each gradient entry sums a term ``c_r x (vx - v x)`` (``w``: ``c_r x``,
+    ``b``: ``c_r``) over the ``n`` slots that carry it, ``c_r = (sigmoid(out)
+    - t) w_r / sum w`` the loss's slope at row r. Two orders of a sum of
+    ``n`` f32 terms differ by at most ``2 n u`` of the sum of their absolute
+    values (u = 2^-24, Higham's bound), and each term's own chain (``vx`` a
+    sum over D slots, its products) by ``2 (D + k + 8) u`` of its paths'
+    absolute values. ``out`` itself may differ by ``2 (D + k + 8) u`` of the
+    forward over absolute values, which moves ``c_r`` by at most a quarter
+    of that (sigmoid's slope) plus 8 u of ``w_r / sum w``; that term is
+    summed over the slots as well. The shards' partial sums add 16 to
+    ``n``. Where ``zero`` (a row mask) says an evaluation's f32 logit was
+    exactly zero, the slope is the reference's there, ``-t`` (jax's
+    ``maximum`` splits its tie, its ``abs`` takes 1 at zero), not
+    ``sigmoid(0) - t``: the loss's gradient jumps at zero."""
+    import torch
+
+    idx, val, tgt, wgt = batch
+    idx, x, tgt, wgt = idx.long(), val.double(), tgt.double(), wgt.double()
+    v, w, b = p0["v"][idx], p0["w"][idx][..., 0], p0["b"]
+    n_rows, n_slots = idx.shape
+    k = v.shape[2]
+    ax = x.abs()
+    vx = (v * x[..., None]).sum(1)
+    v_abs = (v.abs() * ax[..., None]).sum(1)
+    sq = (v * v * (x * x)[..., None]).sum(1)
+    out = (w * x).sum(1) + 0.5 * (vx * vx - sq).sum(1) + b
+    mag = (w.abs() * ax).sum(1) + 0.5 * (v_abs * v_abs + sq).sum(1) + b.abs()
+    scale = wgt / wgt.sum().clamp(min=1.0)
+    c = (torch.sigmoid(out) - tgt) * scale
+    chain = 2 * (n_slots + k + 8) * U32
+    dc = 0.25 * chain * mag * scale + 8 * U32 * scale
+    if zero is not None:
+        c = torch.where(zero, -tgt * scale, c)
+        dc = torch.where(zero, 8 * U32 * scale, dc)
+    term = ax[..., None] * (v_abs[:, None, :] + v.abs() * ax[..., None])
+    flat = idx.reshape(-1)
+
+    def per_feature(t):
+        width = t.shape[-1]
+        out = torch.zeros(p0["v"].shape[0], width, dtype=torch.float64, device=idx.device)
+        return out.index_add_(0, flat, t.reshape(-1, width))
+
+    n = per_feature((x != 0).double()[..., None])
+    a_v = per_feature(c.abs()[:, None, None] * term)
+    e_v = per_feature(dc[:, None, None] * term)
+    a_w = per_feature((c.abs()[:, None] * ax)[..., None])
+    e_w = per_feature((dc[:, None] * ax)[..., None])
+    grads = {"v": per_feature(c[:, None, None] * x[..., None] * (vx[:, None, :] - v * x[..., None])),
+             "w": per_feature((c[:, None] * x)[..., None]), "b": c.sum()}
+    return grads, {"v": (2 * n + 16) * U32 * a_v + chain * a_v + e_v,
+                   "w": (2 * n + 16) * U32 * a_w + chain * a_w + e_w,
+                   "b": (2 * n_rows + 16) * U32 * c.abs().sum() + chain * c.abs().sum() + dc.sum()}
+
+
+def _f64(t, dev):
+    """``t`` as a new f64 tensor on ``dev``."""
+    import torch
+
+    return t.detach().to(dev, torch.float64, copy=True)
+
+
+def hold_afm_lockstep(a: AfmSide, b: AfmSide, what: str, n_steps: int | None = None) -> dict:
+    """Adam in lockstep: at every step of one epoch side ``a`` starts from
+    side ``b``'s parameters and Adam state (copied), both take their own
+    gradients and their own optimizer step. Held, entry by entry (f64 on the
+    host, ``p0``, ``m0``, ``v0`` the state the step starts from, ``g`` each
+    side's gradient plus ``reg p0``):
+    - each side's gradient within :func:`afm_grad_bound` of its f64 one;
+    - the moments within what that gradient bound ``d`` allows:
+      ``c1 d + 8 u (b1 |m0| + c1 |g|)`` and ``c2 d (2 |g| + d) + 8 u (b2
+      v0 + c2 g^2)``, ``c1 = 1 - b1`` and ``c2 = 1 - b2`` and every other
+      constant as the optimizer rounds it to f32, ``d`` with the f32
+      rounding of each ``g`` (each rounding term here twice its bound: a
+      side rounds each once, ``4 u`` covers both sides' results);
+    - each side's update within its f32 rounding of ``U(g)``, Adam's update
+      of its own gradient from the step's state in f64 (``-lr m / (bc1
+      (sqrt(v / bc2) + eps))``, the port's f32 bias corrections): the
+      moments' rounding through the quotient, 8 u of the update and an ulp
+      of the parameter. So the two updates differ by at most ``|U(g_a) -
+      U(g_b)|`` and both roundings.
+    A rounding difference between the gradients cannot fail these: the
+    update's bound is Adam's own response to it. Each side's gradient is
+    held against its own f64 gradient (the reference's slope where that
+    side's f32 logit was exactly zero), which names the side at fault;
+    ``d`` is the two f64 gradients' difference plus both bounds. Printed:
+    each hold's worst ratio to its bound, and the steps that moved an entry
+    of the two sides the opposite way by more than lr / 10 (flips)."""
+    import torch
+
+    from gorse_tpu_torch.models.fm import bias_correction
+
+    pa, pb = a.fresh(), b.fresh()
+    opt_a, opt_b = a.optimizer("adam", pa), b.optimizer("adam", pb)
+    grad_a, grad_b = a.gradients(pa), b.gradients(pb)
+    # the optimizer's constants as it rounds them to f32 (a decayed gradient
+    # near zero moves with reg's last bits)
+    group = opt_b.param_groups[0]
+    lr, reg, b1, b2, eps = (float(np.float32(group[x])) for x in ("lr", "reg", "b1", "b2", "eps"))
+    c1, c2 = float(np.float32(1 - group["b1"])), float(np.float32(1 - group["b2"]))
+    names = [n for n, _ in pb.named_parameters()]
+    check(set(names) == {"v", "w", "b"}, f"{what}: the lockstep holds an AFM without towers")
+    la, lb = dict(pa.named_parameters()), dict(pb.named_parameters())
+    dev = lb["v"].device  # the holds' arithmetic, in f64, on side b's device
+    worst = {n: {"grad": 0.0, "mu": 0.0, "nu": 0.0, "update": 0.0} for n in names}
+    flips, most_apart = 0, 0.0
+
+    def ratio(diff, bound):
+        return float((diff / bound.clamp(min=1e-300)).max())
+
+    n_steps = b.n_steps if n_steps is None else min(n_steps, b.n_steps)
+    for s in range(n_steps):
+        with torch.no_grad():
+            for n in names:
+                la[n].copy_(lb[n])
+                opt_a.state[la[n]]["mu"].copy_(opt_b.state[lb[n]]["mu"])
+                opt_a.state[la[n]]["nu"].copy_(opt_b.state[lb[n]]["nu"])
+        opt_a.count = opt_b.count
+        p0 = {n: _f64(lb[n], dev) for n in names}
+        m0 = {n: _f64(opt_b.state[lb[n]]["mu"], dev) for n in names}
+        v0 = {n: _f64(opt_b.state[lb[n]]["nu"], dev) for n in names}
+        grad_a(s)
+        grad_b(s)
+        batch = tuple(x[s] for x in b.batches[:4])  # on side b's device
+        exact, bound = {}, {}
+        for side, x, params in (("a", a, pa), ("b", b, pb)):
+            exact[side], bound[side] = afm_grad_bound(p0, batch,
+                                                      (x.logits(params, s) == 0).to(dev))
+        g = {}
+        for side, params in (("a", la), ("b", lb)):
+            g[side] = {n: (_f64(params[n].grad, dev) if params[n].grad is not None
+                           else torch.zeros_like(p0[n])) + reg * p0[n] for n in names}
+        opt_a.step()
+        opt_b.step()
+        count = opt_b.count
+        bc1, bc2 = bias_correction(group["b1"], count), bias_correction(group["b2"], count)
+        for n in names:
+            ga, gb = g["a"][n], g["b"][n]
+            for side, x in (("a", ga), ("b", gb)):
+                off = (x - reg * p0[n] - exact[side][n]).abs()
+                r = ratio(off, bound[side][n])
+                worst[n]["grad"] = max(worst[n]["grad"], r)
+                if r > 1.0:
+                    e = tuple(int(i) for i in np.unravel_index(int((off / bound[side][n].clamp(
+                        min=1e-300)).argmax()), off.shape)) if off.dim() else ()
+                    check(False, f"{what}, Adam in lockstep: step {s}, side {side}'s {n} gradient "
+                          f"at {e}: {float(x[e] - reg * p0[n][e])} against f64's "
+                          f"{float(exact[side][n][e])} (bound {float(bound[side][n][e]):.3g}, the "
+                          f"other side {float(g['b' if side == 'a' else 'a'][n][e] - reg * p0[n][e])})")
+            # each rounding term counted twice: the bounds' second-order
+            # terms (a constant's own rounding, f64's) are left out
+            g_round = 2 * U32 * (ga.abs() + gb.abs())
+            dg_max = ((exact["a"][n] - exact["b"][n]).abs() + bound["a"][n] + bound["b"][n]
+                      + g_round)
+            m_bound = c1 * dg_max + 8 * U32 * (b1 * m0[n].abs() + c1 * gb.abs())
+            v_bound = (c2 * dg_max * (2 * gb.abs() + dg_max)
+                       + 8 * U32 * (b2 * v0[n] + c2 * gb * gb))
+            mu_a, mu_b = _f64(opt_a.state[la[n]]["mu"], dev), _f64(opt_b.state[lb[n]]["mu"], dev)
+            nu_a, nu_b = _f64(opt_a.state[la[n]]["nu"], dev), _f64(opt_b.state[lb[n]]["nu"], dev)
+            worst[n]["mu"] = max(worst[n]["mu"], ratio((mu_a - mu_b).abs(), m_bound))
+            worst[n]["nu"] = max(worst[n]["nu"], ratio((nu_a - nu_b).abs(), v_bound))
+
+            def update(gd):
+                m = b1 * m0[n] + c1 * gd
+                v = b2 * v0[n] + c2 * gd * gd
+                return -lr * m / (bc1 * ((v / bc2).sqrt() + eps)), m, v
+
+            after = {"a": _f64(la[n], dev), "b": _f64(lb[n], dev)}
+            for side, gd in (("a", ga), ("b", gb)):
+                u, m, v = update(gd)
+                den = bc1 * ((v / bc2).sqrt() + eps)
+                gd_round = 2 * U32 * gd.abs()
+                dm = 8 * U32 * (b1 * m0[n].abs() + c1 * gd.abs()) + c1 * gd_round
+                dv = 8 * U32 * (b2 * v0[n] + c2 * gd * gd) + c2 * 2 * gd_round * gd.abs()
+                dv_hat = dv / bc2
+                droot = torch.minimum(dv_hat.sqrt(), dv_hat / (v / bc2).sqrt().clamp(min=1e-300))
+                dden = bc1 * (droot + 8 * U32 * ((v / bc2).sqrt() + eps))
+                rounding = (lr * (dm / den + m.abs() * dden / (den * den)) + 8 * U32 * u.abs()
+                            + 2 * U32 * after[side].abs())
+                worst[n]["update"] = max(worst[n]["update"],
+                                         ratio((after[side] - p0[n] - u).abs(), rounding))
+            step_a, step_b = after["a"] - p0[n], after["b"] - p0[n]
+            apart = (step_a - step_b).abs()
+            flips += int(((step_a.sign() != step_b.sign())
+                          & (torch.maximum(step_a.abs(), step_b.abs()) > lr / 10)).sum())
+            most_apart = max(most_apart, float(apart.max()) / lr)
+    for n, r in worst.items():
+        for kind, x in r.items():
+            check(x <= 1.0, f"{what}, Adam in lockstep: table {n}'s {kind} at {x:.3g} of its "
+                  f"bound (1)")
+    return {"steps": n_steps, "worst_ratio": worst, "flips": flips,
+            "largest_update_gap_over_lr": most_apart}
+
+
+def hold_afm_sgd(a: AfmSide, b: AfmSide, what: str, n_steps: int | None = None) -> dict:
+    """One epoch of each side under SGD (the port's epochs) from the same
+    init: each table within ``AFM_TOL`` of its largest move from the init.
+    SGD's step is linear in the gradient, so summation order moves a table
+    by rounding, not by a flipped step."""
+    pa, pb = a.fresh(), b.fresh()
+    a.epoch(pa, a.optimizer("sgd", pa), n_steps)
+    b.epoch(pb, b.optimizer("sgd", pb), n_steps)
+    got, want = pa.to_numpy(), pb.to_numpy()
+    shares = {}
+    for n, x in want.items():
+        moved = float(np.abs(x - b.init[n]).max())
+        shares[n] = float(np.abs(got[n] - x).max() / max(moved, 1e-30))
+        check(shares[n] <= AFM_TOL, f"{what}, SGD epoch: table {n} off by {shares[n]:.3g} of its "
+              f"largest move from the init (AFM_TOL {AFM_TOL})")
+    return shares
+
+
+def afm_holds(kind: str, a: AfmSide, b: AfmSide, n_steps: int | None = None) -> dict:
+    """The restated AFM holds, side ``a`` against side ``b``: the lockstep
+    under Adam and the epoch under SGD (over its first ``n_steps`` steps
+    when given)."""
+    return {"lockstep": hold_afm_lockstep(a, b, kind, n_steps),
+            "sgd_shares": hold_afm_sgd(a, b, kind, n_steps)}
+
+
+def adam_epoch_shares(got, want) -> dict:
+    """Two free-running Adam fits' tables, printed beside the holds: each
+    table's share of its largest magnitude, its worst entry and the count
+    of entries past ``AFM_TOL``."""
+    return {name: {"share": share, "worst": worst_entry(got, want, name, AFM_TOL)}
+            for name, share in table_shares(got, want).items()}
+
+
+def hold_adam_epoch(what: str, got, want, slots: int) -> dict:
+    """Two free-running Adam fits of the same rows (``got`` against
+    ``want``, ``AFMParams``), printed by :func:`adam_epoch_shares`; held:
+    each table's count of entries past ``AFM_TOL`` of its largest
+    magnitude within one row's entries (``slots`` rows of ``v`` and of
+    ``w``, and ``b``). A row whose f32 logit is exactly 0.0 on one side
+    only takes another slope there, and Adam carries that row's entries
+    apart (``AFM_TOL``'s comment); a fault of the fit (another scale, a
+    shard's gradients lost, other rows, another optimizer) moves most
+    entries."""
+    got_np, want_np = got.to_numpy(), want.to_numpy()
+    allowed = {"v": slots * want_np["v"].shape[1], "w": slots, "b": 1}
+    shares = adam_epoch_shares(got, want)
+    for name, x in shares.items():
+        past = int((np.abs(got_np[name] - want_np[name])
+                    > AFM_TOL * np.abs(want_np[name]).max()).sum())
+        x["past"], x["allowed"] = past, allowed.get(name, 0)
+        check(past <= x["allowed"], f"{what}, Adam epoch: table {name} has {past} entries past "
+              f"AFM_TOL {AFM_TOL} of its largest (one row's {x['allowed']} allowed); "
+              f"{x['worst']}")
+    return shares
+
+
 def hold_afm(dev, smi: str) -> dict:
-    """The AFM at stage_afm's shape: its first epoch on the card held
-    against the same epoch on the CPU, epochs timed (CUDA events, and the
-    host clock ending on a synchronise), kernels a step; then the accuracy
-    gate of tests/test_fm.py on the card."""
+    """The AFM at stage_afm's shape on the card against the CPU: the holds
+    of :func:`afm_holds`, then the first Adam epoch of each side (its
+    summed loss held within ``AFM_TOL``, its tables by
+    :func:`hold_adam_epoch`), epochs timed (CUDA events,
+    and the host clock ending on a synchronise), kernels a step; then the
+    accuracy gate of tests/test_fm.py on the card."""
     import torch
 
     from gorse_tpu_torch.data.ctr import synthetic_ctr
-    from gorse_tpu_torch.models.fm import AFM, make_optimizer, train_epoch
+    from gorse_tpu_torch.models.fm import AFM
     from gorse_tpu_torch.models.params import FitConfig, Params
 
     t0 = time.perf_counter()
     data = afm_rows()
     data_s = time.perf_counter() - t0
-    hp = Params(n_factors=AFM_K, batch_size=AFM_BATCH)
-    card, cpu = AFM(hp, device=dev), AFM(hp, device="cpu")
-    pad = data.padded(data.max_dimension())
-    batches, cpu_batches = card._batch(pad, AFM_BATCH), cpu._batch(pad, AFM_BATCH)
-    n_steps, n_padded = batches[0].shape[0], batches[0].shape[0] * AFM_BATCH
-    params = card._init_params(data.num_features(), [], 0)
-    cpu_params = cpu._init_params(data.num_features(), [], 0)
-    opt = make_optimizer(card.optimizer_name, params.parameters(), card.lr, card.reg)
-    cpu_opt = make_optimizer(cpu.optimizer_name, cpu_params.parameters(), cpu.lr, cpu.reg)
-    cost = float(train_epoch(params, opt, batches))
-    cpu_cost = float(train_epoch(cpu_params, cpu_opt, cpu_batches))
-    shares = table_shares(params, cpu_params)
-    for name, share in shares.items():
-        check(share <= AFM_TOL, f"AFM first epoch: {name} within {AFM_TOL} of its largest "
-              f"magnitude on the CPU (off by {share:.3g})")
+    hp = {"n_factors": AFM_K, "batch_size": AFM_BATCH}
+    card, cpu = AfmSide(dev, None, hp, data, None), AfmSide("cpu", None, hp, data, None)
+    t0 = time.perf_counter()
+    holds = afm_holds("AFM first epoch", card, cpu)
+    holds_s = time.perf_counter() - t0
+    n_steps, n_padded = card.n_steps, card.n_steps * AFM_BATCH
+    params, cpu_params = card.fresh(), cpu.fresh()
+    opt, cpu_opt = card.optimizer("adam", params), cpu.optimizer("adam", cpu_params)
+    cost = float(card.epoch(params, opt))
+    cpu_cost = float(cpu.epoch(cpu_params, cpu_opt))
+    adam = hold_adam_epoch("AFM first epoch", params, cpu_params, int(card.batches[0].shape[2]))
     check(abs(cost - cpu_cost) <= AFM_TOL * abs(cpu_cost),
           f"AFM first epoch: loss {cost} against the CPU's {cpu_cost}")
-    epoch_ms = median_ms(lambda: train_epoch(params, opt, batches), AFM_REPS)
+    epoch_ms = median_ms(lambda: card.epoch(params, opt), AFM_REPS)
     host = []
     for _ in range(AFM_REPS):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        train_epoch(params, opt, batches)
+        card.epoch(params, opt)
         torch.cuda.synchronize()
         host.append(time.perf_counter() - t0)
     host_s = statistics.median(host)
-    n_kernels, device_ms = step_launches(lambda: train_epoch(params, opt, batches))
+    n_kernels, device_ms = step_launches(lambda: card.epoch(params, opt))
     result = {
         "card": smi, "data_s": data_s, "features": data.num_features(),
-        "slots": int(pad.indices.shape[1]), "steps": n_steps, "padded_examples": n_padded,
-        "first_epoch_shares": shares, "epoch_ms": epoch_ms, "epoch_host_s": host_s,
+        "slots": int(card.batches[0].shape[2]), "steps": n_steps, "padded_examples": n_padded,
+        "holds": holds, "holds_s": holds_s, "first_epoch_adam": adam,
+        "epoch_ms": epoch_ms, "epoch_host_s": host_s,
         "examples_per_s": n_padded / host_s, "ms_per_step": epoch_ms / n_steps,
         "kernels_per_step": None if n_kernels is None else n_kernels / n_steps,
         "device_busy_share": None if device_ms is None else device_ms / epoch_ms,
     }
     log(f"  AFM epoch at stage_afm's shape ({data.num_features()} features, "
-        f"{pad.indices.shape[1]} slots, k = {AFM_K}, {n_steps} steps of {AFM_BATCH}): "
+        f"{result['slots']} slots, k = {AFM_K}, {n_steps} steps of {AFM_BATCH}): "
         f"{epoch_ms:.2f} ms by CUDA events, {1e3 * host_s:.2f} ms on the host clock, "
         f"{n_padded / host_s:,.0f} padded examples/s, {epoch_ms / n_steps:.3f} ms a step, "
         f"kernels a step {result['kernels_per_step']}, device busy share "
-        f"{result['device_busy_share']} ({smi}); first epoch against the CPU, shares of the "
-        f"largest magnitude: {json.dumps(shares)}")
+        f"{result['device_busy_share']} ({smi})")
+    log(f"  AFM first epoch, card against the CPU: holds ({holds_s:.1f} s) "
+        f"{json.dumps(holds)}; Adam epoch: {json.dumps(adam)}")
 
     gate = synthetic_ctr(n_samples=4000, seed=0)
     train, test = gate.split(0.2, seed=1)
@@ -3431,15 +3792,19 @@ def phase_ctr(dev, smi: str) -> dict:
             fits[str(device)] = m.ctr_model
         cfg.recommend.ranker.fit_epoch = CTR_EPOCHS
         card_fit, cpu_fit = fits[str(dev)], fits["cpu"]
-        shares = table_shares(card_fit.model_params, cpu_fit.model_params)
-        for name, share in shares.items():
-            check(share <= AFM_TOL, f"master's CTR fit, one epoch: {name} within {AFM_TOL} of its "
-                  f"largest magnitude on the CPU master's (off by {share:.3g})")
-        result["ctr_hold_shares"] = shares
+        adam = hold_adam_epoch("the masters' one-epoch CTR fits, card against the CPU",
+                               card_fit.model_params, cpu_fit.model_params, ctr.max_dimension())
+        # the step holds on the same split and the master's hyper-parameters
+        hp = {"n_epochs": 1}
+        t0 = time.perf_counter()
+        holds = afm_holds("master's CTR fit, one epoch", AfmSide(dev, None, hp, train, test),
+                          AfmSide("cpu", None, hp, train, test), CTR_HOLD_STEPS)
+        result["ctr_holds"], result["ctr_adam_epoch"] = holds, adam
         log(f"  the master's AFM epoch {result['ctr_epoch_ms']:.1f} ms by CUDA events "
             f"({result['ctr_steps']} steps, {result['ctr_epoch_ms'] / result['ctr_steps']:.3f} "
-            f"ms a step) ({smi}); one-epoch fit against a CPU master's, shares of the largest "
-            f"magnitude: {json.dumps(shares)}")
+            f"ms a step) ({smi}); the master's one-epoch fit, card against the CPU: holds "
+            f"({time.perf_counter() - t0:.1f} s) {json.dumps(holds)}; the masters' Adam epochs: "
+            f"{json.dumps(adam)}")
         del fits, card_fit, cpu_fit
 
         # ---- the worker re-ranks its shard with the AFM (its own counts)
@@ -4587,9 +4952,11 @@ def hold_sharded_master(dev, mesh, smi: str, patch: bool) -> dict:
     one-device sampler). Held: BPR and
     eALS factors within ``FIRST_EPOCH_TOL`` and ``EALS_TOL`` of each table's
     largest magnitude, NDCG (against the single card's) and AUC within
-    0.01, the AFM's tables within ``AFM_TOL`` (one epoch). Printed: each
-    fit's gauge beside the single card's, and on a line of its own each AFM
-    table's share with its worst entry."""
+    0.01, the masters' AFM tables by :func:`hold_adam_epoch`, and the AFM
+    on the masters' split by :func:`afm_holds` over ``CTR_HOLD_STEPS``
+    steps (sharded against one card). Printed: each fit's gauge beside the
+    single card's, and on a line of its own each AFM table's share of the
+    masters' Adam epochs with its worst entry."""
     import torch
 
     from gorse_tpu_torch.ops import bpr_kernel as bk
@@ -4643,22 +5010,25 @@ def hold_sharded_master(dev, mesh, smi: str, patch: bool) -> dict:
                 "master_collaborative_filtering_fit_seconds", "master_collaborative_filtering_ndcg_10",
                 "master_ranking_fit_seconds", "master_ranking_model_auc")}
         shares = {"bpr_p": share(sharded.cf_model.user_factors, one_p),
-                  "bpr_q": share(sharded.cf_model.item_factors, one_q),
-                  **{f"afm_{k}": v for k, v in table_shares(sharded.ctr_model.model_params,
-                                                            single.ctr_model.model_params).items()}}
-        # every AFM table's share and worst entry on every run, failed or not
-        # (ROADMAP C9: the hold failed once in a run that left no more)
-        worst = {name: worst_entry(sharded.ctr_model.model_params, single.ctr_model.model_params,
-                                   name[4:], AFM_TOL)
-                 for name in shares if name.startswith("afm_")}
-        for name, where in worst.items():
-            log(f"  AFM share {name[4:]}: {shares[name]:.3g} of the single card's largest "
-                f"(AFM_TOL {AFM_TOL}), {where}")
+                  "bpr_q": share(sharded.cf_model.item_factors, one_q)}
         for name, s in shares.items():
-            tol = FIRST_EPOCH_TOL if name.startswith("bpr") else AFM_TOL
-            where = f"; {worst[name]}" if name in worst else ""
-            against = "the one-shard fit's" if name.startswith("bpr") else "the single card's"
-            check(s <= tol, f"sharded master: {name} off by {s:.3g} of {against}{where}")
+            check(s <= FIRST_EPOCH_TOL, f"sharded master: {name} off by {s:.3g} of the "
+                  f"one-shard fit's")
+        # the masters' Adam epochs (entries past AFM_TOL held to one row's);
+        # the lockstep under Adam and the SGD epoch, sharded against one
+        # card, on the masters' split and hyper-parameters
+        adam = hold_adam_epoch("sharded master's AFM", sharded.ctr_model.model_params,
+                               single.ctr_model.model_params, loaded.ctr.max_dimension())
+        for name, x in adam.items():
+            log(f"  AFM Adam epoch {name}: {x['share']:.3g} of the single card's largest, "
+                f"{x['worst']} ({x['allowed']} allowed)")
+        train, test = loaded.ctr.split(0.2, seed=0)
+        hp = {"n_epochs": 1}
+        t0 = time.perf_counter()
+        afm = afm_holds("sharded master's AFM", AfmSide(dev, used, hp, train, test),
+                        AfmSide(dev, None, hp, train, test), CTR_HOLD_STEPS)
+        log(f"  AFM holds, {used.size} shards against one card "
+            f"({time.perf_counter() - t0:.1f} s): {json.dumps(afm)}")
         for g in ("master_collaborative_filtering_ndcg_10", "master_ranking_model_auc"):
             check(abs(gauges["sharded"][g] - gauges["single"][g]) <= 0.01,
                   f"sharded master: {g} {gauges['sharded'][g]} vs {gauges['single'][g]}")
@@ -4679,7 +5049,7 @@ def hold_sharded_master(dev, mesh, smi: str, patch: bool) -> dict:
         gauges["sharded"]["als_fit_seconds"], gauges["single"]["als_fit_seconds"] = fa, fb
         gauges["sharded"]["als_ndcg_10"], gauges["single"]["als_ndcg_10"] = na, nb
     result.update(shards=used.size, k3_launches=launches, shares=shares, gauges=gauges,
-                  epochs=SHARDED_MASTER_EPOCHS, afm_worst=worst)
+                  epochs=SHARDED_MASTER_EPOCHS, afm_adam_epoch=adam, afm_holds=afm)
     log(f"  master on {used.size} shards ({[str(x) for x in used.devices]}): K3 launched "
         f"{launches}; shares (BPR against the one-shard fit, the rest against the single "
         f"card) {json.dumps(shares)}; gauges sharded {json.dumps(gauges['sharded'])}, single "

@@ -18,11 +18,11 @@ Kept from the reference because they decide the model:
   ``ceil(n / B)`` batches, the last padded with zero-weight rows; the loss
   ``sum(bce * w) / max(sum w, 1)`` in the stable form;
 - the optimizers: optax's ``add_decayed_weights(reg)`` then
-  ``scale_by_adam()`` and ``scale(-lr)`` is ``torch.optim.Adam`` with
-  ``weight_decay=reg`` (L2 into the gradient of every parameter, ``b`` and
-  the tower biases included; every row of ``v`` and ``w`` updated each
-  step, since their moments decay); ``sgd`` is ``torch.optim.SGD`` with
-  ``weight_decay=reg`` and no momentum;
+  ``scale_by_adam()`` and ``scale(-lr)`` is :class:`OptaxAdam`, optax's
+  f32 arithmetic as XLA evaluates it (L2 into the gradient of every
+  parameter, ``b`` and the tower biases included; every row of ``v`` and
+  ``w`` updated each step, since their moments decay); ``sgd`` is
+  ``torch.optim.SGD`` with ``weight_decay=reg`` and no momentum;
 - the evaluation cadence, the divergence break and early stopping; the
   epoch's loss stays on the card and is read only on evaluated epochs;
 - with a mesh of more than one shard, the data-parallel epoch of
@@ -40,7 +40,10 @@ on the CPU start equal).
 
 from __future__ import annotations
 
+import ctypes
+import ctypes.util
 import dataclasses
+import functools
 import itertools
 import json
 import logging
@@ -54,7 +57,7 @@ from torch import nn
 from .. import resolve_device
 from ..data.ctr import CTRDataset, PaddedCTR
 from ..ops.metrics import classification_metrics
-from ..ops.prng import normal, prng_key, split
+from ..ops.prng import fma_f32, normal, prng_key, split
 from .params import (
     ADAM,
     AUTO_SCALE,
@@ -167,8 +170,11 @@ def afm_forward(params: AFMParams, indices: torch.Tensor, values: torch.Tensor,
 
 
 def bce_terms(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
-    """Each logit's binary cross-entropy, in the stable form."""
-    return torch.clamp(logits, min=0.0) - logits * targets + torch.log1p(torch.exp(-logits.abs()))
+    """Each logit's binary cross-entropy, in the stable form. ``relu`` and
+    ``abs`` give the reference's slope ``-t`` at a logit of exactly zero
+    (jax's ``maximum`` gives its tie 0.5 and ``abs`` 1 there; ``clamp``'s
+    slope of 1 at its bound would make it ``1 - t``)."""
+    return torch.relu(logits) - logits * targets + torch.log1p(torch.exp(-logits.abs()))
 
 
 def bce_with_logits(logits: torch.Tensor, targets: torch.Tensor,
@@ -178,26 +184,127 @@ def bce_with_logits(logits: torch.Tensor, targets: torch.Tensor,
         sample_weight.sum(), min=1.0)
 
 
+@functools.cache
+def _powf():
+    """The C library's f32 ``powf``: XLA's CPU backend calls it for an f32
+    power."""
+    fn = ctypes.CDLL(ctypes.util.find_library("m") or "libm.so.6").powf
+    fn.restype, fn.argtypes = ctypes.c_float, (ctypes.c_float, ctypes.c_float)
+    return fn
+
+
+def bias_correction(decay: float, count: int) -> float:
+    """optax's ``1 - decay ** count`` in f32 as XLA computes it: ``powf`` of
+    the f32 decay and the count converted to f32, a result below 2^-126
+    flushed to zero (XLA's CPU backend flushes subnormals), then ``1 -`` it
+    in f32."""
+    power = np.float32(_powf()(np.float32(decay), np.float32(count)))
+    if abs(power) < np.float32(2.0**-126):
+        power = np.float32(0.0)
+    return float(np.float32(1.0) - power)
+
+
+def _f32(x: float) -> float:
+    return float(np.float32(x))
+
+
+class OptaxAdam(torch.optim.Optimizer):
+    """optax's ``chain(add_decayed_weights(reg), scale_by_adam(b1, b2, eps),
+    scale(-lr))`` and ``apply_updates``, as the reference's jitted epoch
+    evaluates them in f32 on XLA's CPU backend, op by op:
+
+        g  = fma(p, reg, grad)                   decayed gradient
+        mu = fma(g, 1 - b1, mu * b1)             first moment, f32
+        nu = fma(nu, b2, g * g * (1 - b2))       second moment, f32
+        u  = mu / (bc1 * (sqrt(nu / bc2) + eps)) bc = 1 - b^count, f32
+        p  = fma(u, -lr, p)
+
+    ``fma`` rounds once (XLA contracts each product into the sum it feeds,
+    :func:`..ops.prng.fma_f32`); XLA rewrites optax's ``(mu / bc1) /
+    (sqrt(nu / bc2) + eps)`` into the one division above; the root is taken
+    in f64 and rounded, which is the correctly rounded f32 root; ``count``
+    is an int32 that stops at 2^31 - 1 and the bias corrections are
+    :func:`bias_correction`'s. Dense, as optax: every entry's moments decay
+    every step, and a parameter without a gradient takes a zero one.
+
+    The parameters of each device become views of one flat buffer when the
+    optimizer is built (their values kept), and a step copies their
+    gradients into it (``torch._foreach_copy_``) and updates it whole, so a
+    step's launches do not grow with the number of tensors. ``state[p]``
+    holds ``mu`` and ``nu``, views of the flat moments."""
+
+    def __init__(self, params, lr: float, reg: float, b1: float = 0.9, b2: float = 0.999,
+                 eps: float = 1e-8) -> None:
+        super().__init__(params, {"lr": lr, "reg": reg, "b1": b1, "b2": b2, "eps": eps})
+        self.count = 0
+        self._flat = []
+        by_device: dict = {}
+        for p in self.param_groups[0]["params"]:
+            by_device.setdefault(p.device, []).append(p)
+        for dev, ps in by_device.items():
+            sizes = [p.numel() for p in ps]
+            buf = torch.zeros(4, sum(sizes), dtype=torch.float32, device=dev)
+            views = [[x.view(p.shape) for x, p in zip(row.split(sizes), ps)] for row in buf]
+            with torch.no_grad():
+                torch._foreach_copy_(views[0], ps)
+            for p, view, mu, nu in zip(ps, views[0], views[2], views[3]):
+                p.data = view
+                self.state[p] = {"mu": mu, "nu": nu}
+            # the bias corrections as 0-d tensors on the device: a division
+            # by a Python number on the card multiplies by its reciprocal
+            bc = torch.ones(2, dtype=torch.float32, device=dev)
+            self._flat.append((ps, buf, views[1], bc))
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        group = self.param_groups[0]
+        b1, b2 = group["b1"], group["b2"]
+        self.count = min(self.count + 1, 2**31 - 1)
+        bc1, bc2 = bias_correction(b1, self.count), bias_correction(b2, self.count)
+        for ps, buf, g_views, bc in self._flat:
+            p, g, mu, nu = buf
+            have = [(v, q.grad) for v, q in zip(g_views, ps) if q.grad is not None]
+            if len(have) < len(ps):
+                g.zero_()
+            if have:
+                torch._foreach_copy_([v for v, _ in have], [x for _, x in have])
+            bc[0].fill_(bc1)
+            bc[1].fill_(bc2)
+            g.copy_(fma_f32(p, _f32(group["reg"]), g))
+            mu.copy_(fma_f32(g, _f32(1 - b1), mu * _f32(b1)))
+            nu.copy_(fma_f32(nu, _f32(b2), g * g * _f32(1 - b2)))
+            den = torch.sqrt((nu / bc[1]).double()).float().add_(_f32(group["eps"])).mul_(bc[0])
+            p.copy_(fma_f32(mu / den, _f32(-group["lr"]), p))
+        return None
+
+
 def make_optimizer(name: str, params, lr: float, reg: float) -> torch.optim.Optimizer:
-    """``adam``: optax's decay + scale_by_adam + scale(-lr); anything else
-    (``sgd``): decay + scale(-lr)."""
+    """``adam``: optax's decay + scale_by_adam + scale(-lr)
+    (:class:`OptaxAdam`); anything else (``sgd``): decay + scale(-lr)."""
     if name == ADAM:
-        return torch.optim.Adam(params, lr=lr, betas=(0.9, 0.999), eps=1e-8, weight_decay=reg)
+        return OptaxAdam(params, lr=lr, reg=reg)
     return torch.optim.SGD(params, lr=lr, momentum=0.0, weight_decay=reg)
+
+
+def afm_gradients(params: AFMParams, batches, s: int) -> torch.Tensor:
+    """Batch ``s``'s loss (``_batch``'s [S, B, ...] tensors) and its
+    gradients into every parameter's ``grad``; returns the loss."""
+    indices, values, targets, weights, embeddings = batches
+    for p in params.parameters():
+        p.grad = None
+    logits = afm_forward(params, indices[s], values[s], [e[s] for e in embeddings])
+    loss = bce_with_logits(logits, targets[s], weights[s])
+    loss.backward()
+    return loss.detach()
 
 
 def train_epoch(params: AFMParams, optimizer: torch.optim.Optimizer, batches) -> torch.Tensor:
     """One pass over ``batches`` (``_batch``'s [S, B, ...] tensors), a
     step a batch. Returns the summed loss as a 0-d tensor on the device."""
-    indices, values, targets, weights, embeddings = batches
     losses = []
-    for s in range(indices.shape[0]):
-        optimizer.zero_grad(set_to_none=True)
-        logits = afm_forward(params, indices[s], values[s], [e[s] for e in embeddings])
-        loss = bce_with_logits(logits, targets[s], weights[s])
-        loss.backward()
+    for s in range(batches[0].shape[0]):
+        losses.append(afm_gradients(params, batches, s))
         optimizer.step()
-        losses.append(loss.detach())
     return torch.stack(losses).sum()
 
 
@@ -289,8 +396,12 @@ class AFM:
             embeddings=[torch.as_tensor(e, device=self.device) for e in padded.embeddings],
         )
 
-    def fit(self, train: CTRDataset, test: CTRDataset, config: FitConfig | None = None) -> CTRScore:
-        config = config or FitConfig(verbose=1)
+    def _setup(self, train: CTRDataset, test: CTRDataset, config: FitConfig):
+        """What :meth:`fit` does before its epochs: the index, the embedding
+        dims and width, the scalers, the init from ``config.seed``, and
+        ``(batches, test rows on the device, n_features)``; with a mesh of
+        more than one shard the batch is rounded up to a multiple of the
+        shards."""
         self.index = train.index
         self.embedding_dims = list(train.embedding_dims)
         self.num_dimension = max(train.max_dimension(), test.max_dimension())
@@ -313,8 +424,11 @@ class AFM:
         if mesh is not None and mesh.size > 1:
             # data-parallel: the batch rounded up to a multiple of the shards
             batch_size = -(-batch_size // mesh.size) * mesh.size
-        batches = self._batch(train_pad, batch_size)
-        test_pad = self._on_device(test_pad)
+        return self._batch(train_pad, batch_size), self._on_device(test_pad), n_features
+
+    def fit(self, train: CTRDataset, test: CTRDataset, config: FitConfig | None = None) -> CTRScore:
+        config = config or FitConfig(verbose=1)
+        batches, test_pad, n_features = self._setup(train, test, config)
         score = self._evaluate(test_pad)  # epoch 0, on the init
         run, to_dense = self._epochs(config, batches, n_features)
         history = [(0, score.auc)]

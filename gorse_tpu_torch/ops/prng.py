@@ -16,14 +16,18 @@ lo(i)))`` xor-ed. On those bits:
   subtracts one, scales, shifts and clamps at ``minval``;
 - :func:`normal` is ``sqrt(2) * erfinv(u)`` for ``u`` uniform in
   ``(-1, 1)``, with XLA's f32 ErfInv (``w = -log1p(-x^2)``, Giles' two
-  polynomial branches) evaluated op by op in f32, in XLA's order.
+  polynomial branches) evaluated op by op in f32, in XLA's order, its
+  ``log1p`` XLA's own (:func:`log1p_f32`).
 
 Keys are pairs of uint32 words held on the host (Python ints, a numpy or
 torch pair); :func:`split` runs in numpy uint32. Draws are torch tensors on
-the device asked for. ``random_bits``, ``randint`` and ``uniform`` give
-jax's bits exactly; ``normal`` takes its ``log1p`` in f64 rather than from
-XLA's own polynomial, so about one entry in a hundred differs from jax's by
-an ulp or three.
+the device asked for. ``random_bits``, ``randint``, ``uniform`` and
+``normal`` give jax's bits exactly.
+
+XLA's CPU backend contracts a product and the sum it feeds into one fused
+multiply-add wherever the product has no other use, and runs with
+subnormal inputs read as zero. :func:`fma_f32` rounds such a pair once;
+:func:`log1p_f32` reads subnormal inputs as zero.
 
 Torch has few uint32 ops, so the bits are int64 tensors in ``[0, 2^32)``
 and every add, rotate and product is masked to 32 bits.
@@ -177,10 +181,10 @@ def _to_f32(bits: torch.Tensor) -> torch.Tensor:
     return torch.where(bits >= 2**31, bits - 2**32, bits).to(torch.int32).view(torch.float32)
 
 
-# elements a draw of uniform / normal takes at once: its ~150 element-wise
-# ops then work in the host's caches (about 1 s for 8.8M normals on 8 cores,
-# against 4 s in one piece)
-_CHUNK = 1 << 20
+# elements a draw of uniform / normal takes at once: its ~600 element-wise
+# passes (each fma_f32 over f64 temporaries) then work in the host's caches
+# rather than its memory (tools/init_draw_probe.py times other sizes)
+_CHUNK = 1 << 18
 
 
 def _uniform_range(k0: int, k1: int, start: int, stop: int, lo: torch.Tensor,
@@ -214,17 +218,96 @@ def uniform(key, shape, minval=0.0, maxval=1.0, device=None) -> torch.Tensor:
                  lambda k0, k1, start, stop: _uniform_range(k0, k1, start, stop, lo, hi))
 
 
-def fma_f32(a: torch.Tensor, b: torch.Tensor, c) -> torch.Tensor:
+def fma_f32(a: torch.Tensor, b, c) -> torch.Tensor:
     """``a * b + c`` rounded once to f32, as the fused multiply-add XLA's
-    CPU backend contracts a product and a sum into: the product is exact in
-    f64, the sum's rounding error (TwoSum) nudges it one f64 ulp toward the
-    exact value, so the rounding to f32 is the exact value's."""
-    p = a.double() * b.double()
-    c = torch.as_tensor(c, dtype=torch.float64, device=p.device)
+    CPU backend contracts a product and a sum into. ``a`` is a tensor, ``b``
+    and ``c`` tensors or Python floats, all of f32 values. The product is
+    exact in f64; the sum is rounded to odd, and a sum rounded to odd in 53
+    bits rounds to 24 as the exact value does. Rounding to odd is the sum
+    rounded toward zero with its last bit set where it is inexact: TwoSum
+    gives the nearest sum ``s`` and its error, and where the error's sign is
+    not ``s``'s the nearest rounded away from zero, so the bits of ``s``
+    (sign and magnitude) step one down (integer ops only)."""
+    p = a.double() * (b.double() if torch.is_tensor(b) else b)
+    c = c.double() if torch.is_tensor(c) else c
     s = p + c
     back = s - p
     err = (p - (s - back)) + (c - back)
-    return torch.where(err != 0, torch.nextafter(s, s + 2 * err), s).float()
+    inexact = (err != 0).long()
+    bits = s.view(torch.int64)
+    away = ((err.view(torch.int64) ^ bits) >> 63) * inexact  # -1 where rounded away
+    return ((bits + away) | inexact).view(torch.float64).float()
+
+
+_FLT_MIN = 2.0**-126
+# XLA's f32 log (Cephes): the polynomial in r = m - 1, m the mantissa in
+# [sqrt(1/2), sqrt(2)), and the two parts of ln 2
+_LOG_P = (7.0376836292e-2, -1.1514610310e-1, 1.1676998740e-1, -1.2420140846e-1,
+          1.4249322787e-1, -1.6668057665e-1, 2.0000714765e-1, -2.4999993993e-1,
+          3.3333331174e-1)
+_LOG_Q1, _LOG_Q2 = -2.12194440e-4, 0.693359375
+_SQRT_HALF = 0.707106781186547524
+# XLA's f32 log1p (Cephes) below |x| = sqrt(2) - 1: x - x^2 / 2 + x^3 N(x) /
+# D(x), the coefficients highest power first (D's leading 1 apart)
+_LOG1P_SMALL = 0.41421356237309504880
+_LOG1P_NUM = (4.5270000862445199635215e-5, 4.9854102823193375972212e-1,
+              6.5787325942061044846969e0, 2.9911919328553073277375e1,
+              6.0949667980987787057556e1, 5.7112963590585538103336e1,
+              2.0039553499201281259648e1)
+_LOG1P_DEN = (1.5062909083469192043167e1, 8.3047565967967209469434e1,
+              2.2176239823732856465394e2, 3.0909872225312059774938e2,
+              2.1642788614495947685003e2, 6.0118660497603843919306e1)
+
+
+def _f32(x: float) -> float:
+    return float(np.float32(x))
+
+
+def _log_f32(y: torch.Tensor) -> torch.Tensor:
+    """XLA's f32 ``log`` op by op: ``y`` (at least ``FLT_MIN``) split into a
+    mantissa ``m`` in [0.5, 1) and an exponent ``e``; below sqrt(1/2) ``m``
+    doubles and ``e`` drops by one; ``r = m - 1``; the Cephes polynomial in
+    three Horner parts joined by ``r^3``; ``r - r^2 / 2 + poly + e ln 2``
+    with ln 2 in two parts. Each product that feeds one sum is fused with
+    it, as XLA contracts them. NaN below 0, -inf at 0, inf at inf."""
+    yc = torch.clamp(y, min=_FLT_MIN)
+    bits = yc.view(torch.int32)
+    m = ((bits & 0x7FFFFF) | 0x3F000000).view(torch.float32)
+    e = ((bits >> 23) - 127).float() + 1.0
+    low = m < _f32(_SQRT_HALF)
+    e = e - low.float()
+    r = (m - 1.0) + torch.where(low, m, torch.zeros_like(m))
+    r2 = r * r
+    r3 = r2 * r
+    p = [_f32(c) for c in _LOG_P]
+    y0 = fma_f32(fma_f32(r, p[0], p[1]), r, p[2])
+    y1 = fma_f32(fma_f32(r, p[3], p[4]), r, p[5])
+    y2 = fma_f32(fma_f32(r, p[6], p[7]), r, p[8])
+    poly = fma_f32(fma_f32(y0, r3, y1), r3, y2)
+    out = fma_f32(-r2, 0.5, r) + fma_f32(poly, r3, e * _f32(_LOG_Q1))
+    out = fma_f32(e, _f32(_LOG_Q2), out)
+    out = torch.where(y == 0, -math.inf, out)
+    out = torch.where((y < 0) | torch.isnan(y), math.nan, out)
+    return torch.where(y == math.inf, math.inf, out)
+
+
+def log1p_f32(x: torch.Tensor) -> torch.Tensor:
+    """XLA's f32 ``log1p`` on its CPU backend, op by op: where ``|x| <
+    sqrt(2) - 1`` Cephes' rational form ``x + (x^2 * -0.5 + x * x^2 *
+    N(x) / D(x))`` (Horner steps and the last product fused), elsewhere
+    :func:`_log_f32` of ``x + 1``. A subnormal ``x`` is read as a zero of
+    its sign."""
+    x = x.to(torch.float32)
+    x = torch.where(x.abs() < _FLT_MIN, x * 0.0, x)
+    x2 = x * x
+    den = x + _f32(_LOG1P_DEN[0])
+    for c in _LOG1P_DEN[1:]:
+        den = fma_f32(den, x, _f32(c))
+    num = torch.full_like(x, _f32(_LOG1P_NUM[0]))
+    for c in _LOG1P_NUM[1:]:
+        num = fma_f32(num, x, _f32(c))
+    small = x + fma_f32(x2, -0.5, (x * x2) * (num / den))
+    return torch.where(x.abs() < _f32(_LOG1P_SMALL), small, _log_f32(x + 1.0))
 
 
 # XLA's f32 ErfInv (Giles, "Approximating the erfinv function"): the
@@ -236,17 +319,16 @@ _ERFINV_LARGE = (-0.000200214257, 0.000100950558, 0.00134934322, -0.00367342844,
 
 
 def erfinv_f32(x: torch.Tensor) -> torch.Tensor:
-    """XLA's f32 ErfInv op by op: ``w = -log1p(x * -x)``; where ``w < 5``,
-    ``w - 2.5`` into the small branch, else ``sqrt(w) - 3`` into the large
-    one; ``p = c0``, then ``p = fma(p, w, c_i)`` (XLA's CPU backend fuses
-    each product into the sum that follows it); ``p * x``; ``x * inf``
-    where ``|x| = 1``. ``log1p`` is taken in f64 and rounded: XLA's own
-    polynomial differs from it by an ulp in about one entry in ten, which
-    moves the result by at most 3 ulps in about one in a hundred."""
+    """XLA's f32 ErfInv op by op: ``w = -log1p(x * -x)`` (:func:`log1p_f32`);
+    where ``w < 5``, ``w - 2.5`` into the small branch, else ``sqrt(w) - 3``
+    into the large one (the root taken in f64 and rounded: torch's f32
+    root on the CPU is not the correctly rounded one XLA's is); ``p = c0``,
+    then ``p = fma(p, w, c_i)`` (XLA's CPU backend fuses each product into
+    the sum that follows it); ``p * x``; ``x * inf`` where ``|x| = 1``."""
     x = x.to(torch.float32)
-    w = -torch.log1p((x * -x).double()).float()
+    w = -log1p_f32(x * -x)
     small = w < 5.0
-    w = torch.where(small, w - 2.5, torch.sqrt(w) - 3.0)
+    w = torch.where(small, w - 2.5, torch.sqrt(w.double()).float() - 3.0)
     p = None
     for c_small, c_large in zip(_ERFINV_SMALL, _ERFINV_LARGE):
         c = torch.where(small, torch.tensor(c_small, dtype=torch.float32, device=x.device),

@@ -262,37 +262,51 @@ def summed_grads(mesh: Mesh, grads, params) -> list[torch.Tensor]:
     return out
 
 
+def make_data_parallel_afm_gradients(mesh: Mesh):
+    """One step of the AFM's data-parallel epoch short of the optimizer:
+    ``gradients(params, replicas, bi, bv, bt, bw, be, step) -> loss``,
+    ``replicas`` a :class:`Replicas` of ``params``, batches from
+    :func:`shard_afm_batches`. The replicas are refreshed from ``params``;
+    every shard takes its share of the global loss, ``sum(bce * w) /
+    max(sum over the whole batch of w, 1)`` (the denominator psum'd before
+    autograd), on the parameters' copy for its device; the shards'
+    gradients are summed in shard order into ``params``' ``grad``. Returns
+    the step's loss (psum'd) as a 0-d tensor."""
+    from ..models.fm import afm_forward, bce_terms
+
+    def gradients(params, replicas, bi, bv, bt, bw, be, step):
+        replicas.refresh()
+        leaves = list(params.parameters())
+        den = mesh.psum([w[step].sum() for w in bw])
+        grads, parts = [], []
+        for j in range(mesh.local_size):
+            model = replicas[j]
+            logits = afm_forward(model, bi[j][step], bv[j][step], [e[j][step] for e in be])
+            loss = (bce_terms(logits, bt[j][step]) * bw[j][step]).sum() / den[j].clamp(min=1.0)
+            grads.append(torch.autograd.grad(loss, list(model.parameters()), allow_unused=True))
+            parts.append(loss.detach())
+        for p, g in zip(leaves, summed_grads(mesh, grads, leaves)):
+            p.grad = g
+        return mesh.psum(parts)[0]
+
+    return gradients
+
+
 def make_data_parallel_afm_epoch(mesh: Mesh):
     """The AFM's data-parallel epoch: ``epoch(params, optimizer, bi, bv, bt,
     bw, be) -> loss``, batches from :func:`shard_afm_batches`, ``params``
     the model's ``AFMParams`` and ``optimizer`` over them (dense Adam or
-    SGD, as ``fm.make_optimizer`` builds it). Each step every shard takes
-    its share of the global loss, ``sum(bce * w) / max(sum over the whole
-    batch of w, 1)`` (the denominator psum'd before autograd), on the
-    parameters' copy for its device; the shards' gradients are summed in
-    shard order and the optimizer steps once. The summed loss of the epoch
-    comes back as a 0-d tensor."""
-    from ..models.fm import afm_forward, bce_terms
+    SGD, as ``fm.make_optimizer`` builds it). Each step takes
+    :func:`make_data_parallel_afm_gradients`' gradients and the optimizer
+    steps once. The summed loss of the epoch comes back as a 0-d tensor."""
+    gradients = make_data_parallel_afm_gradients(mesh)
 
     def epoch(params, optimizer, bi, bv, bt, bw, be):
         replicas = Replicas(mesh, params)
-        leaves = list(params.parameters())
         losses = []
         for step in range(bi[0].shape[0]):
-            replicas.refresh()
-            den = mesh.psum([w[step].sum() for w in bw])
-            grads, parts = [], []
-            for j in range(mesh.local_size):
-                model = replicas[j]
-                logits = afm_forward(model, bi[j][step], bv[j][step], [e[j][step] for e in be])
-                loss = (bce_terms(logits, bt[j][step]) * bw[j][step]).sum() / den[j].clamp(min=1.0)
-                grads.append(torch.autograd.grad(loss, list(model.parameters()),
-                                                 allow_unused=True))
-                parts.append(loss.detach())
-            for p, g in zip(leaves, summed_grads(mesh, grads, leaves)):
-                p.grad = g
+            losses.append(gradients(params, replicas, bi, bv, bt, bw, be, step))
             optimizer.step()
-            losses.append(mesh.psum(parts)[0])
         return torch.stack(losses).sum()
 
     return epoch

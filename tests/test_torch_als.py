@@ -163,7 +163,7 @@ def test_fit_matches_the_reference_fit(epochs, monkeypatch):
 @pytest.mark.parametrize("epochs", [1, 3])
 def test_fit_from_the_seed_matches_the_reference_fit(epochs):
     """The port's fit on the CPU from the seed, nothing injected (its init
-    draws jax's normal factors, within 3 ulps), against the reference's
+    draws jax's normal factors bit for bit), against the reference's
     single-device ALS.fit, at the tolerances of the fit from the
     reference's factors."""
     r_train, r_test = ref_load_built_in(SPEC)

@@ -3,7 +3,7 @@ against gorse_tpu on the CPU.
 
 Data and splits come from the same numpy seeds in both packages and must be
 equal. The fits start from the seed in both packages (the port's init
-draws jax's normal factors, within 3 ulps) with nothing injected:
+draws jax's normal factors bit for bit) with nothing injected:
 
 - the port's fit on one device against the reference's ``BPR.fit`` on one
   device (no mesh): its one-device epoch, the same sampler and key stream
@@ -189,8 +189,8 @@ def test_fit_matches_the_reference_single_device_fit(epochs, monkeypatch):
 
 
 def test_init_is_the_references():
-    """MatrixFactorization.init from a seed: the reference's factors within
-    4 ulps (k1 for the users, k2 for the items)."""
+    """MatrixFactorization.init from a seed: the reference's factors bit
+    for bit (k1 for the users, k2 for the items)."""
     train, _ = load_built_in(SPEC)
     for seed, k in ((0, 8), (3, 16)):
         model = BPR(Params(n_factors=k, init_mean=0.25), device="cpu")
@@ -199,7 +199,7 @@ def test_init_is_the_references():
         for got, want in ((model.user_factors, u), (model.item_factors, i)):
             ulps = np.abs(got.numpy().view(np.int32).astype(np.int64)
                           - want.view(np.int32).astype(np.int64))
-            assert ulps.max() <= 4 and (ulps == 0).mean() >= 0.9
+            assert ulps.max() == 0
 
 
 def test_fit_learns_from_its_own_init():

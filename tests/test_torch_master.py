@@ -5,7 +5,7 @@ Worker serving the port master's index.
 
 The reference Master trains on one device (its ``training_mesh`` set to
 none of tests/conftest.py's 8 CPU devices), so its BPR is the one-device
-XLA epoch, with the same sampler, key stream and init (within 3 ulps) as
+XLA epoch, with the same sampler, key stream and init (bit for bit) as
 the port's fit on one device; nothing is injected. Datasets, gauges,
 global-meta keys and time series must be equal; factors agree to rtol
 1e-4 / atol 1e-6 and the score to 1e-3 (summation order only, as in
